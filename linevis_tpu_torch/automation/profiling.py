@@ -1,0 +1,115 @@
+"""Profiling harness: torch.profiler traces and device-time summaries.
+
+Counterpart of `trace` in `linevis_tpu/automation/profiling.py`
+(jax.profiler there). `trace` records host ops and CUDA kernels and can
+write a Chrome/Perfetto trace; `device_summary` turns a recording into the
+device's busy time, its idle share of a host-timed window, and the kernels
+that take the time.
+
+    python -m linevis_tpu_torch.automation.profiling [OUT_DIR]
+
+profiles the tornado tube frame (1920x1080, tile 32x16, AA on) on the
+card: 8 orbit-camera frames after 2 warm-up frames, timed once without the
+profiler (the window the idle share is taken against) and once recorded.
+It prints one JSON line; with OUT_DIR it also writes that line to
+OUT_DIR/summary.json and the Chrome trace to OUT_DIR/tube_frames.json.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+__all__ = ["trace", "device_summary"]
+
+
+@contextlib.contextmanager
+def trace(path: str = None):
+    """torch.profiler recording of CPU ops and CUDA kernels; with `path`,
+    the Chrome trace is written there on exit."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    if path:
+        prof.export_chrome_trace(path)
+
+
+def device_summary(prof, wall_ms: float, top: int = 12) -> dict:
+    """Busy time of the CUDA kernels in `prof` against a host window of
+    `wall_ms` ending in a synchronize: {"wall_ms", "device_busy_ms",
+    "idle_share", "kernels": [[name, ms, launches], ...]}."""
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            acc = by_name[e.name]
+            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc[1] += 1
+    busy = sum(ms for ms, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy,
+        "idle_share": 1.0 - busy / wall_ms if wall_ms > 0 else None,
+        "kernels": [[name, ms, n] for name, (ms, n) in ranked],
+    }
+
+
+def main(out_dir: str = None) -> int:
+    import subprocess
+
+    from linevis_tpu_torch.entry import tornado_scene
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.tube_raster import camera_tensors, render_tubes
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling: no CUDA device")
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    W, H, n = 1920, 1080, 8
+    scene = tornado_scene(dev)
+    settings = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+    base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    cams = [camera_tensors(base.orbit(0.002 * (i + 1), 0.1, 1.2), dev)
+            for i in range(n + 2)]
+    for cam in cams[:2]:
+        render_tubes(scene, *cam, settings)
+    torch.cuda.synchronize()
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+
+    def frames():
+        t0 = time.perf_counter()
+        for cam in cams[2:]:
+            render_tubes(scene, *cam, settings)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # The profiler slows the host, so the window it is held against is
+    # the same frames timed without it.
+    wall_ms = frames()
+    with trace(out_dir and os.path.join(out_dir, "tube_frames.json")) as prof:
+        profiled_wall_ms = frames()
+    summary = device_summary(prof, wall_ms)
+    summary.update(frames=n, profiled_wall_ms=profiled_wall_ms,
+                   per_frame_wall_ms=wall_ms / n,
+                   per_frame_busy_ms=summary["device_busy_ms"] / n, gpu=gpu)
+    line = json.dumps(summary)
+    if out_dir:
+        with open(os.path.join(out_dir, "summary.json"), "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(*sys.argv[1:2]))

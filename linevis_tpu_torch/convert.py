@@ -1,0 +1,45 @@
+"""Carry state across from the JAX package as plain numpy arrays.
+
+The system has no weights: its state is the scene. A caller holding a
+`linevis_tpu` `CapsuleScene` or `Trajectories` passes its fields as numpy
+arrays (e.g. `{f.name: np.asarray(getattr(s, f.name)) for f in
+dataclasses.fields(s)}`), and gets the port's counterpart back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from linevis_tpu_torch.core.trajectories import Trajectories
+from linevis_tpu_torch.render.tube_raster import CapsuleScene
+
+__all__ = ["capsule_scene_from_numpy", "trajectories_from_numpy"]
+
+
+def capsule_scene_from_numpy(d, device="cuda") -> CapsuleScene:
+    """{a, ba, attr0, dattr, mask, cap_a, radius} arrays -> CapsuleScene on `device`."""
+
+    def t(name, dtype):
+        return torch.tensor(np.asarray(d[name]), dtype=dtype, device=device)
+
+    return CapsuleScene(
+        a=t("a", torch.float32),
+        ba=t("ba", torch.float32),
+        attr0=t("attr0", torch.float32),
+        dattr=t("dattr", torch.float32),
+        mask=t("mask", torch.bool),
+        cap_a=t("cap_a", torch.float32),
+        radius=float(d["radius"]),
+    )
+
+
+def trajectories_from_numpy(d) -> Trajectories:
+    """{positions, attributes, mask, num_points[, attribute_names]} -> Trajectories."""
+    return Trajectories(
+        positions=np.asarray(d["positions"], np.float32),
+        attributes=np.asarray(d["attributes"], np.float32),
+        mask=np.asarray(d["mask"], bool),
+        num_points=np.asarray(d["num_points"], np.int32),
+        attribute_names=list(d.get("attribute_names", [])),
+    )

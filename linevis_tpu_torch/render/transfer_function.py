@@ -1,0 +1,119 @@
+"""Transfer functions: piecewise-linear color + opacity maps.
+
+Counterpart of `linevis_tpu/render/transfer_function.py`. Reference: sgl
+`TransferFunctionWindow`, `Data/TransferFunctions/*.xml` (colorspace sRGB,
+interpolation in linear RGB). XML loading is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["TransferFunction", "srgb_to_linear", "linear_to_srgb", "tf_eval_points"]
+
+
+def tf_eval_points(color_pts, opacity_pts, x: torch.Tensor):
+    """Piecewise-linear TF evaluation from static control points.
+
+    color_pts: tuple of (pos, r, g, b) in LINEAR RGB; opacity_pts: tuple of
+    (pos, a). x [...] in [0, 1] -> (rgb [3, ...], alpha [...]).
+    """
+    xc = torch.clamp(x, 0.0, 1.0)
+
+    def eval_channels(pts, nch):
+        outs = [torch.full_like(x, float(pts[0][1 + c])) for c in range(nch)]
+        for k in range(len(pts) - 1):
+            p0 = float(pts[k][0])
+            p1 = float(pts[k + 1][0])
+            seg = (xc >= p0) & (xc <= p1)
+            w = (xc - p0) / max(p1 - p0, 1e-9)
+            for c in range(nch):
+                v0 = float(pts[k][1 + c])
+                v1 = float(pts[k + 1][1 + c])
+                outs[c] = torch.where(seg, v0 + w * (v1 - v0), outs[c])
+        return outs
+
+    rgb = eval_channels(color_pts, 3)
+    a = eval_channels(opacity_pts, 1)[0]
+    return torch.stack(rgb, dim=0), a
+
+
+def srgb_to_linear(c):
+    c = np.clip(c, 0.0, 1.0)
+    return np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb(c):
+    if isinstance(c, torch.Tensor):
+        c = torch.clamp(c, 0.0, 1.0)
+        return torch.where(
+            c <= 0.0031308, c * 12.92, 1.055 * c ** (1.0 / 2.4) - 0.055
+        )
+    c = np.clip(c, 0.0, 1.0)
+    return np.where(c <= 0.0031308, c * 12.92, 1.055 * c ** (1.0 / 2.4) - 0.055)
+
+
+@dataclasses.dataclass
+class TransferFunction:
+    """Piecewise-linear TF: control points + baked LUT.
+
+    `color_points_linear` [Kc, 4] (pos, r, g, b in linear RGB) and
+    `opacity_points_np` [Ko, 2] feed `tf_eval_points`; `table` [N, 4] is
+    the baked LUT.
+    """
+
+    table: np.ndarray  # [N, 4] float32, linear RGB + alpha
+    value_range: Tuple[float, float] = (0.0, 1.0)
+    color_points_linear: np.ndarray = None  # [Kc, 4]
+    opacity_points_np: np.ndarray = None  # [Ko, 2]
+
+    RESOLUTION = 256
+
+    @classmethod
+    def from_points(
+        cls,
+        color_points: Sequence[Tuple[float, float, float, float]],  # (pos, r, g, b) 0-255
+        opacity_points: Sequence[Tuple[float, float]] = ((0.0, 1.0), (1.0, 1.0)),
+        value_range: Tuple[float, float] = (0.0, 1.0),
+    ) -> "TransferFunction":
+        n = cls.RESOLUTION
+        xs = np.linspace(0.0, 1.0, n)
+        cp = np.asarray(color_points, np.float64)
+        op = np.asarray(opacity_points, np.float64)
+        # Interpolate in linear RGB (reference interpolation_colorspace).
+        rgb_lin = srgb_to_linear(cp[:, 1:4] / 255.0)
+        table = np.zeros((n, 4), np.float32)
+        for ch in range(3):
+            table[:, ch] = np.interp(xs, cp[:, 0], rgb_lin[:, ch])
+        table[:, 3] = np.interp(xs, op[:, 0], op[:, 1])
+        return cls(
+            table=table,
+            value_range=value_range,
+            color_points_linear=np.concatenate(
+                [cp[:, :1], rgb_lin], axis=1
+            ).astype(np.float32),
+            opacity_points_np=op.astype(np.float32),
+        )
+
+    @classmethod
+    def standard(cls) -> "TransferFunction":
+        """The reference's Standard.xml (blue-white-red diverging)."""
+        return cls.from_points(
+            [
+                (0.0, 59, 76, 192),
+                (0.25, 144, 178, 254),
+                (0.5, 220, 220, 220),
+                (0.75, 245, 156, 125),
+                (1.0, 180, 4, 38),
+            ]
+        )
+
+    def as_static_points(self):
+        """Hashable (color, opacity) point tuples for tf_eval_points."""
+        c = tuple(tuple(float(v) for v in row) for row in self.color_points_linear)
+        o = tuple(tuple(float(v) for v in row) for row in self.opacity_points_np)
+        return c, o

@@ -1,0 +1,375 @@
+"""Primary tube renderer: screen-binned analytic capsule rasterization.
+
+Counterpart of the capsule part of `linevis_tpu/render/tube_raster.py`:
+segments render as pixel-exact capsules (the reference's linear-swept-sphere
+RT geometry, `VulkanRayTracer.hpp:53-63`) driven by tile binning. A frame
+is three steps: `prepare_capsule_frame` (projection, payload, binning,
+params), `rasterize_capsules` (the kernel) and `resolve_capsule_frame`
+(untile, depth-cue range, shading). The prism geometry is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from linevis_tpu_torch.kernels.raster_capsule import rasterize_capsules
+from linevis_tpu_torch.kernels.raster_pallas import build_sorted_binning
+from linevis_tpu_torch.kernels.tiles import unpack_tiles
+from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.lighting import (
+    apply_depth_cue,
+    blinn_phong_shade_tube,
+    normalize3,
+)
+from linevis_tpu_torch.render.pipeline import RasterSettings
+from linevis_tpu_torch.render.transfer_function import TransferFunction, tf_eval_points
+
+__all__ = [
+    "CapsuleScene", "build_capsule_scene", "prepare_capsule_frame",
+    "resolve_capsule_frame", "render_tubes", "shade_capsules",
+    "camera_tensors", "render_tubes_image",
+]
+
+
+@dataclasses.dataclass
+class CapsuleScene:
+    """Per-segment SoA for the capsule renderer (channels-first tensors).
+
+    a:     [3, S] segment start points
+    ba:    [3, S] segment vectors (b - a)
+    attr0: [S] attribute at a;  dattr: [S] attr(b) - attr(a)
+    mask:  [S] bool, valid segments
+    cap_a: [S] 1.0 where the start cap renders (chain starts only: interior
+           joint spheres are drawn once, by the previous segment's b-cap)
+    radius: float — tube radius
+    """
+
+    a: torch.Tensor
+    ba: torch.Tensor
+    attr0: torch.Tensor
+    dattr: torch.Tensor
+    mask: torch.Tensor
+    cap_a: torch.Tensor
+    radius: float
+
+    @property
+    def num_segments(self) -> int:
+        return int(self.a.shape[1])
+
+
+def build_capsule_scene(positions, mask, attrs, radius: float, device="cuda") -> CapsuleScene:
+    """positions [L, P, 3], mask [L, P], attrs [L, P] -> CapsuleScene on `device`."""
+    pos = torch.tensor(np.asarray(positions, np.float32), device=device)
+    L, P = pos.shape[0], pos.shape[1]
+    cf = pos.reshape(L * P, 3).T.reshape(3, L, P)
+    a = cf[:, :, :-1].reshape(3, -1)
+    b = cf[:, :, 1:].reshape(3, -1)
+    m = torch.tensor(np.asarray(mask, bool), device=device)
+    seg2 = m[:, :-1] & m[:, 1:]
+    at = torch.tensor(np.asarray(attrs, np.float32), device=device)
+    a0 = at[:, :-1].reshape(-1)
+    a1 = at[:, 1:].reshape(-1)
+    prev_valid = torch.cat(
+        [torch.zeros((L, 1), dtype=torch.bool, device=device), seg2[:, :-1]], dim=1
+    )
+    return CapsuleScene(
+        a=a, ba=b - a, attr0=a0, dattr=a1 - a0, mask=seg2.reshape(-1),
+        cap_a=(~prev_valid).reshape(-1).float(), radius=float(radius),
+    )
+
+
+def _proj_constants(camera: Camera) -> np.ndarray:
+    """[A, Bc] of z_ndc = A - Bc / view_z for the camera's projection."""
+    n, f = camera.z_near, camera.z_far
+    return np.array([f / (f - n), f * n / (f - n)], np.float32)
+
+
+def _ray_basis(view_proj: torch.Tensor) -> torch.Tensor:
+    """[3, 3] columns (right/tan_x, up/tan_y, forward)."""
+    fwd = view_proj[3, :3]
+    r = view_proj[0, :3]
+    u = view_proj[1, :3]
+    tx = torch.linalg.norm(r)
+    ty = torch.linalg.norm(u)
+    return torch.stack(
+        [
+            r / torch.clamp(tx * tx, min=1e-12),
+            u / torch.clamp(ty * ty, min=1e-12),
+            fwd / torch.clamp(torch.linalg.norm(fwd), min=1e-12),
+        ],
+        dim=1,
+    )
+
+
+def prepare_capsule_frame(
+    scene: CapsuleScene,
+    view_proj: torch.Tensor,
+    camera_position: torch.Tensor,
+    proj_ab: torch.Tensor,  # [2] = (A, Bc)
+    settings: RasterSettings,
+    z_near: float = 1e-3,
+    seg_alpha: torch.Tensor = None,
+    y_offset=None,
+    full_height: int = None,
+    aa_margin: float = 0.0,  # extra px of cull slack (coverage-AA callers)
+):
+    """Project segments, build the sorted tile binning + kernel params.
+
+    Returns (csr, params [32], basis [3, 3]); csr.payload is [24, Np + chunk]
+    (16 sorted rows + 8 derived rows). Band-local rendering (`y_offset`,
+    `full_height`) and per-segment alpha (`seg_alpha`) belong to the
+    multi-GPU and opacity-optimization paths, which are not ported yet.
+    """
+    if seg_alpha is not None or y_offset is not None or full_height is not None:
+        raise NotImplementedError(
+            "seg_alpha / band-local rendering are not ported yet"
+        )
+    dev = scene.a.device
+    o = camera_position
+    a = scene.a
+    b = scene.a + scene.ba
+    r = scene.radius
+    width, height = settings.width, settings.height
+
+    def project(p):  # p [3, S] -> (sx, sy, w)
+        clip = view_proj[:3, :3] @ p + view_proj[:3, 3][:, None]
+        w = view_proj[3, :3] @ p + view_proj[3, 3]
+        iw = 1.0 / torch.where(torch.abs(w) < z_near, torch.full_like(w, z_near), w)
+        sx = (clip[0] * iw * 0.5 + 0.5) * width
+        sy = (0.5 - clip[1] * iw * 0.5) * height
+        return sx, sy, w
+
+    sxa, sya, wa = project(a)
+    sxb, syb, wb = project(b)
+    wmin = torch.minimum(wa, wb)
+    valid = scene.mask & (wmin > z_near)
+
+    # Conservative screen-space radius: r scaled by pixels-per-world-unit
+    # at the segment's nearest depth; aa_margin adds the half pixel the
+    # coverage AA accepts outside the geometric radius.
+    px_per_unit = torch.maximum(
+        0.5 * width * torch.linalg.norm(view_proj[0, :3]),
+        0.5 * height * torch.linalg.norm(view_proj[1, :3]),
+    )
+    sr = r * px_per_unit / torch.clamp(wmin - r, min=z_near) + aa_margin
+    xmin = torch.minimum(sxa, sxb) - sr
+    xmax = torch.maximum(sxa, sxb) + sr
+    ymin = torch.minimum(sya, syb) - sr
+    ymax = torch.maximum(sya, syb) + sr
+
+    # Payload rows 0-15.
+    oa = o[:, None] - a
+    ba = scene.ba
+    baba = torch.sum(ba * ba, dim=0)
+    ob = oa - ba
+    obob = torch.sum(ob * ob, dim=0)
+    rr = r * r
+    Cb = obob - rr
+    S = scene.num_segments
+    vz_min = torch.clamp(wmin - r, min=z_near)
+    zndc_min = proj_ab[0] - proj_ab[1] / vz_min
+    zq = torch.floor(torch.clamp(zndc_min, 0.0, 1.0) * 1023.0) / 1023.0
+    ones = torch.ones(S, dtype=torch.float32, device=dev)
+    payload = torch.stack(
+        [
+            oa[0], oa[1], oa[2],
+            ba[0], ba[1], ba[2],
+            ones * r,
+            scene.attr0,
+            scene.dattr,
+            torch.arange(S, dtype=torch.float32, device=dev),  # row 9: id
+            baba,
+            ones,  # row 11: per-segment alpha (opacity optimization)
+            torch.zeros_like(ones),  # row 12: dalpha
+            scene.cap_a,  # row 13: render the start cap (chain starts only)
+            Cb,
+            zq,
+        ],
+        dim=0,
+    ).float()
+
+    csr = build_sorted_binning(
+        xmin, xmax, ymin, ymax, payload, valid,
+        width, height, settings.tile_w, settings.tile_h, settings.chunk,
+        settings.span_x, settings.span_y,
+        seg2d=(sxa, sya, sxb, syb, sr),
+    )
+
+    # Derived per-candidate rows 16-23, appended after the sort (pure
+    # functions of the sorted geometry rows; the OIT kernels read them).
+    p = csr.payload
+    poa = p[0:3]
+    pba = p[3:6]
+    pr = p[6]
+    pbaba = p[10]
+    baoa0 = pba[0] * poa[0] + pba[1] * poa[1] + pba[2] * poa[2]
+    oaoa0 = poa[0] * poa[0] + poa[1] * poa[1] + poa[2] * poa[2]
+    inv_baba = 1.0 / torch.clamp(pbaba, min=1e-20)
+    prr = pr * pr
+    tnorm = torch.rsqrt(torch.clamp(pbaba, min=1e-20))
+    inv_r = 1.0 / torch.clamp(pr, min=1e-12)
+    derived = torch.stack(
+        [baoa0, oaoa0, inv_baba, prr * pbaba, tnorm, inv_r, prr,
+         torch.zeros_like(pr)],
+        dim=0,
+    )
+    csr = dataclasses.replace(csr, payload=torch.cat([p, derived], dim=0))
+
+    basis = _ray_basis(view_proj)  # columns right, up, fwd
+    # params rows 0-8: B row-major where dir_i = B[i,0]*u + B[i,1]*v + B[i,2].
+    # 9 zA, 10 zB, 11 dmin, 12 dmax, 13 depth-cue, 14 opacity scale,
+    # 15-18 MBOIT uniforms, 19 px scale: world units per pixel at view
+    # depth 1 (coverage AA), 20-22 MBOIT wrapping zone, 23 spare,
+    # 24-27 background RGBA (OIT composite mode), 28-31 spare.
+    params = torch.zeros(32, dtype=torch.float32, device=dev)
+    params[:9] = basis.reshape(-1)
+    params[9:11] = proj_ab
+    params[19] = (2.0 / height) * torch.linalg.norm(basis[:, 1])
+    return csr, params, basis
+
+
+def resolve_capsule_frame(
+    scene: CapsuleScene,
+    csr,
+    raster,
+    view_proj: torch.Tensor,
+    camera_position: torch.Tensor,
+    proj_ab: torch.Tensor,
+    basis: torch.Tensor,
+    settings: RasterSettings,
+) -> torch.Tensor:
+    """Untile the kernel's output, take the depth-cue range and shade ->
+    [4, H, W] linear RGBA."""
+    depth_t, id_t, gbuf_t = raster
+
+    def unp(x):
+        return unpack_tiles(
+            x, csr.tiles_x, csr.tiles_y, settings.tile_w, settings.tile_h,
+            settings.width, settings.height,
+        )
+
+    zndc = unp(depth_t)
+    seg_id = unp(id_t)
+    attr, nx, ny, nz, tx, ty, tz, cov = (unp(g) for g in gbuf_t)
+
+    # Depth-cue range over segment endpoints (reference DepthCues.hpp).
+    w_all = view_proj[3, :3] @ scene.a + view_proj[3, 3]
+    big = torch.full_like(w_all, 3e38)
+    dmin = torch.min(torch.where(scene.mask, w_all, big))
+    dmax = torch.max(torch.where(scene.mask, w_all, -big))
+
+    return shade_capsules(
+        zndc, seg_id, attr,
+        torch.stack([nx, ny, nz], dim=0), torch.stack([tx, ty, tz], dim=0),
+        camera_position, basis, proj_ab, dmin, dmax, settings,
+        coverage=cov,
+    )
+
+
+def render_tubes(
+    scene: CapsuleScene,
+    view_proj: torch.Tensor,
+    camera_position: torch.Tensor,
+    proj_ab: torch.Tensor,  # [2]
+    settings: RasterSettings,
+) -> torch.Tensor:
+    """Render capsules -> [4, H, W] linear RGBA on the scene's device."""
+    csr, params, basis = prepare_capsule_frame(
+        scene, view_proj, camera_position, proj_ab, settings,
+        aa_margin=0.5 if settings.aa else 0.0,
+    )
+    raster = rasterize_capsules(
+        csr, params, settings.width, settings.height,
+        settings.tile_w, settings.tile_h, use_aa=settings.aa,
+    )
+    return resolve_capsule_frame(
+        scene, csr, raster, view_proj, camera_position, proj_ab, basis, settings
+    )
+
+
+def shade_capsules(
+    zndc, seg_id, attr, normal_raw, tangent_raw, camera_position,
+    ray_basis, proj_ab, depth_min, depth_max, settings: RasterSettings,
+    coverage=None,
+):
+    """Elementwise shading from the kernel's G-buffer (no gathers)."""
+    H, W = seg_id.shape
+    dev = zndc.device
+    fg = seg_id >= 0
+
+    # Ray reconstruction for the fragment position.
+    u = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :] * (2.0 / W) - 1.0
+    v = 1.0 - (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[:, None] * (2.0 / H)
+    u = u.expand(H, W)
+    v = v.expand(H, W)
+    d = (
+        ray_basis[:, 0][:, None, None] * u[None]
+        + ray_basis[:, 1][:, None, None] * v[None]
+        + ray_basis[:, 2][:, None, None]
+    )
+    view_z = proj_ab[1] / torch.clamp(proj_ab[0] - zndc, min=1e-9)
+    # d has unit forward component -> pos = o + d * view_z.
+    pos = camera_position[:, None, None] + d * view_z[None]
+
+    normal = normalize3(normal_raw)
+    tangent = normalize3(tangent_raw)
+    rgb, alpha = tf_eval_points(settings.tf_color, settings.tf_opacity, attr)
+
+    color = blinn_phong_shade_tube(rgb, pos, normal, tangent, camera_position)
+    if settings.depth_cue_strength > 0.0:
+        color = apply_depth_cue(
+            color, view_z, depth_min, depth_max, settings.depth_cue_strength
+        )
+    bg = torch.tensor(settings.background_color, dtype=torch.float32, device=dev)
+    if coverage is not None:
+        # Analytic edge AA: blend the fragment over the background by its
+        # pixel coverage (interior pixels have coverage 1).
+        c = torch.where(fg, coverage, torch.zeros_like(coverage))
+        out_rgb = color * c[None] + bg[:3, None, None] * (1.0 - c[None])
+        out_a = alpha * c + bg[3] * (1.0 - c)
+    else:
+        out_rgb = torch.where(fg[None], color, bg[:3, None, None])
+        out_a = torch.where(fg, alpha, bg[3])
+    return torch.cat([out_rgb, out_a[None]], dim=0)
+
+
+def camera_tensors(camera: Camera, device):
+    """(view_proj [4, 4], position [3], proj_ab [2]) tensors of `camera`."""
+    return (
+        torch.as_tensor(camera.view_projection_matrix(), device=device),
+        torch.as_tensor(np.asarray(camera.position, np.float32), device=device),
+        torch.as_tensor(_proj_constants(camera), device=device),
+    )
+
+
+def render_tubes_image(
+    scene: CapsuleScene,
+    camera: Camera,
+    tf: Optional[TransferFunction] = None,
+    settings: Optional[RasterSettings] = None,
+    supersample: int = 1,
+) -> np.ndarray:
+    """Host convenience wrapper -> numpy [H, W, 4] linear RGBA."""
+    settings = settings or RasterSettings(width=camera.width, height=camera.height)
+    cam = camera
+    s = settings
+    if supersample > 1:
+        s = dataclasses.replace(
+            settings, width=settings.width * supersample,
+            height=settings.height * supersample,
+        )
+        cam = dataclasses.replace(camera, width=s.width, height=s.height)
+    if tf is not None:
+        c_pts, o_pts = tf.as_static_points()
+        s = dataclasses.replace(s, tf_color=c_pts, tf_opacity=o_pts)
+    img = render_tubes(scene, *camera_tensors(cam, scene.a.device), s)
+    img = np.moveaxis(img.cpu().numpy(), 0, -1)
+    if supersample > 1:
+        k = supersample
+        H, W = settings.height, settings.width
+        img = img.reshape(H, k, W, k, 4).mean(axis=(1, 3))
+    return img
