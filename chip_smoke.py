@@ -4,14 +4,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `linevis_tpu_torch/kernels/csrc/`, then
-drives the main path at full size: the Crawfis tornado traced on the card
-(512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150; ~205k
-capsule segments) and rendered as opaque capsule tubes at 1920x1080 (tile
-32x16, analytic-coverage AA, span 2x2) for 16 orbit-camera frames through
-`render_tubes`. It times the frames and their stages with CUDA events,
-holds every kernel against its plain PyTorch version on the same 1080p
-inputs, checks a small frame on the card against the plain path on the CPU,
-and prints one JSON line of kernel figures, then the device line last.
+drives the ported paths at full size on the Crawfis tornado traced on the
+card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
+~205k capsule segments), 16 orbit-camera frames each at 1920x1080:
+- opaque capsule tubes through `render_tubes` (tile 32x16, analytic-coverage
+  AA, span 2x2; kernel capsule_raster);
+- transparent MLAB tubes through `render_tubes_mlab` (the JAX package's
+  bench.py MLAB settings: tile 16x8, chunk 128, K=8, opacity 0.3, sat
+  0.999, sub 32, front faces only; kernel capsule_mlab).
+For each path it times the frames and their stages with CUDA events, holds
+the path's kernel against its plain PyTorch version on the same 1080p
+inputs, and checks a small frame on the card against the plain path on the
+CPU (for the transparent path also the Atomic Loop frame, K=16
+`no_overflow`, through `render_tubes_atomic_loop`); then it prints one JSON
+line of kernel figures, and the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. Any failed check raises.
@@ -39,6 +45,24 @@ H100_HBM_BYTES = 3.35e12
 # acceptance tests and selects 19.
 CAPSULE_OPS_PER_EVAL = 143
 STAGED_ROWS = 13  # payload rows the capsule kernel reads per candidate
+# Float operations of the MLAB kernel (each add/mul/min/max/compare/select/
+# sqrt/div counted once, an FMA twice), front faces only:
+# per (candidate, pixel) evaluation 95: the two dot products and the
+# re-origin 20, the three quadratics and their roots 29, the entry surface's
+# three roots, axial positions and acceptance tests 40, the world t, NDC clip
+# and rejection 6;
+MLAB_OPS_PER_EVAL = 95
+# per fragment in an extracted tie window 45: its axial position, attribute,
+# the two headlight cosines through the tube-axis identities 29, the
+# opacity TF 10, the window sums 4, and the window test 2;
+MLAB_OPS_PER_MEMBER = 45
+# per (pixel, sweep) extraction: the scan for the nearest hit, 1 per block
+# candidate, and the carry and insertion into K nodes: the carry's NDC depth
+# and averages 12, then 4 per node (position count, dedup test, shift).
+MLAB_OPS_PER_SWEEP = 12
+MLAB_OPS_PER_SWEEP_NODE = 4
+MLAB_ROWS = 23  # payload rows the MLAB kernel stages per candidate
+MLAB_K, MLAB_OPACITY, MLAB_SUB = 8, 0.3, 32
 
 
 def _events():
@@ -62,14 +86,24 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from linevis_tpu_torch.entry import entry, tornado_scene
+    from linevis_tpu_torch.entry import entry, entry_mlab, tornado_scene
     from linevis_tpu_torch.kernels import _build
     from linevis_tpu_torch.kernels.raster_capsule import (
         rasterize_capsules,
         rasterize_capsules_reference,
     )
+    from linevis_tpu_torch.kernels.raster_capsule_oit import (
+        rasterize_capsules_mlab,
+        rasterize_capsules_mlab_reference,
+    )
+    from linevis_tpu_torch.kernels.tiles import unpack_tiles
     from linevis_tpu_torch.render.camera import Camera
     from linevis_tpu_torch.render.framebuffer import ssim
+    from linevis_tpu_torch.render.oit import (
+        prepare_mlab_frame,
+        render_tubes_atomic_loop,
+        render_tubes_mlab,
+    )
     from linevis_tpu_torch.render.pipeline import RasterSettings
     from linevis_tpu_torch.render.tube_raster import (
         camera_tensors,
@@ -119,6 +153,7 @@ def main() -> int:
     render_tubes(scene, *cams[0], settings)  # warm-up (allocator, first launch)
     torch.cuda.synchronize()
     rasterize_capsules.launches = 0
+    rasterize_capsules_mlab.launches = 0
     frame_ev = [_events() for _ in cams]
     imgs_sum = torch.zeros((), device=dev)
     for (a, b), cam in zip(frame_ev, cams):
@@ -128,6 +163,8 @@ def main() -> int:
         imgs_sum += img[:3].sum()
     torch.cuda.synchronize()
     launches = rasterize_capsules.launches
+    if rasterize_capsules_mlab.launches:
+        raise RuntimeError("the opaque path launched the MLAB kernel")
     if launches != N_FRAMES:
         raise RuntimeError(f"capsule kernel launched {launches} times for {N_FRAMES} frames")
     if not bool(torch.isfinite(imgs_sum)):
@@ -237,6 +274,188 @@ def main() -> int:
         "pairs": pairs,
         "evaluated": evaluated,
     }]
+
+    # 7. The transparent path: N_FRAMES MLAB frames through render_tubes_mlab.
+    s_oit = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
+    mlab_kw = dict(K=MLAB_K, opacity=MLAB_OPACITY, sub=MLAB_SUB, sat=0.999)
+
+    def mlab_frame(cam):
+        return render_tubes_mlab(scene, *cam, s_oit, **mlab_kw)
+
+    mlab_frame(cams[0])  # warm-up
+    torch.cuda.synchronize()
+    rasterize_capsules.launches = 0
+    rasterize_capsules_mlab.launches = 0
+    frame_ev = [_events() for _ in cams]
+    imgs_sum = torch.zeros((), device=dev)
+    fg_sum = torch.zeros((), device=dev)
+    for (a, b), cam in zip(frame_ev, cams):
+        a.record()
+        img = mlab_frame(cam)
+        b.record()
+        imgs_sum += img.sum()
+        fg_sum += (img[3] > 0).float().mean()
+    torch.cuda.synchronize()
+    mlab_launches = rasterize_capsules_mlab.launches
+    if rasterize_capsules.launches:
+        raise RuntimeError("the MLAB path launched the opaque kernel")
+    if mlab_launches != N_FRAMES:
+        raise RuntimeError(f"MLAB kernel launched {mlab_launches} times for {N_FRAMES} frames")
+    if not bool(torch.isfinite(imgs_sum)):
+        raise RuntimeError("non-finite MLAB frame on the main path")
+    mlab_fg = float(fg_sum) / N_FRAMES
+    if mlab_fg < 0.01:
+        raise RuntimeError("the MLAB tornado frames are almost empty")
+    mlab_frame_ms = [a.elapsed_time(b) for a, b in frame_ev]
+
+    def mlab_kernel(csr, params, composite=True, **kw):
+        return rasterize_capsules_mlab(
+            csr, params, W, H, 16, 8, MLAB_K, s_oit.tf_color, s_oit.tf_opacity,
+            deferred_shade=True, sub=MLAB_SUB, sat=0.999, composite=composite, **kw
+        )
+
+    def mlab_plain(csr, params, composite=True, **kw):
+        return rasterize_capsules_mlab_reference(
+            csr, params, W, H, 16, 8, MLAB_K, s_oit.tf_color, s_oit.tf_opacity,
+            sub=MLAB_SUB, sat=0.999, composite=composite, **kw
+        )
+
+    def untile(csr, x):
+        return unpack_tiles(x, csr.tiles_x, csr.tiles_y, 16, 8, W, H)
+
+    stage_ms = {"prep_binning": [], "kernel": [], "unpack": []}
+    for cam in cams:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        csr, params = prepare_mlab_frame(scene, *cam, s_oit, MLAB_OPACITY)
+        ev[1].record()
+        rgba = mlab_kernel(csr, params)
+        ev[2].record()
+        torch.stack([untile(csr, rgba[c]) for c in range(4)])
+        ev[3].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(stage_ms, zip(ev[:-1], ev[1:])):
+            stage_ms[k].append(a.elapsed_time(b))
+    mlab_line = {
+        "frame_ms_median": float(np.median(mlab_frame_ms)),
+        "fps": 1000.0 / float(np.median(mlab_frame_ms)),
+        "stage_ms_median": {k: float(np.median(v)) for k, v in stage_ms.items()},
+        "foreground_share": mlab_fg,
+        "frames": N_FRAMES, "width": W, "height": H, "K": MLAB_K, "gpu": gpu,
+    }
+    print("mlab frame: " + json.dumps(mlab_line), flush=True)
+
+    # 8. The MLAB kernel vs its plain version on frame 0's inputs, composite
+    # and node mode.
+    csr, params = prepare_mlab_frame(scene, *cams[0], s_oit, MLAB_OPACITY)
+    n_tiles = csr.tile_start.shape[0]
+    P = 16 * 8
+    mlab_pairs = int(csr.tile_count.sum())
+    work = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    k_rgba = mlab_kernel(csr, params, work=work)
+    k_nodes = mlab_kernel(csr, params, composite=False)
+    stats = {}
+    a, b = _events()
+    a.record()
+    p_rgba = mlab_plain(csr, params, stats=stats)
+    b.record()
+    p_nodes = mlab_plain(csr, params, composite=False)
+    torch.cuda.synchronize()
+    mlab_plain_ms = a.elapsed_time(b)
+    mlab_evaluated = int(work.sum())
+    d_err = (k_nodes[0] - p_nodes[0]).abs().amax(dim=0)
+    a_err = (k_nodes[2] - p_nodes[2]).abs().amax(dim=0)
+    f_err = (k_nodes[1] - p_nodes[1]).abs().amax(dim=(0, 1))
+    rgba_err = (k_rgba - p_rgba).abs().amax(dim=0)
+    nodes_agree = (d_err <= 1e-5) & (a_err <= 1e-5)
+    nodes_ok = float(nodes_agree.float().mean())
+    f_err_ok = float(f_err[nodes_agree].max())
+    rgba_ok = float((rgba_err <= 1e-4).float().mean())
+    img_k = torch.stack([untile(csr, k_rgba[c]) for c in range(4)]).permute(1, 2, 0)
+    img_p = torch.stack([untile(csr, p_rgba[c]) for c in range(4)]).permute(1, 2, 0)
+    img_k, img_p = img_k.cpu().numpy(), img_p.cpu().numpy()
+    mlab_ssim = ssim(img_k[..., :3], img_p[..., :3])
+    mlab_mad = float(np.abs(img_k - img_p).mean())
+    mlab_max_err = max(float(d_err.max()), float(a_err.max()), float(f_err.max()),
+                       float(rgba_err.max()))
+    print(f"capsule_mlab vs plain: pairs {mlab_pairs}, evaluated after culls "
+          f"{mlab_evaluated}, hits {stats['hits']}, sweeps {stats['sweeps']}, "
+          f"members {stats['members']}; node depth+alpha within 1e-5 on "
+          f"{nodes_ok:.6f} of pixels (max |dd| {float(d_err.max()):.3g}, |da| "
+          f"{float(a_err.max()):.3g}, |dfeat| {float(f_err.max()):.3g}, there "
+          f"{f_err_ok:.3g}), rgba within "
+          f"1e-4 on {rgba_ok:.6f} (max {float(rgba_err.max()):.3g}), image ssim "
+          f"{mlab_ssim:.6f}, mean abs {mlab_mad:.3g}", flush=True)
+    if not np.isfinite(img_k).all():
+        raise RuntimeError("non-finite pixels in the 1080p MLAB frame")
+    if nodes_ok < 0.999 or f_err_ok > 1e-5 or rgba_ok < 0.999:
+        raise RuntimeError("MLAB kernel disagrees with its plain version")
+    if mlab_ssim < 0.999 or mlab_mad > 2e-3:
+        raise RuntimeError("MLAB kernel image disagrees with the plain version's")
+
+    # 9. A small MLAB frame on the card against the plain path on the CPU.
+    fn, args = entry_mlab(device=dev)
+    small_gpu = fn(*args).permute(1, 2, 0).cpu().numpy()
+    fn_cpu, args_cpu = entry_mlab(device="cpu")
+    small_cpu = fn_cpu(*args_cpu).permute(1, 2, 0).numpy()
+    small_ssim = ssim(small_gpu[..., :3], small_cpu[..., :3])
+    small_mad = float(np.abs(small_gpu - small_cpu).mean())
+    print(f"entry_mlab frame card vs cpu: ssim {small_ssim:.6f}, mean abs {small_mad:.3g}",
+          flush=True)
+    if small_ssim < 0.999 or small_mad > 2e-3:
+        raise RuntimeError("card MLAB frame disagrees with the CPU plain path")
+    # The Atomic Loop path (K=16 no_overflow nodes, blended in torch) on the
+    # same scene: one kernel launch on the card, and the CPU's image.
+    small = {}
+    for d, a in ((dev, args), ("cpu", args_cpu)):
+        before = rasterize_capsules_mlab.launches
+        small[str(d)] = render_tubes_atomic_loop(
+            *a, fn.keywords["settings"], K=16, opacity=MLAB_OPACITY
+        ).permute(1, 2, 0).cpu().numpy()
+        al_launches = rasterize_capsules_mlab.launches - before
+        if al_launches != (1 if d is dev else 0):
+            raise RuntimeError(f"atomic loop on {d} launched the MLAB kernel "
+                               f"{al_launches} times")
+    al_gpu, al_cpu = small[str(dev)], small["cpu"]
+    al_ssim = ssim(al_gpu[..., :3], al_cpu[..., :3])
+    al_mad = float(np.abs(al_gpu - al_cpu).mean())
+    print(f"atomic loop frame card vs cpu: ssim {al_ssim:.6f}, mean abs {al_mad:.3g}, "
+          f"foreground {float((al_gpu[..., 3] > 0).mean()):.4f}", flush=True)
+    if not np.isfinite(al_gpu).all() or (al_gpu[..., 3] > 0).mean() < 0.01:
+        raise RuntimeError("atomic loop card frame is non-finite or empty")
+    if al_ssim < 0.999 or al_mad > 2e-3:
+        raise RuntimeError("card atomic loop frame disagrees with the CPU plain path")
+
+    # 10. MLAB kernel figures at the 1080p shapes.
+    mlab_ms = _time_ms(lambda: mlab_kernel(csr, params), 20)
+    out_bytes = 4 * n_tiles * P * 4
+    in_bytes = mlab_evaluated * MLAB_ROWS * 4 + 2 * n_tiles * 4 + 32 * 4
+    ops = (mlab_evaluated * P * MLAB_OPS_PER_EVAL
+           + stats["members"] * MLAB_OPS_PER_MEMBER
+           + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_SUB
+                                + MLAB_OPS_PER_SWEEP_NODE * MLAB_K))
+    t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
+    t_ops = ops / H100_FP32_FLOPS * 1e3
+    kernels.append({
+        "name": "capsule_mlab",
+        "route": "cuda",
+        "source": "linevis_tpu_torch/kernels/csrc/raster_capsule_oit.cu",
+        "replaces": "linevis_tpu/kernels/raster_capsule_oit.py:116",
+        "launches": mlab_launches,
+        "max_abs_err": mlab_max_err,
+        "ms": mlab_ms,
+        "plain_ms": mlab_plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+        "node_agree": nodes_ok,
+        "rgba_agree": rgba_ok,
+        "pairs": mlab_pairs,
+        "evaluated": mlab_evaluated,
+        "hits": stats["hits"],
+        "sweeps": stats["sweeps"],
+        "members": stats["members"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,13 +6,16 @@ write a Chrome/Perfetto trace; `device_summary` turns a recording into the
 device's busy time, its idle share of a host-timed window, and the kernels
 that take the time.
 
-    python -m linevis_tpu_torch.automation.profiling [OUT_DIR]
+    python -m linevis_tpu_torch.automation.profiling [OUT_DIR [opaque|mlab]]
 
-profiles the tornado tube frame (1920x1080, tile 32x16, AA on) on the
-card: 8 orbit-camera frames after 2 warm-up frames, timed once without the
-profiler (the window the idle share is taken against) and once recorded.
-It prints one JSON line; with OUT_DIR it also writes that line to
-OUT_DIR/summary.json and the Chrome trace to OUT_DIR/tube_frames.json.
+profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
+default) the opaque frame (`render_tubes`, tile 32x16, AA on), `mlab` the
+transparent MLAB frame (`render_tubes_mlab`, tile 16x8, K=8, opacity 0.3).
+It runs 8 orbit-camera frames after 2 warm-up frames, timed once without
+the profiler (the window the idle share is taken against) and once
+recorded, and prints one JSON line; with OUT_DIR (give "" for none) it
+also writes that line to OUT_DIR/summary.json and the Chrome trace to
+OUT_DIR/tube_frames.json.
 """
 
 from __future__ import annotations
@@ -60,14 +63,18 @@ def device_summary(prof, wall_ms: float, top: int = 12) -> dict:
     }
 
 
-def main(out_dir: str = None) -> int:
+def main(out_dir: str = None, path: str = "opaque") -> int:
     import subprocess
+    from functools import partial
 
     from linevis_tpu_torch.entry import tornado_scene
     from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.oit import render_tubes_mlab
     from linevis_tpu_torch.render.pipeline import RasterSettings
     from linevis_tpu_torch.render.tube_raster import camera_tensors, render_tubes
 
+    if path not in ("opaque", "mlab"):
+        raise SystemExit(f"profiling: unknown path {path!r} (opaque or mlab)")
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
     gpu = subprocess.run(
@@ -77,12 +84,18 @@ def main(out_dir: str = None) -> int:
     dev = torch.device("cuda", 0)
     W, H, n = 1920, 1080, 8
     scene = tornado_scene(dev)
-    settings = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+    if path == "opaque":
+        render = partial(render_tubes,
+                         settings=RasterSettings(width=W, height=H, tile_w=32, tile_h=16))
+    else:
+        render = partial(render_tubes_mlab,
+                         settings=RasterSettings(width=W, height=H, tile_w=16, tile_h=8),
+                         K=8, opacity=0.3)
     base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
     cams = [camera_tensors(base.orbit(0.002 * (i + 1), 0.1, 1.2), dev)
             for i in range(n + 2)]
     for cam in cams[:2]:
-        render_tubes(scene, *cam, settings)
+        render(scene, *cam)
     torch.cuda.synchronize()
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -90,7 +103,7 @@ def main(out_dir: str = None) -> int:
     def frames():
         t0 = time.perf_counter()
         for cam in cams[2:]:
-            render_tubes(scene, *cam, settings)
+            render(scene, *cam)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
@@ -100,7 +113,7 @@ def main(out_dir: str = None) -> int:
     with trace(out_dir and os.path.join(out_dir, "tube_frames.json")) as prof:
         profiled_wall_ms = frames()
     summary = device_summary(prof, wall_ms)
-    summary.update(frames=n, profiled_wall_ms=profiled_wall_ms,
+    summary.update(path=path, frames=n, profiled_wall_ms=profiled_wall_ms,
                    per_frame_wall_ms=wall_ms / n,
                    per_frame_busy_ms=summary["device_busy_ms"] / n, gpu=gpu)
     line = json.dumps(summary)
@@ -112,4 +125,4 @@ def main(out_dir: str = None) -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main(*sys.argv[1:2]))
+    raise SystemExit(main(*sys.argv[1:3]))

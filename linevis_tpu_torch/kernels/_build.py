@@ -30,7 +30,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 
-KERNELS = ("raster_capsule",)
+KERNELS = ("raster_capsule", "raster_capsule_oit")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -44,27 +44,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "capsule_common.cuh"
+
 #define CHUNK 128
 #define NROWS 13          // staged payload rows
 #define ROW_CAP_A 11      // staged index of payload row 13
 #define ROW_ZQ 12         // staged index of payload row 15
-#define BIG 1e30f
 
 __device__ __forceinline__ int payload_row(int staged) {
   return staged < 11 ? staged : (staged == ROW_CAP_A ? 13 : 15);
 }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float clamp01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
 
 // Signed pixel distance of the silhouette: (r - miss distance) / pixel
 // footprint at the hit's view depth.
@@ -92,16 +81,9 @@ capsule_raster_kernel(const float* __restrict__ payload, long long ld,
   const int warp = tid >> 5;
   const int nwarps = P >> 5;
 
-  // Pixel ray (params rows 0-8: row-major basis, dir = B @ [u, v, 1]).
-  const float gx = (float)((tile % tiles_x) * tile_w + tid % tile_w) + 0.5f;
-  const float gy = (float)((tile / tiles_x) * (P / tile_w) + tid / tile_w) + 0.5f;
-  const float un = gx * sx - 1.0f;
-  const float vn = 1.0f - gy * sy;
-  const float rx = params[0] * un + params[1] * vn + params[2];
-  const float ry = params[3] * un + params[4] * vn + params[5];
-  const float rz = params[6] * un + params[7] * vn + params[8];
-  const float invlen = 1.0f / sqrtf(rx * rx + ry * ry + rz * rz);
-  const float dnx = rx * invlen, dny = ry * invlen, dnz = rz * invlen;
+  const PixelRay ray = pixel_ray(params, tile, tid, tiles_x, tile_w, P / tile_w, sx, sy);
+  const float invlen = ray.invlen;
+  const float dnx = ray.dnx, dny = ray.dny, dnz = ray.dnz;
   const float zA = params[9], zB = params[10], px = params[19];
 
   float best_t = BIG, best_id = BIG, zcur = 2.0f;

@@ -1,0 +1,458 @@
+// MLAB K-buffer over binned capsules for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `_mlab_kernel` in
+// linevis_tpu/kernels/raster_capsule_oit.py:116 (wrapper
+// `rasterize_capsules_mlab`, :1096) in its deferred-shade modes: per pixel,
+// a K-node depth-sorted buffer of front-face capsule fragments (and, with
+// two_sided, exit-surface fragments), inserted in the binning's
+// front-to-back run order, with the Multi-Layer Alpha Blending overflow
+// merge into node K-1, or the exact front-K buffer (no_overflow, the
+// reference's Atomic Loop). Composite mode shades the K nodes and blends
+// them front to back over the background; node mode writes the 5K planes.
+// The plain PyTorch version it is held against is
+// `rasterize_capsules_mlab_reference` (kernels/raster_capsule_oit.py); the
+// semantics are listed in that module's docstring.
+//
+// Design (one block per tile, one thread per pixel):
+//  - The block walks its run in chunks of `chunk` pair columns aligned as
+//    the TPU kernel's DMA windows are, staging payload rows 0-22 of the
+//    chunk's in-run columns in shared memory (23 x 4 B per candidate, read
+//    by every thread as a broadcast). Within a chunk it walks aligned blocks
+//    of `sub` candidates: the block grid, and with it the per-block limit
+//    of K extracted tie windows, is that of the TPU kernel.
+//  - Tile-wide culls as on the TPU: a block max-reduction of each pixel's
+//    bound (its K-th node depth where the pixel is blocked, else 2.0) is
+//    held against the chunk's and then each block's least bucket-floored
+//    depth (payload row 15). The chunk exit ends the run; the block cull
+//    skips the block. `work` counts the candidates evaluated after both.
+//  - Per thread and block: the candidate hits (world t, relative t, index)
+//    in a local array, with the rejection of fragments behind a blocked
+//    pixel's K-th node evaluated against the node state at block start;
+//    then at most K sweeps, each extracting the nearest tie window, whose
+//    shading features are computed only for the window's members and
+//    summed in candidate order. T_K = prod(1 - a_i) is recomputed only
+//    after the node state changed (one predicate: `dirty`).
+//  - The K nodes (5 channels) live in registers: the kernel is templated
+//    on KMAX in {8, 16, 32} with every node loop unrolled over KMAX and
+//    guarded by the runtime K <= KMAX, so no node index is dynamic.
+//
+// Precision: built without --use_fast_math and with --fmad=false (IEEE
+// sqrt, division and powf; 1.0f/sqrtf, never rsqrtf). The re-origined
+// scalars ba.oa' and oa'.oa' are the explicitly fused operations
+// (__fmaf_rn; capsule_common.fma32 in the plain version), as XLA contracts
+// them: oa'.oa' is ~1e-3 formed from terms ~2, so its rounding decides the
+// hit depth at silhouettes.
+//
+// Bound on the H100: FP32 ALU. Each (candidate, pixel) evaluation costs
+// about 90 float operations (two dot products, the three quadratics and
+// roots, acceptance tests, the clip and the rejection), against 92 bytes of
+// staged payload shared by the block's threads; each extracted candidate
+// adds its shading features (~45 operations) and each sweep a scan of the
+// block's hits. The least time is those operations over 67 TFLOP/s
+// (chip_smoke.py computes it from the run's own counts). Speed work
+// (candidate compaction across warps, several tiles per block, cp.async
+// staging) is left to later changes.
+
+#include <cuda_runtime.h>
+
+#include "capsule_common.cuh"
+
+#define NROWS 23         // staged payload rows 0-22
+#define MAX_CHUNK 256    // staged columns
+#define MAX_SUB 64       // block width; two_sided doubles the hit slots
+#define MAX_THREADS 512  // pixels per tile
+#define ROW_ZQ 15
+
+struct Opts {
+  int K, chunk, sub, composite, no_overflow, two_sided, alpha_from_rows;
+  float sat_thr;  // float32(1 - sat)
+};
+
+// Unrolled piecewise-linear TF over a table group of `tf_static_table`:
+// [init[nch], (p0, p1, span, v0[nch], dv[nch]) per segment]. Later segments
+// win at shared endpoints, as in the JAX kernel's `where` chain.
+template <int NCH>
+__device__ __forceinline__ void tf_eval(const float* __restrict__ g, int npts, float x,
+                                        float* out) {
+  const float xc = clamp01(x);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) out[c] = g[c];
+  const float* seg = g + NCH;
+  for (int k = 0; k + 1 < npts; ++k, seg += 3 + 2 * NCH) {
+    if (xc >= seg[0] && xc <= seg[1]) {
+      const float w = (xc - seg[0]) / seg[2];
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) out[c] = seg[3 + c] + w * seg[3 + NCH + c];
+    }
+  }
+}
+
+// Per-candidate scalars shared by the intersection and the shading.
+struct Cand {
+  float bard, rdoa, rd, baoa, t0;
+};
+
+__device__ __forceinline__ Cand cand_setup(const float (*s)[MAX_CHUNK], int j, float dnx,
+                                           float dny, float dnz) {
+  Cand c;
+  c.bard = s[3][j] * dnx + s[4][j] * dny + s[5][j] * dnz;
+  c.rdoa = s[0][j] * dnx + s[1][j] * dny + s[2][j] * dnz;
+  c.t0 = -(c.rdoa + 0.5f * c.bard);
+  c.rd = -0.5f * c.bard;
+  c.baoa = __fmaf_rn(c.t0, c.bard, s[16][j]);
+  return c;
+}
+
+// Entry (near) or exit surface of candidate j: relative t, or BIG.
+struct Quad {
+  float k1, k2, sq, sqa, sqb, b1b, h, ha, hb;
+};
+
+__device__ __forceinline__ float surface_t(const Quad& q, const Cand& c, float baba,
+                                           bool cap_a_on, bool near) {
+  float tb, ta, tc;
+  if (near) {
+    tb = (-q.k1 - q.sq) / q.k2;
+    ta = -c.rd - q.sqa;
+    tc = -q.b1b - q.sqb;
+  } else {
+    tb = (-q.k1 + q.sq) / q.k2;
+    ta = -c.rd + q.sqa;
+    tc = -q.b1b + q.sqb;
+  }
+  const float yb = c.baoa + tb * c.bard;
+  const float ya = c.baoa + ta * c.bard;
+  const float yc = c.baoa + tc * c.bard;
+  const bool okb = (q.h >= 0.0f) && (yb > 0.0f) && (yb < baba) && (c.t0 + tb > 0.0f);
+  const bool oka = (q.ha >= 0.0f) && (ya <= 0.0f) && cap_a_on && (c.t0 + ta > 0.0f);
+  const bool okc = (q.hb >= 0.0f) && (yc >= baba) && (c.t0 + tc > 0.0f);
+  return fminf(okb ? tb : BIG, fminf(oka ? ta : BIG, okc ? tc : BIG));
+}
+
+template <int KMAX>
+__global__ void __launch_bounds__(MAX_THREADS)
+mlab_kernel(const float* __restrict__ payload, long long ld,
+            const int* __restrict__ tile_start, const int* __restrict__ tile_count,
+            const float* __restrict__ params, const float* __restrict__ tf,
+            float* __restrict__ out, int* __restrict__ work, int n_tiles, int tiles_x,
+            int tile_w, int tile_h, float sx, float sy, Opts o) {
+  __shared__ float s[NROWS][MAX_CHUNK];
+  __shared__ float s_red[2][MAX_THREADS / 32];
+
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int P = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = P >> 5;
+  const int K = o.K;
+
+  const PixelRay ray = pixel_ray(params, tile, tid, tiles_x, tile_w, tile_h, sx, sy);
+  const float dnx = ray.dnx, dny = ray.dny, dnz = ray.dnz, invlen = ray.invlen;
+  const float len_p = 1.0f / invlen;
+  const float zA = params[9], zB = params[10];
+  const float opacity_scale = params[14];
+  const float tw_lo = (zB / zA) * len_p;
+  const float tw_hi = (zB / (zA - 1.0f)) * len_p;
+  const int n_color = (int)tf[0], n_opacity = (int)tf[1];
+  const float* tf_color = tf + 2;
+  const float* tf_opacity = tf_color + 3 + (n_color - 1) * 9;
+
+  float nd[KMAX], nr[KMAX], ng[KMAX], nb[KMAX], na[KMAX];
+#pragma unroll
+  for (int q = 0; q < KMAX; ++q) {
+    nd[q] = 2.0f;
+    nr[q] = ng[q] = nb[q] = na[q] = 0.0f;
+  }
+
+  // Candidate hits of the current block: world t, relative t, and the
+  // staged column (+ MAX_CHUNK for an exit surface), entry surfaces first.
+  float h_tw[2 * MAX_SUB], h_tc[2 * MAX_SUB];
+  int h_j[2 * MAX_SUB];
+
+  bool dirty = true, blocked = false;
+  float dK = 2.0f;
+  int red = 0;  // s_red buffer of the next reduction
+  auto tile_bound = [&]() -> float {
+    // The pixel's bound for the tile-wide culls, max-reduced over the tile.
+    if (dirty) {
+      dK = 2.0f;
+#pragma unroll
+      for (int q = 0; q < KMAX; ++q)
+        if (q == K - 1) dK = nd[q];
+      if (o.no_overflow) {
+        blocked = dK < 2.0f;
+      } else {
+        // T_K = prod(1 - a_i) as the TPU kernel's halving tree.
+        float x[KMAX];
+#pragma unroll
+        for (int q = 0; q < KMAX; ++q) x[q] = 1.0f - na[q];
+        for (int n = K; n > 1;) {
+          const int h = n >> 1;
+          for (int i = 0; i < h; ++i) x[i] = x[i] * x[h + i];
+          if (n & 1) x[0] = x[0] * x[n - 1];
+          n = h;
+        }
+        blocked = x[0] <= o.sat_thr;
+      }
+      dirty = false;
+    }
+    const float m = warp_max(blocked ? dK : 2.0f);
+    if (lane == 0) s_red[red][warp] = m;
+    __syncthreads();
+    float zk = s_red[red][0];
+    for (int w = 1; w < nwarps; ++w) zk = fmaxf(zk, s_red[red][w]);
+    red ^= 1;
+    return zk;
+  };
+
+  const int start = tile_start[tile];
+  const int end = start + tile_count[tile];
+  const int C = o.chunk, sub = o.sub;
+  int evaluated = 0;
+  for (int c0 = (start / C) * C; c0 < end; c0 += C) {
+    const int lo = max(c0, start), hi = min(c0 + C, end);
+    __syncthreads();  // the previous chunk's reads are done
+    for (int i = tid; i < NROWS * C; i += P) {
+      const int r = i / C, j = i - r * C;
+      if (c0 + j >= lo && c0 + j < hi) s[r][j] = payload[(long long)r * ld + c0 + j];
+    }
+    float zk = tile_bound();  // synchronises: the staged rows are visible
+    // Chunk exit: the chunk lies behind every pixel's bound, and so does
+    // the rest of the depth-ordered run.
+    float zmin = 3.0f;
+    for (int j = lo - c0 + lane; j < hi - c0; j += 32) zmin = fminf(zmin, s[ROW_ZQ][j]);
+    if (warp_min(zmin) > zk) break;
+
+    bool first = true;
+    for (int b0 = (lo / sub) * sub; b0 < hi; b0 += sub) {
+      const int jlo = max(b0, lo) - c0, jhi = min(b0 + sub, hi) - c0;
+      if (!first) zk = tile_bound();
+      first = false;
+      float bz = 3.0f;
+      for (int j = jlo + lane; j < jhi; j += 32) bz = fminf(bz, s[ROW_ZQ][j]);
+      if (warp_min(bz) > zk) continue;  // block cull
+      evaluated += jhi - jlo;
+
+      // Candidates: hits, clipped to the NDC depth range and rejected
+      // behind a blocked pixel's K-th node (state at block start).
+      const float t_rej = zB / fmaxf(zA - dK, 1e-9f) * len_p;
+      int nf = 0, nbk = 0;
+      for (int j = jlo; j < jhi; ++j) {
+        const Cand cd = cand_setup(s, j, dnx, dny, dnz);
+        const float baba = s[10][j], rr = s[22][j];
+        const float oaoa = __fmaf_rn(cd.t0, cd.rdoa + cd.rd, s[17][j]);
+        Quad q;
+        q.k2 = fmaxf(baba - cd.bard * cd.bard, 1e-20f);
+        q.k1 = baba * cd.rd - cd.baoa * cd.bard;
+        const float k0 = baba * oaoa - cd.baoa * cd.baoa - s[19][j];
+        q.h = q.k1 * q.k1 - q.k2 * k0;
+        q.sq = sqrtf(fmaxf(q.h, 0.0f));
+        q.ha = cd.rd * cd.rd - (oaoa - rr);
+        q.sqa = sqrtf(fmaxf(q.ha, 0.0f));
+        q.b1b = cd.rd - cd.bard;
+        const float obob = oaoa - 2.0f * cd.baoa + baba;
+        q.hb = q.b1b * q.b1b - (obob - rr);
+        q.sqb = sqrtf(fmaxf(q.hb, 0.0f));
+        const bool cap_a_on = s[13][j] > 0.5f;
+        for (int side = 0; side <= o.two_sided; ++side) {
+          const float tc = surface_t(q, cd, baba, cap_a_on, side == 0);
+          if (!(tc < BIG)) continue;
+          const float tw = cd.t0 + tc;
+          if (!(tw >= tw_lo && tw <= tw_hi)) continue;
+          if (blocked) {
+            if (o.no_overflow) {
+              const float znd = zA - zB / fmaxf(tw * invlen, 1e-12f);
+              if (znd >= dK) continue;
+            } else if (tw >= t_rej) {
+              continue;
+            }
+          }
+          const int slot = side == 0 ? nf++ : MAX_SUB + nbk++;
+          h_tw[slot] = tw;
+          h_tc[slot] = tc;
+          h_j[slot] = j;
+        }
+      }
+
+      // At most K sweeps: the nearest tie window each.
+      for (int sw = 0; sw < K; ++sw) {
+        float bt = BIG;
+        for (int i = 0; i < nf; ++i) bt = fminf(bt, h_tw[i]);
+        for (int i = MAX_SUB; i < MAX_SUB + nbk; ++i) bt = fminf(bt, h_tw[i]);
+        if (!(bt < BIG)) break;
+        const float thr = bt + fabsf(bt) * 1e-6f;
+        float n = 0.0f, sr = 0.0f, sg = 0.0f, sb = 0.0f, sa = 0.0f;
+        for (int pass = 0; pass < 2; ++pass) {
+          const int i0 = pass == 0 ? 0 : MAX_SUB;
+          const int i1 = pass == 0 ? nf : MAX_SUB + nbk;
+          for (int i = i0; i < i1; ++i) {
+            if (!(h_tw[i] <= thr)) continue;
+            h_tw[i] = BIG;
+            n += 1.0f;
+            // Deferred-shading features of the member (headlight
+            // Blinn-Phong through scalar identities of the tube axis).
+            const int j = h_j[i];
+            const float tc = h_tc[i];
+            const Cand cd = cand_setup(s, j, dnx, dny, dnz);
+            const float y2 = cd.baoa + tc * cd.bard;
+            const float uax = clamp01(y2 * s[18][j]);
+            const float attr = s[7][j] + s[8][j] * uax;
+            const float inv_r = s[21][j], tn = s[20][j];
+            const float ndl = -(cd.rd + tc - uax * cd.bard) * inv_r;
+            const float tdl = -cd.bard * tn;
+            const float ndt = (y2 - uax * s[10][j]) * tn * inv_r;
+            const float denom = 1.0f / sqrtf(fmaxf(1.0f - tdl * tdl, 1e-6f));
+            const float cos1 = clamp01(fabsf(ndl));
+            const float cos2 = clamp01(fabsf(ndl - tdl * ndt) * denom);
+            float a;
+            if (o.alpha_from_rows) {
+              a = clamp01(s[11][j] + s[12][j] * uax);
+            } else {
+              float al;
+              tf_eval<1>(tf_opacity, n_opacity, attr, &al);
+              a = al * opacity_scale;
+            }
+            sr = sr + attr;
+            sg = sg + cos1;
+            sb = sb + cos2;
+            sa = sa + a;
+          }
+        }
+        const float nwin = fmaxf(n, 1.0f);
+        const float ca = sa / nwin;
+        const float cdp = zA - zB / fmaxf(bt * invlen, 1e-12f);
+        const float cr = sr / nwin * ca, cg = sg / nwin * ca, cb = sb / nwin * ca;
+
+        // Insert at pos = #{d_j <= carry}; a carry within the tie window of
+        // an existing node is that node, extracted earlier: dropped.
+        const float eps = fabsf(zB) * 1e-6f / fmaxf(bt * invlen, 1e-12f);
+        int pos = 0;
+        bool dup = false;
+#pragma unroll
+        for (int q = 0; q < KMAX; ++q) {
+          if (q < K) {
+            pos += nd[q] <= cdp;
+            dup = dup || (fabsf(nd[q] - cdp) <= eps && nd[q] < 2.0f);
+          }
+        }
+        if (dup) pos = K;
+        float ed = cdp, er = cr, eg = cg, eb = cb, ea = ca;  // evicted
+        if (pos < K) {
+#pragma unroll
+          for (int q = 0; q < KMAX; ++q) {
+            if (q == K - 1) {
+              ed = nd[q]; er = nr[q]; eg = ng[q]; eb = nb[q]; ea = na[q];
+            }
+          }
+#pragma unroll
+          for (int q = KMAX - 1; q >= 0; --q) {
+            if (q < K && q >= pos) {
+              if (q == pos) {
+                nd[q] = cdp; nr[q] = cr; ng[q] = cg; nb[q] = cb; na[q] = ca;
+              } else {
+                nd[q] = nd[q - 1]; nr[q] = nr[q - 1]; ng[q] = ng[q - 1];
+                nb[q] = nb[q - 1]; na[q] = na[q - 1];
+              }
+            }
+          }
+          dirty = true;
+        }
+        if (!o.no_overflow && !dup && ed < 2.0f) {
+          // MLAB overflow: the evicted fragment composites into node K-1
+          // under the new node's remaining transmittance.
+#pragma unroll
+          for (int q = 0; q < KMAX; ++q) {
+            if (q == K - 1) {
+              const float w = 1.0f - na[q];
+              nr[q] = nr[q] + w * er;
+              ng[q] = ng[q] + w * eg;
+              nb[q] = nb[q] + w * eb;
+              na[q] = fminf(na[q] + w * ea, 1.0f);
+            }
+          }
+          dirty = true;
+        }
+      }
+    }
+  }
+
+  const long long plane = (long long)n_tiles * P;
+  float* px = out + (long long)tile * P + tid;
+  if (o.composite) {
+    const float dmin = params[11], dmax = params[12], cue = params[13];
+    float T = 1.0f, ar = 0.0f, ag = 0.0f, ab = 0.0f;
+#pragma unroll
+    for (int q = 0; q < KMAX; ++q) {
+      if (q < K) {
+        const float aN = na[q];
+        const float inv_a = aN > 1e-6f ? 1.0f / fmaxf(aN, 1e-6f) : 0.0f;
+        const float attr = nr[q] * inv_a;
+        const float cos1 = fmaxf(ng[q] * inv_a, 1e-20f);
+        const float cos2 = fmaxf(nb[q] * inv_a, 1e-20f);
+        const float cosc = 0.3f * powf(cos1, 1.7f) + 0.7f * powf(cos2, 1.7f);
+        const float spec = 0.3f * powf(cos1, 30.0f);
+        float rgb[3];
+        tf_eval<3>(tf_color, n_color, attr, rgb);
+        const float shade = 0.1f + 0.9f * cosc;
+        const float vz = zB / fmaxf(zA - nd[q], 1e-9f);
+        float fcue = clamp01((vz - dmin) / fmaxf(dmax - dmin, 1e-6f));
+        fcue = fcue * fcue * cue;
+        ar = ar + T * (((rgb[0] * shade + spec) * (1.0f - fcue) + 0.5f * fcue) * aN);
+        ag = ag + T * (((rgb[1] * shade + spec) * (1.0f - fcue) + 0.5f * fcue) * aN);
+        ab = ab + T * (((rgb[2] * shade + spec) * (1.0f - fcue) + 0.5f * fcue) * aN);
+        T = T * (1.0f - aN);
+      }
+    }
+    px[0 * plane] = ar + T * params[24];
+    px[1 * plane] = ag + T * params[25];
+    px[2 * plane] = ab + T * params[26];
+    px[3 * plane] = 1.0f - T;
+  } else {
+#pragma unroll
+    for (int q = 0; q < KMAX; ++q) {
+      if (q < K) {
+        px[(long long)(0 * K + q) * plane] = nd[q];
+        px[(long long)(1 * K + q) * plane] = nr[q];
+        px[(long long)(2 * K + q) * plane] = ng[q];
+        px[(long long)(3 * K + q) * plane] = nb[q];
+        px[(long long)(4 * K + q) * plane] = na[q];
+      }
+    }
+  }
+  if (work != nullptr && tid == 0) work[tile] = evaluated;
+}
+
+// Launches one block of tile_w * tile_h threads per tile on `stream`.
+// tf: the `tf_static_table` of the color and opacity TFs. out: [4, n_tiles,
+// P] (composite) or [5 * K, n_tiles, P] float32. work: optional [n_tiles]
+// int32, the candidates each tile evaluated after the chunk exit and block
+// cull. Returns the cudaGetLastError() code of the launch.
+extern "C" int raster_capsule_mlab_launch(
+    const float* payload, long long ld, const int* tile_start, const int* tile_count,
+    const float* params, const float* tf, float* out, int* work, int n_tiles, int tiles_x,
+    int tile_w, int tile_h, float sx, float sy, int K, int chunk, int sub, int composite,
+    int no_overflow, int two_sided, int alpha_from_rows, float sat_thr,
+    void* stream) {
+  if (K < 1 || K > 32 || chunk > MAX_CHUNK || sub > MAX_SUB || sub < 1 ||
+      tile_w * tile_h > MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const Opts o{K, chunk, sub, composite, no_overflow, two_sided, alpha_from_rows, sat_thr};
+  const dim3 grid(n_tiles), block(tile_w * tile_h);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_tiles > 0) {
+    if (K <= 8)
+      mlab_kernel<8><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count, params, tf,
+                                            out, work, n_tiles, tiles_x, tile_w, tile_h, sx,
+                                            sy, o);
+    else if (K <= 16)
+      mlab_kernel<16><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count, params,
+                                             tf, out, work, n_tiles, tiles_x, tile_w, tile_h,
+                                             sx, sy, o);
+    else
+      mlab_kernel<32><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count, params,
+                                             tf, out, work, n_tiles, tiles_x, tile_w, tile_h,
+                                             sx, sy, o);
+  }
+  return (int)cudaGetLastError();
+}

@@ -26,31 +26,14 @@ from typing import Optional
 import torch
 
 from linevis_tpu_torch.kernels import _build
+from linevis_tpu_torch.kernels.capsule_common import BIG as _BIG
+from linevis_tpu_torch.kernels.capsule_common import pixel_rays
 from linevis_tpu_torch.kernels.raster_pallas import SortedBinning
 
 __all__ = ["rasterize_capsules", "rasterize_capsules_reference"]
 
-_BIG = 1e30
 _MAX_PIXELS = 512  # threads per block in the CUDA kernel (MAX_THREADS)
 _INT64_MAX = torch.iinfo(torch.int64).max
-
-
-def _pixel_rays(params, n_tiles, tiles_x, tile_w, tile_h, width, height):
-    """Unit ray directions (3 x [n_tiles, P]) and 1/|dir| for every tile pixel."""
-    dev = params.device
-    P = tile_w * tile_h
-    lin = torch.arange(P, device=dev)
-    t = torch.arange(n_tiles, device=dev)
-    gx = ((t % tiles_x)[:, None] * tile_w + (lin % tile_w)[None, :]).float() + 0.5
-    gy = ((t // tiles_x)[:, None] * tile_h + (lin // tile_w)[None, :]).float() + 0.5
-    un = gx * (2.0 / width) - 1.0
-    vn = 1.0 - gy * (2.0 / height)
-    p = params
-    dx = p[0] * un + p[1] * vn + p[2]
-    dy = p[3] * un + p[4] * vn + p[5]
-    dz = p[6] * un + p[7] * vn + p[8]
-    invlen = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
-    return (dx * invlen, dy * invlen, dz * invlen), invlen
 
 
 def _candidates(s, dn, invlen, px, use_aa):
@@ -163,7 +146,7 @@ def rasterize_capsules_reference(
     dev = csr.payload.device
     n_tiles = csr.tile_start.shape[0]
     P = tile_w * tile_h
-    dn_all, invlen_all = _pixel_rays(
+    dn_all, invlen_all = pixel_rays(
         params, n_tiles, csr.tiles_x, tile_w, tile_h, width, height
     )
     zA, zB, px = params[9], params[10], params[19]

@@ -1,0 +1,538 @@
+"""Order-independent transparency over binned capsules: the MLAB K-buffer.
+
+Counterpart of `linevis_tpu/kernels/raster_capsule_oit.py`. Each pixel
+keeps K depth-sorted nodes of front-face capsule fragments, inserted in the
+binning's front-to-back run order, with the Multi-Layer Alpha Blending
+overflow merge into node K-1 (or, with `no_overflow`, the exact front-K
+buffer of the reference's Atomic Loop). On a CUDA tensor
+`rasterize_capsules_mlab` launches the hand-written kernel
+`csrc/raster_capsule_oit.cu`; on a CPU tensor it runs
+`rasterize_capsules_mlab_reference`, the same function in plain PyTorch.
+
+What both compute, per tile, walking the run in aligned blocks of `sub`
+candidates (the block grid is fixed by absolute pair index, as the JAX
+kernel's chunk/sub-chunk walk fixes it):
+  1. chunk exit and block cull (tile-wide): a chunk or block whose least
+     bucket-floored depth (payload row 15) lies behind every pixel's bound
+     (the K-th node's depth where the pixel is blocked, else 2.0) is
+     skipped; runs are depth-bucket ordered, so the chunk exit ends the run;
+  2. per candidate: the entry surface (and, `two_sided`, the exit surface)
+     of the capsule, its world t clipped to the NDC depth range, and the
+     rejection of fragments behind a blocked pixel's K-th node, all against
+     the node state at the start of the block;
+  3. at most K sweeps per block: each takes the nearest remaining tie
+     window (t <= t_min + |t_min|*1e-6), averages its deferred-shading
+     features (attr, cos1, cos2) and alpha, and inserts the carry at
+     pos = #{d_j <= carry} unless it is within the dedup window of an
+     existing node; an insertion past K merges the evicted fragment into
+     node K-1 with weight 1 - a_{K-1} (MLAB), or drops it (`no_overflow`).
+     Candidates past the K-th window of a block are dropped;
+  4. `composite`: shade the nodes (TF color, Phong cosine powers, depth cue)
+     and blend them front to back over the background in params[24:27].
+
+Modes not ported yet raise NotImplementedError: store modes 'gather',
+'wboit', 'count', 'mboit_gen', 'mboit_resolve', depth peeling (`peel`),
+in-kernel per-fragment shading (`deferred_shade=False`) and band shading
+(`use_bands`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from linevis_tpu_torch.kernels import _build
+from linevis_tpu_torch.kernels.capsule_common import BIG, fma32, pixel_rays
+from linevis_tpu_torch.kernels.raster_pallas import SortedBinning
+from linevis_tpu_torch.render.transfer_function import (
+    tf_channels_static,
+    tf_static_table,
+)
+
+__all__ = [
+    "rasterize_capsules_mlab", "rasterize_capsules_mlab_reference", "shade_nodes",
+    "blend_front_to_back",
+]
+
+_K_MAX = 32  # deepest node buffer of the CUDA kernel (templated on 8/16/32)
+ROWS = 23  # payload rows the kernel reads: 0-22
+_MAX_PIXELS = 512  # threads per block in the CUDA kernel
+_MAX_SUB = 64  # per-thread candidate slots of the CUDA kernel: 2 * sub
+_MAX_CHUNK = 256  # staged payload columns of the CUDA kernel
+_UNPORTED_STORE_MODES = ("gather", "wboit", "count", "mboit_gen", "mboit_resolve")
+_tf_tables = {}  # (tf_color, tf_opacity, device) -> the kernel's TF table
+
+
+def _row_product(x: torch.Tensor, n: int) -> torch.Tensor:
+    """prod over the leading n rows of x ([n, ...] -> [1, ...]) as a halving
+    tree (an odd remainder row folds into row 0): the JAX kernel's order of
+    multiplications, so T_K <= 1 - sat is decided on the same bits."""
+    while n > 1:
+        h = n // 2
+        lo = x[0:h] * x[h:2 * h]
+        if n % 2:
+            lo = torch.cat([lo[0:1] * x[n - 1:n], lo[1:]], dim=0)
+        x, n = lo, h
+    return x
+
+
+def _check_modes(store_mode, deferred_shade, peel, use_bands, composite, K, chunk, sub,
+                 tf_color):
+    """Mode checks shared by the kernel and its plain version; -> sub."""
+    if store_mode in _UNPORTED_STORE_MODES:
+        raise NotImplementedError(f"store_mode={store_mode!r} is not ported yet")
+    if store_mode != "shade":
+        raise ValueError(f"unknown store_mode {store_mode!r}")
+    if peel is not None:
+        raise NotImplementedError("depth peeling ('peel') is not ported yet")
+    if not deferred_shade:
+        raise NotImplementedError(
+            "deferred_shade=False (per-fragment shading) is not ported yet"
+        )
+    if use_bands:
+        raise NotImplementedError("use_bands (band shading) is not ported yet")
+    if not 1 <= K <= _K_MAX:
+        raise ValueError(f"K={K}: need 1 <= K <= {_K_MAX}")
+    if composite and not tf_color:
+        raise ValueError("composite needs the color TF's control points (tf_color)")
+    # Sub-chunk width: a multiple-of-8 divisor of the chunk; wider clamps.
+    if sub >= chunk:
+        sub = chunk
+    elif sub <= 0 or chunk % sub or sub % 8:
+        raise ValueError(f"sub={sub} must be a multiple-of-8 divisor of chunk={chunk}")
+    return sub
+
+
+def _surfaces(s, dn, in_run, two_sided):
+    """Capsule hits of candidates `s` ([ROWS, A, M, 1] payload rows) against
+    rays dn ([A, 1, P] each): (tcand [A, M', P] relative t or BIG, t0, and
+    the per-candidate scalars the shading reuses). M' = 2M with the exit
+    surfaces after the entry surfaces when `two_sided`."""
+    dnx, dny, dnz = dn
+    baoa0, oaoa0, rrbaba, rr, baba = s[16], s[17], s[19], s[22], s[10]
+    bard = s[3] * dnx + s[4] * dny + s[5] * dnz
+    rdoa = s[0] * dnx + s[1] * dny + s[2] * dnz
+    t0 = -(rdoa + 0.5 * bard)
+    # Re-origin at the closest approach to the segment midpoint, each start
+    # rounded once (the kernel's __fmaf_rn): rd = (oa + t0*d).d = -bard/2.
+    rd = -0.5 * bard
+    baoa = fma32(t0, bard, baoa0)
+    oaoa = fma32(t0, rdoa + rd, oaoa0)
+
+    k2 = torch.clamp(baba - bard * bard, min=1e-20)
+    k1 = baba * rd - baoa * bard
+    k0 = baba * oaoa - baoa * baoa - rrbaba
+    h = k1 * k1 - k2 * k0
+    sq = torch.sqrt(torch.clamp(h, min=0.0))
+    ha = rd * rd - (oaoa - rr)
+    sqa = torch.sqrt(torch.clamp(ha, min=0.0))
+    b1b = rd - bard
+    obob = oaoa - 2.0 * baoa + baba
+    hb = b1b * b1b - (obob - rr)
+    sqb = torch.sqrt(torch.clamp(hb, min=0.0))
+    cap_a_on = s[13] > 0.5
+    big = torch.full_like(bard, BIG)
+
+    def cand(tp, ok):
+        return torch.where(ok & in_run & (t0 + tp > 0.0), tp, big)
+
+    def surface_t(near):
+        if near:
+            tb, ta, tc = (-k1 - sq) / k2, -rd - sqa, -b1b - sqb
+        else:
+            tb, ta, tc = (-k1 + sq) / k2, -rd + sqa, -b1b + sqb
+        yb, ya, yc = baoa + tb * bard, baoa + ta * bard, baoa + tc * bard
+        return torch.minimum(
+            cand(tb, (h >= 0.0) & (yb > 0.0) & (yb < baba)),
+            torch.minimum(
+                cand(ta, (ha >= 0.0) & (ya <= 0.0) & cap_a_on),
+                cand(tc, (hb >= 0.0) & (yc >= baba)),
+            ),
+        )
+
+    tcand = surface_t(True)
+    if two_sided:
+        tcand = torch.cat([tcand, surface_t(False)], dim=1)
+    return tcand, t0, (bard, rd, baoa)
+
+
+def _features(s, tcand, geo, tf_opacity, opacity_scale, alpha_from_rows, two_sided):
+    """Deferred-shading features of every candidate fragment: (attr, cos1,
+    cos2, alpha), each [A, M', P]. Headlight Blinn-Phong through scalar
+    identities of the unit ray and the tube axis (no per-pixel normal)."""
+    bard, rd, baoa = geo
+
+    def two(x):
+        return torch.cat([x, x], dim=1) if two_sided else x
+
+    bard2, rd2 = two(bard), two(rd)
+    y2 = two(baoa) + tcand * bard2
+    uax = torch.clamp(y2 * two(s[18]), 0.0, 1.0)
+    attr = two(s[7]) + two(s[8]) * uax
+    inv_r2 = two(s[21])
+    ndl = -(rd2 + tcand - uax * bard2) * inv_r2
+    tn2 = two(s[20])
+    tdl = -bard2 * tn2
+    ndt = (y2 - uax * two(s[10])) * tn2 * inv_r2
+    denom = 1.0 / torch.sqrt(torch.clamp(1.0 - tdl * tdl, min=1e-6))
+    cos1 = torch.clamp(torch.abs(ndl), 0.0, 1.0)
+    cos2 = torch.clamp(torch.abs(ndl - tdl * ndt) * denom, 0.0, 1.0)
+    if alpha_from_rows:
+        ac = torch.clamp(two(s[11]) + two(s[12]) * uax, 0.0, 1.0)
+    else:
+        ac = tf_channels_static(tf_opacity, 1, attr)[0] * opacity_scale
+    return attr, cos1, cos2, ac
+
+
+def _sweeps(st, tw, feats, invlen, zA, zB, K, no_overflow, stats):
+    """At most K extraction sweeps of one block into the node state st
+    ([A, 5, K, P], updated in place). tw [A, M', P]; feats 4 x [A, M', P].
+    Adds the (pixel, sweep) extractions and their window members to
+    `stats` when it is a dict."""
+    kidx = torch.arange(K, device=tw.device)[None, :, None]
+    M = tw.shape[1]
+    for _ in range(K):
+        bt = tw.amin(dim=1)
+        has = bt < BIG
+        if not bool(has.any()):
+            break
+        win = tw <= (bt + torch.abs(bt) * 1e-6)[:, None]
+        nwin = torch.clamp(win.sum(dim=1).float(), min=1.0)
+        if stats is not None:
+            stats["sweeps"] += int(has.sum())
+            stats["members"] += int((win & has[:, None]).sum())
+        # Window sums in candidate order, as the kernel accumulates them.
+        acc = [torch.zeros_like(bt) for _ in feats]
+        for j in range(M):
+            wj = win[:, j]
+            for c, f in enumerate(feats):
+                acc[c] = acc[c] + torch.where(wj, f[:, j], 0.0)
+        sel = [torch.where(has, a / nwin, 0.0) for a in acc]
+        znd = torch.where(has, zA - zB / torch.clamp(bt * invlen, min=1e-12), 2.0)
+        sa = sel[3]
+        carry = (znd, sel[0] * sa, sel[1] * sa, sel[2] * sa, sa)
+
+        d_all = st[:, 0]
+        pos = (d_all <= znd[:, None]).sum(dim=1)
+        # A carry within the tie window of an existing node is that node
+        # (coincident geometry extracted in an earlier block): dropped.
+        eps_znd = torch.abs(zB) * 1e-6 / torch.clamp(bt * invlen, min=1e-12)
+        dup = (
+            ((torch.abs(d_all - znd[:, None]) <= eps_znd[:, None]) & (d_all < 2.0))
+            .any(dim=1) & has
+        )
+        pos = torch.where(dup, K, pos)[:, None]
+        shifted = torch.cat([st[:, :, 0:1], st[:, :, :K - 1]], dim=2)
+        carry_t = torch.stack(carry, dim=1)[:, :, None]
+        new = torch.where(
+            (kidx < pos)[:, None], st,
+            torch.where((kidx == pos)[:, None], carry_t, shifted),
+        )
+        if not no_overflow:
+            # MLAB overflow: the evicted fragment (old node K-1 after an
+            # insert, else the carry) composites into node K-1 under the
+            # new node's remaining transmittance.
+            ev = torch.where(pos < K, st[:, :, K - 1], carry_t[:, :, 0])
+            evict = has & ~dup & (ev[:, 0] < 2.0)
+            w = 1.0 - new[:, 4, K - 1]
+            for ch in (1, 2, 3):
+                new[:, ch, K - 1] = new[:, ch, K - 1] + torch.where(evict, w * ev[:, ch], 0.0)
+            new[:, 4, K - 1] = torch.clamp(
+                new[:, 4, K - 1] + torch.where(evict, w * ev[:, 4], 0.0), max=1.0
+            )
+        st.copy_(new)
+        tw = torch.where(win, BIG, tw)
+
+
+def _bound(st, K, no_overflow, sat_thr):
+    """(blocked [A, P], dK [A, P]) of the node state: a blocked pixel drops
+    every fragment behind its K-th node (no_overflow: the buffer is full;
+    overflow: T_K = prod(1 - a_i) <= 1 - sat)."""
+    dK = st[:, 0, K - 1]
+    if no_overflow:
+        return dK < 2.0, dK
+    T_K = _row_product((1.0 - st[:, 4]).transpose(0, 1), K)[0]
+    return T_K <= sat_thr, dK
+
+
+def shade_nodes(depths, feat, alpha, zA, zB, dmin, dmax, cue, tf_color,
+                use_bands: bool = False):
+    """Deferred shading of K nodes that carry PREMULTIPLIED features (attr,
+    cos1, cos2): un-premultiply, apply the color TF, the Phong cosine
+    powers and the depth cue once per node, and re-premultiply. feat
+    [3, K, ...]; depths, alpha [K, ...] -> premultiplied rgb [3, K, ...].
+    The kernel's composite computes the same with use_bands=False."""
+    inv_a = torch.where(alpha > 1e-6, 1.0 / torch.clamp(alpha, min=1e-6), 0.0)
+    attr = feat[0] * inv_a
+    cos1 = torch.clamp(feat[1] * inv_a, min=1e-20)
+    cos2 = torch.clamp(feat[2] * inv_a, min=1e-20)
+    e = 1.0 if use_bands else 1.7
+    cosc = 0.3 * cos1 ** e + 0.7 * cos2 ** e
+    spec = 0.3 * cos1 ** 30.0
+    rgb = torch.stack(tf_channels_static(tf_color, 3, attr))
+    shade = 0.1 + 0.9 * cosc
+    vz = zB / torch.clamp(zA - depths, min=1e-9)
+    fcue = torch.clamp((vz - dmin) / torch.clamp(dmax - dmin, min=1e-6), 0.0, 1.0)
+    fcue = fcue * fcue * cue
+    col = (rgb * shade[None] + spec[None]) * (1.0 - fcue[None]) + 0.5 * fcue[None]
+    return col * alpha[None]
+
+
+def blend_front_to_back(rgb, alpha, bg):
+    """Blend premultiplied nodes (rgb [3, K, ...], alpha [K, ...]) front to
+    back over the background color bg [3] -> [4, ...] RGBA."""
+    T = torch.ones_like(alpha[0])
+    acc = torch.zeros_like(rgb[:, 0])
+    for j in range(alpha.shape[0]):
+        acc = acc + T[None] * rgb[:, j]
+        T = T * (1.0 - alpha[j])
+    bg = bg.reshape((3,) + (1,) * T.dim())
+    return torch.cat([acc + T[None] * bg, (1.0 - T)[None]])
+
+
+def rasterize_capsules_mlab_reference(
+    csr: SortedBinning,
+    params: torch.Tensor,
+    width: int,
+    height: int,
+    tile_w: int = 32,
+    tile_h: int = 16,
+    K: int = 8,
+    tf_color: tuple = (),
+    tf_opacity: tuple = ((0.0, 1.0), (1.0, 1.0)),
+    use_bands: bool = False,
+    alpha_from_rows: bool = False,
+    no_overflow: bool = False,
+    sub: int = 32,
+    sat: float = 0.999,
+    composite: bool = False,
+    two_sided: bool = False,
+    work: Optional[torch.Tensor] = None,
+    batch_tiles: int = 2048,
+    stats: Optional[dict] = None,
+):
+    """Plain PyTorch version of the MLAB kernel (deferred-shade modes, same
+    contract as `rasterize_capsules_mlab`). It walks every tile's run by
+    block index, batching at each index the tiles whose run reaches it
+    (`batch_tiles` at a time); `work`, an optional [n_tiles] int32 tensor,
+    receives the candidates each tile evaluated after the culls. `stats`,
+    an optional dict, receives the work the run's data needed: "hits"
+    ((candidate, pixel) fragments past the clip and the rejection),
+    "sweeps" ((pixel, sweep) extractions) and "members" (fragments in the
+    extracted tie windows)."""
+    if stats is not None:
+        stats.update(hits=0, sweeps=0, members=0)
+    dev = csr.payload.device
+    n_tiles = csr.tile_start.shape[0]
+    P = tile_w * tile_h
+    C = csr.chunk
+    sub = _check_modes("shade", True, None, use_bands, composite, K, C, sub, tf_color)
+    dn_all, invlen_all = pixel_rays(
+        params, n_tiles, csr.tiles_x, tile_w, tile_h, width, height
+    )
+    zA, zB = params[9], params[10]
+    opacity_scale = params[14]
+    sat_thr = float(np.float32(1.0 - sat))
+    payload = csr.payload[:ROWS]
+    last_col = payload.shape[1] - 1
+
+    start = csr.tile_start.long()
+    end = start + csr.tile_count.long()
+    first_block = start // sub
+    n_blocks = torch.where(end > start, (end - 1) // sub - first_block + 1, 0)
+    st_all = torch.zeros((n_tiles, 5, K, P), dtype=torch.float32, device=dev)
+    st_all[:, 0] = 2.0
+    stopped = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    evaluated = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    lane = torch.arange(sub, device=dev)
+    lane_c = torch.arange(C, device=dev)
+
+    for i in range(int(n_blocks.max()) if n_tiles else 0):
+        active = torch.nonzero((n_blocks > i) & ~stopped).flatten()
+        for tiles in active.split(batch_tiles):
+            st = st_all[tiles]
+            t_start, t_end = start[tiles, None], end[tiles, None]
+            col0 = (first_block[tiles] + i) * sub
+            blocked, dK = _bound(st, K, no_overflow, sat_thr)
+            zk_eff = torch.where(blocked, dK, 2.0).amax(dim=1)
+            # Chunk exit: at the first block of a chunk (or of the run), a
+            # chunk whose in-run candidates all lie behind the tile's bound
+            # ends the run.
+            ccol0 = col0 // C * C
+            opens = (col0 == ccol0) | (i == 0)
+            ccols = ccol0[:, None] + lane_c
+            c_in = (ccols >= t_start) & (ccols < t_end)
+            czmin = torch.where(c_in, payload[15][ccols.clamp(max=last_col)], 3.0).amin(dim=1)
+            exits = opens & (czmin > zk_eff)
+            stopped[tiles[exits]] = True
+            cols = col0[:, None] + lane
+            in_run = (cols >= t_start) & (cols < t_end)
+            s = payload[:, cols.clamp(max=last_col)]  # [ROWS, A, sub]
+            zmin = torch.where(in_run, s[15], 3.0).amin(dim=1)
+            live = ~exits & (zmin <= zk_eff)
+            evaluated[tiles[live]] += in_run[live].sum(dim=1)
+            if not bool(live.any()):
+                continue
+            tiles, st, s = tiles[live], st[live], s[:, live, :, None]
+            in_run, blocked, dK = in_run[live, :, None], blocked[live], dK[live]
+            dn = tuple(d[tiles][:, None, :] for d in dn_all)
+            invlen = invlen_all[tiles][:, None, :]
+            len_p = 1.0 / invlen
+
+            tcand, t0, geo = _surfaces(s, dn, in_run, two_sided)
+            t0c = torch.cat([t0, t0], dim=1) if two_sided else t0
+            tw = torch.where(tcand < BIG, t0c + tcand, BIG)
+            # Near/far clip in NDC, as world-t bounds of the pixel's ray.
+            tw_lo = (zB / zA) * len_p
+            tw_hi = (zB / (zA - 1.0)) * len_p
+            tw = torch.where((tw >= tw_lo) & (tw <= tw_hi), tw, BIG)
+            # Reject fragments behind a blocked pixel's K-th node (node state
+            # at the start of the block).
+            if no_overflow:
+                znd = zA - zB / torch.clamp(tw * invlen, min=1e-12)
+                tw = torch.where(blocked[:, None] & (znd >= dK[:, None]), BIG, tw)
+            else:
+                t_rej = zB / torch.clamp(zA - dK, min=1e-9) * len_p[:, 0]
+                tw = torch.where(blocked[:, None] & (tw >= t_rej[:, None]), BIG, tw)
+            n_hits = int((tw < BIG).sum())
+            if stats is not None:
+                stats["hits"] += n_hits
+            if not n_hits:
+                continue
+            feats = _features(s, tcand, geo, tf_opacity, opacity_scale,
+                              alpha_from_rows, two_sided)
+            _sweeps(st, tw, feats, invlen[:, 0], zA, zB, K, no_overflow, stats)
+            st_all[tiles] = st
+
+    if work is not None:
+        work.copy_(evaluated)
+    out = st_all.permute(1, 2, 0, 3)  # [5, K, T, P]
+    if composite:
+        rgb = shade_nodes(out[0], out[1:4], out[4], params[9], params[10], params[11],
+                          params[12], params[13], tf_color)
+        return blend_front_to_back(rgb, out[4], params[24:27])
+    return out[0], out[1:4], out[4]
+
+
+def _launcher():
+    """The kernel's C entry point (built and loaded at first use), with its
+    argument types declared so ctypes passes 64-bit pointers."""
+    fn = _build.load("raster_capsule_oit").raster_capsule_mlab_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p,
+                   i, i, i, i, f, f, i, i, i, i, i, i, i, f, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rasterize_capsules_mlab(
+    csr: SortedBinning,
+    params: torch.Tensor,  # [32] (see tube_raster.prepare_capsule_frame)
+    width: int,
+    height: int,
+    tile_w: int = 32,
+    tile_h: int = 16,
+    K: int = 8,
+    tf_color: tuple = (),
+    tf_opacity: tuple = ((0.0, 1.0), (1.0, 1.0)),
+    use_bands: bool = False,
+    store_mode: str = "shade",
+    alpha_from_rows: bool = False,
+    n_mom: int = 4,
+    trig: bool = False,
+    moments: torch.Tensor = None,
+    peel: torch.Tensor = None,
+    no_overflow: bool = False,
+    deferred_shade: bool = False,
+    sub: int = 32,
+    sat: float = 0.999,
+    composite: bool = False,
+    two_sided: bool = False,
+    work: Optional[torch.Tensor] = None,
+):
+    """MLAB-K transparency pass (signature of the JAX kernel's wrapper).
+
+    Returns (depths [K, n_tiles, P], premultiplied features [3, K, n_tiles, P]
+    = (attr, cos1, cos2) * alpha, alpha [K, n_tiles, P]); empty nodes have
+    depth 2.0 and alpha 0. With `composite=True` the nodes are shaded and
+    blended front to back over the background in params[24:28] instead ->
+    [4, n_tiles, P] RGBA. Ported: store_mode 'shade' with deferred_shade,
+    composite on or off, no_overflow, two_sided, alpha_from_rows (alpha =
+    row 11 + row 12 * u), sat, sub, 1 <= K <= 32; `n_mom`, `trig` and
+    `moments` belong to the MBOIT modes, which raise NotImplementedError, as
+    `use_bands` does.
+
+    A CUDA payload launches the CUDA kernel (and counts the launch in
+    `rasterize_capsules_mlab.launches`); a CPU payload runs the plain
+    version. `work`, an optional [n_tiles] int32 tensor, receives the
+    candidates each tile evaluated after the chunk exit and block cull.
+    """
+    C = csr.chunk
+    sub = _check_modes(store_mode, deferred_shade, peel, use_bands, composite, K, C, sub,
+                       tf_color)
+    payload = csr.payload
+    kw = dict(K=K, tf_color=tf_color, tf_opacity=tf_opacity, use_bands=use_bands,
+              alpha_from_rows=alpha_from_rows, no_overflow=no_overflow, sub=sub,
+              sat=sat, composite=composite, two_sided=two_sided, work=work)
+    if payload.device.type == "cpu":
+        return rasterize_capsules_mlab_reference(
+            csr, params, width, height, tile_w, tile_h, **kw
+        )
+    if payload.device.type != "cuda":
+        raise ValueError(f"rasterize_capsules_mlab: unsupported device {payload.device}")
+
+    n_tiles = csr.tile_start.shape[0]
+    P = tile_w * tile_h
+    if P % 32 or P > _MAX_PIXELS:
+        raise ValueError(f"tile of {P} pixels: need a multiple of 32, at most {_MAX_PIXELS}")
+    if sub > _MAX_SUB or C > _MAX_CHUNK:
+        raise ValueError(f"sub={sub}, chunk={C}: the CUDA kernel takes sub <= "
+                         f"{_MAX_SUB} and chunk <= {_MAX_CHUNK}")
+    if payload.dtype != torch.float32 or payload.dim() != 2 or payload.shape[0] < ROWS:
+        raise ValueError(f"payload must be [R >= {ROWS}, pairs] float32")
+    if params.dtype != torch.float32 or params.numel() < 28:
+        raise ValueError("params must be float32 with at least 28 entries")
+    tensors = [payload, csr.tile_start, csr.tile_count, params]
+    if work is not None:
+        tensors.append(work)
+        if work.dtype != torch.int32 or work.shape != (n_tiles,):
+            raise ValueError("work must be [n_tiles] int32")
+    for t in tensors:
+        if t.device != payload.device or not t.is_contiguous():
+            raise ValueError("inputs must be contiguous on the payload's device")
+    if csr.tile_start.dtype != torch.int32 or csr.tile_count.dtype != torch.int32:
+        raise ValueError("tile_start / tile_count must be int32")
+
+    # Node mode reads no color TF: a black one stands in for an empty tf_color.
+    key = (tf_color or ((0.0, 0.0, 0.0, 0.0),), tf_opacity, str(payload.device))
+    tf = _tf_tables.get(key)
+    if tf is None:
+        tf = torch.from_numpy(tf_static_table(*key[:2])).to(payload.device)
+        _tf_tables[key] = tf
+    n_out = 4 if composite else 5 * K
+    out = torch.empty((n_out, n_tiles, P), dtype=torch.float32, device=payload.device)
+    with torch.cuda.device(payload.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _launcher()(
+            payload.data_ptr(), payload.shape[1],
+            csr.tile_start.data_ptr(), csr.tile_count.data_ptr(),
+            params.data_ptr(), tf.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(),
+            n_tiles, csr.tiles_x, tile_w, tile_h, 2.0 / width, 2.0 / height,
+            K, C, sub, int(composite), int(no_overflow), int(two_sided),
+            int(alpha_from_rows), float(np.float32(1.0 - sat)),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"raster_capsule_oit kernel launch failed: CUDA error {rc}")
+    rasterize_capsules_mlab.launches += 1
+    if composite:
+        return out
+    out = out.reshape(5, K, n_tiles, P)
+    return out[0], out[1:4], out[4]
+
+
+rasterize_capsules_mlab.launches = 0

@@ -13,7 +13,10 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["TransferFunction", "srgb_to_linear", "linear_to_srgb", "tf_eval_points"]
+__all__ = [
+    "TransferFunction", "srgb_to_linear", "linear_to_srgb", "tf_eval_points",
+    "tf_channels_static", "tf_static_table",
+]
 
 
 def tf_eval_points(color_pts, opacity_pts, x: torch.Tensor):
@@ -22,24 +25,57 @@ def tf_eval_points(color_pts, opacity_pts, x: torch.Tensor):
     color_pts: tuple of (pos, r, g, b) in LINEAR RGB; opacity_pts: tuple of
     (pos, a). x [...] in [0, 1] -> (rgb [3, ...], alpha [...]).
     """
+    rgb = tf_channels_static(color_pts, 3, x)
+    return torch.stack(rgb, dim=0), tf_channels_static(opacity_pts, 1, x)[0]
+
+
+def _tf_segments(pts, nch):
+    """The float32 constants of the unrolled TF (the JAX package's
+    `tf_eval_points` and OIT kernel's `_tf_channels_static`): the first
+    point's values, then per
+    segment (p0, p1, span, v0[nch], dv[nch]). span = max(p1 - p0, 1e-9) and
+    dv = v1 - v0 are formed in float64 from the points, as Python floats
+    are, and rounded to float32 once."""
+    f32 = np.float32
+    init = [f32(pts[0][1 + c]) for c in range(nch)]
+    segs = []
+    for k in range(len(pts) - 1):
+        p0, p1 = float(pts[k][0]), float(pts[k + 1][0])
+        v0 = [f32(pts[k][1 + c]) for c in range(nch)]
+        dv = [f32(float(pts[k + 1][1 + c]) - float(pts[k][1 + c])) for c in range(nch)]
+        segs.append([f32(p0), f32(p1), f32(max(p1 - p0, 1e-9)), *v0, *dv])
+    return init, segs
+
+
+def tf_static_table(tf_color, tf_opacity) -> np.ndarray:
+    """Flat float32 table of both TFs for the CUDA kernels:
+    [n_color_points, n_opacity_points, color init[3], color segments
+    (p0, p1, span, v0[3], dv[3]) ..., opacity init[1], opacity segments
+    (p0, p1, span, v0, dv) ...]."""
+    out = [float(len(tf_color)), float(len(tf_opacity))]
+    for pts, nch in ((tf_color, 3), (tf_opacity, 1)):
+        init, segs = _tf_segments(pts, nch)
+        out += init
+        for seg in segs:
+            out += seg
+    return np.asarray(out, np.float32)
+
+
+def tf_channels_static(pts, nch, x: torch.Tensor):
+    """Unrolled piecewise-linear TF over `x` with `_tf_segments`' float32
+    constants -> list of nch tensors. Later segments win at shared
+    endpoints, as in the unrolled `where` chain of the JAX kernel."""
+    init, segs = _tf_segments(pts, nch)
     xc = torch.clamp(x, 0.0, 1.0)
-
-    def eval_channels(pts, nch):
-        outs = [torch.full_like(x, float(pts[0][1 + c])) for c in range(nch)]
-        for k in range(len(pts) - 1):
-            p0 = float(pts[k][0])
-            p1 = float(pts[k + 1][0])
-            seg = (xc >= p0) & (xc <= p1)
-            w = (xc - p0) / max(p1 - p0, 1e-9)
-            for c in range(nch):
-                v0 = float(pts[k][1 + c])
-                v1 = float(pts[k + 1][1 + c])
-                outs[c] = torch.where(seg, v0 + w * (v1 - v0), outs[c])
-        return outs
-
-    rgb = eval_channels(color_pts, 3)
-    a = eval_channels(opacity_pts, 1)[0]
-    return torch.stack(rgb, dim=0), a
+    outs = [torch.full_like(x, float(v)) for v in init]
+    for seg in segs:
+        p0, p1, span = (float(v) for v in seg[:3])
+        v0, dv = seg[3:3 + nch], seg[3 + nch:]
+        inside = (xc >= p0) & (xc <= p1)
+        w = (xc - p0) / span
+        for c in range(nch):
+            outs[c] = torch.where(inside, float(v0[c]) + w * float(dv[c]), outs[c])
+    return outs
 
 
 def srgb_to_linear(c):

@@ -120,14 +120,13 @@ def prepare_capsule_frame(
     """Project segments, build the sorted tile binning + kernel params.
 
     Returns (csr, params [32], basis [3, 3]); csr.payload is [24, Np + chunk]
-    (16 sorted rows + 8 derived rows). Band-local rendering (`y_offset`,
-    `full_height`) and per-segment alpha (`seg_alpha`) belong to the
-    multi-GPU and opacity-optimization paths, which are not ported yet.
+    (16 sorted rows + 8 derived rows). `seg_alpha` [2, S] (alpha0, dalpha)
+    fills payload rows 11-12 (the OIT kernel's per-segment alpha). Band-local
+    rendering (`y_offset`, `full_height`) belongs to the multi-GPU path,
+    which is not ported yet.
     """
-    if seg_alpha is not None or y_offset is not None or full_height is not None:
-        raise NotImplementedError(
-            "seg_alpha / band-local rendering are not ported yet"
-        )
+    if y_offset is not None or full_height is not None:
+        raise NotImplementedError("band-local rendering is not ported yet")
     dev = scene.a.device
     o = camera_position
     a = scene.a
@@ -174,6 +173,10 @@ def prepare_capsule_frame(
     zndc_min = proj_ab[0] - proj_ab[1] / vz_min
     zq = torch.floor(torch.clamp(zndc_min, 0.0, 1.0) * 1023.0) / 1023.0
     ones = torch.ones(S, dtype=torch.float32, device=dev)
+    if seg_alpha is None:
+        alpha0, dalpha = ones, torch.zeros_like(ones)
+    else:
+        alpha0, dalpha = seg_alpha[0], seg_alpha[1]
     payload = torch.stack(
         [
             oa[0], oa[1], oa[2],
@@ -183,8 +186,8 @@ def prepare_capsule_frame(
             scene.dattr,
             torch.arange(S, dtype=torch.float32, device=dev),  # row 9: id
             baba,
-            ones,  # row 11: per-segment alpha (opacity optimization)
-            torch.zeros_like(ones),  # row 12: dalpha
+            alpha0,  # row 11: per-segment alpha (opacity optimization)
+            dalpha,  # row 12
             scene.cap_a,  # row 13: render the start cap (chain starts only)
             Cb,
             zq,
