@@ -6,12 +6,14 @@ write a Chrome/Perfetto trace; `device_summary` turns a recording into the
 device's busy time, its idle share of a host-timed window, and the kernels
 that take the time.
 
-    python -m linevis_tpu_torch.automation.profiling [OUT_DIR [opaque|mlab]]
+    python -m linevis_tpu_torch.automation.profiling [OUT_DIR [opaque|mlab|prism|triangle]]
 
 profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
-default) the opaque frame (`render_tubes`, tile 32x16, AA on), `mlab` the
-transparent MLAB frame (`render_tubes_mlab`, tile 16x8, K=8, opacity 0.3).
-It runs 8 orbit-camera frames after 2 warm-up frames, timed once without
+default) the opaque capsule frame (`render_tubes`, tile 32x16, AA on),
+`mlab` the transparent MLAB frame (`render_tubes_mlab`, tile 16x8, K=8,
+opacity 0.3), `prism` the opaque 8-gon prism frame (`render_tubes_prism`,
+tile 32x16), `triangle` the opaque triangle-tube frame (`render_opaque`, 8
+subdivisions, tile 32x16). It runs 8 orbit-camera frames after 2 warm-up frames, timed once without
 the profiler (the window the idle share is taken against) and once
 recorded, and prints one JSON line; with OUT_DIR (give "" for none) it
 also writes that line to OUT_DIR/summary.json and the Chrome trace to
@@ -67,14 +69,25 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     import subprocess
     from functools import partial
 
-    from linevis_tpu_torch.entry import tornado_scene
+    from linevis_tpu_torch.entry import (
+        tornado_prism_scene,
+        tornado_scene,
+        tornado_tube_mesh,
+    )
     from linevis_tpu_torch.render.camera import Camera
     from linevis_tpu_torch.render.oit import render_tubes_mlab
+    from linevis_tpu_torch.render.opaque import render_opaque
     from linevis_tpu_torch.render.pipeline import RasterSettings
-    from linevis_tpu_torch.render.tube_raster import camera_tensors, render_tubes
+    from linevis_tpu_torch.render.transfer_function import TransferFunction
+    from linevis_tpu_torch.render.tube_raster import (
+        camera_tensors,
+        render_tubes,
+        render_tubes_prism,
+    )
 
-    if path not in ("opaque", "mlab"):
-        raise SystemExit(f"profiling: unknown path {path!r} (opaque or mlab)")
+    paths = ("opaque", "mlab", "prism", "triangle")
+    if path not in paths:
+        raise SystemExit(f"profiling: unknown path {path!r} (one of {', '.join(paths)})")
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device")
     gpu = subprocess.run(
@@ -83,14 +96,24 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     W, H, n = 1920, 1080, 8
-    scene = tornado_scene(dev)
+    wide = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
     if path == "opaque":
-        render = partial(render_tubes,
-                         settings=RasterSettings(width=W, height=H, tile_w=32, tile_h=16))
-    else:
+        scene = tornado_scene(dev)
+        render = partial(render_tubes, settings=wide)
+    elif path == "mlab":
+        scene = tornado_scene(dev)
         render = partial(render_tubes_mlab,
                          settings=RasterSettings(width=W, height=H, tile_w=16, tile_h=8),
                          K=8, opacity=0.3)
+    elif path == "prism":
+        scene = tornado_prism_scene(dev)
+        render = partial(render_tubes_prism, settings=wide)
+    else:
+        scene = tornado_tube_mesh(dev)
+        table = torch.as_tensor(TransferFunction.standard().table, device=dev)
+
+        def render(mesh, view_proj, position, _proj_ab):
+            return render_opaque(mesh, view_proj, position, table, wide)
     base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
     cams = [camera_tensors(base.orbit(0.002 * (i + 1), 0.1, 1.2), dev)
             for i in range(n + 2)]

@@ -1,7 +1,8 @@
 """Carry state across from the JAX package as plain numpy arrays.
 
 The system has no weights: its state is the scene. A caller holding a
-`linevis_tpu` `CapsuleScene` or `Trajectories` passes its fields as numpy
+`linevis_tpu` `CapsuleScene`, `PrismScene`, `TubeMesh` or `Trajectories`
+passes its fields as numpy
 arrays (e.g. `{f.name: np.asarray(getattr(s, f.name)) for f in
 dataclasses.fields(s)}`), and gets the port's counterpart back.
 """
@@ -12,9 +13,13 @@ import numpy as np
 import torch
 
 from linevis_tpu_torch.core.trajectories import Trajectories
-from linevis_tpu_torch.render.tube_raster import CapsuleScene
+from linevis_tpu_torch.geometry.tubes import TubeMesh
+from linevis_tpu_torch.render.tube_raster import CapsuleScene, PrismScene
 
-__all__ = ["capsule_scene_from_numpy", "trajectories_from_numpy"]
+__all__ = [
+    "capsule_scene_from_numpy", "prism_scene_from_numpy", "tube_mesh_from_numpy",
+    "trajectories_from_numpy",
+]
 
 
 def capsule_scene_from_numpy(d, device="cuda") -> CapsuleScene:
@@ -31,6 +36,36 @@ def capsule_scene_from_numpy(d, device="cuda") -> CapsuleScene:
         mask=t("mask", torch.bool),
         cap_a=t("cap_a", torch.float32),
         radius=float(d["radius"]),
+    )
+
+
+def prism_scene_from_numpy(d, device="cuda") -> PrismScene:
+    """{capsule: {CapsuleScene fields}, frames [12, S], n_sides} ->
+    PrismScene on `device`."""
+    return PrismScene(
+        capsule=capsule_scene_from_numpy(d["capsule"], device),
+        frames=torch.tensor(np.asarray(d["frames"]), dtype=torch.float32, device=device),
+        n_sides=int(d["n_sides"]),
+    )
+
+
+def tube_mesh_from_numpy(d, device="cuda") -> TubeMesh:
+    """{positions, normals, tangents [3, S, L, P], attrs [S, L, P], mask
+    [L, P], triangles [3, T], triangle_mask [T], num_subdivisions} ->
+    TubeMesh on `device`."""
+
+    def t(name, dtype):
+        return torch.tensor(np.asarray(d[name]), dtype=dtype, device=device)
+
+    return TubeMesh(
+        positions=t("positions", torch.float32),
+        normals=t("normals", torch.float32),
+        tangents=t("tangents", torch.float32),
+        attrs=t("attrs", torch.float32),
+        mask=t("mask", torch.bool),
+        triangles=t("triangles", torch.int32),
+        triangle_mask=t("triangle_mask", torch.bool),
+        num_subdivisions=int(d["num_subdivisions"]),
     )
 
 

@@ -1,10 +1,15 @@
-"""Entry points: the capsule tube frame step with example arguments (opaque
-and transparent), and the tornado benchmark scene.
+"""Entry points: the tube frame step with example arguments (opaque
+capsules, transparent MLAB capsules, opaque prisms, opaque triangle tubes),
+and the tornado benchmark scene in each geometry.
 
 `entry` is the counterpart of `__graft_entry__.entry()` in the JAX package,
-`entry_mlab` its transparent (MLAB, K=8) counterpart on the same scene;
-`tornado_scene` builds the scene of the JAX package's primary benchmark
-(`bench.py`: 512 seeds x 400 RK4 steps, dt 1/150, tube radius 0.0015).
+`entry_mlab` its transparent (MLAB, K=8) counterpart on the same scene,
+`entry_prism` and `entry_triangle` the same lines through the Opaque
+renderer's `prism` and `triangle` tube geometries (8 subdivisions);
+`tornado_scene`, `tornado_prism_scene` and `tornado_tube_mesh` build the
+scene of the JAX package's primary benchmark (`bench.py`: 512 seeds x 400
+RK4 steps, dt 1/150, tube radius 0.0015) from one traced line set
+(`tornado_trajectories`).
 """
 
 from __future__ import annotations
@@ -13,15 +18,18 @@ from functools import partial
 
 import numpy as np
 
-__all__ = ["entry", "entry_mlab", "tornado_scene"]
+__all__ = [
+    "entry", "entry_mlab", "entry_prism", "entry_triangle",
+    "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
+    "tornado_tube_mesh",
+]
+
+TORNADO_RADIUS = 0.0015
 
 
-def _small_scene(device):
-    """The entry points' scene: 8 helical lines of 24 points, radius 0.02,
-    seen from (0, 0.3, 1.2) at 256x128 -> (scene, camera tensors)."""
-    from linevis_tpu_torch.render.camera import Camera
-    from linevis_tpu_torch.render.tube_raster import build_capsule_scene, camera_tensors
-
+def _small_lines():
+    """The entry points' lines: 8 helical lines of 24 points ->
+    (positions [8, 24, 3], mask, attrs)."""
     num_lines, num_points = 8, 24
     t = np.linspace(0, 2 * np.pi, num_points, dtype=np.float32)
     pos = np.zeros((num_lines, num_points, 3), np.float32)
@@ -34,9 +42,23 @@ def _small_scene(device):
     attrs = np.linspace(0, 1, num_points, dtype=np.float32)[None].repeat(
         num_lines, 0
     )
-    scene = build_capsule_scene(pos, mask, attrs, radius=0.02, device=device)
-    cam = Camera(position=(0.0, 0.3, 1.2), width=256, height=128)
-    return scene, camera_tensors(cam, device)
+    return pos, mask, attrs
+
+
+def _small_camera(device):
+    """The entry points' camera, (0, 0.3, 1.2) at 256x128, as tensors."""
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.tube_raster import camera_tensors
+
+    return camera_tensors(Camera(position=(0.0, 0.3, 1.2), width=256, height=128), device)
+
+
+def _small_scene(device):
+    """`_small_lines` as capsules of radius 0.02 -> (scene, camera tensors)."""
+    from linevis_tpu_torch.render.tube_raster import build_capsule_scene
+
+    scene = build_capsule_scene(*_small_lines(), radius=0.02, device=device)
+    return scene, _small_camera(device)
 
 
 def entry(device="cuda"):
@@ -64,15 +86,46 @@ def entry_mlab(device="cuda"):
     return fn, (scene, *cam)
 
 
-def tornado_scene(device="cuda", num_seeds=512, max_steps=400, seed=42):
+def entry_prism(device="cuda"):
+    """(fn, args): `fn(*args)` renders one opaque 8-gon prism tube frame of
+    `entry`'s lines -> [4, H, W] linear RGBA on `device`."""
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.tube_raster import build_prism_scene, render_tubes_prism
+
+    scene = build_prism_scene(*_small_lines(), radius=0.02, n_sides=8, device=device)
+    settings = RasterSettings(width=256, height=128, tile_w=32, tile_h=16)
+    fn = partial(render_tubes_prism, settings=settings)
+    return fn, (scene, *_small_camera(device))
+
+
+def entry_triangle(device="cuda"):
+    """(fn, args): `fn(*args)` renders one opaque triangle-tube frame (8
+    subdivisions, G-buffer raster) of `entry`'s lines -> [4, H, W] linear
+    RGBA on `device`."""
+    import torch
+
+    from linevis_tpu_torch.geometry.tubes import build_tube_triangle_mesh
+    from linevis_tpu_torch.render.opaque import render_opaque
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.transfer_function import TransferFunction
+
+    mesh = build_tube_triangle_mesh(
+        *_small_lines(), radius=0.02, num_subdivisions=8, device=device
+    )
+    view_proj, position, _ = _small_camera(device)
+    table = torch.as_tensor(TransferFunction.standard().table, device=device)
+    settings = RasterSettings(width=256, height=128, tile_w=32, tile_h=16)
+    fn = partial(render_opaque, settings=settings)
+    return fn, (mesh, view_proj, position, table)
+
+
+def tornado_trajectories(device="cuda", num_seeds=512, max_steps=400, seed=42):
     """The Crawfis tornado traced on `device` from `num_seeds` seeds drawn
-    by np.random.default_rng(seed), normalized, as a CapsuleScene of
-    num_seeds * max_steps segments colored by velocity magnitude."""
+    by np.random.default_rng(seed), positions and attributes normalized."""
     from linevis_tpu_torch.core.trajectories import (
         normalize_attributes,
         normalize_trajectories,
     )
-    from linevis_tpu_torch.render.tube_raster import build_capsule_scene
     from linevis_tpu_torch.trace.fields import tornado_velocity
     from linevis_tpu_torch.trace.streamline import (
         StreamlineTracingSettings,
@@ -90,7 +143,39 @@ def tornado_scene(device="cuda", num_seeds=512, max_steps=400, seed=42):
     traj = normalize_attributes(normalize_trajectories(traj))
     if not np.isfinite(traj.positions).all():
         raise RuntimeError("tornado trace produced non-finite positions")
+    return traj
+
+
+def tornado_scene(device="cuda", num_seeds=512, max_steps=400, seed=42, traj=None):
+    """The tornado (`tornado_trajectories`, or the given `traj`) as a
+    CapsuleScene of num_seeds * max_steps segments colored by velocity
+    magnitude."""
+    from linevis_tpu_torch.render.tube_raster import build_capsule_scene
+
+    traj = traj or tornado_trajectories(device, num_seeds, max_steps, seed)
     return build_capsule_scene(
-        traj.positions, traj.mask, traj.attributes[:, 0], radius=0.0015,
+        traj.positions, traj.mask, traj.attributes[:, 0], radius=TORNADO_RADIUS,
         device=device,
+    )
+
+
+def tornado_prism_scene(device="cuda", n_sides=8, traj=None, **trace_kw):
+    """The tornado as a PrismScene of `n_sides`-gon prisms."""
+    from linevis_tpu_torch.render.tube_raster import build_prism_scene
+
+    traj = traj or tornado_trajectories(device, **trace_kw)
+    return build_prism_scene(
+        traj.positions, traj.mask, traj.attributes[:, 0], radius=TORNADO_RADIUS,
+        n_sides=n_sides, device=device,
+    )
+
+
+def tornado_tube_mesh(device="cuda", num_subdivisions=8, traj=None, **trace_kw):
+    """The tornado as a triangle TubeMesh of `num_subdivisions`-gon tubes."""
+    from linevis_tpu_torch.geometry.tubes import build_tube_triangle_mesh
+
+    traj = traj or tornado_trajectories(device, **trace_kw)
+    return build_tube_triangle_mesh(
+        traj.positions, traj.mask, traj.attributes[:, 0], radius=TORNADO_RADIUS,
+        num_subdivisions=num_subdivisions, device=device,
     )

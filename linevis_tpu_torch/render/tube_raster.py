@@ -1,11 +1,13 @@
-"""Primary tube renderer: screen-binned analytic capsule rasterization.
+"""Primary tube renderer: screen-binned analytic capsule and prism
+rasterization.
 
-Counterpart of the capsule part of `linevis_tpu/render/tube_raster.py`:
-segments render as pixel-exact capsules (the reference's linear-swept-sphere
-RT geometry, `VulkanRayTracer.hpp:53-63`) driven by tile binning. A frame
-is three steps: `prepare_capsule_frame` (projection, payload, binning,
-params), `rasterize_capsules` (the kernel) and `resolve_capsule_frame`
-(untile, depth-cue range, shading). The prism geometry is not ported yet.
+Counterpart of `linevis_tpu/render/tube_raster.py`: segments render as
+pixel-exact capsules (the reference's linear-swept-sphere RT geometry,
+`VulkanRayTracer.hpp:53-63`) or as N-gon prisms (its triangle-tube raster
+geometry, `Tubes.hpp:40`), driven by the same tile binning. A frame is three
+steps: `prepare_capsule_frame` / `prepare_prism_frame` (projection, payload,
+binning, params), `rasterize_capsules` / `rasterize_prisms` (the kernel) and
+`resolve_capsule_frame` (untile, depth-cue range, shading).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from linevis_tpu_torch.kernels.raster_capsule import rasterize_capsules
 from linevis_tpu_torch.kernels.raster_pallas import build_sorted_binning
+from linevis_tpu_torch.kernels.raster_prism import ROW_FRAME0, rasterize_prisms
 from linevis_tpu_torch.kernels.tiles import unpack_tiles
 from linevis_tpu_torch.render.camera import Camera
 from linevis_tpu_torch.render.lighting import (
@@ -32,6 +35,8 @@ __all__ = [
     "CapsuleScene", "build_capsule_scene", "prepare_capsule_frame",
     "resolve_capsule_frame", "render_tubes", "shade_capsules",
     "camera_tensors", "render_tubes_image",
+    "PrismScene", "build_prism_scene", "prepare_prism_frame",
+    "render_tubes_prism", "render_tubes_prism_image",
 ]
 
 
@@ -244,9 +249,11 @@ def resolve_capsule_frame(
     proj_ab: torch.Tensor,
     basis: torch.Tensor,
     settings: RasterSettings,
+    use_coverage: bool = True,
 ) -> torch.Tensor:
     """Untile the kernel's output, take the depth-cue range and shade ->
-    [4, H, W] linear RGBA."""
+    [4, H, W] linear RGBA. `scene` is a CapsuleScene or a PrismScene; the
+    prism raster's binary coverage is not blended (`use_coverage=False`)."""
     depth_t, id_t, gbuf_t = raster
 
     def unp(x):
@@ -269,7 +276,7 @@ def resolve_capsule_frame(
         zndc, seg_id, attr,
         torch.stack([nx, ny, nz], dim=0), torch.stack([tx, ty, tz], dim=0),
         camera_position, basis, proj_ab, dmin, dmax, settings,
-        coverage=cov,
+        coverage=cov if use_coverage else None,
     )
 
 
@@ -349,14 +356,9 @@ def camera_tensors(camera: Camera, device):
     )
 
 
-def render_tubes_image(
-    scene: CapsuleScene,
-    camera: Camera,
-    tf: Optional[TransferFunction] = None,
-    settings: Optional[RasterSettings] = None,
-    supersample: int = 1,
-) -> np.ndarray:
-    """Host convenience wrapper -> numpy [H, W, 4] linear RGBA."""
+def _render_image(render, scene, device, camera, tf, settings, supersample):
+    """Shared host wrapper of the capsule and prism frames: supersampled
+    render at k x the resolution and box downsample -> [H, W, 4]."""
     settings = settings or RasterSettings(width=camera.width, height=camera.height)
     cam = camera
     s = settings
@@ -369,10 +371,155 @@ def render_tubes_image(
     if tf is not None:
         c_pts, o_pts = tf.as_static_points()
         s = dataclasses.replace(s, tf_color=c_pts, tf_opacity=o_pts)
-    img = render_tubes(scene, *camera_tensors(cam, scene.a.device), s)
+    img = render(scene, *camera_tensors(cam, device), s)
     img = np.moveaxis(img.cpu().numpy(), 0, -1)
     if supersample > 1:
         k = supersample
         H, W = settings.height, settings.width
         img = img.reshape(H, k, W, k, 4).mean(axis=(1, 3))
     return img
+
+
+def render_tubes_image(
+    scene: CapsuleScene,
+    camera: Camera,
+    tf: Optional[TransferFunction] = None,
+    settings: Optional[RasterSettings] = None,
+    supersample: int = 1,
+) -> np.ndarray:
+    """Host convenience wrapper -> numpy [H, W, 4] linear RGBA."""
+    return _render_image(
+        render_tubes, scene, scene.a.device, camera, tf, settings, supersample
+    )
+
+
+@dataclasses.dataclass
+class PrismScene:
+    """Per-segment SoA for the N-gon prism renderer: the reference's
+    triangle-tube raster geometry (`Tubes.hpp:40`, `LineData.hpp:374-386`)
+    rendered analytically (`kernels/raster_prism.py`).
+
+    capsule: the shared segment SoA (binning and payload rows 0-15 reuse
+             the capsule pipeline byte for byte; cap_a is forced to 0: the
+             triangle tube is open-ended, no cap geometry).
+    frames:  [12, S] parallel-transport frames per segment: rows 0-2 normal
+             at a, 3-5 binormal at a, 6-8 normal at b, 9-11 binormal at b
+             (`geometry/frames.py`, the frames `geometry/tubes.py` places
+             ring vertices with).
+    """
+
+    capsule: CapsuleScene
+    frames: torch.Tensor
+    n_sides: int
+
+    @property
+    def num_segments(self) -> int:
+        return self.capsule.num_segments
+
+    @property
+    def radius(self) -> float:
+        return self.capsule.radius
+
+    # The fields shared paths read off a scene (depth-cue range).
+    @property
+    def a(self):
+        return self.capsule.a
+
+    @property
+    def ba(self):
+        return self.capsule.ba
+
+    @property
+    def mask(self):
+        return self.capsule.mask
+
+
+def build_prism_scene(
+    positions, mask, attrs, radius: float, n_sides: int = 8, device="cuda"
+) -> PrismScene:
+    """positions [L, P, 3], mask [L, P], attrs [L, P] -> PrismScene on
+    `device`. The ring vertices implied by (frames, n_sides, radius) are
+    those of `geometry/tubes.py:build_tube_triangle_mesh`."""
+    from linevis_tpu_torch.geometry.frames import parallel_transport_frames
+
+    cap = build_capsule_scene(positions, mask, attrs, radius, device=device)
+    cap = dataclasses.replace(cap, cap_a=torch.zeros_like(cap.cap_a))
+    pos = torch.tensor(np.asarray(positions, np.float32), device=device)
+    m = torch.tensor(np.asarray(mask, bool), device=device)
+    _, normals, binormals = parallel_transport_frames(pos, m)  # [L, P, 3] each
+
+    def seg_rows(g):  # [L, P, 3] -> a-end [3, S], b-end [3, S]
+        L, P = g.shape[0], g.shape[1]
+        cf = g.reshape(L * P, 3).T.reshape(3, L, P)
+        return cf[:, :, :-1].reshape(3, -1), cf[:, :, 1:].reshape(3, -1)
+
+    na, nb = seg_rows(normals)
+    bna, bnb = seg_rows(binormals)
+    frames = torch.cat([na, bna, nb, bnb], dim=0).float().contiguous()
+    return PrismScene(capsule=cap, frames=frames, n_sides=int(n_sides))
+
+
+def prepare_prism_frame(
+    scene: PrismScene,
+    view_proj: torch.Tensor,
+    camera_position: torch.Tensor,
+    proj_ab: torch.Tensor,
+    settings: RasterSettings,
+):
+    """Capsule binning (the N-gon is inscribed in the capsule, so the
+    conservative screen bbox and the exact 2D capsule-vs-tile cull stay
+    valid) plus the frame rows, gathered by sorted segment id after the
+    sort, so the sort carries the capsule's 16 rows only.
+
+    Returns (csr, params [32], basis [3, 3]); csr.payload is [36, Np + chunk].
+    """
+    csr, params, basis = prepare_capsule_frame(
+        scene.capsule, view_proj, camera_position, proj_ab, settings
+    )
+    p = csr.payload  # [24, Np + chunk] (16 sorted + 8 derived)
+    ids = torch.clamp(p[9].long(), 0, scene.num_segments - 1)
+    frame_rows = scene.frames[:, ids]  # [12, Np + chunk]
+    csr = dataclasses.replace(
+        csr, payload=torch.cat([p[:ROW_FRAME0], frame_rows], dim=0)
+    )
+    return csr, params, basis
+
+
+def render_tubes_prism(
+    scene: PrismScene,
+    view_proj: torch.Tensor,
+    camera_position: torch.Tensor,
+    proj_ab: torch.Tensor,  # [2]
+    settings: RasterSettings,
+) -> torch.Tensor:
+    """Render N-gon prism tubes -> [4, H, W] linear RGBA on the scene's
+    device: the reference's `tubeNumSubdivisions`-gon triangle tube
+    silhouette and shading through the capsule binning."""
+    csr, params, basis = prepare_prism_frame(
+        scene, view_proj, camera_position, proj_ab, settings
+    )
+    raster = rasterize_prisms(
+        csr, params, settings.width, settings.height,
+        settings.tile_w, settings.tile_h, n_sides=scene.n_sides,
+    )
+    return resolve_capsule_frame(
+        scene, csr, raster, view_proj, camera_position, proj_ab, basis, settings,
+        use_coverage=False,
+    )
+
+
+def render_tubes_prism_image(
+    scene: PrismScene,
+    camera: Camera,
+    tf: Optional[TransferFunction] = None,
+    settings: Optional[RasterSettings] = None,
+    supersample: int = 1,
+) -> np.ndarray:
+    """Host convenience wrapper for the prism path -> [H, W, 4] linear.
+
+    The prism raster has binary coverage (the faceted silhouette's edges
+    are straight lines, as in the reference's triangle raster + MSAA), so
+    `supersample=2` plays the MSAA role."""
+    return _render_image(
+        render_tubes_prism, scene, scene.a.device, camera, tf, settings, supersample
+    )

@@ -10,9 +10,13 @@ on >= 99.9% of pixels, z_ndc and G-buffer within 1e-5 where they agree,
 coverage within 2e-3. For the MLAB kernel: node depths and alpha within
 1e-5 on >= 99.9% of pixels, features within 1e-5 there, composited RGBA
 within 1e-4 on >= 99.9% of pixels (the composite's powf may differ from
-torch.pow by an ulp). Kernels and plain versions are built without fast math
-and FMA contraction, so they normally agree bit for bit.
+torch.pow by an ulp). For the prism and the triangle kernel: bit for bit
+(`torch.equal` on every output). Kernels and plain versions are built
+without fast math and FMA contraction, so they normally agree bit for bit.
 """
+
+import dataclasses
+
 
 import numpy as np
 import pytest
@@ -26,7 +30,16 @@ from linevis_tpu_torch.kernels.raster_capsule_oit import (
     rasterize_capsules_mlab,
     rasterize_capsules_mlab_reference,
 )
+from linevis_tpu_torch.geometry.tubes import build_tube_triangle_mesh
+from linevis_tpu_torch.kernels import raster_pallas as trp
+from linevis_tpu_torch.kernels.raster_prism import (
+    MAX_SIDES,
+    rasterize_prisms,
+    rasterize_prisms_reference,
+)
 from linevis_tpu_torch.render import oit as toit
+from linevis_tpu_torch.render import opaque as top
+from linevis_tpu_torch.render import pipeline as tpl
 from linevis_tpu_torch.render import tube_raster as ttr
 from linevis_tpu_torch.render.camera import Camera
 from linevis_tpu_torch.render.pipeline import RasterSettings
@@ -165,4 +178,142 @@ def test_render_tubes_mlab_card_matches_cpu(cuda, renderer):
         assert rasterize_capsules_mlab.launches == before + (dev.type == "cuda")
     assert bool(torch.isfinite(imgs[0]).all())
     assert (imgs[0][3] > 0).sum().item() > 100
+    assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3
+
+
+def _prism_frame(device, W, H, tile, n_sides, scene=(11, 10, 8, 0.02)):
+    cam = Camera(position=(0.1, 0.2, 1.4), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=tile[0], tile_h=tile[1])
+    ts = ttr.build_prism_scene(*_walk(*scene), n_sides=n_sides, device=device)
+    csr, params, _ = ttr.prepare_prism_frame(ts, *ttr.camera_tensors(cam, device), S)
+    return csr, params
+
+
+def _all_equal(k, p):
+    for a, b in zip([k[0], k[1], *k[2]], [p[0], p[1], *p[2]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_sides", [6, 8, MAX_SIDES])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_prism_kernel_matches_plain(cuda, tile, n_sides):
+    W, H = 200, 120  # not a multiple of the tile: edge tiles are cropped
+    csr, params = _prism_frame(cuda, W, H, tile, n_sides)
+    before = rasterize_prisms.launches
+    work = torch.zeros(csr.tile_start.shape[0], dtype=torch.int32, device=cuda)
+    k = rasterize_prisms(csr, params, W, H, *tile, n_sides=n_sides, work=work)
+    assert rasterize_prisms.launches == before + 1
+    assert torch.equal(work, csr.tile_count)  # every candidate is evaluated
+    p = rasterize_prisms_reference(csr, params, W, H, *tile, n_sides=n_sides)
+    torch.cuda.synchronize()
+    assert (k[1] >= 0).sum().item() > 100
+    _all_equal(k, p)
+
+
+def test_prism_wrapper_rejects_bad_inputs(cuda):
+    W, H = 64, 32
+    csr, params = _prism_frame(cuda, W, H, (16, 8), 8)
+    for n_sides in (2, MAX_SIDES + 1):
+        with pytest.raises(ValueError):
+            rasterize_prisms(csr, params, W, H, 16, 8, n_sides=n_sides)
+    bad = [
+        dataclasses.replace(csr, payload=csr.payload.double()),
+        dataclasses.replace(csr, payload=csr.payload.T.contiguous().T),
+        dataclasses.replace(csr, payload=csr.payload[:24]),
+        dataclasses.replace(csr, tile_start=csr.tile_start.cpu()),
+        dataclasses.replace(csr, tile_count=csr.tile_count.long()),
+    ]
+    for b in bad:
+        with pytest.raises(ValueError):
+            rasterize_prisms(b, params, W, H, 16, 8)
+    with pytest.raises(ValueError):
+        rasterize_prisms(csr, params, W, H, 24, 9)  # 216 pixels: not whole warps
+
+
+def _triangle_csr(device, W, H, tile, chunk, rows=40, scene=(11, 10, 8, 0.02)):
+    pos, mask, attrs, radius = _walk(*scene)
+    mesh = build_tube_triangle_mesh(pos, mask, attrs, radius=radius, device=device)
+    cam = Camera(position=(0.1, 0.2, 1.4), width=W, height=H)
+    vp = ttr.camera_tensors(cam, device)[0]
+    batch = tpl.tube_vertex_stage(mesh, vp, W, H)
+    payload = tpl.build_payload(batch)[:rows].contiguous()
+    return trp.build_csr_binning(batch.tri_x, batch.tri_y, payload, batch.tri_valid,
+                                 W, H, *tile, chunk, 4, 4)
+
+
+@pytest.mark.parametrize("mode", ["depth", "gbuffer"])
+@pytest.mark.parametrize("chunk", [16, 128])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_triangle_kernel_matches_plain(cuda, tile, chunk, mode):
+    W, H = 200, 120  # not a multiple of the tile: edge tiles are cropped
+    planes = 8 if mode == "gbuffer" else 0
+    csr = _triangle_csr(cuda, W, H, tile, chunk, rows=40 if planes else 16)
+    assert int(csr.overflow) == 0
+    before = trp.rasterize_gbuffer.launches
+    if planes:
+        k = trp.rasterize_gbuffer(csr, planes, *tile)
+    else:
+        k = (*trp.rasterize_depth(csr, *tile), [])
+    assert trp.rasterize_gbuffer.launches == before + 1
+    p = trp.rasterize_triangles_reference(csr, *tile, planes)
+    torch.cuda.synchronize()
+    assert (k[1] >= 0).sum().item() > 100 and len(k[2]) == planes
+    _all_equal(k, p)
+
+
+def test_triangle_early_z_preserves_result(cuda):
+    """A dense scene with several chunks per tile, so the chunk exit fires."""
+    W, H = 128, 64
+    csr = _triangle_csr(cuda, W, H, (16, 8), 16, scene=(5, 60, 40, 0.05))
+    assert int(csr.tile_num_chunks.max()) > 2
+    work = torch.zeros(csr.tile_chunk_base.shape[0], dtype=torch.int32, device=cuda)
+    fast = trp.rasterize_gbuffer(csr, 8, 16, 8, work=work)
+    full = trp.rasterize_gbuffer(csr, 8, 16, 8, use_early_z=False)
+    torch.cuda.synchronize()
+    assert (work <= csr.tile_num_chunks).all()
+    assert int(work.sum()) < int(csr.tile_num_chunks.sum())
+    _all_equal(fast, full)
+    _all_equal(fast, trp.rasterize_triangles_reference(csr, 16, 8, 8))
+
+
+def test_triangle_wrapper_rejects_bad_inputs(cuda):
+    csr = _triangle_csr(cuda, 64, 32, (16, 8), 16)
+    bad = [
+        dataclasses.replace(csr, payload=csr.payload.double()),
+        dataclasses.replace(csr, payload=csr.payload.transpose(1, 2)),
+        dataclasses.replace(csr, payload=csr.payload[:16]),  # no room for 8 planes
+        dataclasses.replace(csr, tile_chunk_base=csr.tile_chunk_base.cpu()),
+        dataclasses.replace(csr, tile_num_chunks=csr.tile_num_chunks.long()),
+        dataclasses.replace(csr, num_primitives=(1 << 24) + 1),  # ids beyond float32
+    ]
+    for b in bad:
+        with pytest.raises(ValueError):
+            trp.rasterize_gbuffer(b, 8, 16, 8)
+    big = _triangle_csr(cuda, 64, 32, (16, 8), 512)  # 40 rows x 512 slots > 48 KB
+    with pytest.raises(ValueError):
+        trp.rasterize_gbuffer(big, 8, 16, 8)
+
+
+@pytest.mark.parametrize("geometry", ["prism", "triangle"])
+def test_render_prism_and_triangle_card_matches_cpu(cuda, geometry):
+    W, H = 160, 120
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=32, tile_h=16, depth_cue_strength=0.2)
+    pos, mask, attrs, radius = _walk(11, 10, 8, 0.02)
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        vp, cp, ab = ttr.camera_tensors(cam, dev)
+        if geometry == "prism":
+            before = rasterize_prisms.launches
+            scene = ttr.build_prism_scene(pos, mask, attrs, radius, device=dev)
+            imgs.append(ttr.render_tubes_prism(scene, vp, cp, ab, S).cpu())
+            assert rasterize_prisms.launches == before + (dev.type == "cuda")
+        else:
+            before = trp.rasterize_gbuffer.launches
+            mesh = build_tube_triangle_mesh(pos, mask, attrs, radius=radius, device=dev)
+            table = torch.as_tensor(top.TransferFunction.standard().table, device=dev)
+            imgs.append(top.render_opaque(mesh, vp, cp, table, S).cpu())
+            assert trp.rasterize_gbuffer.launches == before + (dev.type == "cuda")
+    assert bool(torch.isfinite(imgs[0]).all())
+    assert (imgs[0][:3] < 0.999).any()
     assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3

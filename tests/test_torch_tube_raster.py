@@ -413,10 +413,16 @@ def test_port_imports_no_jax():
         "       or n == 'linevis_tpu' or n.startswith('linevis_tpu.')]\n"
         "print(len([n for n in sys.modules if n.startswith('linevis_tpu_torch')]))\n"
         "assert not bad, bad\n"
+        "need = ['geometry.frames', 'geometry.tubes', 'kernels.raster_prism',\n"
+        "        'kernels.raster_pallas', 'render.opaque', 'render.pipeline',\n"
+        "        'render.tube_raster', 'convert', 'entry', 'automation.profiling',\n"
+        "        'automation.parity']\n"
+        "missing = [m for m in need if 'linevis_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         env={**os.environ, "PYTHONPATH": REPO}, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 26
