@@ -6,23 +6,35 @@
 Builds the port's CUDA kernels from `linevis_tpu_torch/kernels/csrc/`, then
 drives the ported paths at full size on the Crawfis tornado traced on the
 card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
-~205k capsule segments), 16 orbit-camera frames each at 1920x1080:
+~205k capsule segments) with orbit cameras at 1920x1080:
 - opaque capsule tubes through `render_tubes` (tile 32x16, analytic-coverage
-  AA, span 2x2; kernel capsule_raster);
+  AA, span 2x2; kernel capsule_raster), 16 frames;
 - transparent MLAB tubes through `render_tubes_mlab` (the JAX package's
   bench.py MLAB settings: tile 16x8, chunk 128, K=8, opacity 0.3, sat
-  0.999, sub 32, front faces only; kernel capsule_mlab);
+  0.999, sub 32, front faces only; kernel capsule_mlab), 16 frames;
 - opaque 8-gon prism tubes through `render_tubes_prism` (tile 32x16, the
-  capsule binning; kernel prism_raster);
+  capsule binning; kernel prism_raster), 16 frames;
 - opaque triangle tubes (8 subdivisions, ~3.3 M triangles) through
-  `render_opaque` (tile 32x16, chunk 128, span 2x2; kernel triangle_raster).
-For each path it times the frames and their stages with CUDA events, holds
-the path's kernel against its plain PyTorch version on the same 1080p
-inputs, and checks a small frame on the card against the plain path on the
-CPU (for the transparent path also the Atomic Loop frame, K=16
-`no_overflow`, through `render_tubes_atomic_loop`). It also prints the SSIM
-of the prism frame against the triangle frame of the same camera. Then it
-prints one JSON line of kernel figures, and the device line last.
+  `render_opaque` (tile 32x16, chunk 128, span 2x2; kernel triangle_raster),
+  16 frames;
+- ray-traced ambient occlusion through `render_tubes_rtao` (bench.py's RTAO
+  settings: 4 rays per pixel, radius 0.1, grid 64^3, 8 cells per ray,
+  batches of 2.1 M rays, tile 32x16, the grid built once; kernels
+  capsule_raster, once per frame without AA, and ao_grid, once per batch),
+  8 frames;
+- the wavefront ray tracer through `render_tubes_raytraced_wavefront`
+  (bench.py's settings: tile 16x8, K=8, opacity 0.3, binned-SAH tree
+  collapsed to 8-wide groups on the host; kernel bvh_wavefront), 4 frames.
+For each path it times the frames and their stages with CUDA events, checks
+that exactly the expected kernels were launched the expected number of
+times, holds the path's kernel against its plain PyTorch version on the same
+1080p inputs (the wavefront kernel on every WF_COMPARE_EVERY-th ray block:
+blocks are independent), and checks a small frame on the card against the
+plain path on the CPU (for the transparent path also the Atomic Loop frame,
+K=16 `no_overflow`, through `render_tubes_atomic_loop`). It also prints the
+SSIM of the prism frame against the triangle frame, and of the wavefront
+frame against the two-sided MLAB frame, of the same camera. Then it prints
+one JSON line of kernel figures, and the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. Any failed check raises.
@@ -85,6 +97,32 @@ PRISM_ROWS = 23  # payload rows the prism kernel reads per candidate (0-10, 24-3
 TRIANGLE_OPS_PER_EVAL = 21
 TRIANGLE_OPS_PER_TAKE = 4 * 9 + 1
 TRIANGLE_PLANES = 8
+RTAO_FRAMES = 8
+# Float operations of one (record slot, ray) test of the AO kernel, each
+# add/mul/neg/min/max/compare/sqrt/div counted once: o - a 3, the two dot
+# products 10, baba and r^2 2, the re-origin (t0, the moved origin, ba.oa',
+# oa'.oa', rd) 20, the body quadratic and its root 21, cap a 9, cap b 13,
+# the three world t 3, the acceptance compares 13. The tests counted are
+# those the result needs (`trace_pairs(tests=)`): per walked record chunk,
+# its hittable slots times the rays not yet occluded when it is staged.
+AO_OPS_PER_TEST = 94
+WF_FRAMES = 4
+WF_K, WF_OPACITY = 8, 0.3
+WF_BUILDER = "binned_sah"  # its host build + packing stays under 90 s here
+WF_COMPARE_EVERY = 8  # the plain version runs on every 8th ray block
+# Float operations of the wavefront kernel, counted as above. Per (group
+# visit, ray) 208: per child box 12 for the six slab distances, 11 for the
+# entry and exit t, 3 compares. Per (leaf row, ray) 143: o - a, the two dot
+# products, the re-origin and the three quadratics with their roots 67, then
+# per surface side 38 (three roots, axial positions, acceptance tests, the
+# world t and its clip). Per fragment in an extracted tie window 45 (as the
+# MLAB kernel's). Per (ray, sweep) extraction: the scan of 16 candidates and
+# their window test 32, the carry 12, then 4 per node.
+WF_OPS_PER_VISIT = 208
+WF_OPS_PER_LEAF_ROW = 143
+WF_OPS_PER_MEMBER = 45
+WF_OPS_PER_SWEEP = 32 + 12
+WF_OPS_PER_SWEEP_NODE = 4
 
 
 def _events():
@@ -112,13 +150,22 @@ def main() -> int:
         entry,
         entry_mlab,
         entry_prism,
+        entry_rtao,
         entry_triangle,
+        entry_wavefront,
         tornado_prism_scene,
         tornado_scene,
+        tornado_segment_grid,
         tornado_trajectories,
         tornado_tube_mesh,
+        tornado_wide_bvh,
     )
-    from linevis_tpu_torch.kernels import _build, raster_pallas
+    from linevis_tpu_torch.kernels import _build, ao_grid, raster_pallas
+    from linevis_tpu_torch.kernels.bvh_wavefront import (
+        STATS as WF_STATS,
+        trace_wavefront_kbuffer,
+        trace_wavefront_kbuffer_reference,
+    )
     from linevis_tpu_torch.kernels.raster_capsule import (
         rasterize_capsules,
         rasterize_capsules_reference,
@@ -132,6 +179,7 @@ def main() -> int:
         rasterize_prisms_reference,
     )
     from linevis_tpu_torch.kernels.tiles import unpack_tiles
+    from linevis_tpu_torch.ops.wide_bvh import USED_LANES
     from linevis_tpu_torch.render.camera import Camera
     from linevis_tpu_torch.render.framebuffer import ssim
     from linevis_tpu_torch.render.oit import (
@@ -150,6 +198,19 @@ def main() -> int:
         shade_gbuffer,
         tube_vertex_stage,
     )
+    from linevis_tpu_torch.render.ray_tracer import (
+        primary_rays,
+        render_tubes_raytraced_wavefront,
+        resolve_wavefront_nodes,
+    )
+    from linevis_tpu_torch.render.rtao import (
+        RtaoSettings,
+        ray_batches,
+        render_tubes_rtao,
+        rtao_gbuffer,
+        rtao_rays,
+        rtao_shade,
+    )
     from linevis_tpu_torch.render.transfer_function import TransferFunction
     from linevis_tpu_torch.render.tube_raster import (
         camera_tensors,
@@ -163,22 +224,23 @@ def main() -> int:
     wrappers = {
         "capsule_raster": rasterize_capsules, "capsule_mlab": rasterize_capsules_mlab,
         "prism_raster": rasterize_prisms, "triangle_raster": raster_pallas.rasterize_gbuffer,
+        "ao_grid": ao_grid.trace_pairs, "bvh_wavefront": trace_wavefront_kbuffer,
     }
 
     def reset_launches():
         for w in wrappers.values():
             w.launches = 0
 
-    def only_launched(name):
-        """Launches of `name` since reset_launches(); raises unless it was
-        launched once per frame and no other kernel at all."""
-        for other, w in wrappers.items():
-            if other != name and w.launches:
-                raise RuntimeError(f"the {name} path launched {other} {w.launches} times")
-        n = wrappers[name].launches
-        if n != N_FRAMES:
-            raise RuntimeError(f"{name} launched {n} times for {N_FRAMES} frames")
-        return n
+    def expect_launches(expected):
+        """Launches since reset_launches() against {kernel: count}; raises
+        unless each named kernel was launched exactly that often and no
+        other kernel at all. Returns the counts."""
+        got = {name: w.launches for name, w in wrappers.items()}
+        for name, n in got.items():
+            if n != expected.get(name, 0):
+                raise RuntimeError(f"the path launched {name} {n} times, expected "
+                                   f"{expected.get(name, 0)} (all launches: {got})")
+        return got
 
     def card_vs_cpu(make_entry, label):
         """A small frame on the card against the plain path on the CPU."""
@@ -244,7 +306,7 @@ def main() -> int:
         b.record()
         imgs_sum += img[:3].sum()
     torch.cuda.synchronize()
-    launches = only_launched("capsule_raster")
+    launches = expect_launches({"capsule_raster": N_FRAMES})["capsule_raster"]
     if not bool(torch.isfinite(imgs_sum)):
         raise RuntimeError("non-finite frame on the main path")
     frame_ms = [a.elapsed_time(b) for a, b in frame_ev]
@@ -367,7 +429,7 @@ def main() -> int:
         imgs_sum += img.sum()
         fg_sum += (img[3] > 0).float().mean()
     torch.cuda.synchronize()
-    mlab_launches = only_launched("capsule_mlab")
+    mlab_launches = expect_launches({"capsule_mlab": N_FRAMES})["capsule_mlab"]
     if not bool(torch.isfinite(imgs_sum)):
         raise RuntimeError("non-finite MLAB frame on the main path")
     mlab_fg = float(fg_sum) / N_FRAMES
@@ -533,7 +595,7 @@ def main() -> int:
         b.record()
         imgs_sum += img[:3].sum()
     torch.cuda.synchronize()
-    prism_launches = only_launched("prism_raster")
+    prism_launches = expect_launches({"prism_raster": N_FRAMES})["prism_raster"]
     if not bool(torch.isfinite(imgs_sum)):
         raise RuntimeError("non-finite prism frame on the main path")
     prism_frame_ms = [a.elapsed_time(b) for a, b in frame_ev]
@@ -646,7 +708,7 @@ def main() -> int:
         b.record()
         imgs_sum += img[:3].sum()
     torch.cuda.synchronize()
-    tri_launches = only_launched("triangle_raster")
+    tri_launches = expect_launches({"triangle_raster": N_FRAMES})["triangle_raster"]
     tri_peak_bytes = torch.cuda.max_memory_allocated()
     if not bool(torch.isfinite(imgs_sum)):
         raise RuntimeError("non-finite triangle frame on the main path")
@@ -790,6 +852,334 @@ def main() -> int:
         "prism_vs_triangle_ssim": parity_ssim,
         "prism_only_pixels": prism_only,
         "triangle_only_pixels": tri_only,
+    })
+    del mesh, batch, csr, k_out, p_out, real, cum, work
+    torch.cuda.empty_cache()
+
+    def stage_sums(marks):
+        """{stage: ms} summed over consecutive (stage, event) marks."""
+        out = {}
+        for (_, a), (name, b) in zip(marks[:-1], marks[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+    # 15. The RTAO path: RTAO_FRAMES frames through render_tubes_rtao, the
+    # grid built once. B1 runs once per frame, B5 once per batch of rays.
+    rt = RtaoSettings()
+    t0 = time.perf_counter()
+    grid = tornado_segment_grid(scene, rt.grid_resolution)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    n_ao_rays = rt.num_samples * W * H
+    batches = ray_batches(n_ao_rays, rt.rays_per_batch)
+    rcams = cams[:RTAO_FRAMES]
+    render_tubes_rtao(scene, *rcams[0], settings, rt, frame=0, grid=grid)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    frame_ev = [_events() for _ in rcams]
+    imgs_sum = torch.zeros((), device=dev)
+    for i, ((a, b), cam) in enumerate(zip(frame_ev, rcams)):
+        a.record()
+        img = render_tubes_rtao(scene, *cam, settings, rt, frame=i, grid=grid)
+        b.record()
+        imgs_sum += img[:3].sum()
+    torch.cuda.synchronize()
+    rtao_launches = expect_launches({
+        "capsule_raster": RTAO_FRAMES, "ao_grid": RTAO_FRAMES * len(batches),
+    })
+    rtao_peak_bytes = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(imgs_sum)):
+        raise RuntimeError("non-finite RTAO frame on the main path")
+    rtao_frame_ms = [a.elapsed_time(b) for a, b in frame_ev]
+
+    def rtao_staged(cam, frame, on_batch=None):
+        """One RTAO frame step by step -> (image, AO map, stage marks)."""
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(name):
+            marks.append((name, torch.cuda.Event(enable_timing=True)))
+            marks[-1][1].record()
+
+        gbuf = rtao_gbuffer(scene, *cam, settings)
+        mark("gbuffer")
+        gen = torch.Generator(device=dev).manual_seed(rt.seed + frame)
+        u1 = torch.rand((rt.num_samples, H, W), generator=gen, device=dev)
+        u2 = torch.rand((rt.num_samples, H, W), generator=gen, device=dev)
+        o, d, t_max, valid = rtao_rays(gbuf, scene.radius, rt, u1, u2)
+        mark("ray_setup")
+        occ = []
+        for s0, s1 in batches:
+            pairs = ao_grid.expand_ray_pairs(o[:, s0:s1], d[:, s0:s1], t_max[s0:s1],
+                                             valid[s0:s1], grid, rt.max_ray_cells)
+            mark("pairs_sort")
+            walked = None if on_batch is None else torch.zeros_like(pairs.seg_chunks)
+            tests = None if on_batch is None else torch.zeros_like(pairs.seg_chunks)
+            occ_pairs = ao_grid.trace_pairs(pairs.rays, pairs.seg_begin, pairs.seg_chunks,
+                                            grid.records, grid.chunk, walked=walked,
+                                            tests=tests)
+            mark("ao_kernel")
+            occ.append(ao_grid.scatter_occlusion(pairs, occ_pairs, s1 - s0, grid.resolution))
+            mark("scatter_shade")
+            if on_batch is not None:
+                on_batch(pairs, occ_pairs, walked, tests)
+        ao = 1.0 - torch.cat(occ).reshape(rt.num_samples, H, W).mean(dim=0)
+        img = rtao_shade(gbuf, ao, settings)
+        mark("scatter_shade")
+        torch.cuda.synchronize()
+        return img, ao, gbuf, marks
+
+    stage_ms = {}
+    for i, cam in enumerate(rcams):
+        for k, v in stage_sums(rtao_staged(cam, i)[3]).items():
+            stage_ms.setdefault(k, []).append(v)
+
+    # Frame 0 once more, counting what the data needed, and keeping the
+    # first batch's inputs for the comparison with the plain version.
+    ao_counts = {"kept_pairs": 0, "pair_chunks": 0, "active_pair_chunks": 0,
+                 "record_chunks_assigned": 0, "record_chunks_walked": 0,
+                 "slot_ray_tests_needed": 0}
+    first_batch = []
+    G3 = grid.resolution ** 3
+
+    def count_batch(pairs, occ_pairs, walked, tests):
+        ao_counts["kept_pairs"] += int((pairs.keys < G3).sum())
+        ao_counts["pair_chunks"] += pairs.seg_chunks.shape[0]
+        ao_counts["active_pair_chunks"] += int((pairs.seg_chunks > 0).sum())
+        ao_counts["record_chunks_assigned"] += int(pairs.seg_chunks.sum())
+        ao_counts["record_chunks_walked"] += int(walked.sum())
+        ao_counts["slot_ray_tests_needed"] += int(tests.sum())
+        if not first_batch:
+            first_batch.extend([pairs, occ_pairs, walked, tests])
+
+    img_staged, ao_map, gbuf, _ = rtao_staged(rcams[0], 0, count_batch)
+    img_main = render_tubes_rtao(scene, *rcams[0], settings, rt, frame=0, grid=grid)
+    if not torch.equal(img_staged, img_main):
+        raise RuntimeError("the staged RTAO frame differs from render_tubes_rtao's")
+    rtao_fg = float(gbuf.fg.float().mean())
+    ao_fg_mean = float(ao_map[gbuf.fg].mean())
+    if rtao_fg < 0.01 or not 0.05 < ao_fg_mean < 0.999:
+        raise RuntimeError(f"RTAO frame: foreground {rtao_fg}, mean AO there {ao_fg_mean}")
+    med = float(np.median(rtao_frame_ms))
+    rtao_line = {
+        "frame_ms_median": med, "fps": 1000.0 / med,
+        "mrays_per_s": n_ao_rays / med / 1e3,
+        "stage_ms_median": {k: float(np.median(v)) for k, v in stage_ms.items()},
+        "rays": n_ao_rays, "batches": len(batches), **ao_counts,
+        "record_chunks_skipped_by_saturation":
+            ao_counts["record_chunks_assigned"] - ao_counts["record_chunks_walked"],
+        "launches_per_frame": {k: v // RTAO_FRAMES for k, v in rtao_launches.items() if v},
+        "foreground_share": rtao_fg, "mean_ao_on_foreground": ao_fg_mean,
+        "grid_build_s": grid_s, "grid_records": int(grid.cell_count.sum()),
+        "peak_memory_bytes": rtao_peak_bytes,
+        "frames": RTAO_FRAMES, "width": W, "height": H, "gpu": gpu,
+    }
+    print("rtao frame: " + json.dumps(rtao_line), flush=True)
+
+    # 16. The AO kernel vs its plain version on the first batch of frame 0.
+    pairs, k_occ, k_walked, k_tests = first_batch
+    p_walked, p_tests = torch.zeros_like(k_walked), torch.zeros_like(k_tests)
+    a, b = _events()
+    a.record()
+    p_occ = ao_grid.trace_pairs_reference(pairs.rays, pairs.seg_begin, pairs.seg_chunks,
+                                          grid.records, grid.chunk, walked=p_walked,
+                                          tests=p_tests)
+    b.record()
+    torch.cuda.synchronize()
+    ao_plain_ms = a.elapsed_time(b)
+    ao_differ = int((k_occ != p_occ).sum())
+    ao_walked_batch = int(k_walked.sum())
+    ao_tests_batch = int(k_tests.sum())
+    ao_counts_equal = torch.equal(k_walked, p_walked) and torch.equal(k_tests, p_tests)
+    ao_active = int((pairs.seg_chunks > 0).sum())
+    print(f"ao_grid vs plain (batch 0 of frame 0): pairs {k_occ.numel()}, occluded "
+          f"{int(k_occ.sum())}, pairs that differ {ao_differ}, walked and test counts equal "
+          f"{ao_counts_equal}, pair chunks {pairs.seg_chunks.shape[0]} "
+          f"({ao_active} active), record chunks walked {ao_walked_batch}, longest walk "
+          f"{int(k_walked.max())}, (slot, ray) tests needed {ao_tests_batch} of "
+          f"{ao_walked_batch * 128 * 128} staged", flush=True)
+    if ao_differ or not ao_counts_equal:
+        raise RuntimeError("AO kernel disagrees with its plain version")
+    if int(k_occ.sum()) < 1000:
+        raise RuntimeError("the AO trace found almost no occlusion")
+    card_vs_cpu(entry_rtao, "entry_rtao")
+
+    ao_ms = _time_ms(lambda: ao_grid.trace_pairs(
+        pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid.records, grid.chunk), 5)
+    C = grid.chunk
+    in_bytes = (ao_active * 7 * C * 4 + 2 * pairs.seg_chunks.shape[0] * 4
+                + min(ao_walked_batch * 8 * C, grid.records.numel()) * 4)
+    out_bytes = k_occ.numel() * 4
+    t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
+    t_ops = ao_tests_batch * AO_OPS_PER_TEST / H100_FP32_FLOPS * 1e3
+    kernels.append({
+        "name": "ao_grid",
+        "route": "cuda",
+        "source": "linevis_tpu_torch/kernels/csrc/ao_grid.cu",
+        "replaces": "linevis_tpu/kernels/ao_grid.py:157",
+        "launches": rtao_launches["ao_grid"],
+        "max_abs_err": float((k_occ - p_occ).abs().max()),
+        "ms": ao_ms,
+        "plain_ms": ao_plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bytes": in_bytes + out_bytes,
+        "bytes_ms": t_bytes,
+        "operations_ms": t_ops,
+        "library_ms": None,
+        "pairs_differ": ao_differ,
+        "pairs": k_occ.numel(),
+        "active_pair_chunks": ao_active,
+        "record_chunks_walked": ao_walked_batch,
+        "slot_ray_tests_needed": ao_tests_batch,
+        "longest_walk": int(k_walked.max()),
+        "capsule_raster_launches": rtao_launches["capsule_raster"],
+    })
+    del first_batch, pairs, k_occ, p_occ, gbuf, grid
+    torch.cuda.empty_cache()
+
+    # 17. The wavefront path: WF_FRAMES frames through
+    # render_tubes_raytraced_wavefront, the tree built once on the host.
+    groups, wf_setup = tornado_wide_bvh(scene, builder=WF_BUILDER)
+    n_groups = groups.shape[0] // 8
+    s_wf = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
+    wcams = cams[:WF_FRAMES]
+
+    def wf_frame(cam):
+        return render_tubes_raytraced_wavefront(
+            scene, *cam, s_wf, K=WF_K, opacity=WF_OPACITY, wide_groups=groups
+        )
+
+    wf_frame(wcams[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    frame_ev = [_events() for _ in wcams]
+    imgs_sum = torch.zeros((), device=dev)
+    for (a, b), cam in zip(frame_ev, wcams):
+        a.record()
+        img = wf_frame(cam)
+        b.record()
+        imgs_sum += img.sum()
+    torch.cuda.synchronize()
+    wf_launches = expect_launches({"bvh_wavefront": WF_FRAMES})["bvh_wavefront"]
+    if not bool(torch.isfinite(imgs_sum)):
+        raise RuntimeError("non-finite wavefront frame on the main path")
+    wf_frame_ms = [a.elapsed_time(b) for a, b in frame_ev]
+
+    def wf_kernel(rays, ab, **kw):
+        return trace_wavefront_kbuffer(groups, rays, ab, K=WF_K, opacity=WF_OPACITY,
+                                       tf_opacity=s_wf.tf_opacity, **kw)
+
+    stage_ms = {}
+    for cam in wcams:
+        marks = [(n, torch.cuda.Event(enable_timing=True)) for n in
+                 ("start", "primary_rays", "kernel", "shade_blend_unpack")]
+        marks[0][1].record()
+        rays = primary_rays(cam[0], cam[1], s_wf, 1e6)
+        marks[1][1].record()
+        nodes = wf_kernel(rays, cam[2])
+        marks[2][1].record()
+        resolve_wavefront_nodes(scene, nodes, cam[0], cam[2], s_wf)
+        marks[3][1].record()
+        torch.cuda.synchronize()
+        for k, v in stage_sums(marks).items():
+            stage_ms.setdefault(k, []).append(v)
+
+    # 18. The wavefront kernel vs its plain version on frame 0's rays and
+    # tree, on every WF_COMPARE_EVERY-th ray block, bit for bit.
+    cam = wcams[0]
+    rays = primary_rays(cam[0], cam[1], s_wf, 1e6)
+    n_blocks = rays.shape[1] // 128
+    wf_stats = torch.zeros((n_blocks, len(WF_STATS)), dtype=torch.int64, device=dev)
+    k_nodes = wf_kernel(rays, cam[2], stats=wf_stats)
+    blocks = torch.arange(0, n_blocks, WF_COMPARE_EVERY, device=dev)
+    p_stats = torch.zeros((blocks.numel(), len(WF_STATS)), dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    p_nodes = trace_wavefront_kbuffer_reference(
+        groups, rays, cam[2], K=WF_K, opacity=WF_OPACITY, tf_opacity=s_wf.tf_opacity,
+        stats=p_stats, blocks=blocks,
+    )
+    torch.cuda.synchronize()
+    wf_plain_ms = (time.perf_counter() - t0) * 1e3
+    wf_equal = (torch.equal(k_nodes[0][:, blocks], p_nodes[0])
+                and torch.equal(k_nodes[1][:, :, blocks], p_nodes[1])
+                and torch.equal(k_nodes[2][:, blocks], p_nodes[2]))
+    wf_stats_equal = bool(torch.equal(wf_stats[blocks], p_stats))
+    wf_err = max(float((k_nodes[0][:, blocks] - p_nodes[0]).abs().max()),
+                 float((k_nodes[1][:, :, blocks] - p_nodes[1]).abs().max()),
+                 float((k_nodes[2][:, blocks] - p_nodes[2]).abs().max()))
+    by = dict(zip(WF_STATS, wf_stats.sum(dim=0).tolist()))
+    by["max_stack"] = int(wf_stats[:, 5].max())
+    wf_img = resolve_wavefront_nodes(scene, k_nodes, cam[0], cam[2], s_wf)
+    wf_img = wf_img.permute(1, 2, 0).cpu().numpy()
+    wf_fg = float((wf_img[..., 3] > 0).mean())
+    med = float(np.median(wf_frame_ms))
+    wf_line = {
+        "frame_ms_median": med, "fps": 1000.0 / med,
+        "mrays_per_s": rays.shape[1] / med / 1e3,
+        "stage_ms_median": {k: float(np.median(v)) for k, v in stage_ms.items()},
+        "rays": rays.shape[1], "ray_blocks": n_blocks, "builder": WF_BUILDER,
+        "bvh_build_s": wf_setup["build_s"], "bvh_pack_s": wf_setup["pack_s"],
+        "groups": n_groups, **{k + "_per_frame": v for k, v in by.items()},
+        "visits_per_block_max": int(wf_stats[:, 0].max()),
+        "foreground_share": wf_fg, "K": WF_K,
+        "frames": WF_FRAMES, "width": W, "height": H, "gpu": gpu,
+    }
+    print("wavefront frame: " + json.dumps(wf_line), flush=True)
+    print(f"bvh_wavefront vs plain (every {WF_COMPARE_EVERY}th of {n_blocks} ray blocks: "
+          f"{blocks.numel()}): depths, features, alpha equal {wf_equal} (max |diff| "
+          f"{wf_err:.3g}), per-block counts equal {wf_stats_equal}, plain "
+          f"{wf_plain_ms:.0f} ms", flush=True)
+    if not np.isfinite(wf_img).all() or wf_fg < 0.01:
+        raise RuntimeError("the wavefront frame is non-finite or almost empty")
+    if not (wf_equal and wf_stats_equal):
+        raise RuntimeError("wavefront kernel disagrees with its plain version")
+    if wf_setup["build_s"] + wf_setup["pack_s"] > 90.0:
+        print(f"warning: the {WF_BUILDER} build and packing took more than 90 s", flush=True)
+    card_vs_cpu(entry_wavefront, "entry_wavefront")
+
+    # The wavefront frame against the two-sided MLAB frame of the same camera
+    # (both composite entry and exit surfaces; they merge beyond K otherwise).
+    ml_img = render_tubes_mlab(scene, *cam, s_oit, two_sided=True, **mlab_kw)
+    ml_img = ml_img.permute(1, 2, 0).cpu().numpy()
+    wf_ml_ssim = ssim(wf_img[..., :3], ml_img[..., :3])
+    wf_ml_mad = float(np.abs(wf_img - ml_img).mean())
+    print(f"wavefront vs two-sided MLAB frame (camera 0, on the card): ssim "
+          f"{wf_ml_ssim:.6f}, mean abs {wf_ml_mad:.3g}", flush=True)
+    if wf_ml_ssim < 0.9:
+        raise RuntimeError("the wavefront frame does not look like the MLAB frame")
+
+    wf_ms = _time_ms(lambda: wf_kernel(rays, cam[2]), 3)
+    n_rays = rays.shape[1]
+    # Of a packed row's 128 lanes the function needs the USED_LANES.
+    in_bytes = n_groups * 8 * USED_LANES * 4 + rays.numel() * 4 + 2 * 4
+    out_bytes = 5 * WF_K * n_rays * 4
+    ops = (128 * (by["visits"] * WF_OPS_PER_VISIT + by["leaf_rows"] * WF_OPS_PER_LEAF_ROW)
+           + by["members"] * WF_OPS_PER_MEMBER
+           + by["sweeps"] * (WF_OPS_PER_SWEEP + WF_OPS_PER_SWEEP_NODE * WF_K))
+    t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
+    t_ops = ops / H100_FP32_FLOPS * 1e3
+    kernels.append({
+        "name": "bvh_wavefront",
+        "route": "cuda",
+        "source": "linevis_tpu_torch/kernels/csrc/bvh_wavefront.cu",
+        "replaces": "linevis_tpu/kernels/bvh_wavefront.py:70",
+        "launches": wf_launches,
+        "max_abs_err": wf_err,
+        "ms": wf_ms,
+        "plain_ms": wf_plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bytes": in_bytes + out_bytes,
+        "bytes_ms": t_bytes,
+        "operations_ms": t_ops,
+        "library_ms": None,
+        "plain_ray_blocks": blocks.numel(),
+        "ray_blocks": n_blocks,
+        "groups": n_groups,
+        **by,
+        "wavefront_vs_mlab_two_sided_ssim": wf_ml_ssim,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

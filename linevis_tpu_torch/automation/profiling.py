@@ -6,14 +6,19 @@ write a Chrome/Perfetto trace; `device_summary` turns a recording into the
 device's busy time, its idle share of a host-timed window, and the kernels
 that take the time.
 
-    python -m linevis_tpu_torch.automation.profiling [OUT_DIR [opaque|mlab|prism|triangle]]
+    python -m linevis_tpu_torch.automation.profiling [OUT_DIR [opaque|mlab|prism|triangle|rtao|wavefront]]
 
 profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
 default) the opaque capsule frame (`render_tubes`, tile 32x16, AA on),
 `mlab` the transparent MLAB frame (`render_tubes_mlab`, tile 16x8, K=8,
 opacity 0.3), `prism` the opaque 8-gon prism frame (`render_tubes_prism`,
 tile 32x16), `triangle` the opaque triangle-tube frame (`render_opaque`, 8
-subdivisions, tile 32x16). It runs 8 orbit-camera frames after 2 warm-up frames, timed once without
+subdivisions, tile 32x16), `rtao` the ray-traced ambient occlusion frame
+(`render_tubes_rtao`, 4 rays per pixel, radius 0.1, grid 64^3, tile 32x16;
+4 frames), `wavefront` the wavefront ray tracer's frame
+(`render_tubes_raytraced_wavefront`, binned-SAH tree, tile 16x8, K=8,
+opacity 0.3; 4 frames). It runs 8 orbit-camera frames (4 of the two
+ray-traced paths) after 2 warm-up frames, timed once without
 the profiler (the window the idle share is taken against) and once
 recorded, and prints one JSON line; with OUT_DIR (give "" for none) it
 also writes that line to OUT_DIR/summary.json and the Chrome trace to
@@ -72,12 +77,16 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     from linevis_tpu_torch.entry import (
         tornado_prism_scene,
         tornado_scene,
+        tornado_segment_grid,
         tornado_tube_mesh,
+        tornado_wide_bvh,
     )
     from linevis_tpu_torch.render.camera import Camera
     from linevis_tpu_torch.render.oit import render_tubes_mlab
     from linevis_tpu_torch.render.opaque import render_opaque
     from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.ray_tracer import render_tubes_raytraced_wavefront
+    from linevis_tpu_torch.render.rtao import RtaoSettings, render_tubes_rtao
     from linevis_tpu_torch.render.transfer_function import TransferFunction
     from linevis_tpu_torch.render.tube_raster import (
         camera_tensors,
@@ -85,7 +94,7 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         render_tubes_prism,
     )
 
-    paths = ("opaque", "mlab", "prism", "triangle")
+    paths = ("opaque", "mlab", "prism", "triangle", "rtao", "wavefront")
     if path not in paths:
         raise SystemExit(f"profiling: unknown path {path!r} (one of {', '.join(paths)})")
     if not torch.cuda.is_available():
@@ -95,7 +104,8 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    W, H, n = 1920, 1080, 8
+    W, H = 1920, 1080
+    n = 4 if path in ("rtao", "wavefront") else 8
     wide = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
     if path == "opaque":
         scene = tornado_scene(dev)
@@ -108,6 +118,16 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     elif path == "prism":
         scene = tornado_prism_scene(dev)
         render = partial(render_tubes_prism, settings=wide)
+    elif path == "rtao":
+        scene = tornado_scene(dev)
+        rtao = RtaoSettings()
+        render = partial(render_tubes_rtao, settings=wide, rtao=rtao,
+                         grid=tornado_segment_grid(scene, rtao.grid_resolution))
+    elif path == "wavefront":
+        scene = tornado_scene(dev)
+        render = partial(render_tubes_raytraced_wavefront,
+                         settings=RasterSettings(width=W, height=H, tile_w=16, tile_h=8),
+                         K=8, opacity=0.3, wide_groups=tornado_wide_bvh(scene)[0])
     else:
         scene = tornado_tube_mesh(dev)
         table = torch.as_tensor(TransferFunction.standard().table, device=dev)

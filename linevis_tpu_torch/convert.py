@@ -1,9 +1,9 @@
 """Carry state across from the JAX package as plain numpy arrays.
 
 The system has no weights: its state is the scene. A caller holding a
-`linevis_tpu` `CapsuleScene`, `PrismScene`, `TubeMesh` or `Trajectories`
-passes its fields as numpy
-arrays (e.g. `{f.name: np.asarray(getattr(s, f.name)) for f in
+`linevis_tpu` `CapsuleScene`, `PrismScene`, `TubeMesh`, `Trajectories`,
+`SegmentGrid`, `Lbvh` or packed wide-BVH groups array passes its fields as
+numpy arrays (e.g. `{f.name: np.asarray(getattr(s, f.name)) for f in
 dataclasses.fields(s)}`), and gets the port's counterpart back.
 """
 
@@ -14,11 +14,14 @@ import torch
 
 from linevis_tpu_torch.core.trajectories import Trajectories
 from linevis_tpu_torch.geometry.tubes import TubeMesh
+from linevis_tpu_torch.kernels.ao_grid import SegmentGrid
+from linevis_tpu_torch.ops.lbvh import Lbvh
 from linevis_tpu_torch.render.tube_raster import CapsuleScene, PrismScene
 
 __all__ = [
     "capsule_scene_from_numpy", "prism_scene_from_numpy", "tube_mesh_from_numpy",
-    "trajectories_from_numpy",
+    "trajectories_from_numpy", "segment_grid_from_numpy", "lbvh_from_numpy",
+    "wide_groups_from_numpy",
 ]
 
 
@@ -78,3 +81,38 @@ def trajectories_from_numpy(d) -> Trajectories:
         num_points=np.asarray(d["num_points"], np.int32),
         attribute_names=list(d.get("attribute_names", [])),
     )
+
+
+def segment_grid_from_numpy(d, device="cuda") -> SegmentGrid:
+    """{records [8, Ns + chunk], cell_start, cell_count [G^3], origin,
+    inv_cell [3], resolution, chunk} -> SegmentGrid on `device`."""
+
+    def t(name, dtype):
+        return torch.tensor(np.asarray(d[name]), dtype=dtype, device=device)
+
+    return SegmentGrid(
+        records=t("records", torch.float32),
+        cell_start=t("cell_start", torch.int32),
+        cell_count=t("cell_count", torch.int32),
+        origin=t("origin", torch.float32),
+        inv_cell=t("inv_cell", torch.float32),
+        resolution=int(d["resolution"]),
+        chunk=int(d["chunk"]),
+    )
+
+
+def lbvh_from_numpy(d) -> Lbvh:
+    """{left, right [N-1], node_min, node_max [2N-1, 3], leaf_prim [N]} ->
+    Lbvh of host arrays (what `ops.wide_bvh.pack_wide_bvh` consumes)."""
+    return Lbvh(
+        left=np.asarray(d["left"], np.int32), right=np.asarray(d["right"], np.int32),
+        node_min=np.asarray(d["node_min"], np.float32),
+        node_max=np.asarray(d["node_max"], np.float32),
+        leaf_prim=np.asarray(d["leaf_prim"], np.int32),
+    )
+
+
+def wide_groups_from_numpy(groups, device="cuda") -> torch.Tensor:
+    """A packed 8-wide BVH [n_groups * 8, 128] -> float32 tensor on `device`
+    (the `wide_groups` of `render_tubes_raytraced_wavefront`)."""
+    return torch.tensor(np.asarray(groups), dtype=torch.float32, device=device)

@@ -1,15 +1,19 @@
 """Entry points: the tube frame step with example arguments (opaque
-capsules, transparent MLAB capsules, opaque prisms, opaque triangle tubes),
-and the tornado benchmark scene in each geometry.
+capsules, transparent MLAB capsules, opaque prisms, opaque triangle tubes,
+ray-traced ambient occlusion, the wavefront ray tracer), and the tornado
+benchmark scene in each geometry with its acceleration structures.
 
 `entry` is the counterpart of `__graft_entry__.entry()` in the JAX package,
 `entry_mlab` its transparent (MLAB, K=8) counterpart on the same scene,
 `entry_prism` and `entry_triangle` the same lines through the Opaque
 renderer's `prism` and `triangle` tube geometries (8 subdivisions);
-`tornado_scene`, `tornado_prism_scene` and `tornado_tube_mesh` build the
-scene of the JAX package's primary benchmark (`bench.py`: 512 seeds x 400
+`entry_rtao` the capsules shaded with ray-traced ambient occlusion and
+`entry_wavefront` the transparent capsules through the wavefront BVH ray
+tracer; `tornado_scene`, `tornado_prism_scene` and `tornado_tube_mesh` build
+the scene of the JAX package's primary benchmark (`bench.py`: 512 seeds x 400
 RK4 steps, dt 1/150, tube radius 0.0015) from one traced line set
-(`tornado_trajectories`).
+(`tornado_trajectories`); `tornado_segment_grid` and `tornado_wide_bvh` build
+the AO grid and the packed 8-wide BVH of a capsule scene.
 """
 
 from __future__ import annotations
@@ -19,9 +23,9 @@ from functools import partial
 import numpy as np
 
 __all__ = [
-    "entry", "entry_mlab", "entry_prism", "entry_triangle",
-    "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
-    "tornado_tube_mesh",
+    "entry", "entry_mlab", "entry_prism", "entry_triangle", "entry_rtao",
+    "entry_wavefront", "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
+    "tornado_tube_mesh", "tornado_segment_grid", "tornado_wide_bvh",
 ]
 
 TORNADO_RADIUS = 0.0015
@@ -119,6 +123,47 @@ def entry_triangle(device="cuda"):
     return fn, (mesh, view_proj, position, table)
 
 
+def entry_rtao(device="cuda"):
+    """(fn, args): `fn(*args)` renders one frame of `entry`'s scene shaded
+    with ray-traced ambient occlusion (4 rays per pixel, radius 0.1, grid
+    32^3, samples drawn from seed 0) -> [4, H, W] linear RGBA on `device`."""
+    import torch
+
+    from linevis_tpu_torch.kernels.ao_grid import build_segment_grid
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.rtao import RtaoSettings, render_tubes_rtao
+
+    scene, cam = _small_scene(device)
+    settings = RasterSettings(width=256, height=128, tile_w=32, tile_h=16)
+    rtao = RtaoSettings(grid_resolution=32)
+    grid = build_segment_grid(scene.a, scene.ba, scene.radius, scene.mask,
+                              resolution=rtao.grid_resolution)
+    # The samples are drawn on the CPU so that every device traces the same rays.
+    gen = torch.Generator().manual_seed(0)
+    shape = (rtao.num_samples, settings.height, settings.width)
+    uniforms = tuple(torch.rand(shape, generator=gen).to(device) for _ in range(2))
+    fn = partial(render_tubes_rtao, settings=settings, rtao=rtao, grid=grid,
+                 uniforms=uniforms)
+    return fn, (scene, *cam)
+
+
+def entry_wavefront(device="cuda"):
+    """(fn, args): `fn(*args)` renders one transparent frame of `entry`'s
+    scene through the wavefront BVH ray tracer (linear builder, K=8, opacity
+    0.3, 16x8 ray tiles) -> [4, H, W] linear RGBA on `device`."""
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.ray_tracer import (
+        build_wide_capsule_bvh,
+        render_tubes_raytraced_wavefront,
+    )
+
+    scene, cam = _small_scene(device)
+    settings = RasterSettings(width=256, height=128, tile_w=16, tile_h=8)
+    fn = partial(render_tubes_raytraced_wavefront, settings=settings, K=8, opacity=0.3,
+                 wide_groups=build_wide_capsule_bvh(scene))
+    return fn, (scene, *cam)
+
+
 def tornado_trajectories(device="cuda", num_seeds=512, max_steps=400, seed=42):
     """The Crawfis tornado traced on `device` from `num_seeds` seeds drawn
     by np.random.default_rng(seed), positions and attributes normalized."""
@@ -179,3 +224,21 @@ def tornado_tube_mesh(device="cuda", num_subdivisions=8, traj=None, **trace_kw):
         traj.positions, traj.mask, traj.attributes[:, 0], radius=TORNADO_RADIUS,
         num_subdivisions=num_subdivisions, device=device,
     )
+
+
+def tornado_segment_grid(scene, resolution=64):
+    """The AO segment grid of a capsule scene (camera-independent)."""
+    from linevis_tpu_torch.kernels.ao_grid import build_segment_grid
+
+    return build_segment_grid(scene.a, scene.ba, scene.radius, scene.mask,
+                              resolution=resolution)
+
+
+def tornado_wide_bvh(scene, builder="binned_sah"):
+    """The packed 8-wide BVH of a capsule scene on its device ->
+    (groups, {"build_s", "pack_s"}): `builder`'s binary tree, then the
+    host-side collapse, timed apart."""
+    from linevis_tpu_torch.render.ray_tracer import build_wide_capsule_bvh
+
+    timings = {}
+    return build_wide_capsule_bvh(scene, builder=builder, timings=timings), timings

@@ -30,7 +30,10 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 
-KERNELS = ("raster_capsule", "raster_capsule_oit", "raster_prism", "raster_triangle")
+KERNELS = (
+    "raster_capsule", "raster_capsule_oit", "raster_prism", "raster_triangle", "ao_grid",
+    "bvh_wavefront",
+)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

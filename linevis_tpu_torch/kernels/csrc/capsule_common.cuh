@@ -1,5 +1,5 @@
 // Device helpers shared by the capsule kernels (raster_capsule.cu,
-// raster_capsule_oit.cu). `kernels/capsule_common.py` holds the same
+// raster_capsule_oit.cu, bvh_wavefront.cu). `kernels/capsule_common.py` holds the same
 // arithmetic for their plain PyTorch versions: every helper here rounds as
 // its Python counterpart does (the files build with --fmad=false, so an
 // explicit __fmaf_rn, `capsule_common.fma32` there, is the only fused
@@ -21,6 +21,25 @@ __device__ __forceinline__ float warp_min(float v) {
 }
 
 __device__ __forceinline__ float clamp01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
+
+// Unrolled piecewise-linear TF over a table group of `tf_static_table`:
+// [init[nch], (p0, p1, span, v0[nch], dv[nch]) per segment]. Later segments
+// win at shared endpoints, as in the JAX kernel's `where` chain.
+template <int NCH>
+__device__ __forceinline__ void tf_eval(const float* __restrict__ g, int npts, float x,
+                                        float* out) {
+  const float xc = clamp01(x);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) out[c] = g[c];
+  const float* seg = g + NCH;
+  for (int k = 0; k + 1 < npts; ++k, seg += 3 + 2 * NCH) {
+    if (xc >= seg[0] && xc <= seg[1]) {
+      const float w = (xc - seg[0]) / seg[2];
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) out[c] = seg[3 + c] + w * seg[3 + NCH + c];
+    }
+  }
+}
 
 // Unit ray of pixel `tid` of `tile` (params rows 0-8: row-major ray basis,
 // dir = B @ [u_ndc, v_ndc, 1]) and 1/|dir|: capsule_common.pixel_rays.

@@ -68,25 +68,6 @@ struct Opts {
   float sat_thr;  // float32(1 - sat)
 };
 
-// Unrolled piecewise-linear TF over a table group of `tf_static_table`:
-// [init[nch], (p0, p1, span, v0[nch], dv[nch]) per segment]. Later segments
-// win at shared endpoints, as in the JAX kernel's `where` chain.
-template <int NCH>
-__device__ __forceinline__ void tf_eval(const float* __restrict__ g, int npts, float x,
-                                        float* out) {
-  const float xc = clamp01(x);
-#pragma unroll
-  for (int c = 0; c < NCH; ++c) out[c] = g[c];
-  const float* seg = g + NCH;
-  for (int k = 0; k + 1 < npts; ++k, seg += 3 + 2 * NCH) {
-    if (xc >= seg[0] && xc <= seg[1]) {
-      const float w = (xc - seg[0]) / seg[2];
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) out[c] = seg[3 + c] + w * seg[3 + NCH + c];
-    }
-  }
-}
-
 // Per-candidate scalars shared by the intersection and the shading.
 struct Cand {
   float bard, rdoa, rd, baoa, t0;

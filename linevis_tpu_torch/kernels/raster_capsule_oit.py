@@ -54,7 +54,7 @@ from linevis_tpu_torch.render.transfer_function import (
 
 __all__ = [
     "rasterize_capsules_mlab", "rasterize_capsules_mlab_reference", "shade_nodes",
-    "blend_front_to_back",
+    "blend_front_to_back", "tf_table",
 ]
 
 _K_MAX = 32  # deepest node buffer of the CUDA kernel (templated on 8/16/32)
@@ -64,6 +64,18 @@ _MAX_SUB = 64  # per-thread candidate slots of the CUDA kernel: 2 * sub
 _MAX_CHUNK = 256  # staged payload columns of the CUDA kernel
 _UNPORTED_STORE_MODES = ("gather", "wboit", "count", "mboit_gen", "mboit_resolve")
 _tf_tables = {}  # (tf_color, tf_opacity, device) -> the kernel's TF table
+
+
+def tf_table(tf_color, tf_opacity, device) -> torch.Tensor:
+    """The CUDA kernels' TF table (`tf_static_table`) on `device`, cached. A
+    kernel mode that reads no color TF takes an empty tf_color: a black one
+    stands in."""
+    key = (tf_color or ((0.0, 0.0, 0.0, 0.0),), tf_opacity, str(device))
+    tf = _tf_tables.get(key)
+    if tf is None:
+        tf = torch.from_numpy(tf_static_table(*key[:2])).to(device)
+        _tf_tables[key] = tf
+    return tf
 
 
 def _row_product(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -506,12 +518,7 @@ def rasterize_capsules_mlab(
     if csr.tile_start.dtype != torch.int32 or csr.tile_count.dtype != torch.int32:
         raise ValueError("tile_start / tile_count must be int32")
 
-    # Node mode reads no color TF: a black one stands in for an empty tf_color.
-    key = (tf_color or ((0.0, 0.0, 0.0, 0.0),), tf_opacity, str(payload.device))
-    tf = _tf_tables.get(key)
-    if tf is None:
-        tf = torch.from_numpy(tf_static_table(*key[:2])).to(payload.device)
-        _tf_tables[key] = tf
+    tf = tf_table(tf_color, tf_opacity, payload.device)
     n_out = 4 if composite else 5 * K
     out = torch.empty((n_out, n_tiles, P), dtype=torch.float32, device=payload.device)
     with torch.cuda.device(payload.device):

@@ -1,0 +1,414 @@
+"""Binary BVHs over primitive AABBs: the linear (Morton radix tree) builder
+and the host-side quality builders.
+
+Counterpart of `linevis_tpu/ops/lbvh.py`. The reference offers four builder
+qualities (Binned SAH / Sweep SAH / LOC / Linear,
+`src/LineData/TrianglePayload/NodesBVHTreePayload.cpp:474-521` over
+madmann91/bvh; enum `src/Renderers/Deferred/DeferredModes.hpp:79-92`):
+- `build_lbvh`: the LINEAR builder as a data-parallel Karras 2012 radix
+  tree on the device of its inputs. Every step (Morton codes, sort,
+  per-node range search, split, range-min/max bounds) is a batched tensor
+  operation over all nodes; nothing loops over nodes on the host.
+- `build_bvh_sah`, `build_bvh_sweep_sah`, `build_bvh_ploc`: numpy on the
+  host, as the reference builds them on the CPU. A scene-build-time
+  operation, not a per-frame one.
+
+Layout shared by all four (N leaves, N-1 internal nodes): internal nodes
+[0, N-2] with the root at 0, leaves [N-1, 2N-2] over a permutation
+`leaf_prim` of the primitives. With one primitive the tree is the single
+leaf node 0.
+
+The closest-hit traversal `ray_query` is not ported yet (ROADMAP queue A
+item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = [
+    "Lbvh", "morton_codes", "build_lbvh", "build_bvh_sah", "build_bvh_sweep_sah",
+    "build_bvh_ploc",
+]
+
+
+def _expand_bits(v):
+    """Spread 10 bits to every 3rd position (int64 carrying 32-bit values)."""
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    v = (v * 0x00000005) & 0x49249249
+    return v
+
+
+def morton_codes(points: torch.Tensor) -> torch.Tensor:
+    """[N, 3] points in [0,1]^3 -> 30-bit Morton codes [N] (int64)."""
+    q = torch.clamp(points * 1024.0, 0.0, 1023.0).long()
+    return (
+        (_expand_bits(q[:, 0]) << 2) | (_expand_bits(q[:, 1]) << 1) | _expand_bits(q[:, 2])
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class Lbvh:
+    """Binary BVH. Internal nodes [0, N-2], leaves [N-1, 2N-2]. The arrays
+    are tensors (`build_lbvh`) or numpy arrays (the host builders)."""
+
+    left: object  # [N-1] child node id
+    right: object  # [N-1]
+    node_min: object  # [2N-1, 3]
+    node_max: object  # [2N-1, 3]
+    leaf_prim: object  # [N] sorted-leaf -> original primitive index
+
+    def numpy(self) -> "Lbvh":
+        """The same tree as numpy arrays on the host."""
+        def host(x):
+            return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+        return Lbvh(*(host(getattr(self, f.name)) for f in dataclasses.fields(self)))
+
+
+def _bit_length(x):
+    """Highest set bit position + 1 of non-negative int64 values (0 -> 0)."""
+    r = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        hi = x >> s
+        has = hi > 0
+        r = r + torch.where(has, s, 0)
+        x = torch.where(has, hi, x)
+    return r + (x > 0).long()
+
+
+def build_lbvh(aabb_min: torch.Tensor, aabb_max: torch.Tensor) -> Lbvh:
+    """Build from per-primitive AABBs [N, 3] on their device.
+
+    Centroids are normalized by the bounds of ALL boxes before they are
+    quantized to 10 bits per axis, so a few far-away boxes collapse the
+    codes of all the others; equal codes are split by sorted index (Karras
+    2012, section 4)."""
+    n = aabb_min.shape[0]
+    dev = aabb_min.device
+    centroid = 0.5 * (aabb_min + aabb_max)
+    lo = aabb_min.amin(dim=0)
+    hi = aabb_max.amax(dim=0)
+    unit = (centroid - lo) / torch.clamp(hi - lo, min=1e-12)
+    codes_s, order = torch.sort(morton_codes(unit), stable=True)
+    lmin, lmax = aabb_min[order], aabb_max[order]
+    if n == 1:
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        return Lbvh(empty, empty, lmin, lmax, order.to(torch.int32))
+
+    i = torch.arange(n - 1, device=dev)
+
+    def delta(j):
+        """Common-prefix length of the (code, index) pairs i and j; -1
+        outside the array."""
+        valid = (j >= 0) & (j < n)
+        jc = j.clamp(0, n - 1)
+        x = codes_s[i] ^ codes_s[jc]
+        lz = torch.where(x == 0, 64 - _bit_length(i ^ jc), 32 - _bit_length(x))
+        return torch.where(valid, lz, -1)
+
+    n_bits = int(np.ceil(np.log2(max(n, 2)))) + 1
+    d = torch.sign(delta(i + 1) - delta(i - 1))
+    dmin = delta(i - d)
+    # Exponential upper bound of the range length, then binary search.
+    lmax_ = torch.full_like(i, 2)
+    for _ in range(n_bits + 2):
+        lmax_ = torch.where(delta(i + lmax_ * d) > dmin, lmax_ * 2, lmax_)
+    length, t = torch.zeros_like(i), lmax_ // 2
+    for _ in range(n_bits + 1):
+        length = torch.where((t > 0) & (delta(i + (length + t) * d) > dmin),
+                             length + t, length)
+        t = t // 2
+    j = i + length * d
+    # Split position: highest differing bit inside [min(i,j), max(i,j)].
+    dnode = delta(j)
+    s, t = torch.zeros_like(i), (length + 1) // 2
+    for _ in range(n_bits + 1):
+        s = torch.where((t > 0) & (delta(i + (s + t) * d) > dnode), s + t, s)
+        t = torch.where(t > 1, (t + 1) // 2, 0)
+    gamma = i + s * d + torch.clamp(d, max=0)
+    first, last = torch.minimum(i, j), torch.maximum(i, j)
+    left = torch.where(first == gamma, (n - 1) + gamma, gamma)
+    right = torch.where(last == gamma + 1, (n - 1) + gamma + 1, gamma + 1)
+
+    # Bounds: sparse-table range min/max over the sorted leaf AABBs.
+    levels_min, levels_max = [lmin], [lmax]
+    w = 1
+    while w < n:
+        pmin, pmax = levels_min[-1], levels_max[-1]
+        levels_min.append(torch.minimum(pmin, torch.cat([pmin[w:], pmin[-w:]])))
+        levels_max.append(torch.maximum(pmax, torch.cat([pmax[w:], pmax[-w:]])))
+        w *= 2
+    table_min, table_max = torch.stack(levels_min), torch.stack(levels_max)  # [L, N, 3]
+    k = (_bit_length(last - first + 1) - 1).clamp(0, len(levels_min) - 1)
+    b2 = torch.clamp(last - torch.bitwise_left_shift(torch.ones_like(k), k) + 1, min=0)
+    int_min = torch.minimum(table_min[k, first], table_min[k, b2])
+    int_max = torch.maximum(table_max[k, first], table_max[k, b2])
+    return Lbvh(
+        left=left.to(torch.int32), right=right.to(torch.int32),
+        node_min=torch.cat([int_min, lmin]), node_max=torch.cat([int_max, lmax]),
+        leaf_prim=order.to(torch.int32),
+    )
+
+
+def _surface_np(mn, mx):
+    d = np.maximum(mx - mn, 0.0)
+    return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] + d[..., 2] * d[..., 0]
+
+
+def _host_boxes(aabb_min, aabb_max):
+    """(amin, amax) float32 arrays, or the single-leaf tree when N == 1."""
+    amin = np.asarray(aabb_min, np.float32)
+    amax = np.asarray(aabb_max, np.float32)
+    n = amin.shape[0]
+    if n == 0:
+        raise ValueError("need >= 1 primitive")
+    if n == 1:
+        # Node 0 is the leaf, as the linear builder gives for one primitive.
+        empty = np.zeros((0,), np.int32)
+        return Lbvh(empty, empty, amin, amax, np.zeros((1,), np.int32))
+    return amin, amax
+
+
+def _fill_bounds(left, right, perm, amin, amax):
+    """Leaf bounds from the permutation, then internal nodes in reverse id
+    order (preorder ids: children are resolved first) -> Lbvh."""
+    n = perm.shape[0]
+    node_min = np.zeros((2 * n - 1, 3), np.float32)
+    node_max = np.zeros((2 * n - 1, 3), np.float32)
+    node_min[n - 1:] = amin[perm]
+    node_max[n - 1:] = amax[perm]
+    for i in range(n - 2, -1, -1):
+        node_min[i] = np.minimum(node_min[left[i]], node_min[right[i]])
+        node_max[i] = np.maximum(node_max[left[i]], node_max[right[i]])
+    return Lbvh(left, right, node_min, node_max, perm)
+
+
+def _topdown_from_split(amin, amax, perm, split_range):
+    """Top-down scaffolding of the host builders (iterative DFS, preorder
+    internal ids so that every child id exceeds its parent's, bounds fill):
+    `split_range(lo, hi)` partitions `perm[lo:hi]` in place and returns mid
+    (lo < mid < hi)."""
+    n = amin.shape[0]
+    left = np.zeros((n - 1,), np.int32)
+    right = np.zeros((n - 1,), np.int32)
+
+    def child_id(lo, hi, next_internal):
+        if hi - lo == 1:
+            return (n - 1) + lo, next_internal
+        return next_internal, next_internal + 1
+
+    next_internal = 1  # root = 0
+    stack = [(0, 0, n)]
+    while stack:
+        my_id, lo, hi = stack.pop()
+        mid = split_range(lo, hi)
+        lid, next_internal = child_id(lo, mid, next_internal)
+        rid, next_internal = child_id(mid, hi, next_internal)
+        left[my_id] = lid
+        right[my_id] = rid
+        if mid - lo > 1:
+            stack.append((lid, lo, mid))
+        if hi - mid > 1:
+            stack.append((rid, mid, hi))
+    return _fill_bounds(left, right, perm, amin, amax)
+
+
+def build_bvh_sah(aabb_min, aabb_max, num_bins: int = 16) -> Lbvh:
+    """Binned-SAH top-down builder (host-side numpy).
+
+    Split rule per node: `num_bins` uniform centroid bins on every axis
+    (largest extent first), take the partition minimizing
+    SA_L*N_L + SA_R*N_R; median split when binning degenerates."""
+    boxes = _host_boxes(aabb_min, aabb_max)
+    if isinstance(boxes, Lbvh):
+        return boxes
+    amin, amax = boxes
+    n = amin.shape[0]
+    cent = 0.5 * (amin + amax)
+    perm = np.arange(n, dtype=np.int32)
+
+    def split_range(lo, hi):
+        idx = perm[lo:hi]
+        c = cent[idx]
+        clo = c.min(axis=0)
+        chi = c.max(axis=0)
+        ext = chi - clo
+        best = None  # (cost, axis, bin_j)
+        for ax in np.argsort(-ext):
+            if ext[ax] <= 1e-12:
+                continue
+            rel = (c[:, ax] - clo[ax]) / ext[ax]
+            b = np.minimum((rel * num_bins).astype(np.int32), num_bins - 1)
+            counts = np.bincount(b, minlength=num_bins)
+            if int((counts > 0).sum()) < 2:
+                continue
+            binmin = np.full((num_bins, 3), np.inf, np.float32)
+            binmax = np.full((num_bins, 3), -np.inf, np.float32)
+            np.minimum.at(binmin, b, amin[idx])
+            np.maximum.at(binmax, b, amax[idx])
+            lc = np.cumsum(counts)[:-1]
+            rc = (hi - lo) - lc
+            lmin = np.minimum.accumulate(binmin, axis=0)[:-1]
+            lmax = np.maximum.accumulate(binmax, axis=0)[:-1]
+            rmin = np.minimum.accumulate(binmin[::-1], axis=0)[::-1][1:]
+            rmax = np.maximum.accumulate(binmax[::-1], axis=0)[::-1][1:]
+            ok = (lc > 0) & (rc > 0)
+            cost = np.where(
+                ok, _surface_np(lmin, lmax) * lc + _surface_np(rmin, rmax) * rc, np.inf
+            )
+            j = int(np.argmin(cost))
+            if np.isfinite(cost[j]) and (best is None or cost[j] < best[0]):
+                best = (float(cost[j]), int(ax), j)
+        if best is None:
+            return lo + (hi - lo) // 2
+        _, ax, j = best
+        rel = (c[:, ax] - clo[ax]) / ext[ax]
+        b = np.minimum((rel * num_bins).astype(np.int32), num_bins - 1)
+        go_left = b <= j
+        order = np.argsort(~go_left, kind="stable")
+        perm[lo:hi] = idx[order]
+        mid = lo + int(go_left.sum())
+        if mid == lo or mid == hi:
+            mid = lo + (hi - lo) // 2
+        return mid
+
+    return _topdown_from_split(amin, amax, perm, split_range)
+
+
+def build_bvh_sweep_sah(aabb_min, aabb_max) -> Lbvh:
+    """Full-sweep SAH builder (host-side numpy): per node, primitives are
+    sorted by centroid on each axis and the exact SAH cost
+    SA_L*N_L + SA_R*N_R is evaluated at every split position through prefix
+    and suffix bound sweeps. O(n log^2 n); the best tree of the top-down
+    family."""
+    boxes = _host_boxes(aabb_min, aabb_max)
+    if isinstance(boxes, Lbvh):
+        return boxes
+    amin, amax = boxes
+    n = amin.shape[0]
+    cent = 0.5 * (amin + amax)
+    perm = np.arange(n, dtype=np.int32)
+
+    def split_range(lo, hi):
+        idx = perm[lo:hi]
+        m = hi - lo
+        best = None  # (cost, axis, i, order)
+        for ax in range(3):
+            order = np.argsort(cent[idx, ax], kind="stable")
+            o_idx = idx[order]
+            pmin = np.minimum.accumulate(amin[o_idx], axis=0)[:-1]
+            pmax = np.maximum.accumulate(amax[o_idx], axis=0)[:-1]
+            smin = np.minimum.accumulate(amin[o_idx][::-1], axis=0)[::-1][1:]
+            smax = np.maximum.accumulate(amax[o_idx][::-1], axis=0)[::-1][1:]
+            counts = np.arange(1, m, dtype=np.float64)
+            cost = _surface_np(pmin, pmax) * counts + _surface_np(smin, smax) * (m - counts)
+            i = int(np.argmin(cost))
+            if best is None or cost[i] < best[0]:
+                best = (float(cost[i]), ax, i, order)
+        _, ax, i, order = best
+        perm[lo:hi] = idx[order]
+        return lo + i + 1
+
+    return _topdown_from_split(amin, amax, perm, split_range)
+
+
+def build_bvh_ploc(aabb_min, aabb_max, search_radius: int = 16) -> Lbvh:
+    """PLOC (parallel locally-ordered clustering, Meister & Bittner 2018)
+    builder (host-side numpy): leaves are Morton-sorted, then clusters merge
+    with their nearest neighbor (least merged surface area) within a window
+    of +-`search_radius`; mutual nearest pairs merge each round. The
+    bottom-up topology is relabeled to this module's preorder ids."""
+    boxes = _host_boxes(aabb_min, aabb_max)
+    if isinstance(boxes, Lbvh):
+        return boxes
+    amin, amax = boxes
+    n = amin.shape[0]
+    cent = 0.5 * (amin + amax)
+    lo_all = cent.min(axis=0)
+    ext = np.maximum(cent.max(axis=0) - lo_all, 1e-12)
+    q = np.clip(((cent - lo_all) / ext * 1023.0), 0, 1023).astype(np.uint64)
+
+    def expand(v):
+        v = (v | (v << 16)) & np.uint64(0x30000FF)
+        v = (v | (v << 8)) & np.uint64(0x300F00F)
+        v = (v | (v << 4)) & np.uint64(0x30C30C3)
+        v = (v | (v << 2)) & np.uint64(0x9249249)
+        return v
+
+    codes = ((expand(q[:, 0]) << np.uint64(2)) | (expand(q[:, 1]) << np.uint64(1))
+             | expand(q[:, 2]))
+    order = np.argsort(codes, kind="stable")
+
+    # Cluster state: temp node ids (leaves 0..n-1, internals n..2n-2).
+    ids = order.astype(np.int32)
+    bmin = amin[order].copy()
+    bmax = amax[order].copy()
+    tmp_l = np.zeros((n - 1,), np.int32)
+    tmp_r = np.zeros((n - 1,), np.int32)
+    next_tmp = n
+    while ids.shape[0] > 1:
+        m = ids.shape[0]
+        rad = min(search_radius, m - 1)
+        best_c = np.full((m,), np.inf, np.float64)
+        best_j = np.full((m,), -1, np.int64)
+        for d in range(1, rad + 1):
+            c = _surface_np(np.minimum(bmin[:-d], bmin[d:]), np.maximum(bmax[:-d], bmax[d:]))
+            i = np.arange(m - d)
+            upd = c < best_c[:-d]
+            best_c[:-d][upd] = c[upd]
+            best_j[:-d][upd] = i[upd] + d
+            updr = c < best_c[d:]
+            best_c[d:][updr] = c[updr]
+            best_j[d:][updr] = i[updr]
+        mutual = best_j[best_j] == np.arange(m)
+        first = mutual & (np.arange(m) < best_j)
+        keep = np.ones((m,), bool)
+        new_ids = ids.copy()
+        fi = np.nonzero(first)[0]
+        for i in fi:  # sequential id assignment (deterministic)
+            j = best_j[i]
+            tmp_l[next_tmp - n] = ids[i]
+            tmp_r[next_tmp - n] = ids[j]
+            new_ids[i] = next_tmp
+            next_tmp += 1
+            keep[j] = False
+        bmin[fi] = np.minimum(bmin[fi], bmin[best_j[fi]])
+        bmax[fi] = np.maximum(bmax[fi], bmax[best_j[fi]])
+        if not first.any():  # safety: force-merge the first pair
+            tmp_l[next_tmp - n] = ids[0]
+            tmp_r[next_tmp - n] = ids[1]
+            new_ids[0] = next_tmp
+            next_tmp += 1
+            keep[1] = False
+            bmin[0] = np.minimum(bmin[0], bmin[1])
+            bmax[0] = np.maximum(bmax[0], bmax[1])
+        ids = new_ids[keep]
+        bmin = bmin[keep]
+        bmax = bmax[keep]
+
+    # Preorder relabel: internal ids 0..n-2 (parent < children), leaf slots
+    # in DFS encounter order carry the primitive permutation.
+    left = np.zeros((n - 1,), np.int32)
+    right = np.zeros((n - 1,), np.int32)
+    perm = np.zeros((n,), np.int32)
+    next_internal = 1
+    next_leaf = 0
+    stack = [(0, int(ids[0]))]  # (new id, temp id), from the temp root
+    while stack:
+        my_id, tmp = stack.pop()
+        for side, arr in ((tmp_l[tmp - n], left), (tmp_r[tmp - n], right)):
+            if side < n:  # leaf
+                perm[next_leaf] = side
+                arr[my_id] = (n - 1) + next_leaf
+                next_leaf += 1
+            else:
+                arr[my_id] = next_internal
+                stack.append((next_internal, int(side)))
+                next_internal += 1
+    return _fill_bounds(left, right, perm, amin, amax)

@@ -72,7 +72,10 @@ def tf_channels_static(pts, nch, x: torch.Tensor):
         p0, p1, span = (float(v) for v in seg[:3])
         v0, dv = seg[3:3 + nch], seg[3 + nch:]
         inside = (xc >= p0) & (xc <= p1)
-        w = (xc - p0) / span
+        # A tensor divisor: on the card PyTorch turns division by a Python
+        # scalar into multiplication by its reciprocal, which rounds
+        # otherwise than the kernels' IEEE division.
+        w = (xc - p0) / torch.full((), span, dtype=x.dtype, device=x.device)
         for c in range(nch):
             outs[c] = torch.where(inside, float(v0[c]) + w * float(dv[c]), outs[c])
     return outs

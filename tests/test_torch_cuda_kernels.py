@@ -11,7 +11,9 @@ coverage within 2e-3. For the MLAB kernel: node depths and alpha within
 1e-5 on >= 99.9% of pixels, features within 1e-5 there, composited RGBA
 within 1e-4 on >= 99.9% of pixels (the composite's powf may differ from
 torch.pow by an ulp). For the prism and the triangle kernel: bit for bit
-(`torch.equal` on every output). Kernels and plain versions are built
+(`torch.equal` on every output). For the AO grid kernel: every pair's flag
+and every chunk's walked count equal. For the wavefront kernel: depths,
+features, alpha and the per-block counts bit for bit. Kernels and plain versions are built
 without fast math and FMA contraction, so they normally agree bit for bit.
 """
 
@@ -31,6 +33,8 @@ from linevis_tpu_torch.kernels.raster_capsule_oit import (
     rasterize_capsules_mlab_reference,
 )
 from linevis_tpu_torch.geometry.tubes import build_tube_triangle_mesh
+from linevis_tpu_torch.kernels import ao_grid as tao
+from linevis_tpu_torch.kernels import bvh_wavefront as twf
 from linevis_tpu_torch.kernels import raster_pallas as trp
 from linevis_tpu_torch.kernels.raster_prism import (
     MAX_SIDES,
@@ -40,6 +44,8 @@ from linevis_tpu_torch.kernels.raster_prism import (
 from linevis_tpu_torch.render import oit as toit
 from linevis_tpu_torch.render import opaque as top
 from linevis_tpu_torch.render import pipeline as tpl
+from linevis_tpu_torch.render import ray_tracer as trt
+from linevis_tpu_torch.render import rtao as trtao
 from linevis_tpu_torch.render import tube_raster as ttr
 from linevis_tpu_torch.render.camera import Camera
 from linevis_tpu_torch.render.pipeline import RasterSettings
@@ -317,3 +323,201 @@ def test_render_prism_and_triangle_card_matches_cpu(cuda, geometry):
     assert bool(torch.isfinite(imgs[0]).all())
     assert (imgs[0][:3] < 0.999).any()
     assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3
+
+
+def _ao_inputs(device, n_rays, seed=3, t_max=0.2, scene=(12345, 12, 6, 0.03)):
+    """Rays from near the tube surfaces of a walk scene, expanded into pair
+    chunks over its grid (resolution 16)."""
+    ts = ttr.build_capsule_scene(*_walk(*scene), device=device)
+    grid = tao.build_segment_grid(ts.a, ts.ba, ts.radius, ts.mask, resolution=16)
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, ts.num_segments, n_rays)
+    u = rng.uniform(0, 1, n_rays).astype(np.float32)
+    a, ba = ts.a.cpu().numpy(), ts.ba.cpu().numpy()
+    o = (a[:, seg] + u * ba[:, seg] + rng.normal(0, 0.04, (3, n_rays))).astype(np.float32)
+    d = rng.normal(0, 1, (3, n_rays)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    rays = [torch.as_tensor(x, device=device) for x in (o, d)]
+    rays.append(torch.full((n_rays,), t_max, device=device))
+    rays.append(torch.ones(n_rays, dtype=torch.bool, device=device))
+    return ts, grid, rays
+
+
+@pytest.mark.parametrize("n_rays", [1000, 4096, 77])
+def test_ao_kernel_matches_plain(cuda, n_rays):
+    """Chunk counts that are no multiple of 8, chunks with seg_chunks == 0
+    (the dropped pairs' tail), chunks that walk several record chunks."""
+    ts, grid, rays = _ao_inputs(cuda, n_rays)
+    pairs = tao.expand_ray_pairs(*rays, grid)
+    n_chunks = pairs.seg_begin.shape[0]
+    assert (pairs.seg_chunks == 0).any() and (pairs.seg_chunks > 0).any()
+    walked = torch.zeros(n_chunks, dtype=torch.int32, device=cuda)
+    tests = torch.zeros_like(walked)
+    before = tao.trace_pairs.launches
+    k = tao.trace_pairs(pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid.records,
+                        grid.chunk, walked=walked, tests=tests)
+    assert tao.trace_pairs.launches == before + 1
+    p_walked, p_tests = torch.zeros_like(walked), torch.zeros_like(walked)
+    p = tao.trace_pairs_reference(pairs.rays, pairs.seg_begin, pairs.seg_chunks,
+                                  grid.records, grid.chunk, walked=p_walked, tests=p_tests)
+    torch.cuda.synchronize()
+    assert k.shape == (n_chunks * 128,) and k.sum().item() > 10
+    assert torch.equal(k, p)
+    assert torch.equal(walked, p_walked) and torch.equal(tests, p_tests)
+    assert (walked <= pairs.seg_chunks).all()
+    assert (tests <= walked * 128 * 128).all() and tests.sum().item() > 0
+    # The counters change nothing: the same flags without them.
+    assert torch.equal(k, tao.trace_pairs(pairs.rays, pairs.seg_begin, pairs.seg_chunks,
+                                          grid.records, grid.chunk))
+
+
+def test_ao_kernel_saturation_exit(cuda):
+    """A chunk whose 128 rays all hit the first record's capsule saturates
+    on its first record chunk and stops, though many more were assigned."""
+    ts, grid, _ = _ao_inputs(cuda, 8)
+    n_rec = int(grid.cell_start[-1] + grid.cell_count[-1])
+    assert n_rec > 3 * 128
+    # 128 rays aimed at the midpoint of the first record's segment.
+    rec = grid.records[:, 0]
+    aim = torch.tensor([0.0, 1.0, 0.0], device=cuda)
+    rays = torch.zeros((8, 256), device=cuda)
+    rays[0:3, :128] = (rec[0:3] + 0.5 * rec[3:6] - 0.5 * aim)[:, None]
+    rays[3:6, :128] = aim[:, None]
+    rays[6, :128] = 10.0
+    seg_begin = torch.zeros(1, dtype=torch.int32, device=cuda)
+    seg_chunks = torch.full((1,), n_rec // 128, dtype=torch.int32, device=cuda)
+    walked = torch.zeros(1, dtype=torch.int32, device=cuda)
+    tests = torch.zeros_like(walked)
+    k = tao.trace_pairs(rays, seg_begin, seg_chunks, grid.records, 128, walked=walked,
+                        tests=tests)
+    p_walked, p_tests = torch.zeros_like(walked), torch.zeros_like(walked)
+    p = tao.trace_pairs_reference(rays, seg_begin, seg_chunks, grid.records, 128,
+                                  walked=p_walked, tests=p_tests)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and torch.equal(walked, p_walked)
+    assert torch.equal(tests, p_tests)
+    assert k.sum().item() == 128 and walked.item() < seg_chunks.item()
+    # All 128 rays are live for the first record chunk and none after it.
+    assert tests.item() == 128 * 128
+
+
+def test_trace_ao_occlusion_card_matches_cpu(cuda):
+    """The whole trace (expansion, sorts, kernel, scatter) on the card
+    against the CPU: both sorts are stable, so every ray is equal."""
+    occ = []
+    for dev in (cuda, torch.device("cpu")):
+        _, grid, rays = _ao_inputs(dev, 3000)
+        rays[3][::7] = False
+        occ.append(tao.trace_ao_occlusion(*rays, grid).cpu())
+    assert torch.equal(occ[0], occ[1]) and occ[0].sum().item() > 50
+
+
+def test_render_rtao_card_matches_cpu(cuda):
+    W, H = 160, 120
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+    rt = trtao.RtaoSettings(num_samples=2, ao_radius=0.2, grid_resolution=16,
+                            rays_per_batch=8192)
+    gen = torch.Generator().manual_seed(1)
+    u = [torch.rand((2, H, W), generator=gen) for _ in range(2)]
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        scene = ttr.build_capsule_scene(*_walk(12, 10, 8, 0.03), device=dev)
+        b1, b5 = rasterize_capsules.launches, tao.trace_pairs.launches
+        imgs.append(trtao.render_tubes_rtao(
+            scene, *ttr.camera_tensors(cam, dev), S, rt,
+            uniforms=tuple(x.to(dev) for x in u),
+        ).cpu())
+        on_card = dev.type == "cuda"
+        assert rasterize_capsules.launches == b1 + on_card
+        assert tao.trace_pairs.launches == b5 + 5 * on_card  # one per batch of rays
+    assert bool(torch.isfinite(imgs[0]).all())
+    assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3
+
+
+def _wavefront_inputs(device, W, H, builder="linear", scene=(12, 10, 8, 0.03)):
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
+    ts = ttr.build_capsule_scene(*_walk(*scene), device=device)
+    vp, cp, ab = ttr.camera_tensors(cam, device)
+    return trt.build_wide_capsule_bvh(ts, builder=builder), trt.primary_rays(vp, cp, S, 1e6), ab
+
+
+@pytest.mark.parametrize("no_overflow", [False, True], ids=["mlab_merge", "no_overflow"])
+@pytest.mark.parametrize("K", [3, 8, 16, 32])
+@pytest.mark.parametrize("builder", ["linear", "binned_sah"])
+def test_wavefront_kernel_matches_plain(cuda, builder, K, no_overflow):
+    groups, rays, ab = _wavefront_inputs(cuda, 96, 64, builder)
+    rays = rays[:, :rays.shape[1] - 50]  # R is no multiple of 128
+    n_blocks = -(-rays.shape[1] // 128)
+    stats = torch.zeros((n_blocks, 6), dtype=torch.int64, device=cuda)
+    before = twf.trace_wavefront_kbuffer.launches
+    k = twf.trace_wavefront_kbuffer(groups, rays, ab, K=K, opacity=0.4,
+                                    no_overflow=no_overflow, stats=stats)
+    assert twf.trace_wavefront_kbuffer.launches == before + 1
+    p_stats = torch.zeros_like(stats)
+    p = twf.trace_wavefront_kbuffer_reference(groups, rays, ab, K=K, opacity=0.4,
+                                              no_overflow=no_overflow, stats=p_stats)
+    torch.cuda.synchronize()
+    assert k[0].shape == (K, n_blocks, 128) and k[1].shape == (3, K, n_blocks, 128)
+    assert (k[0] < 2.0).sum().item() > 100
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(stats, p_stats)
+
+
+def test_wavefront_kernel_opacity_tf_and_blocks(cuda):
+    """A non-trivial opacity TF, and the plain version on a subset of ray
+    blocks against the kernel's output there."""
+    groups, rays, ab = _wavefront_inputs(cuda, 96, 64)
+    tf_opacity = ((0.0, 0.2), (0.4, 0.9), (1.0, 0.5))
+    k = twf.trace_wavefront_kbuffer(groups, rays, ab, K=8, opacity=0.7, tf_opacity=tf_opacity)
+    blocks = torch.arange(0, rays.shape[1] // 128, 3, device=cuda)
+    p = twf.trace_wavefront_kbuffer_reference(groups, rays, ab, K=8, opacity=0.7,
+                                              tf_opacity=tf_opacity, blocks=blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0][:, blocks], p[0]) and torch.equal(k[2][:, blocks], p[2])
+    assert torch.equal(k[1][:, :, blocks], p[1])
+
+
+def test_wavefront_kernel_stack_overflow_raises(cuda):
+    n_groups = 40
+    rec = np.zeros((n_groups * 8, 128), np.float32)
+    rec[:, 0:3] = -1.0
+    rec[:, 3:6] = 1.0
+    rec[:, 6] = -1.0
+    for g in range(n_groups - 1):
+        rec[g * 8:g * 8 + 8, 6] = n_groups - 1
+        rec[g * 8 + 7, 6] = g + 1
+    rec[(n_groups - 1) * 8:, 0:6] = np.inf
+    rays = np.zeros((8, 128), np.float32)
+    rays[:, :] = np.array([0, 0, -5, 0, 0, 1, 1e6, 1], np.float32)[:, None]
+    ab = torch.tensor([1.0001, 0.010001], device=cuda)
+    with pytest.raises(twf.StackOverflowError):
+        twf.trace_wavefront_kbuffer(torch.as_tensor(rec, device=cuda),
+                                    torch.as_tensor(rays, device=cuda), ab, K=4)
+
+
+def test_render_wavefront_card_matches_cpu(cuda):
+    W, H = 160, 120
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=16, tile_h=8, depth_cue_strength=0.2)
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        scene = ttr.build_capsule_scene(*_walk(12, 10, 8, 0.03), device=dev)
+        before = twf.trace_wavefront_kbuffer.launches
+        imgs.append(trt.render_tubes_raytraced_wavefront(
+            scene, *ttr.camera_tensors(cam, dev), S, K=8, opacity=0.4
+        ).cpu())
+        assert twf.trace_wavefront_kbuffer.launches == before + (dev.type == "cuda")
+    assert bool(torch.isfinite(imgs[0]).all()) and (imgs[0][3] > 0).sum().item() > 100
+    assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3
+
+
+def test_build_lbvh_card_matches_cpu(cuda):
+    trees = []
+    for dev in (cuda, torch.device("cpu")):
+        scene = ttr.build_capsule_scene(*_walk(3, 7, 9, 0.03), device=dev)
+        trees.append(trt.build_capsule_bvh(scene).numpy())
+    for name in ("left", "right", "leaf_prim", "node_min", "node_max"):
+        np.testing.assert_array_equal(getattr(trees[0], name), getattr(trees[1], name))

@@ -416,7 +416,9 @@ def test_port_imports_no_jax():
         "need = ['geometry.frames', 'geometry.tubes', 'kernels.raster_prism',\n"
         "        'kernels.raster_pallas', 'render.opaque', 'render.pipeline',\n"
         "        'render.tube_raster', 'convert', 'entry', 'automation.profiling',\n"
-        "        'automation.parity']\n"
+        "        'automation.parity', 'automation.linear_bvh', 'kernels.ao_grid',\n"
+        "        'kernels.bvh_wavefront',\n"
+        "        'ops.lbvh', 'ops.wide_bvh', 'render.rtao', 'render.ray_tracer']\n"
         "missing = [m for m in need if 'linevis_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
@@ -425,4 +427,4 @@ def test_port_imports_no_jax():
         env={**os.environ, "PYTHONPATH": REPO}, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 26
+    assert int(out.stdout.strip()) >= 33
