@@ -24,14 +24,28 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   8 frames;
 - the wavefront ray tracer through `render_tubes_raytraced_wavefront`
   (bench.py's settings: tile 16x8, K=8, opacity 0.3, binned-SAH tree
-  collapsed to 8-wide groups on the host; kernel bvh_wavefront), 4 frames.
+  collapsed to 8-wide groups on the host; kernel bvh_wavefront), 4 frames;
+- the rest of the OIT family at tile 16x8, opacity 0.3, 8 frames each:
+  depth complexity (`render_depth_complexity`; capsule_accum once per
+  frame), WBOIT (`render_tubes_wboit`; capsule_accum once), MBOIT
+  (`render_tubes_mboit`, 4 power moments, float32; capsule_accum twice),
+  MLAB buckets (`render_tubes_mlab_buckets`, K=8; capsule_mlab twice) and
+  depth peeling (`render_tubes_depth_peeling`, K=8, 4 passes; capsule_mlab
+  four times, with a peel depth and per-fragment shading). Each mode is held
+  against its plain version on frame 0 (count exactly, WBOIT and MBOIT
+  moments within 1e-5 of the pixel's scale, the resolve and the peel passes'
+  nodes within 1e-4), each frame against the same frame on the plain path,
+  the MBOIT variants (6/8 power, 4/6/8 trigonometric moments, unorm16) at
+  480x272, and depth peeling against the Atomic Loop K=32, MBOIT and WBOIT
+  against MLAB K=8.
 For each path it times the frames and their stages with CUDA events, checks
 that exactly the expected kernels were launched the expected number of
 times, holds the path's kernel against its plain PyTorch version on the same
 1080p inputs (the wavefront kernel on every WF_COMPARE_EVERY-th ray block:
 blocks are independent), and checks a small frame on the card against the
 plain path on the CPU (for the transparent path also the Atomic Loop frame,
-K=16 `no_overflow`, through `render_tubes_atomic_loop`). It also prints the
+K=16 `no_overflow` with per-fragment shading, through
+`render_tubes_atomic_loop`). It also prints the
 SSIM of the prism frame against the triangle frame, and of the wavefront
 frame against the two-sided MLAB frame, of the same camera. Then it prints
 one JSON line of kernel figures, and the device line last.
@@ -123,6 +137,21 @@ WF_OPS_PER_LEAF_ROW = 143
 WF_OPS_PER_MEMBER = 45
 WF_OPS_PER_SWEEP = 32 + 12
 WF_OPS_PER_SWEEP_NODE = 4
+OIT_FRAMES = 8  # frames of each phase of the rest of the OIT family
+OIT_OPACITY = 0.3
+OIT_SMALL = (480, 272)  # the reduced frame of the MBOIT variants
+# Float operations of the per-fragment work of the OIT family, counted as
+# above, a logf/expf/powf/cosf/sinf as 8: per shaded fragment, beyond the 45
+# of its features, 80 (the color TF 30, three powf 24, the cosine mix,
+# specular and shade 6, the depth cue 8, the color mix 12); per fragment of
+# an accumulation mode its terms: count 1, wboit 35 (weight 20, log 10, sums
+# 5), mboit_gen 4 moments 45 (warp 14, absorbance 11, moments 20),
+# mboit_resolve 4 moments 150 (warp 14, the 4-moment transmittance ~125,
+# sums 8, the discard 3); per fragment of a peel pass its NDC depth and the
+# peel test 5.
+OIT_OPS_PER_SHADE = 80
+OIT_OPS_PER_ACCUM = {"count": 1, "wboit": 35, "mboit_gen": 45, "mboit_resolve": 150}
+OIT_OPS_PER_PEEL = 5
 
 
 def _events():
@@ -148,7 +177,12 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from linevis_tpu_torch.entry import (
         entry,
+        entry_depth_complexity,
+        entry_depth_peeling,
+        entry_mboit,
         entry_mlab,
+        entry_mlab_buckets,
+        entry_wboit,
         entry_prism,
         entry_rtao,
         entry_triangle,
@@ -171,6 +205,7 @@ def main() -> int:
         rasterize_capsules_reference,
     )
     from linevis_tpu_torch.kernels.raster_capsule_oit import (
+        rasterize_capsules_accum,
         rasterize_capsules_mlab,
         rasterize_capsules_mlab_reference,
     )
@@ -182,10 +217,17 @@ def main() -> int:
     from linevis_tpu_torch.ops.wide_bvh import USED_LANES
     from linevis_tpu_torch.render.camera import Camera
     from linevis_tpu_torch.render.framebuffer import ssim
+    from linevis_tpu_torch.render import oit as oit_module
     from linevis_tpu_torch.render.oit import (
+        prepare_mboit_frame,
         prepare_mlab_frame,
+        render_depth_complexity,
         render_tubes_atomic_loop,
+        render_tubes_depth_peeling,
+        render_tubes_mboit,
         render_tubes_mlab,
+        render_tubes_mlab_buckets,
+        render_tubes_wboit,
     )
     from linevis_tpu_torch.render.opaque import (
         _ray_basis_from_view_proj,
@@ -223,6 +265,7 @@ def main() -> int:
 
     wrappers = {
         "capsule_raster": rasterize_capsules, "capsule_mlab": rasterize_capsules_mlab,
+        "capsule_accum": rasterize_capsules_accum,
         "prism_raster": rasterize_prisms, "triangle_raster": raster_pallas.rasterize_gbuffer,
         "ao_grid": ao_grid.trace_pairs, "bvh_wavefront": trace_wavefront_kbuffer,
     }
@@ -275,6 +318,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built)}", flush=True)
     for name, info in built.items():
         for line in info["log"].splitlines():
+            if "Compiling entry function" in line:
+                print(f"  {name}: {line.split(chr(39))[1]}", flush=True)
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
@@ -446,7 +491,7 @@ def main() -> int:
     def mlab_plain(csr, params, composite=True, **kw):
         return rasterize_capsules_mlab_reference(
             csr, params, W, H, 16, 8, MLAB_K, s_oit.tf_color, s_oit.tf_opacity,
-            sub=MLAB_SUB, sat=0.999, composite=composite, **kw
+            deferred_shade=True, sub=MLAB_SUB, sat=0.999, composite=composite, **kw
         )
 
     def untile(csr, x):
@@ -581,6 +626,317 @@ def main() -> int:
         "sweeps": stats["sweeps"],
         "members": stats["members"],
     })
+
+    # 10a. The rest of the OIT family: OIT_FRAMES frames of each renderer
+    # through its entry point, launches counted per phase.
+    oit_runs = {
+        "depth complexity": (
+            lambda cam: render_depth_complexity(scene, *cam, s_oit), {"capsule_accum": 1}),
+        "wboit": (lambda cam: render_tubes_wboit(scene, *cam, s_oit, opacity=OIT_OPACITY),
+                  {"capsule_accum": 1}),
+        "mboit": (lambda cam: render_tubes_mboit(scene, *cam, s_oit, n_mom=4,
+                                                 opacity=OIT_OPACITY), {"capsule_accum": 2}),
+        "mlab buckets": (lambda cam: render_tubes_mlab_buckets(scene, *cam, s_oit, K=8,
+                                                               opacity=OIT_OPACITY),
+                         {"capsule_mlab": 2}),
+        "depth peeling": (lambda cam: render_tubes_depth_peeling(
+            scene, *cam, s_oit, K=8, passes=4, opacity=OIT_OPACITY), {"capsule_mlab": 4}),
+    }
+    ocams = cams[:OIT_FRAMES]
+    oit_launches, oit_img0 = {}, {}
+    for label, (render, per_frame) in oit_runs.items():
+        render(ocams[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        frame_ev = [_events() for _ in ocams]
+        imgs_sum = torch.zeros((), device=dev)
+        for (a, b), cam in zip(frame_ev, ocams):
+            a.record()
+            img = render(cam)
+            b.record()
+            imgs_sum += img.sum()
+        torch.cuda.synchronize()
+        oit_launches[label] = expect_launches(
+            {k: n * OIT_FRAMES for k, n in per_frame.items()})
+        if not bool(torch.isfinite(imgs_sum)):
+            raise RuntimeError(f"non-finite {label} frame on the main path")
+        oit_img0[label] = render(ocams[0])
+        med = float(np.median([a.elapsed_time(b) for a, b in frame_ev]))
+        line = {"frame_ms_median": med, "fps": 1000.0 / med,
+                "launches_per_frame": per_frame, "frames": OIT_FRAMES, "width": W,
+                "height": H, "gpu": gpu}
+        if label == "depth complexity":
+            counts = oit_img0[label]
+            fg_counts = counts[counts > 0]
+            line.update(foreground_share=float((counts > 0).float().mean()),
+                        max_count_foreground=float(fg_counts.max()),
+                        mean_count_foreground=float(fg_counts.mean()),
+                        pixels_over_32=int((counts > 32).sum()))
+            if line["foreground_share"] < 0.01:
+                raise RuntimeError("the depth complexity frame is almost empty")
+        else:
+            line["foreground_share"] = float((oit_img0[label][3] > 0).float().mean())
+            if line["foreground_share"] < 0.01:
+                raise RuntimeError(f"the {label} frame is almost empty")
+        print(f"{label} frame: " + json.dumps(line), flush=True)
+
+    # 10b. Each new mode's kernel against its plain version on frame 0's
+    # inputs at 1080p, and the five frames rendered on the plain path.
+    def plain_path_image(render, cam):
+        """`render`'s frame with every OIT kernel call on its plain version."""
+        oit_module.rasterize_capsules_mlab = rasterize_capsules_mlab_reference
+        try:
+            return render(cam)
+        finally:
+            oit_module.rasterize_capsules_mlab = rasterize_capsules_mlab
+
+    def images_agree(label, k_img, p_img, nonfinite_ok=False):
+        """SSIM and mean abs of a kernel frame against its plain-path frame.
+        `nonfinite_ok`: non-finite pixels pass where both frames have them
+        (the trigonometric MBOIT transmittance overflows as the JAX
+        package's does, ROADMAP queue C) and are left out of the figures."""
+        if k_img.dim() == 2:
+            ok = bool(torch.equal(k_img, p_img))
+            print(f"{label} frame kernel vs plain path: equal {ok}", flush=True)
+            if not ok:
+                raise RuntimeError(f"the {label} frame differs from its plain path")
+            return 1.0, 0.0, 0
+        k_np, p_np = k_img.permute(1, 2, 0).cpu().numpy(), p_img.permute(1, 2, 0).cpu().numpy()
+        k_bad, p_bad = ~np.isfinite(k_np).all(-1), ~np.isfinite(p_np).all(-1)
+        n_bad = int(k_bad.sum())
+        if n_bad and not (nonfinite_ok and np.array_equal(k_bad, p_bad)):
+            raise RuntimeError(f"the {label} frame has {n_bad} non-finite pixels")
+        k_np, p_np = np.nan_to_num(k_np), np.nan_to_num(p_np)
+        s_, mad = ssim(k_np[..., :3], p_np[..., :3]), float(np.abs(k_np - p_np).mean())
+        print(f"{label} frame kernel vs plain path: ssim {s_:.6f}, mean abs {mad:.3g}, "
+              f"non-finite pixels {n_bad} (the same in both)", flush=True)
+        if s_ < 0.999 or mad > 2e-3:
+            raise RuntimeError(f"the {label} frame disagrees with its plain path")
+        return s_, mad, n_bad
+
+    oit_image_check = {}
+    for label, (render, _) in oit_runs.items():
+        oit_image_check[label] = images_agree(
+            label, oit_img0[label], plain_path_image(render, ocams[0]))
+
+    def share_within(k, p, scale, tol):
+        """Share of pixels whose every plane of k is within tol * scale of p."""
+        err = (k - p).abs().reshape(-1, *k.shape[-2:]).amax(dim=0)
+        return float((err <= tol * scale).float().mean())
+
+    def planes(out):
+        return torch.cat([out[0], out[1].flatten(0, 1), out[2]])
+
+    def oit_entry(name, source, launches, max_err, ms, plain_ms, evaluated, n_tiles, K,
+                  ops, extra_in_planes=0, **extra):
+        P = 16 * 8
+        in_bytes = (evaluated * MLAB_ROWS * 4 + 2 * n_tiles * 4 + 32 * 4
+                    + extra_in_planes * n_tiles * P * 4)
+        out_bytes = 5 * K * n_tiles * P * 4
+        t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
+        t_ops = ops / H100_FP32_FLOPS * 1e3
+        return {
+            "name": name, "route": "cuda",
+            "source": f"linevis_tpu_torch/kernels/csrc/{source}",
+            "replaces": "linevis_tpu/kernels/raster_capsule_oit.py:116",
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "evaluated": evaluated,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": in_bytes + out_bytes, "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "library_ms": None, **extra,
+        }
+
+    def timed_plain(fn):
+        a, b = _events()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def accum_check(mode, csr, params, K, **kw):
+        """The accumulation kernel vs its plain version in `mode` -> (kernel
+        output, plain output, entry fields)."""
+        args = (csr, params, W, H, 16, 8, K, s_oit.tf_color, s_oit.tf_opacity)
+        k = rasterize_capsules_mlab(*args, store_mode=mode, **kw)
+        stats = {}
+        p, p_ms = timed_plain(lambda: rasterize_capsules_mlab_reference(
+            *args, store_mode=mode, stats=stats, **kw))
+        kp, pp = planes(k), planes(p)
+        if not bool(torch.isfinite(kp).all()):
+            raise RuntimeError(f"non-finite {mode} accumulators")
+        if mode == "count":
+            agree = float(torch.equal(kp, pp))
+        elif mode == "wboit":
+            agree = share_within(kp, pp, pp[4 * K].abs() + 1e-30, 1e-5)
+        elif mode == "mboit_gen":
+            agree = share_within(kp, pp, pp[0].abs() + 1e-30, 1e-5)
+        else:
+            agree = share_within(kp, pp, 1.0, 1e-4)
+        max_err = float((kp - pp).abs().max())
+        ms = _time_ms(lambda: rasterize_capsules_mlab(*args, store_mode=mode, **kw), 20)
+        pairs = int(csr.tile_count.sum())
+        ops = (pairs * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * (
+            (0 if mode == "count" else MLAB_OPS_PER_MEMBER)
+            + (OIT_OPS_PER_SHADE if mode in ("wboit", "mboit_resolve") else 0)
+            + OIT_OPS_PER_ACCUM[mode]))
+        print(f"capsule_accum:{mode} vs plain: pairs {pairs}, fragments {stats['hits']}, "
+              f"within the bar on {agree:.6f} of pixels, max |diff| {max_err:.3g}, kernel "
+              f"{ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
+        bar = 1.0 if mode == "count" else 0.999
+        if agree < bar:
+            raise RuntimeError(f"accumulation kernel disagrees with its plain version ({mode})")
+        return k, dict(max_err=max_err, ms=ms, plain_ms=p_ms, evaluated=pairs, ops=ops,
+                       pairs=pairs, fragments=stats["hits"], agree=agree)
+
+    csr, params, _ = prepare_capsule_frame(scene, *cams[0], s_oit)
+    params[14] = OIT_OPACITY
+    n_tiles = csr.tile_start.shape[0]
+    new_kernels = []
+    for mode, label in (("count", "depth complexity"), ("wboit", "wboit")):
+        _, f = accum_check(mode, csr, params, 1)
+        new_kernels.append(oit_entry(
+            f"capsule_accum:{mode}", "raster_capsule_accum.cu",
+            oit_launches[label]["capsule_accum"], f["max_err"], f["ms"], f["plain_ms"],
+            f["evaluated"], n_tiles, 1, f["ops"], pairs=f["pairs"], fragments=f["fragments"],
+            agree=f["agree"]))
+    csr, params, _ = prepare_mboit_frame(scene, *cams[0], s_oit, 4, OIT_OPACITY)
+    gen, f = accum_check("mboit_gen", csr, params, 2, n_mom=4)
+    new_kernels.append(oit_entry(
+        "capsule_accum:mboit_gen", "raster_capsule_accum.cu",
+        oit_launches["mboit"]["capsule_accum"] // 2, f["max_err"], f["ms"], f["plain_ms"],
+        f["evaluated"], n_tiles, 2, f["ops"], pairs=f["pairs"], fragments=f["fragments"],
+        agree=f["agree"]))
+    moments = torch.stack([gen[0][0], gen[1][0, 0], gen[1][1, 0], gen[0][1], gen[1][0, 1]])
+    _, f = accum_check("mboit_resolve", csr, params, 1, n_mom=4, moments=moments)
+    new_kernels.append(oit_entry(
+        "capsule_accum:mboit_resolve", "raster_capsule_accum.cu",
+        oit_launches["mboit"]["capsule_accum"] // 2, f["max_err"], f["ms"], f["plain_ms"],
+        f["evaluated"], n_tiles, 1, f["ops"], extra_in_planes=5, pairs=f["pairs"],
+        fragments=f["fragments"], agree=f["agree"]))
+
+    # The K-buffer with a peel depth and per-fragment shading: the second
+    # pass of depth peeling (exact) and of MLAB buckets (MLAB merge).
+    csr, params = prepare_mlab_frame(scene, *cams[0], s_oit, OIT_OPACITY)
+    n_tiles = csr.tile_start.shape[0]
+    kargs = (csr, params, W, H, 16, 8, 8, s_oit.tf_color, s_oit.tf_opacity)
+    d1, _, _ = rasterize_capsules_mlab(*kargs, no_overflow=True)
+    peel = torch.where(d1 < 1.5, d1, -1.0).amax(dim=0).contiguous()
+    for no_overflow, name, launches in (
+            (True, "capsule_mlab:peel_exact",
+             oit_launches["depth peeling"]["capsule_mlab"]
+             + oit_launches["mlab buckets"]["capsule_mlab"] // 2),
+            (False, "capsule_mlab:peel_merge",
+             oit_launches["mlab buckets"]["capsule_mlab"] // 2)):
+        kw = dict(peel=peel, no_overflow=no_overflow)
+        work = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+        kd, kc, ka = rasterize_capsules_mlab(*kargs, work=work, **kw)
+        stats = {}
+        (pd, pc, pa), p_ms = timed_plain(
+            lambda: rasterize_capsules_mlab_reference(*kargs, stats=stats, **kw))
+        evaluated = int(work.sum())
+        d_err = (kd - pd).abs().amax(dim=0)
+        rgba_err = torch.maximum((kc - pc).abs().amax(dim=(0, 1)), (ka - pa).abs().amax(dim=0))
+        agree = float(((d_err <= 1e-5) & (rgba_err <= 1e-4)).float().mean())
+        max_err = max(float(d_err.max()), float(rgba_err.max()))
+        behind = bool(((kd > peel[None]) | (kd == 2.0)).all())
+        ms = _time_ms(lambda: rasterize_capsules_mlab(*kargs, **kw), 20)
+        ops = (evaluated * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * OIT_OPS_PER_PEEL
+               + stats["members"] * (MLAB_OPS_PER_MEMBER + OIT_OPS_PER_SHADE)
+               + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_SUB
+                                    + MLAB_OPS_PER_SWEEP_NODE * 8))
+        print(f"{name} vs plain (peel behind an exact K=8 pass): evaluated {evaluated}, hits "
+              f"{stats['hits']}, sweeps {stats['sweeps']}, members {stats['members']}, nodes "
+              f"within 1e-5 (depth) and 1e-4 (rgba) on {agree:.6f} of pixels (max |diff| "
+              f"{max_err:.3g}), every node behind the peel depth {behind}, kernel {ms:.3f} ms, "
+              f"plain {p_ms:.1f} ms", flush=True)
+        if agree < 0.999 or not behind or not bool(torch.isfinite(kc).all()):
+            raise RuntimeError(f"{name}: the kernel disagrees with its plain version")
+        new_kernels.append(oit_entry(
+            name, "raster_capsule_oit.cu", launches, max_err, ms, p_ms, evaluated, n_tiles, 8,
+            ops, extra_in_planes=1, hits=stats["hits"],
+            sweeps=stats["sweeps"], members=stats["members"], node_agree=agree))
+
+    # 10c. Cross-mode readings on frame 0.
+    def np_img(x):
+        return x.permute(1, 2, 0).cpu().numpy()
+
+    dc0 = oit_img0["depth complexity"]
+    al32 = np_img(render_tubes_atomic_loop(scene, *ocams[0], s_oit, K=32, opacity=OIT_OPACITY))
+    dp = np_img(oit_img0["depth peeling"])
+    shallow = (dc0 <= 32).cpu().numpy()
+    dp_cmp = np.where(shallow[..., None], dp, al32)
+    dp_al_ssim = ssim(dp_cmp[..., :3], al32[..., :3])
+    dp_al_mad = float(np.abs(dp - al32)[shallow].mean())
+    ml = np_img(render_tubes_mlab(scene, *ocams[0], s_oit, K=8, opacity=OIT_OPACITY))
+    mb = np_img(oit_img0["mboit"])
+    # MBOIT's coverage 1 - exp(-b0) is exact over every fragment; MLAB's is
+    # where it keeps every fragment as a node: not where the tie window
+    # merges coincident fragments (a segment's cap and the next one's body at
+    # a joint), nor where the saturation cull drops fragments behind T_K.
+    csr_m, params_m = prepare_mlab_frame(scene, *ocams[0], s_oit, OIT_OPACITY)
+    n_nodes = (rasterize_capsules_mlab(csr_m, params_m, W, H, 16, 8, 8, s_oit.tf_color,
+                                       s_oit.tf_opacity, deferred_shade=True)[0] < 2.0).sum(0)
+    n_nodes = unpack_tiles(n_nodes.float(), csr_m.tiles_x, csr_m.tiles_y, 16, 8, W, H)
+    every = (n_nodes == dc0).cpu().numpy()
+    alpha_ok = np.abs(mb[..., 3] - ml[..., 3]) <= 2e-3
+    mb_alpha_ok = float(alpha_ok[every].mean())
+    mb_color_mad = float(np.abs(mb[..., :3] - ml[..., :3]).mean())
+    wb = np_img(oit_img0["wboit"])
+    wb_ml_ssim = ssim(wb[..., :3], ml[..., :3])
+    cross = {"depth_peeling_vs_atomic_loop32_ssim": dp_al_ssim,
+             "depth_peeling_vs_atomic_loop32_mean_abs": dp_al_mad,
+             "pixels_over_32_layers": int((~shallow).sum()),
+             "mboit_vs_mlab8_alpha_within_2e-3": mb_alpha_ok,
+             "mboit_vs_mlab8_alpha_within_2e-3_all_pixels": float(alpha_ok.mean()),
+             "pixels_mlab8_keeps_every_fragment": float(every.mean()),
+             "mboit_vs_mlab8_color_mean_abs": mb_color_mad,
+             "wboit_vs_mlab8_ssim": wb_ml_ssim}
+    print("oit cross-mode (camera 0, on the card): " + json.dumps(cross), flush=True)
+    if dp_al_ssim < 0.999:
+        raise RuntimeError("depth peeling (32 layers) does not match the Atomic Loop K=32")
+    if mb_alpha_ok < 0.999 or mb_color_mad >= 0.02:
+        raise RuntimeError("MBOIT is not within its bars of MLAB K=8")
+    if wb_ml_ssim < 0.9:
+        raise RuntimeError("the WBOIT frame does not look like the MLAB frame")
+
+    # 10d. The MBOIT variants at a reduced frame: kernel vs plain path.
+    sw, sh_ = OIT_SMALL
+    s_small = RasterSettings(width=sw, height=sh_, tile_w=16, tile_h=8)
+    cam_small = camera_tensors(Camera(position=(0.0, 0.1, 1.2), width=sw, height=sh_)
+                               .orbit(0.002, 0.1, 1.2), dev)
+    variants = {}
+    for n_mom, trig, fmt in ((6, False, "float32"), (8, False, "float32"),
+                             (4, True, "float32"), (6, True, "float32"),
+                             (8, True, "float32"), (4, False, "unorm16"),
+                             (8, True, "unorm16")):
+        def render(cam, n_mom=n_mom, trig=trig, fmt=fmt):
+            return render_tubes_mboit(scene, *cam, s_small, n_mom=n_mom, opacity=OIT_OPACITY,
+                                      trigonometric=trig, pixel_format=fmt)
+
+        key = f"{'trig' if trig else 'power'}{n_mom}_{fmt}"
+        before = rasterize_capsules_accum.launches
+        k_img = render(cam_small)
+        if rasterize_capsules_accum.launches != before + 2:
+            raise RuntimeError(f"MBOIT {key} did not launch the accumulation kernel twice")
+        ms = _time_ms(lambda: render(cam_small), 5)
+        s_, mad, n_bad = images_agree(f"mboit {key} {sw}x{sh_}", k_img,
+                                      plain_path_image(render, cam_small), nonfinite_ok=trig)
+        variants[key] = {"frame_ms": ms, "ssim_vs_plain": s_, "mean_abs_vs_plain": mad,
+                         "nonfinite_pixels": n_bad}
+    print("mboit variants: " + json.dumps(variants), flush=True)
+
+    for make_entry, label in ((entry_wboit, "entry_wboit"),
+                              (entry_depth_peeling, "entry_depth_peeling"),
+                              (entry_mlab_buckets, "entry_mlab_buckets"),
+                              (entry_mboit, "entry_mboit")):
+        card_vs_cpu(make_entry, label)
+    fn, args = entry_depth_complexity(device=dev)
+    _, args_cpu = entry_depth_complexity(device="cpu")
+    if not torch.equal(fn(*args).cpu(), fn(*args_cpu)):
+        raise RuntimeError("the depth complexity of entry's scene differs card vs cpu")
+    print("entry_depth_complexity card vs cpu: equal", flush=True)
+    kernels.extend(new_kernels)
 
     # 11. The prism path: N_FRAMES frames through render_tubes_prism.
     prism_scene = tornado_prism_scene(dev, n_sides=PRISM_SIDES, traj=traj)

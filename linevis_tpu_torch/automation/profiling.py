@@ -6,7 +6,9 @@ write a Chrome/Perfetto trace; `device_summary` turns a recording into the
 device's busy time, its idle share of a host-timed window, and the kernels
 that take the time.
 
-    python -m linevis_tpu_torch.automation.profiling [OUT_DIR [opaque|mlab|prism|triangle|rtao|wavefront]]
+    python -m linevis_tpu_torch.automation.profiling [OUT_DIR [PATH]]
+
+PATH: opaque|mlab|prism|triangle|rtao|wavefront|wboit|depth_peeling|mlab_buckets|mboit|depth_complexity
 
 profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
 default) the opaque capsule frame (`render_tubes`, tile 32x16, AA on),
@@ -17,7 +19,12 @@ subdivisions, tile 32x16), `rtao` the ray-traced ambient occlusion frame
 (`render_tubes_rtao`, 4 rays per pixel, radius 0.1, grid 64^3, tile 32x16;
 4 frames), `wavefront` the wavefront ray tracer's frame
 (`render_tubes_raytraced_wavefront`, binned-SAH tree, tile 16x8, K=8,
-opacity 0.3; 4 frames). It runs 8 orbit-camera frames (4 of the two
+opacity 0.3; 4 frames), and the rest of the transparent family at tile 16x8
+and opacity 0.3: `wboit` (`render_tubes_wboit`), `depth_peeling`
+(`render_tubes_depth_peeling`, K=8, 4 passes), `mlab_buckets`
+(`render_tubes_mlab_buckets`, K=8), `mboit` (`render_tubes_mboit`, 4 power
+moments, float32) and `depth_complexity` (`render_depth_complexity`). It
+runs 8 orbit-camera frames (4 of the two
 ray-traced paths) after 2 warm-up frames, timed once without
 the profiler (the window the idle share is taken against) and once
 recorded, and prints one JSON line; with OUT_DIR (give "" for none) it
@@ -81,8 +88,8 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         tornado_tube_mesh,
         tornado_wide_bvh,
     )
+    from linevis_tpu_torch.render import oit
     from linevis_tpu_torch.render.camera import Camera
-    from linevis_tpu_torch.render.oit import render_tubes_mlab
     from linevis_tpu_torch.render.opaque import render_opaque
     from linevis_tpu_torch.render.pipeline import RasterSettings
     from linevis_tpu_torch.render.ray_tracer import render_tubes_raytraced_wavefront
@@ -94,7 +101,15 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         render_tubes_prism,
     )
 
-    paths = ("opaque", "mlab", "prism", "triangle", "rtao", "wavefront")
+    oit_paths = {
+        "mlab": ("render_tubes_mlab", dict(K=8, opacity=0.3)),
+        "wboit": ("render_tubes_wboit", dict(opacity=0.3)),
+        "depth_peeling": ("render_tubes_depth_peeling", dict(K=8, passes=4, opacity=0.3)),
+        "mlab_buckets": ("render_tubes_mlab_buckets", dict(K=8, opacity=0.3)),
+        "mboit": ("render_tubes_mboit", dict(n_mom=4, opacity=0.3)),
+        "depth_complexity": ("render_depth_complexity", {}),
+    }
+    paths = ("opaque", "prism", "triangle", "rtao", "wavefront", *oit_paths)
     if path not in paths:
         raise SystemExit(f"profiling: unknown path {path!r} (one of {', '.join(paths)})")
     if not torch.cuda.is_available():
@@ -110,11 +125,11 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     if path == "opaque":
         scene = tornado_scene(dev)
         render = partial(render_tubes, settings=wide)
-    elif path == "mlab":
+    elif path in oit_paths:
         scene = tornado_scene(dev)
-        render = partial(render_tubes_mlab,
-                         settings=RasterSettings(width=W, height=H, tile_w=16, tile_h=8),
-                         K=8, opacity=0.3)
+        name, kw = oit_paths[path]
+        render = partial(getattr(oit, name),
+                         settings=RasterSettings(width=W, height=H, tile_w=16, tile_h=8), **kw)
     elif path == "prism":
         scene = tornado_prism_scene(dev)
         render = partial(render_tubes_prism, settings=wide)

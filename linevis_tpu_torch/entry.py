@@ -7,9 +7,11 @@ benchmark scene in each geometry with its acceleration structures.
 `entry_mlab` its transparent (MLAB, K=8) counterpart on the same scene,
 `entry_prism` and `entry_triangle` the same lines through the Opaque
 renderer's `prism` and `triangle` tube geometries (8 subdivisions);
-`entry_rtao` the capsules shaded with ray-traced ambient occlusion and
+`entry_rtao` the capsules shaded with ray-traced ambient occlusion,
 `entry_wavefront` the transparent capsules through the wavefront BVH ray
-tracer; `tornado_scene`, `tornado_prism_scene` and `tornado_tube_mesh` build
+tracer, and `entry_wboit`, `entry_depth_peeling`, `entry_mlab_buckets`,
+`entry_mboit` and `entry_depth_complexity` the rest of the transparent
+(OIT) family on the same scene; `tornado_scene`, `tornado_prism_scene` and `tornado_tube_mesh` build
 the scene of the JAX package's primary benchmark (`bench.py`: 512 seeds x 400
 RK4 steps, dt 1/150, tube radius 0.0015) from one traced line set
 (`tornado_trajectories`); `tornado_segment_grid` and `tornado_wide_bvh` build
@@ -24,7 +26,8 @@ import numpy as np
 
 __all__ = [
     "entry", "entry_mlab", "entry_prism", "entry_triangle", "entry_rtao",
-    "entry_wavefront", "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
+    "entry_wavefront", "entry_wboit", "entry_depth_peeling", "entry_mlab_buckets",
+    "entry_mboit", "entry_depth_complexity", "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
     "tornado_tube_mesh", "tornado_segment_grid", "tornado_wide_bvh",
 ]
 
@@ -162,6 +165,47 @@ def entry_wavefront(device="cuda"):
     fn = partial(render_tubes_raytraced_wavefront, settings=settings, K=8, opacity=0.3,
                  wide_groups=build_wide_capsule_bvh(scene))
     return fn, (scene, *cam)
+
+
+def _oit_entry(device, name, **kw):
+    """(fn, args) of the `render/oit.py` renderer `name` on `entry`'s scene
+    at the transparent path's 16x8 tiles."""
+    from linevis_tpu_torch.render import oit
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+
+    scene, cam = _small_scene(device)
+    settings = RasterSettings(width=256, height=128, tile_w=16, tile_h=8)
+    return partial(getattr(oit, name), settings=settings, **kw), (scene, *cam)
+
+
+def entry_wboit(device="cuda"):
+    """(fn, args): `fn(*args)` renders one weighted blended OIT frame
+    (opacity 0.3) of `entry`'s scene -> [4, H, W] linear RGBA on `device`."""
+    return _oit_entry(device, "render_tubes_wboit", opacity=0.3)
+
+
+def entry_depth_peeling(device="cuda"):
+    """(fn, args): one depth-peeling frame (K=8, 4 passes, opacity 0.3) of
+    `entry`'s scene -> [4, H, W] linear RGBA on `device`."""
+    return _oit_entry(device, "render_tubes_depth_peeling", K=8, passes=4, opacity=0.3)
+
+
+def entry_mlab_buckets(device="cuda"):
+    """(fn, args): one MLAB (Buckets) frame (K=8, opacity 0.3) of `entry`'s
+    scene -> [4, H, W] linear RGBA on `device`."""
+    return _oit_entry(device, "render_tubes_mlab_buckets", K=8, opacity=0.3)
+
+
+def entry_mboit(device="cuda"):
+    """(fn, args): one moment-based OIT frame (4 power moments, float32,
+    opacity 0.3) of `entry`'s scene -> [4, H, W] linear RGBA on `device`."""
+    return _oit_entry(device, "render_tubes_mboit", n_mom=4, opacity=0.3)
+
+
+def entry_depth_complexity(device="cuda"):
+    """(fn, args): the depth complexity (front-face fragments per pixel) of
+    `entry`'s scene -> [H, W] float32 on `device`."""
+    return _oit_entry(device, "render_depth_complexity")
 
 
 def tornado_trajectories(device="cuda", num_seeds=512, max_steps=400, seed=42):

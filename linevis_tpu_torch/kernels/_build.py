@@ -31,8 +31,8 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 
 KERNELS = (
-    "raster_capsule", "raster_capsule_oit", "raster_prism", "raster_triangle", "ao_grid",
-    "bvh_wavefront",
+    "raster_capsule", "raster_capsule_oit", "raster_capsule_accum", "raster_prism",
+    "raster_triangle", "ao_grid", "bvh_wavefront",
 )
 
 NVCC_FLAGS = (

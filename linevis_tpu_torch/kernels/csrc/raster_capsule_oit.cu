@@ -2,13 +2,17 @@
 //
 // Replaces the Pallas TPU kernel `_mlab_kernel` in
 // linevis_tpu/kernels/raster_capsule_oit.py:116 (wrapper
-// `rasterize_capsules_mlab`, :1096) in its deferred-shade modes: per pixel,
-// a K-node depth-sorted buffer of front-face capsule fragments (and, with
-// two_sided, exit-surface fragments), inserted in the binning's
-// front-to-back run order, with the Multi-Layer Alpha Blending overflow
-// merge into node K-1, or the exact front-K buffer (no_overflow, the
-// reference's Atomic Loop). Composite mode shades the K nodes and blends
-// them front to back over the background; node mode writes the 5K planes.
+// `rasterize_capsules_mlab`, :1096) in its K-buffer store mode 'shade' (the
+// accumulation modes are raster_capsule_accum.cu): per pixel, a K-node
+// depth-sorted buffer of front-face capsule fragments (and, with two_sided,
+// exit-surface fragments), inserted in the binning's front-to-back run
+// order, with the Multi-Layer Alpha Blending overflow merge into node K-1,
+// or the exact front-K buffer (no_overflow, the reference's Atomic Loop and
+// each depth-peeling pass). With `peel` only fragments behind the pixel's
+// peel depth enter. The nodes carry each fragment's shaded color
+// (per-fragment shading) or, with `deferred`, its shading features;
+// composite mode shades such nodes and blends them front to back over the
+// background; node mode writes the 5K planes.
 // The plain PyTorch version it is held against is
 // `rasterize_capsules_mlab_reference` (kernels/raster_capsule_oit.py); the
 // semantics are listed in that module's docstring.
@@ -29,16 +33,19 @@
 //    in a local array, with the rejection of fragments behind a blocked
 //    pixel's K-th node evaluated against the node state at block start;
 //    then at most K sweeps, each extracting the nearest tie window, whose
-//    shading features are computed only for the window's members and
-//    summed in candidate order. T_K = prod(1 - a_i) is recomputed only
-//    after the node state changed (one predicate: `dirty`).
+//    color (or shading features) is computed only for the window's members
+//    and summed in candidate order. T_K = prod(1 - a_i) is recomputed only
+//    after the node state changed (one predicate: `dirty`). The peel test
+//    and the no_overflow rejection compare the fragment's NDC depth, formed
+//    as the extraction forms node depths, so a layer at the peel depth is
+//    neither taken twice nor skipped.
 //  - The K nodes (5 channels) live in registers: the kernel is templated
 //    on KMAX in {8, 16, 32} with every node loop unrolled over KMAX and
 //    guarded by the runtime K <= KMAX, so no node index is dynamic.
 //
 // Precision: built without --use_fast_math and with --fmad=false (IEEE
-// sqrt, division and powf; 1.0f/sqrtf, never rsqrtf). The re-origined
-// scalars ba.oa' and oa'.oa' are the explicitly fused operations
+// sqrt, division and powf, never __powf; 1.0f/sqrtf, never rsqrtf). The
+// re-origined scalars ba.oa' and oa'.oa' are the explicitly fused operations
 // (__fmaf_rn; capsule_common.fma32 in the plain version), as XLA contracts
 // them: oa'.oa' is ~1e-3 formed from terms ~2, so its rounding decides the
 // hit depth at silhouettes.
@@ -47,8 +54,9 @@
 // about 90 float operations (two dot products, the three quadratics and
 // roots, acceptance tests, the clip and the rejection), against 92 bytes of
 // staged payload shared by the block's threads; each extracted candidate
-// adds its shading features (~45 operations) and each sweep a scan of the
-// block's hits. The least time is those operations over 67 TFLOP/s
+// adds its shading features (~45 operations; per-fragment shading adds the
+// color TF, three powf and the depth cue, ~70 more) and each sweep a scan of
+// the block's hits. The least time is those operations over 67 TFLOP/s
 // (chip_smoke.py computes it from the run's own counts). Speed work
 // (candidate compaction across warps, several tiles per block, cp.async
 // staging) is left to later changes.
@@ -64,58 +72,17 @@
 #define ROW_ZQ 15
 
 struct Opts {
-  int K, chunk, sub, composite, no_overflow, two_sided, alpha_from_rows;
+  int K, chunk, sub, composite, no_overflow, two_sided, alpha_from_rows, deferred;
   float sat_thr;  // float32(1 - sat)
 };
-
-// Per-candidate scalars shared by the intersection and the shading.
-struct Cand {
-  float bard, rdoa, rd, baoa, t0;
-};
-
-__device__ __forceinline__ Cand cand_setup(const float (*s)[MAX_CHUNK], int j, float dnx,
-                                           float dny, float dnz) {
-  Cand c;
-  c.bard = s[3][j] * dnx + s[4][j] * dny + s[5][j] * dnz;
-  c.rdoa = s[0][j] * dnx + s[1][j] * dny + s[2][j] * dnz;
-  c.t0 = -(c.rdoa + 0.5f * c.bard);
-  c.rd = -0.5f * c.bard;
-  c.baoa = __fmaf_rn(c.t0, c.bard, s[16][j]);
-  return c;
-}
-
-// Entry (near) or exit surface of candidate j: relative t, or BIG.
-struct Quad {
-  float k1, k2, sq, sqa, sqb, b1b, h, ha, hb;
-};
-
-__device__ __forceinline__ float surface_t(const Quad& q, const Cand& c, float baba,
-                                           bool cap_a_on, bool near) {
-  float tb, ta, tc;
-  if (near) {
-    tb = (-q.k1 - q.sq) / q.k2;
-    ta = -c.rd - q.sqa;
-    tc = -q.b1b - q.sqb;
-  } else {
-    tb = (-q.k1 + q.sq) / q.k2;
-    ta = -c.rd + q.sqa;
-    tc = -q.b1b + q.sqb;
-  }
-  const float yb = c.baoa + tb * c.bard;
-  const float ya = c.baoa + ta * c.bard;
-  const float yc = c.baoa + tc * c.bard;
-  const bool okb = (q.h >= 0.0f) && (yb > 0.0f) && (yb < baba) && (c.t0 + tb > 0.0f);
-  const bool oka = (q.ha >= 0.0f) && (ya <= 0.0f) && cap_a_on && (c.t0 + ta > 0.0f);
-  const bool okc = (q.hb >= 0.0f) && (yc >= baba) && (c.t0 + tc > 0.0f);
-  return fminf(okb ? tb : BIG, fminf(oka ? ta : BIG, okc ? tc : BIG));
-}
 
 template <int KMAX>
 __global__ void __launch_bounds__(MAX_THREADS)
 mlab_kernel(const float* __restrict__ payload, long long ld,
             const int* __restrict__ tile_start, const int* __restrict__ tile_count,
             const float* __restrict__ params, const float* __restrict__ tf,
-            float* __restrict__ out, int* __restrict__ work, int n_tiles, int tiles_x,
+            const float* __restrict__ peel, float* __restrict__ out,
+            int* __restrict__ work, int n_tiles, int tiles_x,
             int tile_w, int tile_h, float sx, float sy, Opts o) {
   __shared__ float s[NROWS][MAX_CHUNK];
   __shared__ float s_red[2][MAX_THREADS / 32];
@@ -132,12 +99,10 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
   const float dnx = ray.dnx, dny = ray.dny, dnz = ray.dnz, invlen = ray.invlen;
   const float len_p = 1.0f / invlen;
   const float zA = params[9], zB = params[10];
-  const float opacity_scale = params[14];
   const float tw_lo = (zB / zA) * len_p;
   const float tw_hi = (zB / (zA - 1.0f)) * len_p;
-  const int n_color = (int)tf[0], n_opacity = (int)tf[1];
-  const float* tf_color = tf + 2;
-  const float* tf_opacity = tf_color + 3 + (n_color - 1) * 9;
+  const Shading sh = shading_of(params, tf, o.alpha_from_rows);
+  const float peel_d = peel != nullptr ? peel[(long long)tile * P + tid] : 0.0f;
 
   float nd[KMAX], nr[KMAX], ng[KMAX], nb[KMAX], na[KMAX];
 #pragma unroll
@@ -221,29 +186,18 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
       int nf = 0, nbk = 0;
       for (int j = jlo; j < jhi; ++j) {
         const Cand cd = cand_setup(s, j, dnx, dny, dnz);
-        const float baba = s[10][j], rr = s[22][j];
-        const float oaoa = __fmaf_rn(cd.t0, cd.rdoa + cd.rd, s[17][j]);
-        Quad q;
-        q.k2 = fmaxf(baba - cd.bard * cd.bard, 1e-20f);
-        q.k1 = baba * cd.rd - cd.baoa * cd.bard;
-        const float k0 = baba * oaoa - cd.baoa * cd.baoa - s[19][j];
-        q.h = q.k1 * q.k1 - q.k2 * k0;
-        q.sq = sqrtf(fmaxf(q.h, 0.0f));
-        q.ha = cd.rd * cd.rd - (oaoa - rr);
-        q.sqa = sqrtf(fmaxf(q.ha, 0.0f));
-        q.b1b = cd.rd - cd.bard;
-        const float obob = oaoa - 2.0f * cd.baoa + baba;
-        q.hb = q.b1b * q.b1b - (obob - rr);
-        q.sqb = sqrtf(fmaxf(q.hb, 0.0f));
+        const Quad q = cand_quad(s, j, cd);
         const bool cap_a_on = s[13][j] > 0.5f;
         for (int side = 0; side <= o.two_sided; ++side) {
-          const float tc = surface_t(q, cd, baba, cap_a_on, side == 0);
+          const float tc = surface_t(q, cd, s[10][j], cap_a_on, side == 0);
           if (!(tc < BIG)) continue;
           const float tw = cd.t0 + tc;
           if (!(tw >= tw_lo && tw <= tw_hi)) continue;
+          const bool by_znd = peel != nullptr || (blocked && o.no_overflow);
+          const float znd = by_znd ? zA - zB / fmaxf(tw * invlen, 1e-12f) : 0.0f;
+          if (peel != nullptr && !(znd > peel_d)) continue;  // peeled already
           if (blocked) {
             if (o.no_overflow) {
-              const float znd = zA - zB / fmaxf(tw * invlen, 1e-12f);
               if (znd >= dK) continue;
             } else if (tw >= t_rej) {
               continue;
@@ -268,36 +222,18 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
           const int i0 = pass == 0 ? 0 : MAX_SUB;
           const int i1 = pass == 0 ? nf : MAX_SUB + nbk;
           for (int i = i0; i < i1; ++i) {
-            if (!(h_tw[i] <= thr)) continue;
+            const float tw = h_tw[i];
+            if (!(tw <= thr)) continue;
             h_tw[i] = BIG;
             n += 1.0f;
-            // Deferred-shading features of the member (headlight
-            // Blinn-Phong through scalar identities of the tube axis).
+            // The member's color, or its shading features (deferred).
             const int j = h_j[i];
-            const float tc = h_tc[i];
-            const Cand cd = cand_setup(s, j, dnx, dny, dnz);
-            const float y2 = cd.baoa + tc * cd.bard;
-            const float uax = clamp01(y2 * s[18][j]);
-            const float attr = s[7][j] + s[8][j] * uax;
-            const float inv_r = s[21][j], tn = s[20][j];
-            const float ndl = -(cd.rd + tc - uax * cd.bard) * inv_r;
-            const float tdl = -cd.bard * tn;
-            const float ndt = (y2 - uax * s[10][j]) * tn * inv_r;
-            const float denom = 1.0f / sqrtf(fmaxf(1.0f - tdl * tdl, 1e-6f));
-            const float cos1 = clamp01(fabsf(ndl));
-            const float cos2 = clamp01(fabsf(ndl - tdl * ndt) * denom);
-            float a;
-            if (o.alpha_from_rows) {
-              a = clamp01(s[11][j] + s[12][j] * uax);
-            } else {
-              float al;
-              tf_eval<1>(tf_opacity, n_opacity, attr, &al);
-              a = al * opacity_scale;
-            }
-            sr = sr + attr;
-            sg = sg + cos1;
-            sb = sb + cos2;
-            sa = sa + a;
+            const float4 f = cand_fragment(s, j, cand_setup(s, j, dnx, dny, dnz), h_tc[i],
+                                           tw, invlen, sh, o.deferred);
+            sr = sr + f.x;
+            sg = sg + f.y;
+            sb = sb + f.z;
+            sa = sa + f.w;
           }
         }
         const float nwin = fmaxf(n, 1.0f);
@@ -361,7 +297,7 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
   const long long plane = (long long)n_tiles * P;
   float* px = out + (long long)tile * P + tid;
   if (o.composite) {
-    const float dmin = params[11], dmax = params[12], cue = params[13];
+    const float dmin = sh.dmin, dmax = sh.dmax, cue = sh.cue;
     float T = 1.0f, ar = 0.0f, ag = 0.0f, ab = 0.0f;
 #pragma unroll
     for (int q = 0; q < KMAX; ++q) {
@@ -374,7 +310,7 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
         const float cosc = 0.3f * powf(cos1, 1.7f) + 0.7f * powf(cos2, 1.7f);
         const float spec = 0.3f * powf(cos1, 30.0f);
         float rgb[3];
-        tf_eval<3>(tf_color, n_color, attr, rgb);
+        tf_eval<3>(sh.tf_color, sh.n_color, attr, rgb);
         const float shade = 0.1f + 0.9f * cosc;
         const float vz = zB / fmaxf(zA - nd[q], 1e-9f);
         float fcue = clamp01((vz - dmin) / fmaxf(dmax - dmin, 1e-6f));
@@ -405,35 +341,38 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
 }
 
 // Launches one block of tile_w * tile_h threads per tile on `stream`.
-// tf: the `tf_static_table` of the color and opacity TFs. out: [4, n_tiles,
-// P] (composite) or [5 * K, n_tiles, P] float32. work: optional [n_tiles]
-// int32, the candidates each tile evaluated after the chunk exit and block
-// cull. Returns the cudaGetLastError() code of the launch.
+// tf: the `tf_static_table` of the color and opacity TFs. peel: optional
+// [n_tiles, P] NDC peel depths. out: [4, n_tiles, P] (composite) or
+// [5 * K, n_tiles, P] float32. work: optional [n_tiles] int32, the
+// candidates each tile evaluated after the chunk exit and block cull.
+// deferred: nodes carry shading features, else shaded colors. Returns the
+// cudaGetLastError() code of the launch.
 extern "C" int raster_capsule_mlab_launch(
     const float* payload, long long ld, const int* tile_start, const int* tile_count,
-    const float* params, const float* tf, float* out, int* work, int n_tiles, int tiles_x,
-    int tile_w, int tile_h, float sx, float sy, int K, int chunk, int sub, int composite,
-    int no_overflow, int two_sided, int alpha_from_rows, float sat_thr,
-    void* stream) {
+    const float* params, const float* tf, const float* peel, float* out, int* work,
+    int n_tiles, int tiles_x, int tile_w, int tile_h, float sx, float sy, int K, int chunk,
+    int sub, int composite, int no_overflow, int two_sided, int alpha_from_rows,
+    int deferred, float sat_thr, void* stream) {
   if (K < 1 || K > 32 || chunk > MAX_CHUNK || sub > MAX_SUB || sub < 1 ||
-      tile_w * tile_h > MAX_THREADS)
+      tile_w * tile_h > MAX_THREADS || (composite && !deferred))
     return (int)cudaErrorInvalidValue;
-  const Opts o{K, chunk, sub, composite, no_overflow, two_sided, alpha_from_rows, sat_thr};
+  const Opts o{K,         chunk,           sub,      composite, no_overflow,
+               two_sided, alpha_from_rows, deferred, sat_thr};
   const dim3 grid(n_tiles), block(tile_w * tile_h);
   cudaStream_t st = (cudaStream_t)stream;
   if (n_tiles > 0) {
     if (K <= 8)
       mlab_kernel<8><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count, params, tf,
-                                            out, work, n_tiles, tiles_x, tile_w, tile_h, sx,
-                                            sy, o);
+                                            peel, out, work, n_tiles, tiles_x, tile_w, tile_h,
+                                            sx, sy, o);
     else if (K <= 16)
       mlab_kernel<16><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count, params,
-                                             tf, out, work, n_tiles, tiles_x, tile_w, tile_h,
-                                             sx, sy, o);
+                                             tf, peel, out, work, n_tiles, tiles_x, tile_w,
+                                             tile_h, sx, sy, o);
     else
       mlab_kernel<32><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count, params,
-                                             tf, out, work, n_tiles, tiles_x, tile_w, tile_h,
-                                             sx, sy, o);
+                                             tf, peel, out, work, n_tiles, tiles_x, tile_w,
+                                             tile_h, sx, sy, o);
   }
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,18 @@
-"""Order-independent transparency over binned capsules: the MLAB K-buffer.
+"""Order-independent transparency over binned capsules: the MLAB K-buffer and
+the per-pixel accumulators of WBOIT, MBOIT and depth complexity.
 
-Counterpart of `linevis_tpu/kernels/raster_capsule_oit.py`. Each pixel
-keeps K depth-sorted nodes of front-face capsule fragments, inserted in the
-binning's front-to-back run order, with the Multi-Layer Alpha Blending
-overflow merge into node K-1 (or, with `no_overflow`, the exact front-K
-buffer of the reference's Atomic Loop). On a CUDA tensor
-`rasterize_capsules_mlab` launches the hand-written kernel
-`csrc/raster_capsule_oit.cu`; on a CPU tensor it runs
-`rasterize_capsules_mlab_reference`, the same function in plain PyTorch.
+Counterpart of `linevis_tpu/kernels/raster_capsule_oit.py`. On a CUDA tensor
+`rasterize_capsules_mlab` launches a hand-written kernel: the K-buffer modes
+run `csrc/raster_capsule_oit.cu`, the accumulation modes ('wboit', 'count',
+'mboit_gen', 'mboit_resolve') `csrc/raster_capsule_accum.cu`. On a CPU
+tensor it runs `rasterize_capsules_mlab_reference`, the same function in
+plain PyTorch.
 
-What both compute, per tile, walking the run in aligned blocks of `sub`
+K-buffer modes: each pixel keeps K depth-sorted nodes of front-face capsule
+fragments, inserted in the binning's front-to-back run order, with the
+Multi-Layer Alpha Blending overflow merge into node K-1 (or, with
+`no_overflow`, the exact front-K buffer of the reference's Atomic Loop and
+of depth peeling). Walking every tile's run in aligned blocks of `sub`
 candidates (the block grid is fixed by absolute pair index, as the JAX
 kernel's chunk/sub-chunk walk fixes it):
   1. chunk exit and block cull (tile-wide): a chunk or block whose least
@@ -17,23 +20,34 @@ kernel's chunk/sub-chunk walk fixes it):
      (the K-th node's depth where the pixel is blocked, else 2.0) is
      skipped; runs are depth-bucket ordered, so the chunk exit ends the run;
   2. per candidate: the entry surface (and, `two_sided`, the exit surface)
-     of the capsule, its world t clipped to the NDC depth range, and the
-     rejection of fragments behind a blocked pixel's K-th node, all against
-     the node state at the start of the block;
+     of the capsule, its world t clipped to the NDC depth range; with `peel`
+     only fragments whose NDC depth lies behind the pixel's peel depth;
+     then the rejection of fragments behind a blocked pixel's K-th node,
+     against the node state at the start of the block;
   3. at most K sweeps per block: each takes the nearest remaining tie
-     window (t <= t_min + |t_min|*1e-6), averages its deferred-shading
-     features (attr, cos1, cos2) and alpha, and inserts the carry at
-     pos = #{d_j <= carry} unless it is within the dedup window of an
-     existing node; an insertion past K merges the evicted fragment into
-     node K-1 with weight 1 - a_{K-1} (MLAB), or drops it (`no_overflow`).
-     Candidates past the K-th window of a block are dropped;
+     window (t <= t_min + |t_min|*1e-6), averages its members' colors (with
+     `deferred_shade`, the shading features attr, cos1, cos2 instead) and
+     alpha, and inserts the carry at pos = #{d_j <= carry} unless it is
+     within the dedup window of an existing node; an insertion past K
+     merges the evicted fragment into node K-1 with weight 1 - a_{K-1}
+     (MLAB), or drops it (`no_overflow`). Candidates past the K-th window of
+     a block are dropped;
   4. `composite`: shade the nodes (TF color, Phong cosine powers, depth cue)
      and blend them front to back over the background in params[24:27].
+Per-fragment shading (`deferred_shade=False`) colors each fragment at its
+own attribute, cosines and view depth (`_fragments`), and the nodes carry
+premultiplied rgb.
 
-Modes not ported yet raise NotImplementedError: store modes 'gather',
-'wboit', 'count', 'mboit_gen', 'mboit_resolve', depth peeling (`peel`),
-in-kernel per-fragment shading (`deferred_shade=False`) and band shading
-(`use_bands`).
+Accumulation modes have no K-buffer, rejection or culls: every fragment of
+the run that survives the clip (and `peel`) adds to per-pixel sums, in
+candidate order (entry surface, then exit surface, of each candidate):
+'count' the fragments; 'wboit' the WBOITGather weight's sums; 'mboit_gen'
+(K=2) the absorbance b0 and the power or trigonometric moments of the
+log-warped depth; 'mboit_resolve' the transmittance-weighted color from the
+pass-1 `moments` (`_accum_terms`).
+
+Not ported, raising NotImplementedError: store mode 'gather' and band
+shading (`use_bands`).
 """
 
 from __future__ import annotations
@@ -46,15 +60,26 @@ import torch
 
 from linevis_tpu_torch.kernels import _build
 from linevis_tpu_torch.kernels.capsule_common import BIG, fma32, pixel_rays
+from linevis_tpu_torch.kernels.moment_math import (
+    transmittance_at_depth_4,
+    transmittance_at_depth_6,
+    transmittance_at_depth_8,
+)
 from linevis_tpu_torch.kernels.raster_pallas import SortedBinning
+from linevis_tpu_torch.kernels.trig_moment_math import (
+    circle_powers,
+    transmittance_at_depth_trig_2,
+    transmittance_at_depth_trig_3,
+    transmittance_at_depth_trig_4,
+)
 from linevis_tpu_torch.render.transfer_function import (
     tf_channels_static,
     tf_static_table,
 )
 
 __all__ = [
-    "rasterize_capsules_mlab", "rasterize_capsules_mlab_reference", "shade_nodes",
-    "blend_front_to_back", "tf_table",
+    "rasterize_capsules_mlab", "rasterize_capsules_mlab_reference", "rasterize_capsules_accum",
+    "shade_nodes", "blend_front_to_back", "tf_table", "ACCUM_MODES",
 ]
 
 _K_MAX = 32  # deepest node buffer of the CUDA kernel (templated on 8/16/32)
@@ -62,7 +87,9 @@ ROWS = 23  # payload rows the kernel reads: 0-22
 _MAX_PIXELS = 512  # threads per block in the CUDA kernel
 _MAX_SUB = 64  # per-thread candidate slots of the CUDA kernel: 2 * sub
 _MAX_CHUNK = 256  # staged payload columns of the CUDA kernel
-_UNPORTED_STORE_MODES = ("gather", "wboit", "count", "mboit_gen", "mboit_resolve")
+ACCUM_MODES = ("wboit", "count", "mboit_gen", "mboit_resolve")
+_ACCUM_CODE = {"count": 0, "wboit": 1, "mboit_gen": 2, "mboit_resolve": 3}
+MBOIT_DISCARD_B0 = 0.00100050033  # resolveMoments' discard (MomentOIT.glsl:421)
 _tf_tables = {}  # (tf_color, tf_opacity, device) -> the kernel's TF table
 
 
@@ -92,24 +119,30 @@ def _row_product(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _check_modes(store_mode, deferred_shade, peel, use_bands, composite, K, chunk, sub,
-                 tf_color):
-    """Mode checks shared by the kernel and its plain version; -> sub."""
-    if store_mode in _UNPORTED_STORE_MODES:
-        raise NotImplementedError(f"store_mode={store_mode!r} is not ported yet")
-    if store_mode != "shade":
+                 tf_color, n_mom, moments):
+    """Mode checks shared by the kernels and their plain version (those of
+    the JAX wrapper); -> sub."""
+    if store_mode == "gather":
+        raise NotImplementedError("store_mode='gather' is not ported yet")
+    if store_mode != "shade" and store_mode not in ACCUM_MODES:
         raise ValueError(f"unknown store_mode {store_mode!r}")
-    if peel is not None:
-        raise NotImplementedError("depth peeling ('peel') is not ported yet")
-    if not deferred_shade:
-        raise NotImplementedError(
-            "deferred_shade=False (per-fragment shading) is not ported yet"
-        )
     if use_bands:
         raise NotImplementedError("use_bands (band shading) is not ported yet")
+    if store_mode == "mboit_gen" and K != 2:
+        raise ValueError("mboit_gen requires K=2 (moment channel layout)")
+    if deferred_shade and store_mode != "shade":
+        raise ValueError("deferred_shade only applies to store_mode='shade'")
+    if composite and not (deferred_shade and store_mode == "shade" and peel is None):
+        raise ValueError("composite requires store_mode='shade' + deferred_shade, no peel")
+    if store_mode in ("mboit_gen", "mboit_resolve") and n_mom not in (4, 6, 8):
+        raise ValueError(f"n_mom={n_mom}: need 4, 6 or 8")
+    if store_mode == "mboit_resolve" and (moments is None or moments.shape[0] != 1 + n_mom):
+        raise ValueError(f"mboit_resolve needs moments[{1 + n_mom}, T, P]")
     if not 1 <= K <= _K_MAX:
         raise ValueError(f"K={K}: need 1 <= K <= {_K_MAX}")
-    if composite and not tf_color:
-        raise ValueError("composite needs the color TF's control points (tf_color)")
+    if (composite or (store_mode in ("shade", "wboit", "mboit_resolve")
+                      and not deferred_shade)) and not tf_color:
+        raise ValueError("this mode shades fragments: it needs the color TF (tf_color)")
     # Sub-chunk width: a multiple-of-8 divisor of the chunk; wider clamps.
     if sub >= chunk:
         sub = chunk
@@ -118,11 +151,20 @@ def _check_modes(store_mode, deferred_shade, peel, use_bands, composite, K, chun
     return sub
 
 
-def _surfaces(s, dn, in_run, two_sided):
+def _two(x, two_sided, interleave):
+    """A per-candidate quantity ([A, M, ...]) for each surface slot: entry
+    surfaces then exit surfaces (K-buffer), or each candidate's entry then
+    exit surface (`interleave`, the accumulation modes' order)."""
+    if not two_sided:
+        return x
+    return x.repeat_interleave(2, dim=1) if interleave else torch.cat([x, x], dim=1)
+
+
+def _surfaces(s, dn, in_run, two_sided, interleave=False):
     """Capsule hits of candidates `s` ([ROWS, A, M, 1] payload rows) against
     rays dn ([A, 1, P] each): (tcand [A, M', P] relative t or BIG, t0, and
     the per-candidate scalars the shading reuses). M' = 2M with the exit
-    surfaces after the entry surfaces when `two_sided`."""
+    surfaces ordered as `_two` orders them."""
     dnx, dny, dnz = dn
     baoa0, oaoa0, rrbaba, rr, baba = s[16], s[17], s[19], s[22], s[10]
     bard = s[3] * dnx + s[4] * dny + s[5] * dnz
@@ -167,18 +209,23 @@ def _surfaces(s, dn, in_run, two_sided):
 
     tcand = surface_t(True)
     if two_sided:
-        tcand = torch.cat([tcand, surface_t(False)], dim=1)
+        t_out = surface_t(False)
+        tcand = (torch.stack([tcand, t_out], dim=2).flatten(1, 2) if interleave
+                 else torch.cat([tcand, t_out], dim=1))
     return tcand, t0, (bard, rd, baoa)
 
 
-def _features(s, tcand, geo, tf_opacity, opacity_scale, alpha_from_rows, two_sided):
-    """Deferred-shading features of every candidate fragment: (attr, cos1,
-    cos2, alpha), each [A, M', P]. Headlight Blinn-Phong through scalar
-    identities of the unit ray and the tube axis (no per-pixel normal)."""
+def _fragments(s, tcand, tw, invlen, geo, params, tf_color, tf_opacity, alpha_from_rows,
+               two_sided, interleave, deferred_shade):
+    """Every candidate fragment's color and alpha, each [A, M', P]: with
+    `deferred_shade` the shading features (attr, cos1, cos2), else the
+    shaded color at the fragment (headlight Blinn-Phong through scalar
+    identities of the unit ray and the tube axis, the TF color at its
+    attribute, the depth cue at its view depth tw*invlen)."""
     bard, rd, baoa = geo
 
     def two(x):
-        return torch.cat([x, x], dim=1) if two_sided else x
+        return _two(x, two_sided, interleave)
 
     bard2, rd2 = two(bard), two(rd)
     y2 = two(baoa) + tcand * bard2
@@ -195,8 +242,19 @@ def _features(s, tcand, geo, tf_opacity, opacity_scale, alpha_from_rows, two_sid
     if alpha_from_rows:
         ac = torch.clamp(two(s[11]) + two(s[12]) * uax, 0.0, 1.0)
     else:
-        ac = tf_channels_static(tf_opacity, 1, attr)[0] * opacity_scale
-    return attr, cos1, cos2, ac
+        ac = tf_channels_static(tf_opacity, 1, attr)[0] * params[14]
+    if deferred_shade:
+        return attr, cos1, cos2, ac
+    cos1s = torch.clamp(cos1, min=1e-20)
+    cos2s = torch.clamp(cos2, min=1e-20)
+    cosc = 0.3 * cos1s ** 1.7 + 0.7 * cos2s ** 1.7
+    spec = 0.3 * cos1s ** 30.0
+    shade = 0.1 + 0.9 * cosc
+    dmin, dmax, cue = params[11], params[12], params[13]
+    fcue = torch.clamp((tw * invlen - dmin) / torch.clamp(dmax - dmin, min=1e-6), 0.0, 1.0)
+    fcue = fcue * fcue * cue
+    rgb = tf_channels_static(tf_color, 3, attr)
+    return (*[(c * shade + spec) * (1.0 - fcue) + 0.5 * fcue for c in rgb], ac)
 
 
 def _sweeps(st, tw, feats, invlen, zA, zB, K, no_overflow, stats):
@@ -305,6 +363,87 @@ def blend_front_to_back(rgb, alpha, bg):
     return torch.cat([acc + T[None] * bg, (1.0 - T)[None]])
 
 
+def _accum_slots(store_mode, n_mom):
+    """(channel, node) of each accumulator in the [5, K] output planes, in
+    the JAX kernel's layout: 'count' and 'wboit' sum into depths[0] (the
+    count, the revealage sum of log(1 - a)), 'wboit' and 'mboit_resolve'
+    into rgb[:, 0] and alpha[0]; 'mboit_gen' puts b0 in depths[0], the odd
+    moments in rgb[0..2, 0], alpha[0], the even ones in depths[1],
+    rgb[0..2, 1]."""
+    if store_mode == "count":
+        return [(0, 0)]
+    if store_mode == "wboit":
+        return [(0, 0), (1, 0), (2, 0), (3, 0), (4, 0)]
+    if store_mode == "mboit_resolve":
+        return [(1, 0), (2, 0), (3, 0), (4, 0)]
+    nh = n_mom // 2
+    odd = [(1, 0), (2, 0), (3, 0), (4, 0)][:nh]
+    even = [(0, 1), (1, 1), (2, 1), (3, 1)][:nh]
+    return [(0, 0)] + odd + even
+
+
+def _accum_terms(store_mode, frags, tw, invlen, params, n_mom, trig, mom):
+    """Per-fragment terms of the accumulators (`_accum_slots` order), each
+    [A, M', P]. `mom`: the pixels' pass-1 moments for 'mboit_resolve'
+    ([1 + n_mom] x [A, 1, P])."""
+    if store_mode == "count":
+        return [torch.ones_like(tw)]
+    zA, zB = params[9], params[10]
+    rc, gc, bc, ac = frags
+    if store_mode == "wboit":
+        # WBOITGather.glsl:14-37: weight from alpha and NDC depth.
+        zndc = zA - zB / torch.clamp(tw * invlen, min=1e-12)
+        x = torch.clamp(ac * 10.0, max=1.0) + 0.01
+        y = 1.0 - torch.clamp(zndc, 0.0, 1.0) * 0.9
+        wgt = torch.clamp(x * x * x * 1e8 * (y * y * y), 1e-2, 3e3)
+        wa = wgt * ac
+        return [torch.log(torch.clamp(1.0 - ac, min=1e-6)), wa * rc, wa * gc, wa * bc, wa]
+    # MBOIT log depth warp (MBOITHeader.glsl:49-52).
+    log_dmin, log_dmax = params[15], params[16]
+    dw = torch.clamp(
+        (torch.log(torch.clamp(tw * invlen, min=1e-9)) - log_dmin)
+        / torch.clamp(log_dmax - log_dmin, min=1e-9) * 2.0 - 1.0,
+        -1.0, 1.0,
+    )
+    nh = n_mom // 2
+    wzp_y, wzp_z, wzp_w = params[20], params[21], params[22]
+    if store_mode == "mboit_gen":
+        # MomentOIT.glsl:69-133 (power), :338-355 (trigonometric).
+        absorb = torch.clamp(-torch.log(torch.clamp(1.0 - ac, min=1e-7)), max=10.0)
+        if trig:
+            powers = circle_powers(dw, wzp_y, nh)
+            odd = [p[0] * absorb for p in powers]
+            even = [p[1] * absorb for p in powers]
+        else:
+            d2 = dw * dw
+            pow_odd, pow_even, odd, even = dw, d2, [], []
+            for _ in range(nh):
+                odd.append(pow_odd * absorb)
+                even.append(pow_even * absorb)
+                pow_odd = pow_odd * d2
+                pow_even = pow_even * d2
+        return [absorb] + odd + even
+    # mboit_resolve (MBOITPass2.glsl:21-37): the pixel's moments normalized
+    # by b0, the transmittance at the fragment's depth, discarded (T = 1)
+    # where b0 is below the reference's threshold.
+    m_bias, m_overest = params[17], params[18]
+    b0v = mom[0]
+    inv_b0 = 1.0 / torch.clamp(b0v, min=1e-6)
+    odds = [mom[1 + j] * inv_b0 for j in range(nh)]
+    evens = [mom[1 + nh + j] * inv_b0 for j in range(nh)]
+    if trig:
+        fn = {4: transmittance_at_depth_trig_2, 6: transmittance_at_depth_trig_3,
+              8: transmittance_at_depth_trig_4}[n_mom]
+        T_at = fn(b0v, list(zip(odds, evens)), dw, m_bias, m_overest, wzp_y, wzp_z, wzp_w)
+    else:
+        fn = {4: transmittance_at_depth_4, 6: transmittance_at_depth_6,
+              8: transmittance_at_depth_8}[n_mom]
+        T_at = fn(b0v, evens, odds, dw, m_bias, m_overest)
+    T_at = torch.where(b0v < MBOIT_DISCARD_B0, 1.0, T_at)
+    wgt = ac * T_at
+    return [wgt * rc, wgt * gc, wgt * bc, wgt]
+
+
 def rasterize_capsules_mlab_reference(
     csr: SortedBinning,
     params: torch.Tensor,
@@ -316,8 +455,14 @@ def rasterize_capsules_mlab_reference(
     tf_color: tuple = (),
     tf_opacity: tuple = ((0.0, 1.0), (1.0, 1.0)),
     use_bands: bool = False,
+    store_mode: str = "shade",
     alpha_from_rows: bool = False,
+    n_mom: int = 4,
+    trig: bool = False,
+    moments: torch.Tensor = None,
+    peel: torch.Tensor = None,
     no_overflow: bool = False,
+    deferred_shade: bool = False,
     sub: int = 32,
     sat: float = 0.999,
     composite: bool = False,
@@ -326,27 +471,28 @@ def rasterize_capsules_mlab_reference(
     batch_tiles: int = 2048,
     stats: Optional[dict] = None,
 ):
-    """Plain PyTorch version of the MLAB kernel (deferred-shade modes, same
-    contract as `rasterize_capsules_mlab`). It walks every tile's run by
-    block index, batching at each index the tiles whose run reaches it
-    (`batch_tiles` at a time); `work`, an optional [n_tiles] int32 tensor,
-    receives the candidates each tile evaluated after the culls. `stats`,
-    an optional dict, receives the work the run's data needed: "hits"
-    ((candidate, pixel) fragments past the clip and the rejection),
-    "sweeps" ((pixel, sweep) extractions) and "members" (fragments in the
-    extracted tie windows)."""
+    """Plain PyTorch version of the kernels (same contract as
+    `rasterize_capsules_mlab`). It walks every tile's run by block index,
+    batching at each index the tiles whose run reaches it (`batch_tiles` at
+    a time); `work`, an optional [n_tiles] int32 tensor, receives the
+    candidates each tile evaluated after the culls. `stats`, an optional
+    dict, receives the work the run's data needed: "hits" ((candidate,
+    pixel) fragments past the clip, the peel and the rejection), "sweeps"
+    ((pixel, sweep) extractions) and "members" (fragments in the extracted
+    tie windows); the accumulation modes have no sweeps."""
     if stats is not None:
         stats.update(hits=0, sweeps=0, members=0)
     dev = csr.payload.device
     n_tiles = csr.tile_start.shape[0]
     P = tile_w * tile_h
     C = csr.chunk
-    sub = _check_modes("shade", True, None, use_bands, composite, K, C, sub, tf_color)
+    sub = _check_modes(store_mode, deferred_shade, peel, use_bands, composite, K, C, sub,
+                       tf_color, n_mom, moments)
+    accum = store_mode in ACCUM_MODES
     dn_all, invlen_all = pixel_rays(
         params, n_tiles, csr.tiles_x, tile_w, tile_h, width, height
     )
     zA, zB = params[9], params[10]
-    opacity_scale = params[14]
     sat_thr = float(np.float32(1.0 - sat))
     payload = csr.payload[:ROWS]
     last_col = payload.shape[1] - 1
@@ -356,7 +502,9 @@ def rasterize_capsules_mlab_reference(
     first_block = start // sub
     n_blocks = torch.where(end > start, (end - 1) // sub - first_block + 1, 0)
     st_all = torch.zeros((n_tiles, 5, K, P), dtype=torch.float32, device=dev)
-    st_all[:, 0] = 2.0
+    if not accum:
+        st_all[:, 0] = 2.0
+    slots = _accum_slots(store_mode, n_mom) if accum else []
     stopped = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
     evaluated = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
     lane = torch.arange(sub, device=dev)
@@ -368,55 +516,81 @@ def rasterize_capsules_mlab_reference(
             st = st_all[tiles]
             t_start, t_end = start[tiles, None], end[tiles, None]
             col0 = (first_block[tiles] + i) * sub
-            blocked, dK = _bound(st, K, no_overflow, sat_thr)
-            zk_eff = torch.where(blocked, dK, 2.0).amax(dim=1)
-            # Chunk exit: at the first block of a chunk (or of the run), a
-            # chunk whose in-run candidates all lie behind the tile's bound
-            # ends the run.
-            ccol0 = col0 // C * C
-            opens = (col0 == ccol0) | (i == 0)
-            ccols = ccol0[:, None] + lane_c
-            c_in = (ccols >= t_start) & (ccols < t_end)
-            czmin = torch.where(c_in, payload[15][ccols.clamp(max=last_col)], 3.0).amin(dim=1)
-            exits = opens & (czmin > zk_eff)
-            stopped[tiles[exits]] = True
             cols = col0[:, None] + lane
             in_run = (cols >= t_start) & (cols < t_end)
             s = payload[:, cols.clamp(max=last_col)]  # [ROWS, A, sub]
-            zmin = torch.where(in_run, s[15], 3.0).amin(dim=1)
-            live = ~exits & (zmin <= zk_eff)
+            if accum:
+                live = torch.ones_like(tiles, dtype=torch.bool)
+            else:
+                blocked, dK = _bound(st, K, no_overflow, sat_thr)
+                zk_eff = torch.where(blocked, dK, 2.0).amax(dim=1)
+                # Chunk exit: at the first block of a chunk (or of the run),
+                # a chunk whose in-run candidates all lie behind the tile's
+                # bound ends the run.
+                ccol0 = col0 // C * C
+                opens = (col0 == ccol0) | (i == 0)
+                ccols = ccol0[:, None] + lane_c
+                c_in = (ccols >= t_start) & (ccols < t_end)
+                czmin = torch.where(c_in, payload[15][ccols.clamp(max=last_col)],
+                                    3.0).amin(dim=1)
+                exits = opens & (czmin > zk_eff)
+                stopped[tiles[exits]] = True
+                zmin = torch.where(in_run, s[15], 3.0).amin(dim=1)
+                live = ~exits & (zmin <= zk_eff)
             evaluated[tiles[live]] += in_run[live].sum(dim=1)
             if not bool(live.any()):
                 continue
             tiles, st, s = tiles[live], st[live], s[:, live, :, None]
-            in_run, blocked, dK = in_run[live, :, None], blocked[live], dK[live]
+            in_run = in_run[live, :, None]
             dn = tuple(d[tiles][:, None, :] for d in dn_all)
             invlen = invlen_all[tiles][:, None, :]
             len_p = 1.0 / invlen
 
-            tcand, t0, geo = _surfaces(s, dn, in_run, two_sided)
-            t0c = torch.cat([t0, t0], dim=1) if two_sided else t0
-            tw = torch.where(tcand < BIG, t0c + tcand, BIG)
+            tcand, t0, geo = _surfaces(s, dn, in_run, two_sided, interleave=accum)
+            tw = torch.where(tcand < BIG, _two(t0, two_sided, accum) + tcand, BIG)
             # Near/far clip in NDC, as world-t bounds of the pixel's ray.
             tw_lo = (zB / zA) * len_p
             tw_hi = (zB / (zA - 1.0)) * len_p
             tw = torch.where((tw >= tw_lo) & (tw <= tw_hi), tw, BIG)
-            # Reject fragments behind a blocked pixel's K-th node (node state
-            # at the start of the block).
-            if no_overflow:
-                znd = zA - zB / torch.clamp(tw * invlen, min=1e-12)
-                tw = torch.where(blocked[:, None] & (znd >= dK[:, None]), BIG, tw)
-            else:
-                t_rej = zB / torch.clamp(zA - dK, min=1e-9) * len_p[:, 0]
-                tw = torch.where(blocked[:, None] & (tw >= t_rej[:, None]), BIG, tw)
-            n_hits = int((tw < BIG).sum())
+            znd = zA - zB / torch.clamp(tw * invlen, min=1e-12)
+            if peel is not None:
+                # Depth peeling: fragments at or in front of the previous
+                # pass's farthest layer were composited already. The NDC
+                # depth is the extraction's formula, so a layer at the peel
+                # depth compares equal and is neither doubled nor skipped.
+                tw = torch.where(znd > peel[tiles][:, None, :], tw, BIG)
+            if not accum:
+                # Reject fragments behind a blocked pixel's K-th node (node
+                # state at the start of the block).
+                blocked, dK = blocked[live], dK[live]
+                if no_overflow:
+                    tw = torch.where(blocked[:, None] & (znd >= dK[:, None]), BIG, tw)
+                else:
+                    t_rej = zB / torch.clamp(zA - dK, min=1e-9) * len_p[:, 0]
+                    tw = torch.where(blocked[:, None] & (tw >= t_rej[:, None]), BIG, tw)
+            valid = tw < BIG
+            n_hits = int(valid.sum())
             if stats is not None:
                 stats["hits"] += n_hits
             if not n_hits:
                 continue
-            feats = _features(s, tcand, geo, tf_opacity, opacity_scale,
-                              alpha_from_rows, two_sided)
-            _sweeps(st, tw, feats, invlen[:, 0], zA, zB, K, no_overflow, stats)
+            frags = None
+            if store_mode != "count":
+                frags = _fragments(s, tcand, tw, invlen, geo, params, tf_color, tf_opacity,
+                                   alpha_from_rows, two_sided, accum, deferred_shade)
+            if not accum:
+                _sweeps(st, tw, frags, invlen[:, 0], zA, zB, K, no_overflow, stats)
+                st_all[tiles] = st
+                continue
+            mom = None
+            if store_mode == "mboit_resolve":
+                mom = [m[tiles][:, None, :] for m in moments]
+            terms = _accum_terms(store_mode, frags, tw, invlen, params, n_mom, trig, mom)
+            # Per-pixel sums in candidate order, as the kernel adds them.
+            for j in range(tw.shape[1]):
+                vj = valid[:, j]
+                for (ch, node), term in zip(slots, terms):
+                    st[:, ch, node] = st[:, ch, node] + torch.where(vj, term[:, j], 0.0)
             st_all[tiles] = st
 
     if work is not None:
@@ -429,15 +603,28 @@ def rasterize_capsules_mlab_reference(
     return out[0], out[1:4], out[4]
 
 
-def _launcher():
-    """The kernel's C entry point (built and loaded at first use), with its
-    argument types declared so ctypes passes 64-bit pointers."""
-    fn = _build.load("raster_capsule_oit").raster_capsule_mlab_launch
+def _launcher(name):
+    """The C entry point of kernel library `name` (built and loaded at first
+    use), with its argument types declared so ctypes passes 64-bit
+    pointers."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p,
-                   i, i, i, i, f, f, i, i, i, i, i, i, i, f, p]
+    if name == "raster_capsule_oit":
+        fn = _build.load(name).raster_capsule_mlab_launch
+        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p,
+                       i, i, i, i, f, f, i, i, i, i, i, i, i, i, f, p]
+    else:
+        fn = _build.load(name).raster_capsule_accum_launch
+        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p,
+                       i, i, i, i, f, f, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _check_plane(t, name, n_tiles, P, device):
+    if (t.dtype != torch.float32 or t.shape[-2:] != (n_tiles, P) or t.device != device
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous float32 [..., {n_tiles}, {P}] "
+                         "tensor on the payload's device")
 
 
 def rasterize_capsules_mlab(
@@ -465,30 +652,40 @@ def rasterize_capsules_mlab(
     two_sided: bool = False,
     work: Optional[torch.Tensor] = None,
 ):
-    """MLAB-K transparency pass (signature of the JAX kernel's wrapper).
+    """MLAB-K transparency pass and the per-pixel accumulators (signature of
+    the JAX kernel's wrapper).
 
-    Returns (depths [K, n_tiles, P], premultiplied features [3, K, n_tiles, P]
-    = (attr, cos1, cos2) * alpha, alpha [K, n_tiles, P]); empty nodes have
-    depth 2.0 and alpha 0. With `composite=True` the nodes are shaded and
-    blended front to back over the background in params[24:28] instead ->
-    [4, n_tiles, P] RGBA. Ported: store_mode 'shade' with deferred_shade,
-    composite on or off, no_overflow, two_sided, alpha_from_rows (alpha =
-    row 11 + row 12 * u), sat, sub, 1 <= K <= 32; `n_mom`, `trig` and
-    `moments` belong to the MBOIT modes, which raise NotImplementedError, as
-    `use_bands` does.
+    store_mode 'shade' returns (depths [K, n_tiles, P], premultiplied colors
+    [3, K, n_tiles, P], alpha [K, n_tiles, P]); empty nodes have depth 2.0
+    and alpha 0. The colors are the shaded rgb, or with `deferred_shade` the
+    features (attr, cos1, cos2). With `composite=True` (deferred shading, no
+    peel) the nodes are shaded and blended front to back over the
+    background in params[24:28] instead -> [4, n_tiles, P] RGBA. `peel`
+    ([n_tiles, P] NDC depths) keeps only fragments behind the pixel's peel
+    depth. Accumulation modes return the same three planes holding their
+    sums (`_accum_slots`), zero elsewhere: 'mboit_gen' needs K=2 and writes
+    b0, then the n_mom moments (power, or with `trig` trigonometric);
+    'mboit_resolve' reads `moments` [1 + n_mom, n_tiles, P] (b0, the odd,
+    the even moments). Also ported: no_overflow, two_sided,
+    alpha_from_rows (alpha = row 11 + row 12 * u), sat, sub, 1 <= K <= 32.
+    `store_mode='gather'` and `use_bands` raise NotImplementedError.
 
-    A CUDA payload launches the CUDA kernel (and counts the launch in
-    `rasterize_capsules_mlab.launches`); a CPU payload runs the plain
-    version. `work`, an optional [n_tiles] int32 tensor, receives the
-    candidates each tile evaluated after the chunk exit and block cull.
+    A CUDA payload launches the CUDA kernel of the mode: the K-buffer
+    kernel, counted in `rasterize_capsules_mlab.launches`, or through
+    `rasterize_capsules_accum` (its own count) the accumulation kernel. A
+    CPU payload runs the plain version. `work`, an optional [n_tiles] int32 tensor, receives
+    the candidates each tile evaluated after the chunk exit and block cull
+    (every candidate of the run in the accumulation modes).
     """
     C = csr.chunk
     sub = _check_modes(store_mode, deferred_shade, peel, use_bands, composite, K, C, sub,
-                       tf_color)
+                       tf_color, n_mom, moments)
     payload = csr.payload
     kw = dict(K=K, tf_color=tf_color, tf_opacity=tf_opacity, use_bands=use_bands,
-              alpha_from_rows=alpha_from_rows, no_overflow=no_overflow, sub=sub,
-              sat=sat, composite=composite, two_sided=two_sided, work=work)
+              store_mode=store_mode, alpha_from_rows=alpha_from_rows, n_mom=n_mom,
+              trig=trig, moments=moments, peel=peel, no_overflow=no_overflow,
+              deferred_shade=deferred_shade, sub=sub, sat=sat, composite=composite,
+              two_sided=two_sided, work=work)
     if payload.device.type == "cpu":
         return rasterize_capsules_mlab_reference(
             csr, params, width, height, tile_w, tile_h, **kw
@@ -517,29 +714,65 @@ def rasterize_capsules_mlab(
             raise ValueError("inputs must be contiguous on the payload's device")
     if csr.tile_start.dtype != torch.int32 or csr.tile_count.dtype != torch.int32:
         raise ValueError("tile_start / tile_count must be int32")
+    if peel is not None:
+        _check_plane(peel, "peel", n_tiles, P, payload.device)
+    if moments is not None and store_mode == "mboit_resolve":
+        _check_plane(moments, "moments", n_tiles, P, payload.device)
 
     tf = tf_table(tf_color, tf_opacity, payload.device)
-    n_out = 4 if composite else 5 * K
-    out = torch.empty((n_out, n_tiles, P), dtype=torch.float32, device=payload.device)
-    with torch.cuda.device(payload.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _launcher()(
-            payload.data_ptr(), payload.shape[1],
-            csr.tile_start.data_ptr(), csr.tile_count.data_ptr(),
-            params.data_ptr(), tf.data_ptr(), out.data_ptr(),
-            None if work is None else work.data_ptr(),
-            n_tiles, csr.tiles_x, tile_w, tile_h, 2.0 / width, 2.0 / height,
-            K, C, sub, int(composite), int(no_overflow), int(two_sided),
-            int(alpha_from_rows), float(np.float32(1.0 - sat)),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"raster_capsule_oit kernel launch failed: CUDA error {rc}")
-    rasterize_capsules_mlab.launches += 1
+    if store_mode in ACCUM_MODES:
+        out = rasterize_capsules_accum(csr, params, tf, width, height, tile_w, tile_h, K,
+                                       store_mode, alpha_from_rows, n_mom, trig, moments,
+                                       peel, two_sided)
+        if work is not None:
+            work.copy_(csr.tile_count)
+    else:
+        out = torch.empty((4 if composite else 5 * K, n_tiles, P), dtype=torch.float32,
+                          device=payload.device)
+        with torch.cuda.device(payload.device):
+            rc = _launcher("raster_capsule_oit")(
+                payload.data_ptr(), payload.shape[1],
+                csr.tile_start.data_ptr(), csr.tile_count.data_ptr(),
+                params.data_ptr(), tf.data_ptr(), None if peel is None else peel.data_ptr(),
+                out.data_ptr(), None if work is None else work.data_ptr(),
+                n_tiles, csr.tiles_x, tile_w, tile_h, 2.0 / width, 2.0 / height,
+                K, C, sub, int(composite), int(no_overflow), int(two_sided),
+                int(alpha_from_rows), int(deferred_shade), float(np.float32(1.0 - sat)),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"raster_capsule_oit kernel launch failed: CUDA error {rc}")
+        rasterize_capsules_mlab.launches += 1
     if composite:
         return out
     out = out.reshape(5, K, n_tiles, P)
     return out[0], out[1:4], out[4]
 
 
+def rasterize_capsules_accum(csr, params, tf, width, height, tile_w, tile_h, K, store_mode,
+                             alpha_from_rows, n_mom, trig, moments, peel, two_sided):
+    """Launch `csrc/raster_capsule_accum.cu`, the accumulation modes' kernel,
+    on CUDA inputs that `rasterize_capsules_mlab` checked -> [5 * K, n_tiles,
+    P] planes; counts the launch in `rasterize_capsules_accum.launches`."""
+    n_tiles = csr.tile_start.shape[0]
+    P = tile_w * tile_h
+    out = torch.empty((5 * K, n_tiles, P), dtype=torch.float32, device=csr.payload.device)
+    with torch.cuda.device(csr.payload.device):
+        rc = _launcher("raster_capsule_accum")(
+            csr.payload.data_ptr(), csr.payload.shape[1],
+            csr.tile_start.data_ptr(), csr.tile_count.data_ptr(),
+            params.data_ptr(), tf.data_ptr(),
+            moments.data_ptr() if store_mode == "mboit_resolve" else None,
+            None if peel is None else peel.data_ptr(), out.data_ptr(),
+            n_tiles, csr.tiles_x, tile_w, tile_h, 2.0 / width, 2.0 / height,
+            K, csr.chunk, _ACCUM_CODE[store_mode], n_mom, int(trig), int(two_sided),
+            int(alpha_from_rows), torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"raster_capsule_accum kernel launch failed: CUDA error {rc}")
+    rasterize_capsules_accum.launches += 1
+    return out
+
+
 rasterize_capsules_mlab.launches = 0
+rasterize_capsules_accum.launches = 0

@@ -10,7 +10,10 @@ on >= 99.9% of pixels, z_ndc and G-buffer within 1e-5 where they agree,
 coverage within 2e-3. For the MLAB kernel: node depths and alpha within
 1e-5 on >= 99.9% of pixels, features within 1e-5 there, composited RGBA
 within 1e-4 on >= 99.9% of pixels (the composite's powf may differ from
-torch.pow by an ulp). For the prism and the triangle kernel: bit for bit
+torch.pow by an ulp). For the accumulation kernel: counts exactly, the
+WBOIT and MBOIT moment sums within 1e-5 of each pixel's scale (its sum of
+weights, or b0) on >= 99.9% of pixels, the MBOIT resolve within 1e-4 (the
+moment solves amplify an ulp of a moment). For the prism and the triangle kernel: bit for bit
 (`torch.equal` on every output). For the AO grid kernel: every pair's flag
 and every chunk's walked count equal. For the wavefront kernel: depths,
 features, alpha and the per-block counts bit for bit. Kernels and plain versions are built
@@ -143,13 +146,12 @@ def _mlab_frame(device, W, H, tile):
 def test_mlab_kernel_matches_plain(cuda, tile, mode, K):
     W, H = 200, 120  # not a multiple of the tile: edge tiles are cropped
     csr, params, S = _mlab_frame(cuda, W, H, tile)
-    kw = dict(K=K, tf_color=S.tf_color, tf_opacity=S.tf_opacity,
+    kw = dict(K=K, tf_color=S.tf_color, tf_opacity=S.tf_opacity, deferred_shade=True,
               composite=mode == "composite", no_overflow=mode == "no_overflow",
               two_sided=mode == "two_sided")
     before = rasterize_capsules_mlab.launches
     work = torch.zeros(csr.tile_start.shape[0], dtype=torch.int32, device=cuda)
-    k = rasterize_capsules_mlab(csr, params, W, H, *tile, deferred_shade=True,
-                                work=work, **kw)
+    k = rasterize_capsules_mlab(csr, params, W, H, *tile, work=work, **kw)
     assert rasterize_capsules_mlab.launches == before + 1
     p_work = torch.zeros_like(work)
     p = rasterize_capsules_mlab_reference(csr, params, W, H, *tile, work=p_work, **kw)
@@ -521,3 +523,179 @@ def test_build_lbvh_card_matches_cpu(cuda):
         trees.append(trt.build_capsule_bvh(scene).numpy())
     for name in ("left", "right", "leaf_prim", "node_min", "node_max"):
         np.testing.assert_array_equal(getattr(trees[0], name), getattr(trees[1], name))
+
+
+# The accumulation modes and the K-buffer's peel and per-fragment shading
+# (the rest of the OIT family).
+
+_ACCUM_CASES = (
+    [("count", 4, False), ("wboit", 4, False)]
+    + [("mboit_gen", n, t) for t in (False, True) for n in (4, 6, 8)]
+    + [("mboit_resolve", n, t) for t in (False, True) for n in (4, 6, 8)]
+)
+
+
+def _mboit_frame(device, W, H, n_mom, trig, chunk=32, scene=(12, 10, 8, 0.03)):
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=16, tile_h=8, chunk=chunk,
+                       depth_cue_strength=0.2)
+    ts = ttr.build_capsule_scene(*_walk(*scene), device=device)
+    csr, params, _ = toit.prepare_mboit_frame(ts, *ttr.camera_tensors(cam, device), S, n_mom,
+                                              0.4, trigonometric=trig)
+    return csr, params, S
+
+
+def _within_rel(k, p, scale, tol):
+    """Share of pixels whose every plane is within tol * scale."""
+    err = (k - p).abs().reshape(-1, *k.shape[-2:]).amax(dim=0)
+    return (err <= tol * scale).float().mean().item()
+
+
+@pytest.mark.parametrize("store_mode,n_mom,trig", _ACCUM_CASES)
+def test_accum_kernel_matches_plain(cuda, store_mode, n_mom, trig):
+    """Count exactly; wboit and mboit_gen sums within 1e-5 of each pixel's
+    scale (its sum of w*a, or b0) on >= 99.9% of pixels; the resolve, on the
+    kernel's own pass-1 moments, within 1e-4 there."""
+    W, H = 200, 120  # not a multiple of the tile: edge tiles are cropped
+    csr, params, S = _mboit_frame(cuda, W, H, n_mom, trig)
+    K = 2 if store_mode == "mboit_gen" else 1
+    kw = dict(K=K, tf_color=S.tf_color, tf_opacity=S.tf_opacity, n_mom=n_mom, trig=trig)
+    if store_mode == "mboit_resolve":
+        d, rgb, a = rasterize_capsules_mlab(csr, params, W, H, 16, 8, store_mode="mboit_gen",
+                                            **dict(kw, K=2))
+        nh = n_mom // 2
+        kw["moments"] = torch.stack([d[0], *(rgb[0, 0], rgb[1, 0], rgb[2, 0], a[0])[:nh],
+                                     *(d[1], rgb[0, 1], rgb[1, 1], rgb[2, 1])[:nh]])
+    before = tk_accum().launches
+    k = rasterize_capsules_mlab(csr, params, W, H, 16, 8, store_mode=store_mode, **kw)
+    assert tk_accum().launches == before + 1
+    p = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, store_mode=store_mode, **kw)
+    torch.cuda.synchronize()
+    k, p = torch.cat([k[0][None], k[1], k[2][None]]), torch.cat([p[0][None], p[1], p[2][None]])
+    assert bool(torch.isfinite(k).all())
+    if store_mode == "count":
+        assert torch.equal(k, p) and k.max().item() >= 3
+        return
+    if store_mode == "wboit":
+        scale = p[4, 0].abs() + 1e-30
+    elif store_mode == "mboit_gen":
+        scale = p[0, 0].abs() + 1e-30
+    else:
+        scale = torch.ones_like(p[0, 0])
+    assert (p[0, 0] != 0).sum().item() > 100 or (p[4, 0] != 0).sum().item() > 100
+    tol = 1e-4 if store_mode == "mboit_resolve" else 1e-5
+    assert _within_rel(k, p, scale, tol) >= 0.999
+
+
+def tk_accum():
+    from linevis_tpu_torch.kernels.raster_capsule_oit import rasterize_capsules_accum
+
+    return rasterize_capsules_accum
+
+
+def test_accum_kernel_edge_cases(cuda):
+    """Empty tiles (all sums zero), runs longer than one chunk, a peel depth
+    with two-sided fragments, and resolve moments whose b0 is under the
+    discard threshold (T = 1 there)."""
+    W, H = 160, 120
+    csr, params, S = _mboit_frame(cuda, W, H, 4, False, chunk=8, scene=(3, 24, 12, 0.05))
+    counts = csr.tile_count
+    assert (counts == 0).any() and counts.max().item() > 3 * csr.chunk
+    kw = dict(tf_color=S.tf_color, tf_opacity=S.tf_opacity, n_mom=4)
+    k = rasterize_capsules_mlab(csr, params, W, H, 16, 8, 1, store_mode="wboit", **kw)
+    p = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, 1, store_mode="wboit", **kw)
+    empty = counts == 0
+    for x in (k[0], k[1], k[2]):
+        assert (x[..., empty, :] == 0).all()
+    assert _within_rel(torch.cat([k[0], k[1][:, 0], k[2]]), torch.cat([p[0], p[1][:, 0], p[2]]),
+                       p[2][0].abs() + 1e-30, 1e-5) >= 0.999
+    # Behind a peel depth, entry and exit surfaces.
+    d1 = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, 1, S.tf_color,
+                                           S.tf_opacity, deferred_shade=True,
+                                           no_overflow=True)[0][0]
+    peel = torch.where(d1 < 1.5, d1, -1.0).contiguous()
+    kw2 = dict(kw, peel=peel, two_sided=True)
+    k = rasterize_capsules_mlab(csr, params, W, H, 16, 8, 1, store_mode="wboit", **kw2)
+    p = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, 1, store_mode="wboit",
+                                          **kw2)
+    assert (p[2][0] > 0).sum().item() > 100
+    assert _within_rel(torch.cat([k[0], k[1][:, 0], k[2]]), torch.cat([p[0], p[1][:, 0], p[2]]),
+                       p[2][0].abs() + 1e-30, 1e-5) >= 0.999
+    d, rgb, a = rasterize_capsules_mlab(csr, params, W, H, 16, 8, 2, store_mode="mboit_gen", **kw)
+    moments = torch.stack([d[0], rgb[0, 0], rgb[1, 0], d[1], rgb[0, 1]])
+    moments[0, :, ::3] = 5e-4  # under the threshold
+    kr = rasterize_capsules_mlab(csr, params, W, H, 16, 8, 1, store_mode="mboit_resolve",
+                                 moments=moments, **kw)
+    pr = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, 1,
+                                           store_mode="mboit_resolve", moments=moments, **kw)
+    torch.cuda.synchronize()
+    ok = ((kr[1][:, 0] - pr[1][:, 0]).abs().amax(dim=0) <= 1e-4) & ((kr[2][0] - pr[2][0]).abs() <= 1e-4)
+    assert ok.float().mean().item() >= 0.999
+    # Where T = 1 the resolve's alpha sum is the plain sum of alphas.
+    assert (kr[2][0][:, ::3] > 0).sum().item() > 10
+
+
+@pytest.mark.parametrize("K", [8, 16, 32])
+def test_kbuffer_peel_per_fragment_matches_plain(cuda, K):
+    """Per-fragment shading with a peel depth (a depth-peeling pass): node
+    depths and alpha within 1e-5 on >= 99.9% of pixels, colors within 1e-5
+    there."""
+    W, H = 200, 120
+    csr, params, S = _mlab_frame(cuda, W, H, (16, 8))
+    n_tiles = csr.tile_start.shape[0]
+    kw = dict(K=4, tf_color=S.tf_color, tf_opacity=S.tf_opacity, no_overflow=True)
+    d0, _, _ = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, **kw)
+    peel = torch.where(d0 < 1.5, d0, -1.0).amax(dim=0).contiguous()
+    assert peel.shape == (n_tiles, 128) and (peel > 0).sum().item() > 100
+    for no_overflow in (True, False):
+        kw = dict(K=K, tf_color=S.tf_color, tf_opacity=S.tf_opacity, peel=peel,
+                  no_overflow=no_overflow)
+        before = rasterize_capsules_mlab.launches
+        kd, kc, ka = rasterize_capsules_mlab(csr, params, W, H, 16, 8, **kw)
+        assert rasterize_capsules_mlab.launches == before + 1
+        pd, pc, pa = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, **kw)
+        torch.cuda.synchronize()
+        assert (kd < 2.0).sum().item() > 100
+        assert bool(((kd > peel[None]) | (kd == 2.0)).all())  # nothing at or before the peel
+        ok = ((kd - pd).abs().amax(dim=0) <= 1e-5) & ((ka - pa).abs().amax(dim=0) <= 1e-5)
+        assert ok.float().mean().item() >= 0.999
+        assert (kc - pc).abs().amax(dim=(0, 1))[ok].max().item() <= 1e-5
+
+
+@pytest.mark.parametrize(
+    "renderer,kw,launches",
+    [("render_tubes_wboit", {}, (0, 1)),
+     ("render_tubes_depth_peeling", dict(K=8, passes=4), (4, 0)),
+     ("render_tubes_mlab_buckets", dict(K=8), (2, 0)),
+     ("render_tubes_mboit", dict(n_mom=4), (0, 2)),
+     ("render_tubes_mboit", dict(n_mom=6, trigonometric=True, pixel_format="unorm16"), (0, 2)),
+     ("render_tubes_atomic_loop", dict(K=16), (1, 0))],
+)
+def test_render_oit_modes_card_matches_cpu(cuda, renderer, kw, launches):
+    """Each renderer on the card, with exactly its kernel launches, against
+    the CPU: mean abs <= 2e-3."""
+    W, H = 160, 120
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=16, tile_h=8, depth_cue_strength=0.2)
+    render = getattr(toit, renderer)
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        scene = ttr.build_capsule_scene(*_walk(12, 10, 8, 0.03), device=dev)
+        before = (rasterize_capsules_mlab.launches, tk_accum().launches)
+        imgs.append(render(scene, *ttr.camera_tensors(cam, dev), S, opacity=0.4, **kw).cpu())
+        got = (rasterize_capsules_mlab.launches - before[0], tk_accum().launches - before[1])
+        assert got == (launches if dev.type == "cuda" else (0, 0))
+    assert bool(torch.isfinite(imgs[0]).all())
+    assert (imgs[0][3] > 0).sum().item() > 100
+    assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3
+
+
+def test_render_depth_complexity_card_equals_cpu(cuda):
+    W, H = 160, 120
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        scene = ttr.build_capsule_scene(*_walk(12, 10, 8, 0.03), device=dev)
+        out.append(toit.render_depth_complexity(scene, *ttr.camera_tensors(cam, dev), S).cpu())
+    assert torch.equal(out[0], out[1]) and out[0].max().item() >= 3

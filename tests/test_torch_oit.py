@@ -418,19 +418,11 @@ def test_entry_mlab_runs_on_cpu_and_defaults_to_cuda():
             entry_mlab()
 
 
-@pytest.mark.parametrize(
-    "mode", ["gather", "wboit", "count", "mboit_gen", "mboit_resolve", "peel",
-             "per_fragment_shading", "use_bands"],
-)
+@pytest.mark.parametrize("mode", ["gather", "use_bands"])
 def test_unported_modes_raise(mode):
     csr, params, S = _port_frame()
-    kw = dict(deferred_shade=True)
-    if mode == "peel":
-        kw["peel"] = torch.zeros(csr.tile_start.shape[0], 128)
-    elif mode == "per_fragment_shading":
-        kw["deferred_shade"] = False
-    elif mode == "use_bands":
-        kw["use_bands"] = True
+    if mode == "use_bands":
+        kw = dict(deferred_shade=True, use_bands=True)
     else:
         kw = dict(store_mode=mode)
     with pytest.raises(NotImplementedError, match=mode.split("_")[0]):
