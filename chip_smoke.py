@@ -37,7 +37,22 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   nodes within 1e-4), each frame against the same frame on the plain path,
   the MBOIT variants (6/8 power, 4/6/8 trigonometric moments, unorm16) at
   480x272, and depth peeling against the Atomic Loop K=32, MBOIT and WBOIT
-  against MLAB K=8.
+  against MLAB K=8;
+- opacity optimization through `OpacityOptimizationRenderer.render` (bench.py
+  cfg5: tile 16x8, the default settings: q 2000, r 20, s 15, lambda 2, the
+  importance gather at half resolution with K=8, the final MLAB render with
+  K=8), 8 frames of a moving camera, so each frame solves: the gather
+  (capsule_mlab in store mode 'gather') and the final render launch
+  capsule_mlab once each. The gather is held bit for bit against its plain
+  version on frame 0, the vertex opacities against the plain path's on every
+  frame (equal), the final frame against the plain path's (SSIM);
+- `use_bands` (diffuse exponent 1.0) against the plain version at 480x272 in
+  per-fragment shading behind a peel depth, the composite, 'wboit' and
+  'mboit_resolve'; then the opacity-optimization entry and every mode the
+  port's renderer registry draws, by name, on a small scene, card vs CPU
+  (RTAO, whose samples each device draws itself, on the mean of 8
+  accumulated frames), and the registry's RTAO mode on the tornado at
+  1080p (its first frame equal to `render_tubes_rtao`'s, 8 frames timed).
 For each path it times the frames and their stages with CUDA events, checks
 that exactly the expected kernels were launched the expected number of
 times, holds the path's kernel against its plain PyTorch version on the same
@@ -150,8 +165,15 @@ OIT_SMALL = (480, 272)  # the reduced frame of the MBOIT variants
 # sums 8, the discard 3); per fragment of a peel pass its NDC depth and the
 # peel test 5.
 OIT_OPS_PER_SHADE = 80
+# With use_bands the diffuse powers are their bases: two powf fewer.
+OIT_OPS_PER_SHADE_BANDS = OIT_OPS_PER_SHADE - 2 * 8
 OIT_OPS_PER_ACCUM = {"count": 1, "wboit": 35, "mboit_gen": 45, "mboit_resolve": 150}
 OIT_OPS_PER_PEEL = 5
+OO_FRAMES = 8  # opacity-optimization frames (bench.py cfg5's flight)
+# Float operations per fragment in an extracted tie window of the importance
+# gather: its axial position and attribute 7, the window sums 4, the window
+# test 2 (no shading, no TF).
+GATHER_OPS_PER_MEMBER = 13
 
 
 def _events():
@@ -182,6 +204,7 @@ def main() -> int:
         entry_mboit,
         entry_mlab,
         entry_mlab_buckets,
+        entry_opacity_optimization,
         entry_wboit,
         entry_prism,
         entry_rtao,
@@ -193,7 +216,11 @@ def main() -> int:
         tornado_trajectories,
         tornado_tube_mesh,
         tornado_wide_bvh,
+        _small_lines,
+        TORNADO_RADIUS,
     )
+    from linevis_tpu_torch.core.settings import SettingsMap
+    from linevis_tpu_torch.core.trajectories import Trajectories
     from linevis_tpu_torch.kernels import _build, ao_grid, raster_pallas
     from linevis_tpu_torch.kernels.bvh_wavefront import (
         STATS as WF_STATS,
@@ -218,6 +245,20 @@ def main() -> int:
     from linevis_tpu_torch.render.camera import Camera
     from linevis_tpu_torch.render.framebuffer import ssim
     from linevis_tpu_torch.render import oit as oit_module
+    from linevis_tpu_torch.render import opacity_optimization as oo_module
+    from linevis_tpu_torch.render.opacity_optimization import (
+        OpacityOptimizationRenderer,
+        OpacityOptimizationSettings,
+        final_render,
+        gather_settings,
+        solve_vertex_opacity,
+    )
+    from linevis_tpu_torch.render.renderer import (
+        RENDERING_MODE_ALL,
+        UNPORTED_MODES,
+        create_renderer,
+    )
+    from linevis_tpu_torch.scene.line_data import LineData
     from linevis_tpu_torch.render.oit import (
         prepare_mboit_frame,
         prepare_mlab_frame,
@@ -936,6 +977,265 @@ def main() -> int:
     if not torch.equal(fn(*args).cpu(), fn(*args_cpu)):
         raise RuntimeError("the depth complexity of entry's scene differs card vs cpu")
     print("entry_depth_complexity card vs cpu: equal", flush=True)
+
+    # 10e. Opacity optimization (bench.py cfg5): OO_FRAMES frames through the
+    # renderer at tile 16x8 with the default settings, every frame moving the
+    # camera, so each solves: the half-res importance gather (the K-buffer in
+    # store mode 'gather'), the plain solve and the final MLAB render.
+    oo_set = OpacityOptimizationSettings()
+    oo_cams = [base.orbit(0.002 * (i + 1), 0.1, 1.2) for i in range(OO_FRAMES)]
+    OpacityOptimizationRenderer(scene, traj.num_lines, traj.max_points, s_oit).render(
+        oo_cams[0])  # warm-up
+    torch.cuda.synchronize()
+    oo_r = OpacityOptimizationRenderer(scene, traj.num_lines, traj.max_points, s_oit, oo_set)
+    reset_launches()
+    frame_ev = [_events() for _ in oo_cams]
+    imgs_sum = torch.zeros((), device=dev)
+    k_vo = []
+    for (a, b), cam in zip(frame_ev, oo_cams):
+        a.record()
+        img = oo_r.render(cam)
+        b.record()
+        imgs_sum += img.sum()
+        k_vo.append(oo_r.vertex_opacity.clone())
+    torch.cuda.synchronize()
+    oo_launches = expect_launches({"capsule_mlab": 2 * OO_FRAMES})["capsule_mlab"]
+    if not bool(torch.isfinite(imgs_sum)):
+        raise RuntimeError("non-finite opacity-optimization frame on the main path")
+    k_oo_img = img
+    oo_frame_ms = [a.elapsed_time(b) for a, b in frame_ev]
+
+    # The same frames on the plain path: every K-buffer call on its plain
+    # version; the vertex opacities must be equal frame by frame.
+    plain_oo = OpacityOptimizationRenderer(scene, traj.num_lines, traj.max_points, s_oit,
+                                           oo_set)
+    oit_module.rasterize_capsules_mlab = rasterize_capsules_mlab_reference
+    oo_module.rasterize_capsules_mlab = rasterize_capsules_mlab_reference
+    try:
+        vo_equal = True
+        for cam, kv in zip(oo_cams, k_vo):
+            p_oo_img = plain_oo.render(cam)
+            vo_equal = vo_equal and bool(torch.equal(plain_oo.vertex_opacity, kv))
+    finally:
+        oit_module.rasterize_capsules_mlab = rasterize_capsules_mlab
+        oo_module.rasterize_capsules_mlab = rasterize_capsules_mlab
+    oo_ssim, oo_mad, _ = images_agree("opacity optimization", k_oo_img, p_oo_img)
+
+    # Stage breakdown of the same frames: the half-res prep and binning, the
+    # gather kernel, the plain solve, the final render.
+    s2 = gather_settings(s_oit, oo_set)
+
+    def gather_inputs(csr2, params2):
+        """`gather_importance`'s K-buffer arguments on a prepared half-res frame."""
+        return (csr2, params2, s2.width, s2.height, s2.tile_w, s2.tile_h, oo_set.gather_k,
+                s2.tf_color, s2.tf_opacity)
+
+    stage_ms = {"oo_prep_binning": [], "oo_gather": [], "oo_solve": [], "final_render": []}
+    vo = torch.ones((traj.num_lines, traj.max_points), device=dev)
+    for cam in oo_cams:
+        camt = camera_tensors(cam, dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        csr2, params2, _ = prepare_capsule_frame(scene, *camt, s2)
+        ev[1].record()
+        depths, vals, _ = rasterize_capsules_mlab(*gather_inputs(csr2, params2),
+                                                  store_mode="gather")
+        nodes = (depths, vals[0], vals[1])
+        ev[2].record()
+        vo = solve_vertex_opacity(*nodes, vo, oo_set, traj.num_lines, traj.max_points,
+                                  scene.num_segments)
+        ev[3].record()
+        final_render(scene, *camt, vo, s_oit, oo_set.render_k)
+        ev[4].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(stage_ms, zip(ev[:-1], ev[1:])):
+            stage_ms[k].append(a.elapsed_time(b))
+
+    # The gather kernel against its plain version on frame 0's half-res inputs.
+    csr2, params2, _ = prepare_capsule_frame(scene, *camera_tensors(oo_cams[0], dev), s2)
+    n_tiles2 = csr2.tile_start.shape[0]
+    gather_args = gather_inputs(csr2, params2)
+    work = torch.zeros(n_tiles2, dtype=torch.int32, device=dev)
+    kg = rasterize_capsules_mlab(*gather_args, store_mode="gather", work=work)
+    stats = {}
+    pg, g_plain_ms = timed_plain(lambda: rasterize_capsules_mlab_reference(
+        *gather_args, store_mode="gather", stats=stats))
+    g_err = max(float((a - b).abs().max()) for a, b in zip(kg, pg))
+    g_equal = all(bool(torch.equal(a, b)) for a, b in zip(kg, pg))
+    g_ms = _time_ms(lambda: rasterize_capsules_mlab(*gather_args, store_mode="gather"), 20)
+    g_pairs = int(csr2.tile_count.sum())
+    g_evaluated = int(work.sum())
+    half_px = s2.width * s2.height
+    K_g = oo_set.gather_k
+    oo_line = {
+        "frame_ms_median": float(np.median(oo_frame_ms)),
+        "fps": 1000.0 / float(np.median(oo_frame_ms)),
+        "stage_ms_median": {k: float(np.median(v)) for k, v in stage_ms.items()},
+        "launches_per_frame": {"capsule_mlab": 2},
+        "gather_size": [s2.width, s2.height], "gather_pairs": g_pairs,
+        "gather_evaluated": g_evaluated,
+        "half_res_pixels_with_nodes": int((kg[0][0] < 1.5).sum()) / half_px,
+        "half_res_pixels_with_K_nodes": int((kg[0][K_g - 1] < 1.5).sum()) / half_px,
+        "gather_nodes": int((kg[0] < 1.5).sum()),
+        # Nodes holding a tie window's averaged id (a joint's cap and the next
+        # segment's body): the solve truncates i + 0.5 to i, as JAX does.
+        "gather_nodes_with_half_ids": int(((kg[1][1] % 1 != 0) & (kg[0] < 1.5)).sum()),
+        "vertex_opacity_min_mean": [float(k_vo[-1].min()), float(k_vo[-1].mean())],
+        "foreground_share": float((k_oo_img[3] > 0).float().mean()),
+        "frames": OO_FRAMES, "width": W, "height": H, "gpu": gpu,
+    }
+    print("opacity optimization frame: " + json.dumps(oo_line), flush=True)
+    print(f"capsule_mlab:gather vs plain (frame 0, {s2.width}x{s2.height}): pairs {g_pairs}, "
+          f"evaluated {g_evaluated}, hits {stats['hits']}, sweeps {stats['sweeps']}, members "
+          f"{stats['members']}, equal {g_equal} (max |diff| {g_err:.3g}), kernel {g_ms:.3f} ms, "
+          f"plain {g_plain_ms:.1f} ms; vertex opacities equal to the plain path's on every "
+          f"frame {vo_equal}; final frame ssim {oo_ssim:.6f}, mean abs {oo_mad:.3g}", flush=True)
+    if not g_equal:
+        raise RuntimeError("the gather kernel differs from its plain version")
+    if not vo_equal:
+        raise RuntimeError("the vertex opacities differ from the plain path's")
+    if oo_line["foreground_share"] < 0.01 or oo_line["half_res_pixels_with_nodes"] < 0.01:
+        raise RuntimeError("the opacity-optimization frames are almost empty")
+    ops = (g_evaluated * 128 * MLAB_OPS_PER_EVAL + stats["members"] * GATHER_OPS_PER_MEMBER
+           + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_SUB + MLAB_OPS_PER_SWEEP_NODE * K_g))
+    new_kernels.append(oit_entry(
+        "capsule_mlab:gather", "raster_capsule_oit.cu", oo_launches // 2, g_err, g_ms,
+        g_plain_ms, g_evaluated, n_tiles2, K_g, ops, pairs=g_pairs, hits=stats["hits"],
+        sweeps=stats["sweeps"], members=stats["members"], equal=g_equal,
+        shape=[s2.width, s2.height]))
+
+    # 10f. use_bands (diffuse exponent 1.0) against the plain version at
+    # 480x272 in the modes that shade: per fragment (an exact pass behind a
+    # peel depth), the composite, 'wboit' and 'mboit_resolve'. No path of
+    # the port passes it (the JAX package's neither): no main-path launches.
+    csr_s, params_s = prepare_mlab_frame(scene, *cam_small, s_small, OIT_OPACITY)
+    nt_s = csr_s.tile_start.shape[0]
+    sargs = (csr_s, params_s, sw, sh_, 16, 8)
+    d1, _, _ = rasterize_capsules_mlab(*sargs, 8, s_small.tf_color, s_small.tf_opacity,
+                                       no_overflow=True, use_bands=True)
+    peel_s = torch.where(d1 < 1.5, d1, -1.0).amax(dim=0).contiguous()
+    csr_w, params_w, _ = prepare_capsule_frame(scene, *cam_small, s_small)
+    params_w[14] = OIT_OPACITY
+    csr_m, params_mb, _ = prepare_mboit_frame(scene, *cam_small, s_small, 4, OIT_OPACITY)
+    gen_d, gen_rgb, _ = rasterize_capsules_mlab(csr_m, params_mb, sw, sh_, 16, 8, 2,
+                                                s_small.tf_color, s_small.tf_opacity,
+                                                store_mode="mboit_gen", n_mom=4)
+    moments_s = torch.stack([gen_d[0], gen_rgb[0, 0], gen_rgb[1, 0], gen_d[1], gen_rgb[0, 1]])
+    band_cases = {
+        "shade_peel": ((csr_s, params_s), 8, dict(peel=peel_s, no_overflow=True)),
+        "composite": ((csr_s, params_s), 8, dict(deferred_shade=True, composite=True)),
+        "wboit": ((csr_w, params_w), 1, dict(store_mode="wboit")),
+        "mboit_resolve": ((csr_m, params_mb), 1, dict(store_mode="mboit_resolve", n_mom=4,
+                                                      moments=moments_s)),
+    }
+    band_figures = {}
+    for key, ((c, p), K_b, kw) in band_cases.items():
+        args = (c, p, sw, sh_, 16, 8, K_b, s_small.tf_color, s_small.tf_opacity)
+        accum = "store_mode" in kw
+        before = (rasterize_capsules_mlab.launches, rasterize_capsules_accum.launches)
+        k = rasterize_capsules_mlab(*args, use_bands=True, **kw)
+        if (rasterize_capsules_mlab.launches - before[0],
+                rasterize_capsules_accum.launches - before[1]) != ((0, 1) if accum else (1, 0)):
+            raise RuntimeError(f"use_bands {key} did not launch its kernel once")
+        stats = {}
+        p_out, p_ms = timed_plain(lambda: rasterize_capsules_mlab_reference(
+            *args, use_bands=True, stats=stats, **kw))
+        k17 = rasterize_capsules_mlab(*args, **kw)
+        if key == "composite":
+            kp, pp, k17p = k, p_out, k17
+            agree = float(((kp - pp).abs().amax(dim=0) <= 1e-4).float().mean())
+        else:
+            kp, pp, k17p = planes(k), planes(p_out), planes(k17)
+            if key == "wboit":
+                agree = share_within(kp, pp, pp[4].abs() + 1e-30, 1e-5)
+            elif key == "mboit_resolve":
+                agree = share_within(kp, pp, 1.0, 1e-4)
+            else:
+                d_err = (k[0] - p_out[0]).abs().amax(dim=0)
+                c_err = torch.maximum((k[1] - p_out[1]).abs().amax(dim=(0, 1)),
+                                      (k[2] - p_out[2]).abs().amax(dim=0))
+                agree = float(((d_err <= 1e-5) & (c_err <= 1e-4)).float().mean())
+        max_err = float((kp - pp).abs().max())
+        moved = float((kp - k17p).abs().max())
+        ms = _time_ms(lambda: rasterize_capsules_mlab(*args, use_bands=True, **kw), 10)
+        pairs = int(c.tile_count.sum())
+        if accum:
+            ops = pairs * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * (
+                MLAB_OPS_PER_MEMBER + OIT_OPS_PER_SHADE_BANDS + OIT_OPS_PER_ACCUM[kw["store_mode"]])
+            evaluated = pairs
+        else:
+            work = torch.zeros(nt_s, dtype=torch.int32, device=dev)
+            rasterize_capsules_mlab(*args, use_bands=True, work=work, **kw)
+            evaluated = int(work.sum())
+            shade = OIT_OPS_PER_SHADE_BANDS if key == "shade_peel" else 0
+            ops = (evaluated * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * (
+                OIT_OPS_PER_PEEL if key == "shade_peel" else 0)
+                + stats["members"] * (MLAB_OPS_PER_MEMBER + shade)
+                + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_SUB + MLAB_OPS_PER_SWEEP_NODE * 8))
+        band_figures[key] = {"agree": agree, "max_abs_err": max_err,
+                             "moved_by_the_exponent": moved, "ms": ms, "plain_ms": p_ms}
+        if agree < 0.999 or moved < 1e-4:
+            raise RuntimeError(f"use_bands {key}: the kernel disagrees with its plain version, "
+                               "or the exponent changes nothing")
+        # Not a kernel of its own and on no main path: its figures go under
+        # `use_bands` in the row of the kernel mode it modifies.
+        parent = f"capsule_accum:{key}" if accum else "capsule_mlab"
+        entry_ = oit_entry(
+            parent, "raster_capsule_accum.cu" if accum else "raster_capsule_oit.cu", 0, max_err, ms,
+            p_ms, evaluated, c.tile_start.shape[0], K_b, ops,
+            extra_in_planes={"shade_peel": 1, "mboit_resolve": 5}.get(key, 0), pairs=pairs,
+            agree=agree, shape=[sw, sh_])
+        if key == "composite":  # 4 output planes, not 5 K
+            out_b = 4 * c.tile_start.shape[0] * 128 * 4
+            entry_["bytes"] += out_b - 5 * K_b * c.tile_start.shape[0] * 128 * 4
+            entry_["bytes_ms"] = entry_["bytes"] / H100_HBM_BYTES * 1e3
+            entry_["bound_ms"] = max(entry_["bytes_ms"], entry_["operations_ms"])
+            entry_["bound_by"] = ("operations" if entry_["operations_ms"] >= entry_["bytes_ms"]
+                                  else "bytes")
+        row = next(r for r in kernels + new_kernels if r["name"] == parent)
+        for k_ in ("name", "route", "source", "replaces", "launches"):
+            del entry_[k_]
+        row.setdefault("use_bands", {})[key] = entry_
+    print(f"use_bands vs plain ({sw}x{sh_}): " + json.dumps(band_figures), flush=True)
+
+    # Small frames on the card against the CPU: the opacity-optimization
+    # entry, and every mode the port's registry draws, by name.
+    card_vs_cpu(entry_opacity_optimization, "entry_opacity_optimization")
+    pos_l, mask_l, attrs_l = _small_lines()
+    small_traj = Trajectories(positions=pos_l, attributes=attrs_l[:, None, :], mask=mask_l,
+                              num_points=mask_l.sum(axis=1).astype(np.int32),
+                              attribute_names=["t"])
+    small_cam = Camera(position=(0.0, 0.3, 1.2), width=256, height=128)
+    registry_check = {}
+    modes = [(m, {}) for m in RENDERING_MODE_ALL if m not in UNPORTED_MODES]
+    modes += [("Opaque", {"tubeGeometry": "prism"}), ("Opaque", {"tubeGeometry": "triangle"})]
+    for mode, mode_settings in modes:
+        ld = LineData(small_traj)
+        ld.set_line_width(0.04)
+        out = {}
+        for d in (dev, "cpu"):
+            r = create_renderer(mode, SettingsMap(mode_settings), device=d)
+            r.set_line_data(ld)
+            # RTAO draws its samples on each device, and the card's generator
+            # is not the CPU's: it is held statistically, on the mean of
+            # RTAO_FRAMES accumulated frames of the still camera.
+            for _ in range(RTAO_FRAMES if mode == "RTAO" else 1):
+                out[str(d)] = r.render(small_cam)
+        g_img, c_img = out[str(dev)], out["cpu"]
+        s_, mad = ssim(g_img[..., :3], c_img[..., :3]), float(np.abs(g_img - c_img).mean())
+        label = " ".join([mode, *mode_settings.values()])
+        registry_check[label] = [s_, mad]
+        agree = s_ >= 0.999 and mad <= 2e-3
+        if mode == "RTAO":
+            mean_diff = float((g_img[..., :3] - c_img[..., :3]).mean())
+            registry_check[label].append(mean_diff)
+            agree = agree and abs(mean_diff) <= 1e-4 and np.array_equal(g_img[..., 3],
+                                                                        c_img[..., 3])
+        if not np.isfinite(g_img).all() or not agree:
+            raise RuntimeError(f"registry mode {label!r}: the card frame disagrees with the CPU's")
+    print("registry modes card vs cpu (ssim, mean abs; RTAO: after "
+          f"{RTAO_FRAMES} accumulated frames, and the mean RGB difference): "
+          + json.dumps(registry_check), flush=True)
     kernels.extend(new_kernels)
 
     # 11. The prism path: N_FRAMES frames through render_tubes_prism.
@@ -1360,6 +1660,46 @@ def main() -> int:
     if int(k_occ.sum()) < 1000:
         raise RuntimeError("the AO trace found almost no occlusion")
     card_vs_cpu(entry_rtao, "entry_rtao")
+
+    # The registry's RTAO mode on the same tornado at 1080p: its first frame
+    # equals render_tubes_rtao's frame 0 (the samples drawn on the card from
+    # the same seed), and its accumulating frames launch what the path does.
+    ld_t = LineData(traj)
+    ld_t.set_line_width(2.0 * TORNADO_RADIUS)
+    reg = create_renderer("RTAO", device=dev)
+    reg.set_line_data(ld_t)
+    reg_cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H).orbit(0.002, 0.1, 1.2)
+    reg_img = reg.render(reg_cam)  # builds the scene and the grid
+    want = render_tubes_rtao(ld_t.get_capsule_scene(device=dev), *camera_tensors(reg_cam, dev),
+                             reg._raster_settings(reg_cam), rt, frame=0, grid=reg._grid)
+    reg_equal = np.array_equal(reg_img, want.permute(1, 2, 0).cpu().numpy())
+    # Each registry frame is followed by the path's frame on the same host
+    # clock, its image copied to the host as the registry hands its image
+    # back: both launch B1 once and B5 once per batch.
+    reg_scene, reg_camt = ld_t.get_capsule_scene(device=dev), camera_tensors(reg_cam, dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    reg_ms, copy_ms = [], []
+    for i in range(RTAO_FRAMES):
+        t0 = time.perf_counter()
+        reg_img = reg.render(reg_cam)
+        t1 = time.perf_counter()
+        render_tubes_rtao(reg_scene, *reg_camt, reg._raster_settings(reg_cam), rt, frame=i,
+                          grid=reg._grid).cpu()
+        t2 = time.perf_counter()
+        reg_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((t2 - t1) * 1e3)
+    expect_launches({"capsule_raster": 2 * RTAO_FRAMES,
+                     "ao_grid": 2 * RTAO_FRAMES * len(batches)})
+    print("rtao registry frame: " + json.dumps({
+        "frame_ms_median": float(np.median(reg_ms)),
+        "path_frame_ms_median": rtao_line["frame_ms_median"],
+        "path_frame_copied_to_host_ms_median": float(np.median(copy_ms)),
+        "first_frame_equals_the_path": reg_equal, "frames": RTAO_FRAMES,
+        "timed": "host clock, render() to the numpy image", "width": W, "height": H,
+        "gpu": gpu}), flush=True)
+    if not reg_equal or not np.isfinite(reg_img).all():
+        raise RuntimeError("the registry's RTAO frame differs from render_tubes_rtao's")
 
     ao_ms = _time_ms(lambda: ao_grid.trace_pairs(
         pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid.records, grid.chunk), 5)

@@ -8,7 +8,8 @@ that take the time.
 
     python -m linevis_tpu_torch.automation.profiling [OUT_DIR [PATH]]
 
-PATH: opaque|mlab|prism|triangle|rtao|wavefront|wboit|depth_peeling|mlab_buckets|mboit|depth_complexity
+PATH: opaque|mlab|prism|triangle|rtao|wavefront|wboit|depth_peeling|mlab_buckets|mboit|
+      depth_complexity|opacity_optimization|rtao_registry
 
 profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
 default) the opaque capsule frame (`render_tubes`, tile 32x16, AA on),
@@ -23,8 +24,14 @@ opacity 0.3; 4 frames), and the rest of the transparent family at tile 16x8
 and opacity 0.3: `wboit` (`render_tubes_wboit`), `depth_peeling`
 (`render_tubes_depth_peeling`, K=8, 4 passes), `mlab_buckets`
 (`render_tubes_mlab_buckets`, K=8), `mboit` (`render_tubes_mboit`, 4 power
-moments, float32) and `depth_complexity` (`render_depth_complexity`). It
-runs 8 orbit-camera frames (4 of the two
+moments, float32) and `depth_complexity` (`render_depth_complexity`);
+`opacity_optimization` the opacity-optimization frame
+(`OpacityOptimizationRenderer.render`, default settings, tile 16x8: the
+half-res importance gather, the plain solve and the final MLAB render; every
+frame moves the camera, so every frame solves); `rtao_registry` the RTAO
+frame as the renderer registry draws it (`create_renderer("RTAO")` on a
+`LineData` of the tornado, the image handed back as numpy; the camera moves,
+so no frames accumulate). It runs 8 orbit-camera frames (4 of the three
 ray-traced paths) after 2 warm-up frames, timed once without
 the profiler (the window the idle share is taken against) and once
 recorded, and prints one JSON line; with OUT_DIR (give "" for none) it
@@ -60,7 +67,8 @@ def trace(path: str = None):
 def device_summary(prof, wall_ms: float, top: int = 12) -> dict:
     """Busy time of the CUDA kernels in `prof` against a host window of
     `wall_ms` ending in a synchronize: {"wall_ms", "device_busy_ms",
-    "idle_share", "kernels": [[name, ms, launches], ...]}."""
+    "idle_share", "kernels": [[name, ms, launches], ...], "host_ops":
+    [[name, self ms on the host, calls], ...]}."""
     by_name = defaultdict(lambda: [0.0, 0])
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -74,6 +82,8 @@ def device_summary(prof, wall_ms: float, top: int = 12) -> dict:
         "device_busy_ms": busy,
         "idle_share": 1.0 - busy / wall_ms if wall_ms > 0 else None,
         "kernels": [[name, ms, n] for name, (ms, n) in ranked],
+        "host_ops": [[a.key, a.self_cpu_time_total / 1e3, a.count] for a in sorted(
+            prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:top]],
     }
 
 
@@ -82,17 +92,21 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     from functools import partial
 
     from linevis_tpu_torch.entry import (
+        TORNADO_RADIUS,
         tornado_prism_scene,
         tornado_scene,
         tornado_segment_grid,
+        tornado_trajectories,
         tornado_tube_mesh,
         tornado_wide_bvh,
     )
     from linevis_tpu_torch.render import oit
     from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.opacity_optimization import OpacityOptimizationRenderer
     from linevis_tpu_torch.render.opaque import render_opaque
     from linevis_tpu_torch.render.pipeline import RasterSettings
     from linevis_tpu_torch.render.ray_tracer import render_tubes_raytraced_wavefront
+    from linevis_tpu_torch.render.renderer import create_renderer
     from linevis_tpu_torch.render.rtao import RtaoSettings, render_tubes_rtao
     from linevis_tpu_torch.render.transfer_function import TransferFunction
     from linevis_tpu_torch.render.tube_raster import (
@@ -100,6 +114,7 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         render_tubes,
         render_tubes_prism,
     )
+    from linevis_tpu_torch.scene.line_data import LineData
 
     oit_paths = {
         "mlab": ("render_tubes_mlab", dict(K=8, opacity=0.3)),
@@ -109,7 +124,10 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         "mboit": ("render_tubes_mboit", dict(n_mom=4, opacity=0.3)),
         "depth_complexity": ("render_depth_complexity", {}),
     }
-    paths = ("opaque", "prism", "triangle", "rtao", "wavefront", *oit_paths)
+    paths = ("opaque", "prism", "triangle", "rtao", "wavefront", *oit_paths,
+             "opacity_optimization", "rtao_registry")
+    # These two take the Camera, the rest its tensors.
+    takes_camera = ("opacity_optimization", "rtao_registry")
     if path not in paths:
         raise SystemExit(f"profiling: unknown path {path!r} (one of {', '.join(paths)})")
     if not torch.cuda.is_available():
@@ -120,7 +138,7 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     W, H = 1920, 1080
-    n = 4 if path in ("rtao", "wavefront") else 8
+    n = 4 if path in ("rtao", "wavefront", "rtao_registry") else 8
     wide = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
     if path == "opaque":
         scene = tornado_scene(dev)
@@ -130,6 +148,23 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         name, kw = oit_paths[path]
         render = partial(getattr(oit, name),
                          settings=RasterSettings(width=W, height=H, tile_w=16, tile_h=8), **kw)
+    elif path == "opacity_optimization":
+        traj = tornado_trajectories(dev)
+        scene = tornado_scene(dev, traj=traj)
+        oo = OpacityOptimizationRenderer(
+            scene, traj.num_lines, traj.max_points,
+            RasterSettings(width=W, height=H, tile_w=16, tile_h=8))
+
+        def render(_scene, camera):
+            return oo.render(camera)
+    elif path == "rtao_registry":
+        scene = LineData(tornado_trajectories(dev))
+        scene.set_line_width(2.0 * TORNADO_RADIUS)
+        registry = create_renderer("RTAO", device=dev)
+        registry.set_line_data(scene)
+
+        def render(_scene, camera):
+            return registry.render(camera)
     elif path == "prism":
         scene = tornado_prism_scene(dev)
         render = partial(render_tubes_prism, settings=wide)
@@ -150,8 +185,8 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         def render(mesh, view_proj, position, _proj_ab):
             return render_opaque(mesh, view_proj, position, table, wide)
     base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
-    cams = [camera_tensors(base.orbit(0.002 * (i + 1), 0.1, 1.2), dev)
-            for i in range(n + 2)]
+    cams = [base.orbit(0.002 * (i + 1), 0.1, 1.2) for i in range(n + 2)]
+    cams = [(c,) if path in takes_camera else camera_tensors(c, dev) for c in cams]
     for cam in cams[:2]:
         render(scene, *cam)
     torch.cuda.synchronize()

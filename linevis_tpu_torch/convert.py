@@ -4,7 +4,9 @@ The system has no weights: its state is the scene. A caller holding a
 `linevis_tpu` `CapsuleScene`, `PrismScene`, `TubeMesh`, `Trajectories`,
 `SegmentGrid`, `Lbvh` or packed wide-BVH groups array passes its fields as
 numpy arrays (e.g. `{f.name: np.asarray(getattr(s, f.name)) for f in
-dataclasses.fields(s)}`), and gets the port's counterpart back.
+dataclasses.fields(s)}`), and gets the port's counterpart back. The state
+of an `OpacityOptimizationRenderer` carries over into the port's renderer
+(`opacity_state_from_numpy`), so that a run can continue in the port.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from linevis_tpu_torch.render.tube_raster import CapsuleScene, PrismScene
 __all__ = [
     "capsule_scene_from_numpy", "prism_scene_from_numpy", "tube_mesh_from_numpy",
     "trajectories_from_numpy", "segment_grid_from_numpy", "lbvh_from_numpy",
-    "wide_groups_from_numpy",
+    "wide_groups_from_numpy", "opacity_state_from_numpy",
 ]
 
 
@@ -116,3 +118,19 @@ def wide_groups_from_numpy(groups, device="cuda") -> torch.Tensor:
     """A packed 8-wide BVH [n_groups * 8, 128] -> float32 tensor on `device`
     (the `wide_groups` of `render_tubes_raytraced_wavefront`)."""
     return torch.tensor(np.asarray(groups), dtype=torch.float32, device=device)
+
+
+def opacity_state_from_numpy(renderer, d):
+    """Carry the temporal state of an opacity-optimization renderer into the
+    port's `renderer` (in place; returned): {vertex_opacity [L, P],
+    smoothing_frames_remaining, last_vp [4, 4] or None}, the JAX renderer's
+    `vertex_opacity`, `smoothing_frames_remaining` and `_last_vp`. The
+    opacities go to the renderer's device; the view-projection stays on the
+    host."""
+    renderer.vertex_opacity = torch.tensor(
+        np.asarray(d["vertex_opacity"]), dtype=torch.float32,
+        device=renderer.vertex_opacity.device)
+    renderer.smoothing_frames_remaining = int(d["smoothing_frames_remaining"])
+    vp = d.get("last_vp")
+    renderer._last_vp = None if vp is None else np.asarray(vp)
+    return renderer

@@ -11,7 +11,8 @@ renderer's `prism` and `triangle` tube geometries (8 subdivisions);
 `entry_wavefront` the transparent capsules through the wavefront BVH ray
 tracer, and `entry_wboit`, `entry_depth_peeling`, `entry_mlab_buckets`,
 `entry_mboit` and `entry_depth_complexity` the rest of the transparent
-(OIT) family on the same scene; `tornado_scene`, `tornado_prism_scene` and `tornado_tube_mesh` build
+(OIT) family on the same scene, `entry_opacity_optimization` one frame of
+the opacity-optimization renderer on it; `tornado_scene`, `tornado_prism_scene` and `tornado_tube_mesh` build
 the scene of the JAX package's primary benchmark (`bench.py`: 512 seeds x 400
 RK4 steps, dt 1/150, tube radius 0.0015) from one traced line set
 (`tornado_trajectories`); `tornado_segment_grid` and `tornado_wide_bvh` build
@@ -27,7 +28,8 @@ import numpy as np
 __all__ = [
     "entry", "entry_mlab", "entry_prism", "entry_triangle", "entry_rtao",
     "entry_wavefront", "entry_wboit", "entry_depth_peeling", "entry_mlab_buckets",
-    "entry_mboit", "entry_depth_complexity", "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
+    "entry_mboit", "entry_depth_complexity", "entry_opacity_optimization",
+    "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
     "tornado_tube_mesh", "tornado_segment_grid", "tornado_wide_bvh",
 ]
 
@@ -206,6 +208,24 @@ def entry_depth_complexity(device="cuda"):
     """(fn, args): the depth complexity (front-face fragments per pixel) of
     `entry`'s scene -> [H, W] float32 on `device`."""
     return _oit_entry(device, "render_depth_complexity")
+
+
+def entry_opacity_optimization(device="cuda"):
+    """(fn, args): `fn(*args)` renders one opacity-optimization frame (the
+    importance gather at half resolution, the opacity solve and the final
+    MLAB render; default settings, tile 16x8) of `entry`'s scene -> [4, H,
+    W] linear RGBA on `device`. `fn` is the renderer's `render`: a second
+    call continues its temporal smoothing."""
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.opacity_optimization import OpacityOptimizationRenderer
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.tube_raster import build_capsule_scene
+
+    pos, mask, attrs = _small_lines()
+    scene = build_capsule_scene(pos, mask, attrs, radius=0.02, device=device)
+    settings = RasterSettings(width=256, height=128, tile_w=16, tile_h=8)
+    r = OpacityOptimizationRenderer(scene, pos.shape[0], pos.shape[1], settings)
+    return r.render, (Camera(position=(0.0, 0.3, 1.2), width=256, height=128),)
 
 
 def tornado_trajectories(device="cuda", num_seeds=512, max_steps=400, seed=42):

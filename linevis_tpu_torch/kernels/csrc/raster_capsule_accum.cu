@@ -155,7 +155,7 @@ __device__ __forceinline__ void add_fragment(float* acc, float4 f, float tw, flo
   }
 }
 
-template <int MODE, int NMOM, bool TRIG>
+template <int MODE, int NMOM, bool TRIG, bool BANDS>
 __global__ void __launch_bounds__(MAX_THREADS)
 accum_kernel(const float* __restrict__ payload, long long ld,
              const int* __restrict__ tile_start, const int* __restrict__ tile_count,
@@ -226,7 +226,7 @@ accum_kernel(const float* __restrict__ payload, long long ld,
           acc[0] = acc[0] + 1.0f;
         } else {
           add_fragment<MODE, NMOM, TRIG>(
-              acc, cand_fragment(s, j, cd, tc, tw, invlen, sh, MODE == GEN), tw, invlen, zA,
+              acc, cand_fragment<BANDS>(s, j, cd, tc, tw, invlen, sh, MODE == GEN), tw, invlen, zA,
               zB, log_dmin, log_dmax, m_bias, m_overest, wzp_y, wzp_z, wzp_w, b0v, odds, evens);
         }
       }
@@ -244,8 +244,17 @@ static void launch(dim3 grid, dim3 block, cudaStream_t st, const float* payload,
                    const int* tile_start, const int* tile_count, const float* params,
                    const float* tf, const float* moments, const float* peel, float* out,
                    int n_tiles, int tiles_x, int tile_w, int tile_h, float sx, float sy, int K,
-                   int chunk, int two_sided, int alpha_from_rows) {
-  accum_kernel<MODE, NMOM, TRIG><<<grid, block, 0, st>>>(
+                   int chunk, int two_sided, int alpha_from_rows, int bands) {
+  // Band shading changes only the modes that shade (wboit, mboit_resolve).
+  if constexpr (MODE == WBOIT || MODE == RESOLVE) {
+    if (bands) {
+      accum_kernel<MODE, NMOM, TRIG, true><<<grid, block, 0, st>>>(
+          payload, ld, tile_start, tile_count, params, tf, moments, peel, out, n_tiles,
+          tiles_x, tile_w, tile_h, sx, sy, K, chunk, two_sided, alpha_from_rows);
+      return;
+    }
+  }
+  accum_kernel<MODE, NMOM, TRIG, false><<<grid, block, 0, st>>>(
       payload, ld, tile_start, tile_count, params, tf, moments, peel, out, n_tiles, tiles_x,
       tile_w, tile_h, sx, sy, K, chunk, two_sided, alpha_from_rows);
 }
@@ -261,7 +270,8 @@ extern "C" int raster_capsule_accum_launch(
     const float* payload, long long ld, const int* tile_start, const int* tile_count,
     const float* params, const float* tf, const float* moments, const float* peel, float* out,
     int n_tiles, int tiles_x, int tile_w, int tile_h, float sx, float sy, int K, int chunk,
-    int mode, int n_mom, int trig, int two_sided, int alpha_from_rows, void* stream) {
+    int mode, int n_mom, int trig, int two_sided, int alpha_from_rows, int bands,
+    void* stream) {
   const bool mboit = mode == GEN || mode == RESOLVE;
   if (K < 1 || K > 32 || chunk > MAX_CHUNK || chunk < 1 || tile_w * tile_h > MAX_THREADS ||
       mode < COUNT || mode > RESOLVE || (mode == GEN && K != 2) ||
@@ -273,7 +283,7 @@ extern "C" int raster_capsule_accum_launch(
   if (n_tiles == 0) return (int)cudaGetLastError();
 #define ACCUM_ARGS                                                                           \
   grid, block, st, payload, ld, tile_start, tile_count, params, tf, moments, peel, out,      \
-      n_tiles, tiles_x, tile_w, tile_h, sx, sy, K, chunk, two_sided, alpha_from_rows
+      n_tiles, tiles_x, tile_w, tile_h, sx, sy, K, chunk, two_sided, alpha_from_rows, bands
   if (mode == COUNT) {
     launch<COUNT, 4, false>(ACCUM_ARGS);
   } else if (mode == WBOIT) {

@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel `_mlab_kernel` in
 // linevis_tpu/kernels/raster_capsule_oit.py:116 (wrapper
-// `rasterize_capsules_mlab`, :1096) in its K-buffer store mode 'shade' (the
-// accumulation modes are raster_capsule_accum.cu): per pixel, a K-node
+// `rasterize_capsules_mlab`, :1096) in its K-buffer store modes 'shade' and
+// 'gather' (the accumulation modes are raster_capsule_accum.cu): per pixel, a K-node
 // depth-sorted buffer of front-face capsule fragments (and, with two_sided,
 // exit-surface fragments), inserted in the binning's front-to-back run
 // order, with the Multi-Layer Alpha Blending overflow merge into node K-1,
@@ -12,7 +12,12 @@
 // peel depth enter. The nodes carry each fragment's shaded color
 // (per-fragment shading) or, with `deferred`, its shading features;
 // composite mode shades such nodes and blends them front to back over the
-// background; node mode writes the 5K planes.
+// background; node mode writes the 5K planes. In 'gather' (the importance
+// gather of opacity optimization) each fragment is (attribute, segment id
+// as a float, 0, 1) and a node holds its tie window's plain average, not
+// premultiplied; with every alpha at 1 the MLAB merge adds nothing. `bands`
+// sets the diffuse exponent to 1.0 (band shading) per fragment and in the
+// composite.
 // The plain PyTorch version it is held against is
 // `rasterize_capsules_mlab_reference` (kernels/raster_capsule_oit.py); the
 // semantics are listed in that module's docstring.
@@ -41,7 +46,8 @@
 //    neither taken twice nor skipped.
 //  - The K nodes (5 channels) live in registers: the kernel is templated
 //    on KMAX in {8, 16, 32} with every node loop unrolled over KMAX and
-//    guarded by the runtime K <= KMAX, so no node index is dynamic.
+//    guarded by the runtime K <= KMAX, so no node index is dynamic; and on
+//    BANDS, the diffuse exponent (capsule_common.cuh:diffuse_mix).
 //
 // Precision: built without --use_fast_math and with --fmad=false (IEEE
 // sqrt, division and powf, never __powf; 1.0f/sqrtf, never rsqrtf). The
@@ -72,11 +78,11 @@
 #define ROW_ZQ 15
 
 struct Opts {
-  int K, chunk, sub, composite, no_overflow, two_sided, alpha_from_rows, deferred;
+  int K, chunk, sub, composite, no_overflow, two_sided, alpha_from_rows, deferred, gather;
   float sat_thr;  // float32(1 - sat)
 };
 
-template <int KMAX>
+template <int KMAX, bool BANDS>
 __global__ void __launch_bounds__(MAX_THREADS)
 mlab_kernel(const float* __restrict__ payload, long long ld,
             const int* __restrict__ tile_start, const int* __restrict__ tile_count,
@@ -226,10 +232,13 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
             if (!(tw <= thr)) continue;
             h_tw[i] = BIG;
             n += 1.0f;
-            // The member's color, or its shading features (deferred).
+            // The member's color, its shading features (deferred), or its
+            // importance and segment id (gather).
             const int j = h_j[i];
-            const float4 f = cand_fragment(s, j, cand_setup(s, j, dnx, dny, dnz), h_tc[i],
-                                           tw, invlen, sh, o.deferred);
+            const Cand cd = cand_setup(s, j, dnx, dny, dnz);
+            const float4 f = o.gather ? gather_fragment(s, j, cd, h_tc[i])
+                                      : cand_fragment<BANDS>(s, j, cd, h_tc[i], tw, invlen, sh,
+                                                      o.deferred);
             sr = sr + f.x;
             sg = sg + f.y;
             sb = sb + f.z;
@@ -239,7 +248,13 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
         const float nwin = fmaxf(n, 1.0f);
         const float ca = sa / nwin;
         const float cdp = zA - zB / fmaxf(bt * invlen, 1e-12f);
-        const float cr = sr / nwin * ca, cg = sg / nwin * ca, cb = sb / nwin * ca;
+        // The carry: the window's averages, premultiplied except in gather.
+        float cr = sr / nwin, cg = sg / nwin, cb = sb / nwin;
+        if (!o.gather) {
+          cr = cr * ca;
+          cg = cg * ca;
+          cb = cb * ca;
+        }
 
         // Insert at pos = #{d_j <= carry}; a carry within the tie window of
         // an existing node is that node, extracted earlier: dropped.
@@ -307,7 +322,7 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
         const float attr = nr[q] * inv_a;
         const float cos1 = fmaxf(ng[q] * inv_a, 1e-20f);
         const float cos2 = fmaxf(nb[q] * inv_a, 1e-20f);
-        const float cosc = 0.3f * powf(cos1, 1.7f) + 0.7f * powf(cos2, 1.7f);
+        const float cosc = diffuse_mix<BANDS>(cos1, cos2);
         const float spec = 0.3f * powf(cos1, 30.0f);
         float rgb[3];
         tf_eval<3>(sh.tf_color, sh.n_color, attr, rgb);
@@ -340,39 +355,53 @@ mlab_kernel(const float* __restrict__ payload, long long ld,
   if (work != nullptr && tid == 0) work[tile] = evaluated;
 }
 
+template <int KMAX>
+static void launch(bool bands, const float* payload, long long ld, const int* tile_start,
+                   const int* tile_count, const float* params, const float* tf,
+                   const float* peel, float* out, int* work, int n_tiles, int tiles_x,
+                   int tile_w, int tile_h, float sx, float sy, const Opts& o, cudaStream_t st) {
+  const dim3 grid(n_tiles), block(tile_w * tile_h);
+  if (bands)
+    mlab_kernel<KMAX, true><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count,
+                                                    params, tf, peel, out, work, n_tiles,
+                                                    tiles_x, tile_w, tile_h, sx, sy, o);
+  else
+    mlab_kernel<KMAX, false><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count,
+                                                     params, tf, peel, out, work, n_tiles,
+                                                     tiles_x, tile_w, tile_h, sx, sy, o);
+}
+
 // Launches one block of tile_w * tile_h threads per tile on `stream`.
 // tf: the `tf_static_table` of the color and opacity TFs. peel: optional
 // [n_tiles, P] NDC peel depths. out: [4, n_tiles, P] (composite) or
 // [5 * K, n_tiles, P] float32. work: optional [n_tiles] int32, the
 // candidates each tile evaluated after the chunk exit and block cull.
-// deferred: nodes carry shading features, else shaded colors. Returns the
-// cudaGetLastError() code of the launch.
+// deferred: nodes carry shading features, else shaded colors; gather: nodes
+// carry (importance, segment id, 0, 1), not premultiplied; bands: diffuse
+// exponent 1.0. Returns the cudaGetLastError() code of the launch.
 extern "C" int raster_capsule_mlab_launch(
     const float* payload, long long ld, const int* tile_start, const int* tile_count,
     const float* params, const float* tf, const float* peel, float* out, int* work,
     int n_tiles, int tiles_x, int tile_w, int tile_h, float sx, float sy, int K, int chunk,
     int sub, int composite, int no_overflow, int two_sided, int alpha_from_rows,
-    int deferred, float sat_thr, void* stream) {
+    int deferred, int gather, int bands, float sat_thr, void* stream) {
   if (K < 1 || K > 32 || chunk > MAX_CHUNK || sub > MAX_SUB || sub < 1 ||
-      tile_w * tile_h > MAX_THREADS || (composite && !deferred))
+      tile_w * tile_h > MAX_THREADS || (composite && !deferred) ||
+      (gather && (deferred || composite)))
     return (int)cudaErrorInvalidValue;
   const Opts o{K,         chunk,           sub,      composite, no_overflow,
-               two_sided, alpha_from_rows, deferred, sat_thr};
-  const dim3 grid(n_tiles), block(tile_w * tile_h);
-  cudaStream_t st = (cudaStream_t)stream;
+               two_sided, alpha_from_rows, deferred, gather,    sat_thr};
   if (n_tiles > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
     if (K <= 8)
-      mlab_kernel<8><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count, params, tf,
-                                            peel, out, work, n_tiles, tiles_x, tile_w, tile_h,
-                                            sx, sy, o);
+      launch<8>(bands, payload, ld, tile_start, tile_count, params, tf, peel, out, work,
+                n_tiles, tiles_x, tile_w, tile_h, sx, sy, o, st);
     else if (K <= 16)
-      mlab_kernel<16><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count, params,
-                                             tf, peel, out, work, n_tiles, tiles_x, tile_w,
-                                             tile_h, sx, sy, o);
+      launch<16>(bands, payload, ld, tile_start, tile_count, params, tf, peel, out, work,
+                 n_tiles, tiles_x, tile_w, tile_h, sx, sy, o, st);
     else
-      mlab_kernel<32><<<grid, block, 0, st>>>(payload, ld, tile_start, tile_count, params,
-                                             tf, peel, out, work, n_tiles, tiles_x, tile_w,
-                                             tile_h, sx, sy, o);
+      launch<32>(bands, payload, ld, tile_start, tile_count, params, tf, peel, out, work,
+                 n_tiles, tiles_x, tile_w, tile_h, sx, sy, o, st);
   }
   return (int)cudaGetLastError();
 }

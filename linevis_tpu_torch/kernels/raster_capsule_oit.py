@@ -46,8 +46,13 @@ candidate order (entry surface, then exit surface, of each candidate):
 log-warped depth; 'mboit_resolve' the transmittance-weighted color from the
 pass-1 `moments` (`_accum_terms`).
 
-Not ported, raising NotImplementedError: store mode 'gather' and band
-shading (`use_bands`).
+Store mode 'gather' (the importance gather of opacity optimization) is the
+K-buffer with another payload: each fragment is (attribute, segment id as a
+float, 0, alpha 1), and the carry is the tie window's plain average, not
+premultiplied. With every alpha at 1 the MLAB merge weight is 0 and T_K is
+0 once a node is filled. `use_bands` sets the diffuse exponent of the
+shading (per fragment and in the composite) to 1.0 instead of 1.7; the
+power is then the base itself, in the kernels and here alike.
 """
 
 from __future__ import annotations
@@ -122,12 +127,8 @@ def _check_modes(store_mode, deferred_shade, peel, use_bands, composite, K, chun
                  tf_color, n_mom, moments):
     """Mode checks shared by the kernels and their plain version (those of
     the JAX wrapper); -> sub."""
-    if store_mode == "gather":
-        raise NotImplementedError("store_mode='gather' is not ported yet")
-    if store_mode != "shade" and store_mode not in ACCUM_MODES:
+    if store_mode not in ("shade", "gather") and store_mode not in ACCUM_MODES:
         raise ValueError(f"unknown store_mode {store_mode!r}")
-    if use_bands:
-        raise NotImplementedError("use_bands (band shading) is not ported yet")
     if store_mode == "mboit_gen" and K != 2:
         raise ValueError("mboit_gen requires K=2 (moment channel layout)")
     if deferred_shade and store_mode != "shade":
@@ -215,9 +216,17 @@ def _surfaces(s, dn, in_run, two_sided, interleave=False):
     return tcand, t0, (bard, rd, baoa)
 
 
+def _cos_power(x, use_bands):
+    """The diffuse cosine power x**e, e = 1.0 with `use_bands` (the base
+    itself, as XLA simplifies x**1.0; powf(x, 1.0f) need not return x), else
+    1.7."""
+    return x if use_bands else x ** 1.7
+
+
 def _fragments(s, tcand, tw, invlen, geo, params, tf_color, tf_opacity, alpha_from_rows,
-               two_sided, interleave, deferred_shade):
+               two_sided, interleave, deferred_shade, gather=False, use_bands=False):
     """Every candidate fragment's color and alpha, each [A, M', P]: with
+    `gather` the importance gather's (attr, segment id, 0, 1); with
     `deferred_shade` the shading features (attr, cos1, cos2), else the
     shaded color at the fragment (headlight Blinn-Phong through scalar
     identities of the unit ray and the tube axis, the TF color at its
@@ -231,6 +240,9 @@ def _fragments(s, tcand, tw, invlen, geo, params, tf_color, tf_opacity, alpha_fr
     y2 = two(baoa) + tcand * bard2
     uax = torch.clamp(y2 * two(s[18]), 0.0, 1.0)
     attr = two(s[7]) + two(s[8]) * uax
+    if gather:
+        return (attr, two(s[9]).expand_as(attr), torch.zeros_like(attr),
+                torch.ones_like(attr))
     inv_r2 = two(s[21])
     ndl = -(rd2 + tcand - uax * bard2) * inv_r2
     tn2 = two(s[20])
@@ -247,7 +259,7 @@ def _fragments(s, tcand, tw, invlen, geo, params, tf_color, tf_opacity, alpha_fr
         return attr, cos1, cos2, ac
     cos1s = torch.clamp(cos1, min=1e-20)
     cos2s = torch.clamp(cos2, min=1e-20)
-    cosc = 0.3 * cos1s ** 1.7 + 0.7 * cos2s ** 1.7
+    cosc = 0.3 * _cos_power(cos1s, use_bands) + 0.7 * _cos_power(cos2s, use_bands)
     spec = 0.3 * cos1s ** 30.0
     shade = 0.1 + 0.9 * cosc
     dmin, dmax, cue = params[11], params[12], params[13]
@@ -257,11 +269,12 @@ def _fragments(s, tcand, tw, invlen, geo, params, tf_color, tf_opacity, alpha_fr
     return (*[(c * shade + spec) * (1.0 - fcue) + 0.5 * fcue for c in rgb], ac)
 
 
-def _sweeps(st, tw, feats, invlen, zA, zB, K, no_overflow, stats):
+def _sweeps(st, tw, feats, invlen, zA, zB, K, no_overflow, stats, gather=False):
     """At most K extraction sweeps of one block into the node state st
     ([A, 5, K, P], updated in place). tw [A, M', P]; feats 4 x [A, M', P].
-    Adds the (pixel, sweep) extractions and their window members to
-    `stats` when it is a dict."""
+    The carry is premultiplied by its alpha, except with `gather`. Adds
+    the (pixel, sweep) extractions and their window members to `stats`
+    when it is a dict."""
     kidx = torch.arange(K, device=tw.device)[None, :, None]
     M = tw.shape[1]
     for _ in range(K):
@@ -283,7 +296,10 @@ def _sweeps(st, tw, feats, invlen, zA, zB, K, no_overflow, stats):
         sel = [torch.where(has, a / nwin, 0.0) for a in acc]
         znd = torch.where(has, zA - zB / torch.clamp(bt * invlen, min=1e-12), 2.0)
         sa = sel[3]
-        carry = (znd, sel[0] * sa, sel[1] * sa, sel[2] * sa, sa)
+        if gather:
+            carry = (znd, sel[0], sel[1], sel[2], sa)
+        else:
+            carry = (znd, sel[0] * sa, sel[1] * sa, sel[2] * sa, sa)
 
         d_all = st[:, 0]
         pos = (d_all <= znd[:, None]).sum(dim=1)
@@ -334,13 +350,12 @@ def shade_nodes(depths, feat, alpha, zA, zB, dmin, dmax, cue, tf_color,
     cos1, cos2): un-premultiply, apply the color TF, the Phong cosine
     powers and the depth cue once per node, and re-premultiply. feat
     [3, K, ...]; depths, alpha [K, ...] -> premultiplied rgb [3, K, ...].
-    The kernel's composite computes the same with use_bands=False."""
+    The kernel's composite computes the same."""
     inv_a = torch.where(alpha > 1e-6, 1.0 / torch.clamp(alpha, min=1e-6), 0.0)
     attr = feat[0] * inv_a
     cos1 = torch.clamp(feat[1] * inv_a, min=1e-20)
     cos2 = torch.clamp(feat[2] * inv_a, min=1e-20)
-    e = 1.0 if use_bands else 1.7
-    cosc = 0.3 * cos1 ** e + 0.7 * cos2 ** e
+    cosc = 0.3 * _cos_power(cos1, use_bands) + 0.7 * _cos_power(cos2, use_bands)
     spec = 0.3 * cos1 ** 30.0
     rgb = torch.stack(tf_channels_static(tf_color, 3, attr))
     shade = 0.1 + 0.9 * cosc
@@ -577,9 +592,11 @@ def rasterize_capsules_mlab_reference(
             frags = None
             if store_mode != "count":
                 frags = _fragments(s, tcand, tw, invlen, geo, params, tf_color, tf_opacity,
-                                   alpha_from_rows, two_sided, accum, deferred_shade)
+                                   alpha_from_rows, two_sided, accum, deferred_shade,
+                                   store_mode == "gather", use_bands)
             if not accum:
-                _sweeps(st, tw, frags, invlen[:, 0], zA, zB, K, no_overflow, stats)
+                _sweeps(st, tw, frags, invlen[:, 0], zA, zB, K, no_overflow, stats,
+                        store_mode == "gather")
                 st_all[tiles] = st
                 continue
             mom = None
@@ -598,7 +615,7 @@ def rasterize_capsules_mlab_reference(
     out = st_all.permute(1, 2, 0, 3)  # [5, K, T, P]
     if composite:
         rgb = shade_nodes(out[0], out[1:4], out[4], params[9], params[10], params[11],
-                          params[12], params[13], tf_color)
+                          params[12], params[13], tf_color, use_bands)
         return blend_front_to_back(rgb, out[4], params[24:27])
     return out[0], out[1:4], out[4]
 
@@ -611,11 +628,11 @@ def _launcher(name):
     if name == "raster_capsule_oit":
         fn = _build.load(name).raster_capsule_mlab_launch
         fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p,
-                       i, i, i, i, f, f, i, i, i, i, i, i, i, i, f, p]
+                       i, i, i, i, f, f, i, i, i, i, i, i, i, i, i, i, f, p]
     else:
         fn = _build.load(name).raster_capsule_accum_launch
         fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p,
-                       i, i, i, i, f, f, i, i, i, i, i, i, i, p]
+                       i, i, i, i, f, f, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -657,7 +674,10 @@ def rasterize_capsules_mlab(
 
     store_mode 'shade' returns (depths [K, n_tiles, P], premultiplied colors
     [3, K, n_tiles, P], alpha [K, n_tiles, P]); empty nodes have depth 2.0
-    and alpha 0. The colors are the shaded rgb, or with `deferred_shade` the
+    and alpha 0. 'gather' returns the same planes holding (depth,
+    importance = the attribute, segment id as a float, 0, alpha 1) per node,
+    not premultiplied: a tie window's members are averaged (a joint's cap
+    and the next segment's body give the id i + 0.5). The colors are the shaded rgb, or with `deferred_shade` the
     features (attr, cos1, cos2). With `composite=True` (deferred shading, no
     peel) the nodes are shaded and blended front to back over the
     background in params[24:28] instead -> [4, n_tiles, P] RGBA. `peel`
@@ -667,8 +687,8 @@ def rasterize_capsules_mlab(
     b0, then the n_mom moments (power, or with `trig` trigonometric);
     'mboit_resolve' reads `moments` [1 + n_mom, n_tiles, P] (b0, the odd,
     the even moments). Also ported: no_overflow, two_sided,
-    alpha_from_rows (alpha = row 11 + row 12 * u), sat, sub, 1 <= K <= 32.
-    `store_mode='gather'` and `use_bands` raise NotImplementedError.
+    alpha_from_rows (alpha = row 11 + row 12 * u), sat, sub, 1 <= K <= 32,
+    and `use_bands` (diffuse exponent 1.0 instead of 1.7).
 
     A CUDA payload launches the CUDA kernel of the mode: the K-buffer
     kernel, counted in `rasterize_capsules_mlab.launches`, or through
@@ -723,7 +743,7 @@ def rasterize_capsules_mlab(
     if store_mode in ACCUM_MODES:
         out = rasterize_capsules_accum(csr, params, tf, width, height, tile_w, tile_h, K,
                                        store_mode, alpha_from_rows, n_mom, trig, moments,
-                                       peel, two_sided)
+                                       peel, two_sided, use_bands)
         if work is not None:
             work.copy_(csr.tile_count)
     else:
@@ -737,7 +757,8 @@ def rasterize_capsules_mlab(
                 out.data_ptr(), None if work is None else work.data_ptr(),
                 n_tiles, csr.tiles_x, tile_w, tile_h, 2.0 / width, 2.0 / height,
                 K, C, sub, int(composite), int(no_overflow), int(two_sided),
-                int(alpha_from_rows), int(deferred_shade), float(np.float32(1.0 - sat)),
+                int(alpha_from_rows), int(deferred_shade), int(store_mode == "gather"),
+                int(use_bands), float(np.float32(1.0 - sat)),
                 torch.cuda.current_stream().cuda_stream,
             )
         if rc != 0:
@@ -750,7 +771,8 @@ def rasterize_capsules_mlab(
 
 
 def rasterize_capsules_accum(csr, params, tf, width, height, tile_w, tile_h, K, store_mode,
-                             alpha_from_rows, n_mom, trig, moments, peel, two_sided):
+                             alpha_from_rows, n_mom, trig, moments, peel, two_sided,
+                             use_bands=False):
     """Launch `csrc/raster_capsule_accum.cu`, the accumulation modes' kernel,
     on CUDA inputs that `rasterize_capsules_mlab` checked -> [5 * K, n_tiles,
     P] planes; counts the launch in `rasterize_capsules_accum.launches`."""
@@ -766,7 +788,7 @@ def rasterize_capsules_accum(csr, params, tf, width, height, tile_w, tile_h, K, 
             None if peel is None else peel.data_ptr(), out.data_ptr(),
             n_tiles, csr.tiles_x, tile_w, tile_h, 2.0 / width, 2.0 / height,
             K, csr.chunk, _ACCUM_CODE[store_mode], n_mom, int(trig), int(two_sided),
-            int(alpha_from_rows), torch.cuda.current_stream().cuda_stream,
+            int(alpha_from_rows), int(use_bands), torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"raster_capsule_accum kernel launch failed: CUDA error {rc}")

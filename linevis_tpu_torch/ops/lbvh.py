@@ -19,7 +19,7 @@ Layout shared by all four (N leaves, N-1 internal nodes): internal nodes
 leaf node 0.
 
 The closest-hit traversal `ray_query` is not ported yet (ROADMAP queue A
-item 10).
+item 4).
 """
 
 from __future__ import annotations

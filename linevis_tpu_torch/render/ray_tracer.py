@@ -11,7 +11,7 @@ it with `kernels/bvh_wavefront.py` and resolves the K nodes per pixel like
 the raster OIT path.
 
 The closest-hit re-cast loop (`render_tubes_raytraced`) and the MLAT variant
-(`render_tubes_mlat`) are not ported yet (ROADMAP queue A item 10).
+(`render_tubes_mlat`) are not ported yet (ROADMAP queue A item 4).
 """
 
 from __future__ import annotations

@@ -1,0 +1,426 @@
+"""Renderer base class + rendering-mode registry: the port's user entry point.
+
+Counterpart of `linevis_tpu/render/renderer.py` (reference abstract
+`LineRenderer`, `src/Renderers/LineRenderer.hpp:66`, the mode enum
+`RenderingModes.hpp:32-52` and the factory switch of `MainApp::setRenderer`,
+`MainApp.cpp:732-862`):
+
+    r = create_renderer("Opacity Optimization", settings, device="cuda")
+    r.set_line_data(line_data)
+    img = r.render(camera)  # numpy [H, W, 4] linear RGBA
+
+Every renderer draws on `device` (the card unless the caller asks for the
+CPU), from the line data's representations built there. Modes the JAX
+package registers but the port cannot draw yet raise NotImplementedError
+naming their ROADMAP queue item; unknown modes fall back to Opaque with a
+warning (`MainApp.cpp:864-874`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict, Optional, Type
+
+import numpy as np
+import torch
+
+from linevis_tpu_torch.core.settings import SettingsMap
+from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.pipeline import RasterSettings
+from linevis_tpu_torch.render.transfer_function import TransferFunction
+from linevis_tpu_torch.render.tube_raster import camera_tensors
+from linevis_tpu_torch.scene.line_data import LineData
+
+__all__ = [
+    "LineRenderer",
+    "RENDERING_MODE_ALL",
+    "UNPORTED_MODES",
+    "create_renderer",
+    "register_renderer",
+]
+
+
+def _image(img: torch.Tensor) -> np.ndarray:
+    """[4, H, W] tensor -> numpy [H, W, 4]."""
+    return np.moveaxis(img.cpu().numpy(), 0, -1)
+
+
+class LineRenderer:
+    """Base renderer: owns settings, caches per-scene state."""
+
+    name = "Base"
+
+    def __init__(self, settings: Optional[SettingsMap] = None, device="cuda"):
+        self.device = torch.device(device)
+        self.line_data: Optional[LineData] = None
+        self.transfer_function = TransferFunction.standard()
+        self.transfer_function_range = None  # (vmin, vmax) in attr space
+        self.depth_cue_strength = 0.0
+        self.opacity = 0.3
+        self.settings = SettingsMap()
+        if settings:
+            self.set_new_settings(settings)
+
+    # -- lifecycle (LineRenderer.hpp) ---------------------------------------
+    def set_line_data(self, line_data: LineData) -> None:
+        self.line_data = line_data
+
+    def set_transfer_function(self, tf: TransferFunction) -> None:
+        self.transfer_function = tf
+
+    def set_new_settings(self, settings: SettingsMap) -> None:
+        self.settings.update(settings)
+        if settings.has_key("depth_cue_strength"):
+            self.depth_cue_strength = settings.get_float("depth_cue_strength")
+        if settings.has_key("opacity"):
+            self.opacity = settings.get_float("opacity")
+
+    # Tile shape: the opaque kernels take 32x16 tiles, the OIT kernels 16x8
+    # (the JAX package's choice; the port keeps its tiles).
+    TILE_W, TILE_H = 32, 16
+
+    def _raster_settings(self, camera: Camera) -> RasterSettings:
+        c_pts, o_pts = self.transfer_function.as_static_points()
+        if self.transfer_function_range is not None:
+            # Remap TF control points into [vmin, vmax] of the normalized
+            # attribute (reference set_transfer_functions_range,
+            # ReplayWidget.cpp:576-624 -> TransferFunctionWindow range).
+            vmin, vmax = self.transfer_function_range
+            span = vmax - vmin
+
+            def remap(pts):
+                inner = tuple((vmin + p[0] * span,) + tuple(p[1:]) for p in pts)
+                # Clamp outside [vmin, vmax] to the edge values.
+                return ((0.0,) + tuple(pts[0][1:]),) + inner + ((1.0,) + tuple(pts[-1][1:]),)
+
+            c_pts, o_pts = remap(c_pts), remap(o_pts)
+        return RasterSettings(
+            width=camera.width,
+            height=camera.height,
+            tile_w=self.TILE_W,
+            tile_h=self.TILE_H,
+            depth_cue_strength=self.depth_cue_strength,
+            tf_color=c_pts,
+            tf_opacity=o_pts,
+        )
+
+    def _capsules(self):
+        return self.line_data.get_capsule_scene(device=self.device)
+
+    def render(self, camera: Camera) -> np.ndarray:
+        """Render a frame -> [H, W, 4] linear RGBA numpy array."""
+        raise NotImplementedError
+
+
+class OpaqueLineRenderer(LineRenderer):
+    """Reference RENDERING_MODE_OPAQUE (`OpaqueLineRenderer.hpp:40`).
+
+    The `tubeGeometry` setting selects the raster geometry: 'capsule' (the
+    default; analytic linear-swept spheres with coverage AA), 'prism' (the
+    reference's `tubeNumSubdivisions`-gon triangle tube rendered by the
+    prism kernel, 2x supersampled) or 'triangle' (the same geometry through
+    the triangle G-buffer raster, 2x supersampled)."""
+
+    name = "Opaque"
+
+    def set_new_settings(self, settings: SettingsMap) -> None:
+        super().set_new_settings(settings)
+        if settings.has_key("tubeGeometry"):
+            v = settings.get_value("tubeGeometry")
+            if v not in ("capsule", "prism", "triangle"):
+                raise ValueError(f"tubeGeometry {v!r}")
+
+    @property
+    def tube_geometry(self) -> str:
+        return self.settings.get_value("tubeGeometry", "capsule")
+
+    def render(self, camera: Camera) -> np.ndarray:
+        subdiv = int(self.settings.get_float("tubeNumSubdivisions", 8))
+        if self.tube_geometry == "prism":
+            from linevis_tpu_torch.render.tube_raster import render_tubes_prism_image
+
+            scene = self.line_data.get_prism_scene(num_subdivisions=subdiv, device=self.device)
+            return render_tubes_prism_image(
+                scene, camera, tf=self.transfer_function,
+                settings=self._raster_settings(camera), supersample=2,
+            )
+        if self.tube_geometry == "triangle":
+            from linevis_tpu_torch.render.opaque import render_opaque_image
+
+            mesh = self.line_data.get_tube_mesh(num_subdivisions=subdiv, device=self.device)
+            s = dataclasses.replace(self._raster_settings(camera), tile_w=32, tile_h=16)
+            return render_opaque_image(mesh, camera, tf=self.transfer_function, settings=s,
+                                       supersample=2)
+        from linevis_tpu_torch.render.tube_raster import render_tubes_image
+
+        return render_tubes_image(self._capsules(), camera,
+                                  settings=self._raster_settings(camera))
+
+
+class _OitBase(LineRenderer):
+    """The transparent renderers of `render/oit.py`, each called with the
+    scene, the camera's tensors on the device and the raster settings."""
+
+    TILE_W, TILE_H = 16, 8
+
+    def _frame(self, camera: Camera, fn, **kw) -> torch.Tensor:
+        return fn(self._capsules(), *camera_tensors(camera, self.device),
+                  self._raster_settings(camera), **kw)
+
+
+class MLABRenderer(_OitBase):
+    """Reference RENDERING_MODE_MLAB (8 nodes default)."""
+
+    name = "Multi-Layer Alpha Blending"
+    K = 8
+
+    def render(self, camera: Camera) -> np.ndarray:
+        from linevis_tpu_torch.render.oit import render_tubes_mlab
+
+        return _image(self._frame(camera, render_tubes_mlab, K=self.K, opacity=self.opacity))
+
+
+class PerPixelLinkedListRenderer(MLABRenderer):
+    """Reference RENDERING_MODE_PER_PIXEL_LINKED_LIST: the exact K-nearest
+    sorted blend with K=32 (a bounded-memory stand-in for the unbounded
+    linked list, equal for depth complexity <= K)."""
+
+    name = "Per-Pixel Linked Lists"
+    K = 32
+
+
+class WBOITRenderer(_OitBase):
+    """Reference RENDERING_MODE_WBOIT (WBOITRenderer.cpp:195)."""
+
+    name = "Weighted Blended Order Independent Transparency"
+
+    def render(self, camera: Camera) -> np.ndarray:
+        from linevis_tpu_torch.render.oit import render_tubes_wboit
+
+        return _image(self._frame(camera, render_tubes_wboit, opacity=self.opacity))
+
+
+class AtomicLoop64Renderer(_OitBase):
+    """Reference RENDERING_MODE_ATOMIC_LOOP_64 (AtomicLoop64Renderer.cpp:283):
+    exact K-nearest fragments, no overflow merge."""
+
+    name = "Atomic Loop 64-Bit"
+    K = 16
+
+    def render(self, camera: Camera) -> np.ndarray:
+        from linevis_tpu_torch.render.oit import render_tubes_atomic_loop
+
+        return _image(self._frame(camera, render_tubes_atomic_loop, K=self.K,
+                                  opacity=self.opacity))
+
+
+class DepthPeelingRenderer(_OitBase):
+    """Reference RENDERING_MODE_DEPTH_PEELING (DepthPeelingRenderer.cpp:423):
+    exact front-to-back peeling, K layers per pass x 4 passes."""
+
+    name = "Depth Peeling"
+
+    def render(self, camera: Camera) -> np.ndarray:
+        from linevis_tpu_torch.render.oit import render_tubes_depth_peeling
+
+        return _image(self._frame(camera, render_tubes_depth_peeling, opacity=self.opacity))
+
+
+class MLABBucketRenderer(_OitBase):
+    """Reference RENDERING_MODE_MLAB_BUCKETS: exact near bucket + MLAB-merged
+    far bucket."""
+
+    name = "MLAB (Buckets)"
+
+    def render(self, camera: Camera) -> np.ndarray:
+        from linevis_tpu_torch.render.oit import render_tubes_mlab_buckets
+
+        return _image(self._frame(camera, render_tubes_mlab_buckets, opacity=self.opacity))
+
+
+class MBOITRenderer(_OitBase):
+    """Reference RENDERING_MODE_MBOIT (MBOITRenderer.cpp:688): 4 moments,
+    float32, power moments by default; `usePowerMoments = false` switches to
+    trigonometric moments."""
+
+    name = "Moment-Based OIT"
+    n_mom = 4
+    use_power_moments = True
+    pixel_format = "float32"
+
+    def set_new_settings(self, settings: SettingsMap) -> None:
+        super().set_new_settings(settings)
+        if settings.has_key("numMoments"):
+            self.n_mom = settings.get_int("numMoments")
+        if settings.has_key("usePowerMoments"):
+            self.use_power_moments = settings.get_bool("usePowerMoments")
+        if settings.has_key("pixelFormat"):
+            # Reference values: "Float" -> FLOAT_32, else UNORM_16
+            # (MBOITRenderer.cpp:286).
+            fmt = str(settings.get_value("pixelFormat"))
+            self.pixel_format = "float32" if fmt.lower().startswith("float") else "unorm16"
+
+    def render(self, camera: Camera) -> np.ndarray:
+        from linevis_tpu_torch.render.oit import render_tubes_mboit
+
+        return _image(self._frame(
+            camera, render_tubes_mboit, n_mom=self.n_mom, opacity=self.opacity,
+            trigonometric=not self.use_power_moments, pixel_format=self.pixel_format))
+
+
+class DepthComplexityRenderer(_OitBase):
+    """Reference RENDERING_MODE_DEPTH_COMPLEXITY: fragment counts mapped to
+    a color ramp (DepthComplexityRenderer.cpp:346)."""
+
+    name = "Depth Complexity"
+    TILE_W, TILE_H = 32, 16  # the base's tiles, as in the JAX registry
+
+    def render(self, camera: Camera) -> np.ndarray:
+        from linevis_tpu_torch.render.oit import render_depth_complexity
+
+        counts = self._frame(camera, render_depth_complexity)
+        t = counts / torch.clamp(counts.max(), min=1.0)
+        img = self.transfer_function.lookup(t)
+        img[..., 3] = 1.0
+        bg = torch.tensor(self._raster_settings(camera).background_color,
+                          dtype=torch.float32, device=img.device)
+        img = torch.where((counts == 0)[..., None], bg, img)
+        return img.cpu().numpy()
+
+
+class RtaoRenderer(LineRenderer):
+    """Ray-traced ambient occlusion (reference
+    VulkanRayTracedAmbientOcclusion.cpp:743) with per-frame sample
+    accumulation (<= 32 frames), reset on camera or scene changes. Frame f
+    of an accumulation draws its samples on the renderer's device from a
+    torch.Generator seeded with RtaoSettings.seed + f (`render_tubes_rtao`),
+    as the JAX registry keys jax.random with seed + f. The "SVGF (Temporal)"
+    denoiser is not ported yet."""
+
+    name = "RTAO"
+    MAX_ACCUM_FRAMES = 32
+
+    def __init__(self, settings=None, device="cuda"):
+        super().__init__(settings, device)
+        self._reset()
+
+    def _reset(self):
+        self._accum = None
+        self._frame = 0
+        self._last_vp = None
+        self._grid = None
+
+    def set_line_data(self, line_data: LineData) -> None:
+        super().set_line_data(line_data)
+        self._reset()
+
+    def render(self, camera: Camera) -> np.ndarray:
+        from linevis_tpu_torch.kernels.ao_grid import build_segment_grid
+        from linevis_tpu_torch.render.rtao import RtaoSettings, render_tubes_rtao
+
+        if self.settings.get_value("denoiser", "None") not in ("None", ""):
+            raise NotImplementedError(
+                "the RTAO denoisers (render/denoiser.py) are not ported yet: "
+                "ROADMAP queue A item 5")
+        scene = self._capsules()
+        vp_np = np.asarray(camera.view_projection_matrix())
+        if self._last_vp is None or not np.array_equal(self._last_vp, vp_np):
+            self._accum = None
+            self._frame = 0
+            self._last_vp = vp_np
+        rtao = RtaoSettings()
+        if self._grid is None:
+            self._grid = build_segment_grid(scene.a, scene.ba, scene.radius, scene.mask,
+                                            resolution=rtao.grid_resolution)
+        img = render_tubes_rtao(scene, *camera_tensors(camera, self.device),
+                                self._raster_settings(camera), rtao, frame=self._frame,
+                                grid=self._grid)
+        if self._accum is None:
+            self._accum = img
+        else:
+            n = min(self._frame, self.MAX_ACCUM_FRAMES - 1)
+            self._accum = (self._accum * n + img) / (n + 1)
+        self._frame += 1
+        return _image(self._accum)
+
+
+class OpacityOptimizationRendererMode(LineRenderer):
+    """Reference RENDERING_MODE_OPACITY_OPTIMIZATION: the stateful
+    `render/opacity_optimization.py` renderer on the line data's capsules."""
+
+    name = "Opacity Optimization"
+
+    def __init__(self, settings=None, device="cuda"):
+        super().__init__(settings, device)
+        self._impl = None
+
+    def set_line_data(self, line_data: LineData) -> None:
+        super().set_line_data(line_data)
+        self._impl = None
+
+    def render(self, camera: Camera) -> np.ndarray:
+        from linevis_tpu_torch.render.opacity_optimization import (
+            OpacityOptimizationRenderer as Impl,
+        )
+
+        if self._impl is None:
+            traj = self.line_data.trajectories
+            self._impl = Impl(self._capsules(), traj.num_lines, traj.max_points,
+                              self._raster_settings(camera))
+        return _image(self._impl.render(camera))
+
+
+_REGISTRY: Dict[str, Type[LineRenderer]] = {}
+
+
+def register_renderer(mode_name: str, cls: Type[LineRenderer]) -> None:
+    _REGISTRY[mode_name] = cls
+
+
+# Mode names follow RenderingModes.hpp:32-52, in the JAX registry's order.
+register_renderer("Opaque", OpaqueLineRenderer)
+register_renderer("Per-Pixel Linked Lists", PerPixelLinkedListRenderer)
+register_renderer("Multi-Layer Alpha Blending", MLABRenderer)
+register_renderer("Weighted Blended Order Independent Transparency", WBOITRenderer)
+register_renderer("WBOIT", WBOITRenderer)  # RENDERING_MODE_NAMES[8]
+register_renderer("Moment-Based OIT", MBOITRenderer)
+register_renderer("Depth Peeling", DepthPeelingRenderer)
+register_renderer("Atomic Loop 64-Bit", AtomicLoop64Renderer)
+register_renderer("MLAB (Buckets)", MLABBucketRenderer)
+register_renderer("Depth Complexity", DepthComplexityRenderer)
+register_renderer("Opacity Optimization", OpacityOptimizationRendererMode)
+register_renderer("RTAO", RtaoRenderer)
+
+# Modes of the JAX registry the port cannot draw yet -> their ROADMAP queue
+# A item.
+UNPORTED_MODES: Dict[str, str] = {
+    "Vulkan Ray Tracer": "A4 (ray-traced closest hit)",
+    "Line Density Map Renderer": "A8 (volume, scattering and multivariate)",
+    "Spherical Heat Map Renderer": "A8 (volume, scattering and multivariate)",
+    "Voxel Ray Casting": "A8 (volume, scattering and multivariate)",
+    "Volumetric Path Tracer": "A8 (volume, scattering and multivariate)",
+    "Opaque (Triangle Mesh)": "A6 (surface meshes)",
+    "Deferred Opaque": "A5 (AO denoisers and the deferred family)",
+}
+
+RENDERING_MODE_ALL = tuple(_REGISTRY) + tuple(UNPORTED_MODES)
+
+
+def create_renderer(mode_name: str, settings: Optional[SettingsMap] = None,
+                    device="cuda") -> LineRenderer:
+    """Factory (MainApp::setRenderer) of a renderer drawing on `device`.
+    Modes not ported yet raise NotImplementedError naming their queue item;
+    unknown modes fall back to Opaque with a warning (MainApp.cpp:864-874)."""
+    if mode_name in UNPORTED_MODES:
+        raise NotImplementedError(
+            f"rendering mode {mode_name!r} is not ported yet: ROADMAP queue "
+            f"{UNPORTED_MODES[mode_name]}")
+    cls = _REGISTRY.get(mode_name)
+    if cls is None:
+        warnings.warn(
+            f"Rendering mode {mode_name!r} is not supported yet; "
+            f"falling back to Opaque (available: {sorted(_REGISTRY)})"
+        )
+        cls = OpaqueLineRenderer
+    return cls(settings, device=device)

@@ -16,8 +16,8 @@ ray origins and directions), `trace_ao_batched` (pair expansion, AO kernel
 and scatter per batch of rays) and `rtao_shade`.
 
 Not ported yet (they raise NotImplementedError): the AO denoisers
-(`denoiser != "None"`, ROADMAP queue A item 8) and the ray-sharded multi-GPU
-accumulation (`psum_axis`, ROADMAP queue A item 13).
+(`denoiser != "None"`, ROADMAP queue A item 5) and the ray-sharded multi-GPU
+accumulation (`psum_axis`, ROADMAP queue A item 10).
 """
 
 from __future__ import annotations
@@ -220,11 +220,11 @@ def render_tubes_rtao(
     consumes."""
     if psum_axis is not None:
         raise NotImplementedError(
-            "psum_axis (ray-sharded multi-GPU RTAO) is not ported yet: ROADMAP queue A item 13"
+            "psum_axis (ray-sharded multi-GPU RTAO) is not ported yet: ROADMAP queue A item 10"
         )
     if rtao.denoiser != "None":
         raise NotImplementedError(
-            f"denoiser={rtao.denoiser!r} is not ported yet: ROADMAP queue A item 8"
+            f"denoiser={rtao.denoiser!r} is not ported yet: ROADMAP queue A item 5"
         )
     W, H, S = settings.width, settings.height, rtao.num_samples
     dev = scene.a.device

@@ -151,6 +151,18 @@ class TransferFunction:
             ]
         )
 
+    def lookup(self, values: torch.Tensor) -> torch.Tensor:
+        """Map attribute values [...] -> RGBA [..., 4] (linear RGB): the
+        baked LUT sampled with linear interpolation between entries."""
+        lo, hi = self.value_range
+        t = torch.clamp((values - lo) / max(hi - lo, 1e-9), 0.0, 1.0)
+        table = torch.as_tensor(self.table, device=values.device)
+        n = table.shape[0]
+        f = t * (n - 1)
+        i0 = torch.clamp(torch.floor(f).long(), 0, n - 2)
+        w = (f - i0)[..., None]
+        return table[i0] * (1.0 - w) + table[i0 + 1] * w
+
     def as_static_points(self):
         """Hashable (color, opacity) point tuples for tf_eval_points."""
         c = tuple(tuple(float(v) for v in row) for row in self.color_points_linear)

@@ -1,0 +1,6 @@
+from linevis_tpu_torch.scene.filters import (  # noqa: F401
+    LineFilter,
+    LineLengthFilter,
+    MaxLineAttributeFilter,
+)
+from linevis_tpu_torch.scene.line_data import LineData, LineDataFlow  # noqa: F401

@@ -13,7 +13,8 @@ within 1e-4 on >= 99.9% of pixels (the composite's powf may differ from
 torch.pow by an ulp). For the accumulation kernel: counts exactly, the
 WBOIT and MBOIT moment sums within 1e-5 of each pixel's scale (its sum of
 weights, or b0) on >= 99.9% of pixels, the MBOIT resolve within 1e-4 (the
-moment solves amplify an ulp of a moment). For the prism and the triangle kernel: bit for bit
+moment solves amplify an ulp of a moment); the importance gather bit for bit;
+`use_bands` at the bars of its mode. For the prism and the triangle kernel: bit for bit
 (`torch.equal` on every output). For the AO grid kernel: every pair's flag
 and every chunk's walked count equal. For the wavefront kernel: depths,
 features, alpha and the per-block counts bit for bit. Kernels and plain versions are built
@@ -699,3 +700,101 @@ def test_render_depth_complexity_card_equals_cpu(cuda):
         scene = ttr.build_capsule_scene(*_walk(12, 10, 8, 0.03), device=dev)
         out.append(toit.render_depth_complexity(scene, *ttr.camera_tensors(cam, dev), S).cpu())
     assert torch.equal(out[0], out[1]) and out[0].max().item() >= 3
+
+
+# B2's last two modes: the importance gather ('gather') and band shading
+# (`use_bands`).
+
+@pytest.mark.parametrize("K", [4, 8, 16])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_gather_kernel_equals_plain(cuda, tile, K):
+    """The gather kernel is bit-identical to its plain version: node depths,
+    importance, segment ids (tie-window averages included) and alpha."""
+    W, H = 200, 120
+    csr, params, S = _mlab_frame(cuda, W, H, tile)
+    kw = dict(K=K, tf_color=S.tf_color, tf_opacity=S.tf_opacity, store_mode="gather")
+    before = rasterize_capsules_mlab.launches
+    work = torch.zeros(csr.tile_start.shape[0], dtype=torch.int32, device=cuda)
+    k = rasterize_capsules_mlab(csr, params, W, H, *tile, work=work, **kw)
+    assert rasterize_capsules_mlab.launches == before + 1
+    p_work = torch.zeros_like(work)
+    p = rasterize_capsules_mlab_reference(csr, params, W, H, *tile, work=p_work, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(work, p_work)
+    assert (k[0] < 2.0).sum().item() > 100
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(k[2], (k[0] < 2.0).float())
+
+
+@pytest.mark.parametrize("mode", ["shade", "composite", "wboit", "mboit_resolve"])
+def test_use_bands_kernels_match_plain(cuda, mode):
+    """use_bands (diffuse exponent 1.0) in per-fragment shading (exact K
+    nodes), the composite and the accumulation modes that shade, at the bars
+    of the same modes without it; the exponent changes the result."""
+    W, H = 200, 120
+    csr, params, S = _mlab_frame(cuda, W, H, (16, 8))
+    kw = dict(tf_color=S.tf_color, tf_opacity=S.tf_opacity)
+    if mode == "shade":
+        kw.update(K=8, no_overflow=True)
+    elif mode == "composite":
+        kw.update(K=8, deferred_shade=True, composite=True)
+    elif mode == "wboit":
+        kw.update(K=1, store_mode="wboit")
+    else:
+        params = params.clone()
+        params[15], params[16], params[17], params[18] = -1.0, 1.0, 5e-7, 0.1
+        d, rgb, _ = rasterize_capsules_mlab(csr, params, W, H, 16, 8, 2,
+                                            store_mode="mboit_gen", **kw)
+        kw.update(K=1, store_mode="mboit_resolve", n_mom=4, moments=torch.stack(
+            [d[0], rgb[0, 0], rgb[1, 0], d[1], rgb[0, 1]]))
+    launches = (rasterize_capsules_mlab.launches, tk_accum().launches)
+    k = rasterize_capsules_mlab(csr, params, W, H, 16, 8, use_bands=True, **kw)
+    accum = mode in ("wboit", "mboit_resolve")
+    assert (rasterize_capsules_mlab.launches - launches[0],
+            tk_accum().launches - launches[1]) == ((0, 1) if accum else (1, 0))
+    p = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, use_bands=True, **kw)
+    k17 = rasterize_capsules_mlab(csr, params, W, H, 16, 8, **kw)
+    torch.cuda.synchronize()
+    if mode == "composite":
+        assert ((k - p).abs().amax(dim=0) <= 1e-4).float().mean().item() >= 0.999
+        assert (k - k17).abs().max().item() > 1e-3
+        return
+    kp, pp, k17p = (torch.cat([x[0], x[1].flatten(0, 1), x[2]]) for x in (k, p, k17))
+    if accum:
+        scale = p[2][0].abs() + 1e-30
+        tol = 1e-5 if mode == "wboit" else 1e-4
+        ok = ((kp - pp).abs().amax(dim=0) <= tol * (scale if mode == "wboit" else 1.0))
+    else:
+        ok = (kp - pp).abs().amax(dim=0) <= 1e-5
+    assert ok.float().mean().item() >= 0.999
+    assert (kp - k17p).abs().max().item() > 1e-3
+
+
+def test_opacity_optimization_card_matches_cpu(cuda):
+    """Three frames of the opacity-optimization renderer on the card (two
+    launches of the K-buffer kernel each: the gather and the final render)
+    against the CPU: vertex opacities within 2e-3 (the frame prep rounds on
+    the card as PyTorch's kernels do there), images mean abs <= 2e-3."""
+    from linevis_tpu_torch.render.opacity_optimization import (
+        OpacityOptimizationRenderer,
+        OpacityOptimizationSettings,
+    )
+
+    W, H = 160, 128
+    S = RasterSettings(width=W, height=H, tile_w=16, tile_h=8, depth_cue_strength=0.2)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        pos, mask, attrs, radius = _walk(12, 10, 8, 0.03)
+        scene = ttr.build_capsule_scene(pos, mask, attrs, radius, device=dev)
+        r = OpacityOptimizationRenderer(scene, 10, 8, S, OpacityOptimizationSettings())
+        before = rasterize_capsules_mlab.launches
+        for i in range(3):
+            img = r.render(Camera(position=(0.02 * i, 0.1, 1.2), width=W, height=H))
+        assert rasterize_capsules_mlab.launches - before == (6 if dev.type == "cuda" else 0)
+        out.append((img.cpu(), r.vertex_opacity.cpu()))
+    (ki, kv), (pi, pv) = out
+    assert bool(torch.isfinite(ki).all()) and (ki[3] > 0).sum().item() > 100
+    assert (kv - pv).abs().max().item() <= 2e-3
+    assert kv.min().item() < 0.9
+    assert (ki - pi).abs().mean().item() <= 2e-3

@@ -418,18 +418,6 @@ def test_entry_mlab_runs_on_cpu_and_defaults_to_cuda():
             entry_mlab()
 
 
-@pytest.mark.parametrize("mode", ["gather", "use_bands"])
-def test_unported_modes_raise(mode):
-    csr, params, S = _port_frame()
-    if mode == "use_bands":
-        kw = dict(deferred_shade=True, use_bands=True)
-    else:
-        kw = dict(store_mode=mode)
-    with pytest.raises(NotImplementedError, match=mode.split("_")[0]):
-        tk.rasterize_capsules_mlab(csr, params, W, H, *TILE, 8, S.tf_color,
-                                   S.tf_opacity, **kw)
-
-
 def test_wrapper_rejects_other_devices():
     csr, params, S = _port_frame()
     meta = dataclasses.replace(csr, payload=csr.payload.to("meta"))

@@ -338,9 +338,9 @@ def test_rtao_image_accumulates_and_unported_options_raise():
     )
     assert pos.shape == normal.shape == (3, 32, 64) and fg.dtype == torch.bool
     cam_t = ttr.camera_tensors(tcam, "cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         trtao.render_tubes_rtao(ts, *cam_t, tS, dataclasses.replace(rt, denoiser="EAW"))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         trtao.render_tubes_rtao(ts, *cam_t, tS, rt, psum_axis="rays")
 
 

@@ -418,7 +418,9 @@ def test_port_imports_no_jax():
         "        'render.tube_raster', 'convert', 'entry', 'automation.profiling',\n"
         "        'automation.parity', 'automation.linear_bvh', 'kernels.ao_grid',\n"
         "        'kernels.bvh_wavefront',\n"
-        "        'ops.lbvh', 'ops.wide_bvh', 'render.rtao', 'render.ray_tracer']\n"
+        "        'ops.lbvh', 'ops.wide_bvh', 'render.rtao', 'render.ray_tracer',\n"
+        "        'render.opacity_optimization', 'render.renderer', 'scene.line_data',\n"
+        "        'scene.filters', 'core.settings', 'core.transforms']\n"
         "missing = [m for m in need if 'linevis_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )

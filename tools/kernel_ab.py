@@ -1,0 +1,127 @@
+"""The port's K-buffer kernel (B2) and its accumulation kernel timed across source trees.
+
+A one-off A/B script beside `chip_smoke.py`, not part of the port's
+package. It compares two or more source trees of this repository on one
+card, in turns, so that a change to `csrc/raster_capsule_oit.cu` or
+`csrc/raster_capsule_accum.cu` can be held against its parent (unpack the
+parent with `git archive` into a directory that `.gitignore` lists). Each
+turn is a fresh process in the tree's root, which builds the tree's own
+kernels and times, on the first orbit camera of `chip_smoke.py` over the
+1920x1080 tornado (tile 16x8): the MLAB composite (K=8, opacity 0.3,
+deferred shading, sub 32, sat 0.999), 'wboit' and, where the tree has it,
+the opacity optimization's 'gather' at 960x528 (K=8), each the mean of 40
+launches between CUDA events.
+
+    python3 tools/kernel_ab.py TREE [TREE ...] [--turns N]
+
+runs the trees in the order given, then reversed, N times (default 2),
+printing one JSON line per turn and a last line with the card and every
+turn. On a tree's first turn, which builds its two kernel sources anew, the
+line also holds each source's build cost: nvcc's seconds (the two compiled
+one after the other), the number of kernel instances ptxas compiled, the
+library's bytes, and the ptxas registers and spills of the last K-buffer
+instance ptxas compiled.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+__all__ = ["main"]
+
+_CHILD = r'''
+import json, sys, torch
+from linevis_tpu_torch.kernels import _build
+info = {}
+for name in ("raster_capsule_oit", "raster_capsule_accum"):
+    if sys.argv[1] == "rebuild":  # a tree's first turn: time its build
+        _build._lib_path(name).unlink(missing_ok=True)
+    info.update(_build.build([name]))  # one after the other: each nvcc timed alone
+from linevis_tpu_torch.entry import tornado_scene, tornado_trajectories
+from linevis_tpu_torch.kernels.raster_capsule_oit import rasterize_capsules_mlab
+from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.oit import prepare_mlab_frame
+from linevis_tpu_torch.render.pipeline import RasterSettings
+from linevis_tpu_torch.render.tube_raster import camera_tensors, prepare_capsule_frame
+
+dev = "cuda"
+scene = tornado_scene(dev, traj=tornado_trajectories(dev))
+W, H = 1920, 1080
+s = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
+cam = camera_tensors(
+    Camera(position=(0.0, 0.1, 1.2), width=W, height=H).orbit(0.002, 0.1, 1.2), dev)
+
+
+def timed(fn, n=40):
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+log = info.get("raster_capsule_oit", {}).get("log", "")
+res = {"ptxas": [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l][-2:]}
+res["build"] = {
+    name: {"nvcc_s": b["seconds"], "instances": b["log"].count("Compiling entry function"),
+           "library_bytes": _build._lib_path(name).stat().st_size}
+    for name, b in info.items()}
+csr, params = prepare_mlab_frame(scene, *cam, s, 0.3)
+res["composite"] = timed(lambda: rasterize_capsules_mlab(
+    csr, params, W, H, 16, 8, 8, s.tf_color, s.tf_opacity, deferred_shade=True, sub=32,
+    sat=0.999, composite=True))
+csr_w, params_w, _ = prepare_capsule_frame(scene, *cam, s)
+params_w[14] = 0.3
+res["wboit"] = timed(lambda: rasterize_capsules_mlab(
+    csr_w, params_w, W, H, 16, 8, 1, s.tf_color, s.tf_opacity, store_mode="wboit"))
+s2 = RasterSettings(width=960, height=528, tile_w=16, tile_h=8)
+csr2, params2, _ = prepare_capsule_frame(scene, *cam, s2)
+try:
+    res["gather"] = timed(lambda: rasterize_capsules_mlab(
+        csr2, params2, 960, 528, 16, 8, 8, s2.tf_color, s2.tf_opacity, store_mode="gather"))
+except (NotImplementedError, ValueError):
+    pass  # a tree from before the gather mode
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+
+def main(argv=None) -> int:
+    args = list(sys.argv[1:] if argv is None else argv)
+    turns = 2
+    if "--turns" in args:
+        i = args.index("--turns")
+        turns = int(args[i + 1])
+        del args[i:i + 2]
+    if not args:
+        raise SystemExit(__doc__)
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    order = [t for k in range(turns) for t in (args if k % 2 == 0 else args[::-1])]
+    results = {t: [] for t in args}
+    for tree in order:
+        first = "rebuild" if not results[tree] else "cached"
+        p = subprocess.run([sys.executable, "-c", _CHILD, first], cwd=tree, capture_output=True,
+                           text=True, timeout=900)
+        line = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
+        if p.returncode != 0 or not line:
+            print(f"{tree}: failed (rc {p.returncode})\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}",
+                  flush=True)
+            return 1
+        r = json.loads(line[0][len("RESULT "):])
+        if not r["build"]:
+            del r["ptxas"], r["build"]
+        results[tree].append(r)
+        print(json.dumps({"tree": tree, **r}), flush=True)
+    print(json.dumps({"gpu": gpu, "turns": results}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
