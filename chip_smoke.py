@@ -63,7 +63,10 @@ K=16 `no_overflow` with per-fragment shading, through
 `render_tubes_atomic_loop`). It also prints the
 SSIM of the prism frame against the triangle frame, and of the wavefront
 frame against the two-sided MLAB frame, of the same camera. Then it prints
-one JSON line of kernel figures, and the device line last.
+one JSON line of kernel figures, and the device line last. A kernel's bound
+is computed from its plain version's counts (the work the function needs,
+whatever implements it), with the kernel's own counts beside them; the AO
+kernel's entry also times its launch with every pair chunk empty.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. Any failed check raises.
@@ -102,9 +105,10 @@ MLAB_OPS_PER_EVAL = 95
 # the two headlight cosines through the tube-axis identities 29, the
 # opacity TF 10, the window sums 4, and the window test 2;
 MLAB_OPS_PER_MEMBER = 45
-# per (pixel, sweep) extraction: the scan for the nearest hit, 1 per block
-# candidate, and the carry and insertion into K nodes: the carry's NDC depth
-# and averages 12, then 4 per node (position count, dedup test, shift).
+# per (pixel, sweep) extraction: the carry and insertion into K nodes: the
+# carry's NDC depth and averages 12, then 4 per node (position count, dedup
+# test, shift). Finding a window's nearest hit is the insertion into a short
+# sorted list, counted with its member.
 MLAB_OPS_PER_SWEEP = 12
 MLAB_OPS_PER_SWEEP_NODE = 4
 MLAB_ROWS = 23  # payload rows the MLAB kernel stages per candidate
@@ -128,13 +132,17 @@ TRIANGLE_OPS_PER_TAKE = 4 * 9 + 1
 TRIANGLE_PLANES = 8
 RTAO_FRAMES = 8
 # Float operations of one (record slot, ray) test of the AO kernel, each
-# add/mul/neg/min/max/compare/sqrt/div counted once: o - a 3, the two dot
-# products 10, baba and r^2 2, the re-origin (t0, the moved origin, ba.oa',
-# oa'.oa', rd) 20, the body quadratic and its root 21, cap a 9, cap b 13,
-# the three world t 3, the acceptance compares 13. The tests counted are
-# those the result needs (`trace_pairs(tests=)`): per walked record chunk,
-# its hittable slots times the rays not yet occluded when it is staged.
-AO_OPS_PER_TEST = 94
+# add/mul/neg/min/max/compare/sqrt/div counted once. Every test 62: o - a 3,
+# the two dot products 10, baba and r^2 2, the re-origin (t0, the moved
+# origin, ba.oa', oa'.oa', rd) 20, the three discriminants 24 and their
+# signs 3. A root only where its discriminant is not negative (the others
+# miss in any case): the body's root, axial position, world t and acceptance
+# compares 12; each cap's 10. The tests counted are those the result needs
+# (`trace_pairs(tests=)`): per walked record chunk, its hittable slots times
+# the rays not yet occluded when it is staged; `ao_root_tests` counts the
+# roots among them.
+AO_OPS_PER_TEST = 62
+AO_OPS_PER_ROOT = (12, 10, 10)  # the body, cap a, cap b
 WF_FRAMES = 4
 WF_K, WF_OPACITY = 8, 0.3
 WF_BUILDER = "binned_sah"  # its host build + packing stays under 90 s here
@@ -190,6 +198,52 @@ def _time_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def ao_root_tests(pairs, records, chunk):
+    """The walk of `trace_pairs_reference` over one batch of pair chunks,
+    replayed -> (the (slot, ray) tests its result needs, [of those, the tests
+    whose body, cap a, cap b discriminant is not negative])."""
+    from linevis_tpu_torch.kernels.ao_grid import _BATCH_CHUNKS, _POISON, _any_hit
+
+    C, dev = chunk, records.device
+    n_chunks = pairs.seg_begin.shape[0]
+    occ = torch.zeros((n_chunks, C), dtype=torch.bool, device=dev)
+    rays = pairs.rays[:7, :n_chunks * C].reshape(7, n_chunks, C)
+    begin, lane = pairs.seg_begin.long(), torch.arange(C, device=dev)
+    last = records.shape[1] - 1
+    pad = records.new_tensor([_POISON] * 3 + [0.0] * 5)[:, None, None]
+    tests = torch.zeros((), dtype=torch.int64, device=dev)
+    roots = torch.zeros(3, dtype=torch.int64, device=dev)
+    for c in range(int(pairs.seg_chunks.max()) if n_chunks else 0):
+        for idx in torch.nonzero((pairs.seg_chunks > c) & ~occ.all(dim=1)).flatten().split(
+                _BATCH_CHUNKS):
+            cols = begin[idx, None] + c * C + lane
+            seg = torch.where(cols[None] > last, pad, records[:, cols.clamp(max=last)])[..., None]
+            ray = rays[:, idx, None, :]
+            need = (seg[0] < 0.5 * _POISON) & ~occ[idx][:, None, :]  # [chunks, slots, rays]
+            tests += need.sum()
+            # The discriminants as `_any_hit` forms them.
+            ox, oy, oz, dx, dy, dz, _ = ray
+            oax, oay, oaz = ox - seg[0], oy - seg[1], oz - seg[2]
+            bard = seg[3] * dx + seg[4] * dy + seg[5] * dz
+            rdoa = oax * dx + oay * dy + oaz * dz
+            baba = torch.clamp(seg[7], min=1e-20)
+            rr = seg[6] * seg[6]
+            t0 = -(rdoa + 0.5 * bard)
+            pax, pay, paz = oax + t0 * dx, oay + t0 * dy, oaz + t0 * dz
+            baoa = seg[3] * pax + seg[4] * pay + seg[5] * paz
+            oaoa = pax * pax + pay * pay + paz * paz
+            rd = rdoa + t0
+            k2 = torch.clamp(baba - bard * bard, min=1e-20)
+            k1 = baba * rd - baoa * bard
+            k0 = baba * oaoa - baoa * baoa - rr * baba
+            b1b = rd - bard
+            hb = b1b * b1b - ((oaoa - 2.0 * baoa + baba) - rr)
+            discs = (k1 * k1 - k2 * k0, rd * rd - (oaoa - rr), hb)
+            roots += torch.stack([(need & (h >= 0.0)).sum() for h in discs])
+            occ[idx] |= _any_hit(ray, seg).any(dim=1)
+    return int(tests), roots.tolist()
 
 
 def main() -> int:
@@ -570,14 +624,18 @@ def main() -> int:
     k_rgba = mlab_kernel(csr, params, work=work)
     k_nodes = mlab_kernel(csr, params, composite=False)
     stats = {}
+    p_work = torch.zeros_like(work)
     a, b = _events()
     a.record()
-    p_rgba = mlab_plain(csr, params, stats=stats)
+    p_rgba = mlab_plain(csr, params, stats=stats, work=p_work)
     b.record()
     p_nodes = mlab_plain(csr, params, composite=False)
     torch.cuda.synchronize()
     mlab_plain_ms = a.elapsed_time(b)
-    mlab_evaluated = int(work.sum())
+    # The bound is the work of the plain version, whatever implements it;
+    # the kernel's own count stands beside it.
+    mlab_evaluated = int(p_work.sum())
+    mlab_k_evaluated = int(work.sum())
     d_err = (k_nodes[0] - p_nodes[0]).abs().amax(dim=0)
     a_err = (k_nodes[2] - p_nodes[2]).abs().amax(dim=0)
     f_err = (k_nodes[1] - p_nodes[1]).abs().amax(dim=(0, 1))
@@ -594,7 +652,8 @@ def main() -> int:
     mlab_max_err = max(float(d_err.max()), float(a_err.max()), float(f_err.max()),
                        float(rgba_err.max()))
     print(f"capsule_mlab vs plain: pairs {mlab_pairs}, evaluated after culls "
-          f"{mlab_evaluated}, hits {stats['hits']}, sweeps {stats['sweeps']}, "
+          f"{mlab_evaluated} (kernel {mlab_k_evaluated}), hits {stats['hits']}, sweeps "
+          f"{stats['sweeps']}, "
           f"members {stats['members']}; node depth+alpha within 1e-5 on "
           f"{nodes_ok:.6f} of pixels (max |dd| {float(d_err.max()):.3g}, |da| "
           f"{float(a_err.max()):.3g}, |dfeat| {float(f_err.max()):.3g}, there "
@@ -605,6 +664,8 @@ def main() -> int:
         raise RuntimeError("non-finite pixels in the 1080p MLAB frame")
     if nodes_ok < 0.999 or f_err_ok > 1e-5 or rgba_ok < 0.999:
         raise RuntimeError("MLAB kernel disagrees with its plain version")
+    if mlab_k_evaluated != mlab_evaluated:
+        raise RuntimeError("the MLAB kernel's work count differs from its plain version's")
     if mlab_ssim < 0.999 or mlab_mad > 2e-3:
         raise RuntimeError("MLAB kernel image disagrees with the plain version's")
 
@@ -640,8 +701,7 @@ def main() -> int:
     in_bytes = mlab_evaluated * MLAB_ROWS * 4 + 2 * n_tiles * 4 + 32 * 4
     ops = (mlab_evaluated * P * MLAB_OPS_PER_EVAL
            + stats["members"] * MLAB_OPS_PER_MEMBER
-           + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_SUB
-                                + MLAB_OPS_PER_SWEEP_NODE * MLAB_K))
+           + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * MLAB_K))
     t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
     t_ops = ops / H100_FP32_FLOPS * 1e3
     kernels.append({
@@ -663,6 +723,7 @@ def main() -> int:
         "rgba_agree": rgba_ok,
         "pairs": mlab_pairs,
         "evaluated": mlab_evaluated,
+        "kernel_evaluated": mlab_k_evaluated,
         "hits": stats["hits"],
         "sweeps": stats["sweeps"],
         "members": stats["members"],
@@ -873,9 +934,10 @@ def main() -> int:
         work = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
         kd, kc, ka = rasterize_capsules_mlab(*kargs, work=work, **kw)
         stats = {}
+        p_work = torch.zeros_like(work)
         (pd, pc, pa), p_ms = timed_plain(
-            lambda: rasterize_capsules_mlab_reference(*kargs, stats=stats, **kw))
-        evaluated = int(work.sum())
+            lambda: rasterize_capsules_mlab_reference(*kargs, stats=stats, work=p_work, **kw))
+        evaluated, k_evaluated = int(p_work.sum()), int(work.sum())
         d_err = (kd - pd).abs().amax(dim=0)
         rgba_err = torch.maximum((kc - pc).abs().amax(dim=(0, 1)), (ka - pa).abs().amax(dim=0))
         agree = float(((d_err <= 1e-5) & (rgba_err <= 1e-4)).float().mean())
@@ -884,9 +946,9 @@ def main() -> int:
         ms = _time_ms(lambda: rasterize_capsules_mlab(*kargs, **kw), 20)
         ops = (evaluated * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * OIT_OPS_PER_PEEL
                + stats["members"] * (MLAB_OPS_PER_MEMBER + OIT_OPS_PER_SHADE)
-               + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_SUB
-                                    + MLAB_OPS_PER_SWEEP_NODE * 8))
-        print(f"{name} vs plain (peel behind an exact K=8 pass): evaluated {evaluated}, hits "
+               + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * 8))
+        print(f"{name} vs plain (peel behind an exact K=8 pass): evaluated {evaluated} "
+              f"(kernel {k_evaluated}), hits "
               f"{stats['hits']}, sweeps {stats['sweeps']}, members {stats['members']}, nodes "
               f"within 1e-5 (depth) and 1e-4 (rgba) on {agree:.6f} of pixels (max |diff| "
               f"{max_err:.3g}), every node behind the peel depth {behind}, kernel {ms:.3f} ms, "
@@ -895,7 +957,7 @@ def main() -> int:
             raise RuntimeError(f"{name}: the kernel disagrees with its plain version")
         new_kernels.append(oit_entry(
             name, "raster_capsule_oit.cu", launches, max_err, ms, p_ms, evaluated, n_tiles, 8,
-            ops, extra_in_planes=1, hits=stats["hits"],
+            ops, extra_in_planes=1, hits=stats["hits"], kernel_evaluated=k_evaluated,
             sweeps=stats["sweeps"], members=stats["members"], node_agree=agree))
 
     # 10c. Cross-mode readings on frame 0.
@@ -1058,13 +1120,14 @@ def main() -> int:
     work = torch.zeros(n_tiles2, dtype=torch.int32, device=dev)
     kg = rasterize_capsules_mlab(*gather_args, store_mode="gather", work=work)
     stats = {}
+    p_work = torch.zeros_like(work)
     pg, g_plain_ms = timed_plain(lambda: rasterize_capsules_mlab_reference(
-        *gather_args, store_mode="gather", stats=stats))
+        *gather_args, store_mode="gather", stats=stats, work=p_work))
     g_err = max(float((a - b).abs().max()) for a, b in zip(kg, pg))
     g_equal = all(bool(torch.equal(a, b)) for a, b in zip(kg, pg))
     g_ms = _time_ms(lambda: rasterize_capsules_mlab(*gather_args, store_mode="gather"), 20)
     g_pairs = int(csr2.tile_count.sum())
-    g_evaluated = int(work.sum())
+    g_evaluated, g_k_evaluated = int(p_work.sum()), int(work.sum())
     half_px = s2.width * s2.height
     K_g = oo_set.gather_k
     oo_line = {
@@ -1073,7 +1136,7 @@ def main() -> int:
         "stage_ms_median": {k: float(np.median(v)) for k, v in stage_ms.items()},
         "launches_per_frame": {"capsule_mlab": 2},
         "gather_size": [s2.width, s2.height], "gather_pairs": g_pairs,
-        "gather_evaluated": g_evaluated,
+        "gather_evaluated": g_evaluated, "gather_kernel_evaluated": g_k_evaluated,
         "half_res_pixels_with_nodes": int((kg[0][0] < 1.5).sum()) / half_px,
         "half_res_pixels_with_K_nodes": int((kg[0][K_g - 1] < 1.5).sum()) / half_px,
         "gather_nodes": int((kg[0] < 1.5).sum()),
@@ -1097,10 +1160,11 @@ def main() -> int:
     if oo_line["foreground_share"] < 0.01 or oo_line["half_res_pixels_with_nodes"] < 0.01:
         raise RuntimeError("the opacity-optimization frames are almost empty")
     ops = (g_evaluated * 128 * MLAB_OPS_PER_EVAL + stats["members"] * GATHER_OPS_PER_MEMBER
-           + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_SUB + MLAB_OPS_PER_SWEEP_NODE * K_g))
+           + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * K_g))
     new_kernels.append(oit_entry(
         "capsule_mlab:gather", "raster_capsule_oit.cu", oo_launches // 2, g_err, g_ms,
         g_plain_ms, g_evaluated, n_tiles2, K_g, ops, pairs=g_pairs, hits=stats["hits"],
+        kernel_evaluated=g_k_evaluated,
         sweeps=stats["sweeps"], members=stats["members"], equal=g_equal,
         shape=[s2.width, s2.height]))
 
@@ -1138,8 +1202,9 @@ def main() -> int:
                 rasterize_capsules_accum.launches - before[1]) != ((0, 1) if accum else (1, 0)):
             raise RuntimeError(f"use_bands {key} did not launch its kernel once")
         stats = {}
+        p_work = None if accum else torch.zeros(nt_s, dtype=torch.int32, device=dev)
         p_out, p_ms = timed_plain(lambda: rasterize_capsules_mlab_reference(
-            *args, use_bands=True, stats=stats, **kw))
+            *args, use_bands=True, stats=stats, work=p_work, **kw))
         k17 = rasterize_capsules_mlab(*args, **kw)
         if key == "composite":
             kp, pp, k17p = k, p_out, k17
@@ -1164,14 +1229,12 @@ def main() -> int:
                 MLAB_OPS_PER_MEMBER + OIT_OPS_PER_SHADE_BANDS + OIT_OPS_PER_ACCUM[kw["store_mode"]])
             evaluated = pairs
         else:
-            work = torch.zeros(nt_s, dtype=torch.int32, device=dev)
-            rasterize_capsules_mlab(*args, use_bands=True, work=work, **kw)
-            evaluated = int(work.sum())
+            evaluated = int(p_work.sum())
             shade = OIT_OPS_PER_SHADE_BANDS if key == "shade_peel" else 0
             ops = (evaluated * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * (
                 OIT_OPS_PER_PEEL if key == "shade_peel" else 0)
                 + stats["members"] * (MLAB_OPS_PER_MEMBER + shade)
-                + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_SUB + MLAB_OPS_PER_SWEEP_NODE * 8))
+                + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * 8))
         band_figures[key] = {"agree": agree, "max_abs_err": max_err,
                              "moved_by_the_exponent": moved, "ms": ms, "plain_ms": p_ms}
         if agree < 0.999 or moved < 1e-4:
@@ -1645,18 +1708,28 @@ def main() -> int:
     torch.cuda.synchronize()
     ao_plain_ms = a.elapsed_time(b)
     ao_differ = int((k_occ != p_occ).sum())
-    ao_walked_batch = int(k_walked.sum())
-    ao_tests_batch = int(k_tests.sum())
+    # The bound is the work of the plain version; the kernel's own counts
+    # stand beside it.
+    ao_walked_batch, ao_k_walked = int(p_walked.sum()), int(k_walked.sum())
+    ao_tests_batch, ao_k_tests = int(p_tests.sum()), int(k_tests.sum())
     ao_counts_equal = torch.equal(k_walked, p_walked) and torch.equal(k_tests, p_tests)
     ao_active = int((pairs.seg_chunks > 0).sum())
     print(f"ao_grid vs plain (batch 0 of frame 0): pairs {k_occ.numel()}, occluded "
           f"{int(k_occ.sum())}, pairs that differ {ao_differ}, walked and test counts equal "
           f"{ao_counts_equal}, pair chunks {pairs.seg_chunks.shape[0]} "
           f"({ao_active} active), record chunks walked {ao_walked_batch}, longest walk "
-          f"{int(k_walked.max())}, (slot, ray) tests needed {ao_tests_batch} of "
-          f"{ao_walked_batch * 128 * 128} staged", flush=True)
+          f"{int(p_walked.max())}, (slot, ray) tests needed {ao_tests_batch} of "
+          f"{ao_walked_batch * 128 * 128} staged (kernel: walked {ao_k_walked}, tests "
+          f"{ao_k_tests})", flush=True)
     if ao_differ or not ao_counts_equal:
         raise RuntimeError("AO kernel disagrees with its plain version")
+    # The roots those tests need: the bound charges a root's operations only
+    # where its discriminant is not negative.
+    ao_replayed_tests, ao_roots = ao_root_tests(pairs, grid.records, grid.chunk)
+    print(f"ao_grid bound: tests {ao_replayed_tests} with non-negative discriminants "
+          f"(body, cap a, cap b) {ao_roots}", flush=True)
+    if ao_replayed_tests != ao_tests_batch:
+        raise RuntimeError("the replayed AO walk counts other tests than the plain version")
     if int(k_occ.sum()) < 1000:
         raise RuntimeError("the AO trace found almost no occlusion")
     card_vs_cpu(entry_rtao, "entry_rtao")
@@ -1703,12 +1776,18 @@ def main() -> int:
 
     ao_ms = _time_ms(lambda: ao_grid.trace_pairs(
         pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid.records, grid.chunk), 5)
+    # The same launch with every pair chunk empty: what the launch costs
+    # without a walk.
+    no_walk = torch.zeros_like(pairs.seg_chunks)
+    ao_empty_ms = _time_ms(lambda: ao_grid.trace_pairs(
+        pairs.rays, pairs.seg_begin, no_walk, grid.records, grid.chunk), 5)
     C = grid.chunk
     in_bytes = (ao_active * 7 * C * 4 + 2 * pairs.seg_chunks.shape[0] * 4
                 + min(ao_walked_batch * 8 * C, grid.records.numel()) * 4)
     out_bytes = k_occ.numel() * 4
     t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
-    t_ops = ao_tests_batch * AO_OPS_PER_TEST / H100_FP32_FLOPS * 1e3
+    t_ops = (ao_tests_batch * AO_OPS_PER_TEST
+             + sum(n * o for n, o in zip(ao_roots, AO_OPS_PER_ROOT))) / H100_FP32_FLOPS * 1e3
     kernels.append({
         "name": "ao_grid",
         "route": "cuda",
@@ -1729,7 +1808,11 @@ def main() -> int:
         "active_pair_chunks": ao_active,
         "record_chunks_walked": ao_walked_batch,
         "slot_ray_tests_needed": ao_tests_batch,
-        "longest_walk": int(k_walked.max()),
+        "tests_with_roots": dict(zip(("body", "cap_a", "cap_b"), ao_roots)),
+        "kernel_record_chunks_walked": ao_k_walked,
+        "kernel_slot_ray_tests": ao_k_tests,
+        "all_empty_ms": ao_empty_ms,
+        "longest_walk": int(p_walked.max()),
         "capsule_raster_launches": rtao_launches["capsule_raster"],
     })
     del first_batch, pairs, k_occ, p_occ, gbuf, grid

@@ -302,7 +302,7 @@ def _launcher():
     argument types declared so ctypes passes 64-bit pointers."""
     fn = _build.load("ao_grid").ao_grid_launch
     p, ll = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [p, ll, p, p, p, ll, p, p, p, ctypes.c_int, p]
+    fn.argtypes = [p, ll, p, p, p, ll, p, p, p, p, ctypes.c_int, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -327,7 +327,9 @@ def trace_pairs(
     occluded when it is staged.
 
     CUDA tensors launch the CUDA kernel (and count the launch in
-    `trace_pairs.launches`); CPU tensors run the plain version.
+    `trace_pairs.launches`), whose blocks walk only the active chunks; the
+    pairs of the other chunks, and their counts, are 0. CPU tensors run the
+    plain version.
     """
     if rays_sorted.device.type == "cpu":
         return trace_pairs_reference(rays_sorted, seg_begin, seg_chunks, records, chunk,
@@ -351,12 +353,16 @@ def trace_pairs(
         if t.device != rays_sorted.device or not t.is_contiguous():
             raise ValueError("inputs must be contiguous on the rays' device")
 
-    occ = torch.empty(n_chunks * chunk, dtype=torch.float32, device=rays_sorted.device)
+    occ = torch.zeros(n_chunks * chunk, dtype=torch.float32, device=rays_sorted.device)
+    if n_chunks == 0:
+        return occ
+    # The kernel's work-list counters and entries (ao_grid.cu), zero-filled.
+    sched = torch.zeros(n_chunks + 4, dtype=torch.int32, device=rays_sorted.device)
     with torch.cuda.device(rays_sorted.device):
         rc = _launcher()(
             rays_sorted.data_ptr(), rays_sorted.shape[1], seg_begin.data_ptr(),
-            seg_chunks.data_ptr(), records.data_ptr(), records.shape[1], occ.data_ptr(),
-            None if walked is None else walked.data_ptr(),
+            seg_chunks.data_ptr(), records.data_ptr(), records.shape[1], sched.data_ptr(),
+            occ.data_ptr(), None if walked is None else walked.data_ptr(),
             None if tests is None else tests.data_ptr(), n_chunks,
             torch.cuda.current_stream().cuda_stream,
         )

@@ -90,7 +90,6 @@ __all__ = [
 _K_MAX = 32  # deepest node buffer of the CUDA kernel (templated on 8/16/32)
 ROWS = 23  # payload rows the kernel reads: 0-22
 _MAX_PIXELS = 512  # threads per block in the CUDA kernel
-_MAX_SUB = 64  # per-thread candidate slots of the CUDA kernel: 2 * sub
 _MAX_CHUNK = 256  # staged payload columns of the CUDA kernel
 ACCUM_MODES = ("wboit", "count", "mboit_gen", "mboit_resolve")
 _ACCUM_CODE = {"count": 0, "wboit": 1, "mboit_gen": 2, "mboit_resolve": 3}
@@ -717,9 +716,8 @@ def rasterize_capsules_mlab(
     P = tile_w * tile_h
     if P % 32 or P > _MAX_PIXELS:
         raise ValueError(f"tile of {P} pixels: need a multiple of 32, at most {_MAX_PIXELS}")
-    if sub > _MAX_SUB or C > _MAX_CHUNK:
-        raise ValueError(f"sub={sub}, chunk={C}: the CUDA kernel takes sub <= "
-                         f"{_MAX_SUB} and chunk <= {_MAX_CHUNK}")
+    if C > _MAX_CHUNK:
+        raise ValueError(f"chunk={C}: the CUDA kernel takes chunk <= {_MAX_CHUNK}")
     if payload.dtype != torch.float32 or payload.dim() != 2 or payload.shape[0] < ROWS:
         raise ValueError(f"payload must be [R >= {ROWS}, pairs] float32")
     if params.dtype != torch.float32 or params.numel() < 28:

@@ -404,6 +404,50 @@ def test_ao_kernel_saturation_exit(cuda):
     assert tests.item() == 128 * 128
 
 
+def test_ao_kernel_all_chunks_empty(cuda):
+    """A batch whose every pair chunk is empty: no block walks, every flag
+    and count is 0 (the counts are written over whatever they held)."""
+    _, grid, rays = _ao_inputs(cuda, 1000)
+    pairs = tao.expand_ray_pairs(*rays, grid)
+    empty = torch.zeros_like(pairs.seg_chunks)
+    walked = torch.full_like(empty, -1)
+    tests = torch.full_like(empty, -1)
+    before = tao.trace_pairs.launches
+    k = tao.trace_pairs(pairs.rays, pairs.seg_begin, empty, grid.records, grid.chunk,
+                        walked=walked, tests=tests)
+    assert tao.trace_pairs.launches == before + 1
+    torch.cuda.synchronize()
+    assert k.shape == (empty.shape[0] * 128,) and not bool(k.any())
+    assert not bool(walked.any()) and not bool(tests.any())
+
+
+def test_ao_kernel_active_chunks_past_the_kept_prefix(cuda):
+    """Active pair chunks anywhere, not only the prefix of kept pairs: the
+    dropped pairs' chunks walk a record range, as they do where the grid's
+    last cell holds records, and some kept chunks are emptied."""
+    _, grid, rays = _ao_inputs(cuda, 4096)
+    pairs = tao.expand_ray_pairs(*rays, grid)
+    seg_begin, seg_chunks = pairs.seg_begin.clone(), pairs.seg_chunks.clone()
+    tail = torch.nonzero(seg_chunks == 0).flatten()
+    assert tail.numel() > 4
+    n_rec = int(grid.cell_start[-1] + grid.cell_count[-1])
+    seg_begin[tail] = (torch.arange(tail.numel(), device=cuda, dtype=torch.int32) * 128) % (
+        max(n_rec // 128, 1) * 128)
+    seg_chunks[tail] = 2
+    seg_chunks[1:tail[0]:3] = 0
+    walked = torch.zeros_like(seg_chunks)
+    tests = torch.zeros_like(seg_chunks)
+    k = tao.trace_pairs(pairs.rays, seg_begin, seg_chunks, grid.records, grid.chunk,
+                        walked=walked, tests=tests)
+    p_walked, p_tests = torch.zeros_like(walked), torch.zeros_like(walked)
+    p = tao.trace_pairs_reference(pairs.rays, seg_begin, seg_chunks, grid.records, grid.chunk,
+                                  walked=p_walked, tests=p_tests)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p) and torch.equal(walked, p_walked) and torch.equal(tests, p_tests)
+    assert k.reshape(-1, 128)[tail].sum().item() > 0  # the tail chunks were traced
+    assert int(walked[tail].sum()) > 0
+
+
 def test_trace_ao_occlusion_card_matches_cpu(cuda):
     """The whole trace (expansion, sorts, kernel, scatter) on the card
     against the CPU: both sorts are stable, so every ray is equal."""
@@ -700,6 +744,72 @@ def test_render_depth_complexity_card_equals_cpu(cuda):
         scene = ttr.build_capsule_scene(*_walk(12, 10, 8, 0.03), device=dev)
         out.append(toit.render_depth_complexity(scene, *ttr.camera_tensors(cam, dev), S).cpu())
     assert torch.equal(out[0], out[1]) and out[0].max().item() >= 3
+
+
+def _dense_mlab_frame(device, copies=10, W=96, H=64, chunk=32):
+    """The segments of a dense walk scene as lines of one segment each, every
+    one laid down `copies` times in a row at the same place (tie windows of
+    `copies` coincident fragments, more than the kernel keeps in registers,
+    next to each other in the runs), binned in chunks of 32 (default), so
+    tile runs span several chunks and a block of 16 candidates holds more
+    than K windows."""
+    pos, _, attrs, radius = _walk(5, 12, 10, 0.05)
+    seg = np.stack([pos[:, :-1], pos[:, 1:]], axis=2).reshape(-1, 2, 3)
+    seg_attr = np.stack([attrs[:, :-1], attrs[:, 1:]], axis=2).reshape(-1, 2)
+    pos, attrs = np.repeat(seg, copies, axis=0), np.repeat(seg_attr, copies, axis=0)
+    mask = np.ones(attrs.shape, bool)
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=16, tile_h=8, chunk=chunk,
+                       depth_cue_strength=0.2)
+    ts = ttr.build_capsule_scene(pos, mask, attrs, radius, device=device)
+    csr, params = toit.prepare_mlab_frame(ts, *ttr.camera_tensors(cam, device), S, 0.4)
+    return csr, params, S
+
+
+_DENSE_CASES = [("composite", 8), ("nodes", 3), ("nodes", 8), ("nodes", 16), ("nodes", 32),
+                ("no_overflow", 16), ("no_overflow", 32), ("two_sided", 8), ("peel", 8),
+                ("peel_merge", 8), ("gather", 8), ("bands", 8), ("wide_blocks", 8)]
+
+
+@pytest.mark.parametrize("mode,K", _DENSE_CASES)
+def test_kbuffer_dense_runs_equal_plain(cuda, mode, K):
+    """The K-buffer kernel bit for bit against its plain version where runs
+    span several chunks, a block of `sub` candidates holds more than K tie
+    windows and more hits than the kernel keeps in registers, and windows
+    hold 10 coincident fragments: every K-buffer mode, K 3 to 32; and the
+    composite in chunks of 256 and blocks of 128 candidates."""
+    W, H = 96, 64
+    wide = mode == "wide_blocks"
+    csr, params, S = _dense_mlab_frame(cuda, chunk=256 if wide else 32)
+    assert int(csr.tile_count.max()) > (128 if wide else 3 * csr.chunk)
+    kw = dict(K=K, tf_color=S.tf_color, tf_opacity=S.tf_opacity, sub=128 if wide else 16)
+    if mode in ("composite", "bands", "wide_blocks"):
+        kw.update(deferred_shade=True, composite=True, use_bands=mode == "bands")
+    elif mode in ("nodes", "no_overflow", "two_sided"):
+        kw.update(deferred_shade=True, no_overflow=mode == "no_overflow",
+                  two_sided=mode == "two_sided")
+    elif mode == "gather":
+        kw.update(store_mode="gather")
+    else:
+        d0, _, _ = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, K=2,
+                                                     tf_color=S.tf_color, no_overflow=True)
+        kw.update(peel=torch.where(d0 < 1.5, d0, -1.0).amax(dim=0).contiguous(),
+                  no_overflow=mode == "peel")
+    work = torch.zeros(csr.tile_start.shape[0], dtype=torch.int32, device=cuda)
+    before = rasterize_capsules_mlab.launches
+    k = rasterize_capsules_mlab(csr, params, W, H, 16, 8, work=work, **kw)
+    assert rasterize_capsules_mlab.launches == before + 1
+    p_work = torch.zeros_like(work)
+    stats = {}
+    p = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, work=p_work, stats=stats,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(work, p_work)
+    assert stats["members"] > 2 * stats["sweeps"]  # windows of several fragments
+    for a, b in zip((k,) if torch.is_tensor(k) else k, (p,) if torch.is_tensor(p) else p):
+        assert torch.equal(a, b)
+    filled = (k[3] > 0) if torch.is_tensor(k) else (k[0] < 2.0)
+    assert filled.sum().item() > 100
 
 
 # B2's last two modes: the importance gather ('gather') and band shading

@@ -1,24 +1,40 @@
-"""The port's K-buffer kernel (B2) and its accumulation kernel timed across source trees.
+"""The port's K-buffer kernel (B2), its accumulation kernel and the AO grid trace (B5) timed across source trees.
 
 A one-off A/B script beside `chip_smoke.py`, not part of the port's
 package. It compares two or more source trees of this repository on one
-card, in turns, so that a change to `csrc/raster_capsule_oit.cu` or
-`csrc/raster_capsule_accum.cu` can be held against its parent (unpack the
-parent with `git archive` into a directory that `.gitignore` lists). Each
-turn is a fresh process in the tree's root, which builds the tree's own
-kernels and times, on the first orbit camera of `chip_smoke.py` over the
-1920x1080 tornado (tile 16x8): the MLAB composite (K=8, opacity 0.3,
-deferred shading, sub 32, sat 0.999), 'wboit' and, where the tree has it,
-the opacity optimization's 'gather' at 960x528 (K=8), each the mean of 40
-launches between CUDA events.
+card, in turns, so that a change to `csrc/raster_capsule_oit.cu`,
+`csrc/raster_capsule_accum.cu` or `csrc/ao_grid.cu` can be held against its
+parent (unpack the parent with `git archive` into a directory that
+`.gitignore` lists). Each turn is a fresh process in the tree's root, which
+builds the tree's own kernels and times, on the first orbit camera of
+`chip_smoke.py` over the 1920x1080 tornado (tile 16x8):
+  - the MLAB composite (K=8, opacity 0.3, deferred shading, sub 32, sat
+    0.999);
+  - the exact peel pass (K=8, per-fragment shading behind the depth of an
+    exact K=8 pass: depth peeling's second pass) and the same with the
+    MLAB merge (MLAB buckets' second pass);
+  - the Atomic Loop's exact K-buffer at K=16 and K=32 (per-fragment
+    shading, no_overflow), and the Per-Pixel Linked Lists composite (the
+    MLAB composite at K=32);
+  - at 32x16 tiles, K=32: the composite and the exact K-buffer (the one
+    K-buffer instance whose nodes do not fit in shared memory);
+  - where the tree has `use_bands`, its two K-buffer cases at
+    `chip_smoke.py`'s 480x272 frame: the composite, and per-fragment
+    shading behind an exact pass;
+  - 'wboit';
+  - where the tree has it, the opacity optimization's 'gather' at 960x528
+    (K=8);
+  - B5 (`trace_pairs`) on the first batch of rays of `chip_smoke.py`'s
+    first RTAO frame (tile 32x16);
+each the mean of 40 launches between CUDA events.
 
     python3 tools/kernel_ab.py TREE [TREE ...] [--turns N]
 
 runs the trees in the order given, then reversed, N times (default 2),
 printing one JSON line per turn and a last line with the card and every
-turn. On a tree's first turn, which builds its two kernel sources anew, the
-line also holds each source's build cost: nvcc's seconds (the two compiled
-one after the other), the number of kernel instances ptxas compiled, the
+turn. On a tree's first turn, which builds its three kernel sources anew,
+the line also holds each source's build cost: nvcc's seconds (compiled one
+after the other), the number of kernel instances ptxas compiled, the
 library's bytes, and the ptxas registers and spills of the last K-buffer
 instance ptxas compiled.
 """
@@ -35,7 +51,7 @@ _CHILD = r'''
 import json, sys, torch
 from linevis_tpu_torch.kernels import _build
 info = {}
-for name in ("raster_capsule_oit", "raster_capsule_accum"):
+for name in ("raster_capsule_oit", "raster_capsule_accum", "ao_grid"):
     if sys.argv[1] == "rebuild":  # a tree's first turn: time its build
         _build._lib_path(name).unlink(missing_ok=True)
     info.update(_build.build([name]))  # one after the other: each nvcc timed alone
@@ -76,6 +92,23 @@ csr, params = prepare_mlab_frame(scene, *cam, s, 0.3)
 res["composite"] = timed(lambda: rasterize_capsules_mlab(
     csr, params, W, H, 16, 8, 8, s.tf_color, s.tf_opacity, deferred_shade=True, sub=32,
     sat=0.999, composite=True))
+kargs = (csr, params, W, H, 16, 8, 8, s.tf_color, s.tf_opacity)
+d1, _, _ = rasterize_capsules_mlab(*kargs, no_overflow=True)
+peel = torch.where(d1 < 1.5, d1, -1.0).amax(dim=0).contiguous()
+res["peel_exact"] = timed(lambda: rasterize_capsules_mlab(*kargs, peel=peel, no_overflow=True))
+res["peel_merge"] = timed(lambda: rasterize_capsules_mlab(*kargs, peel=peel))
+for k_al in (16, 32):  # the Atomic Loop's exact K-buffer (per-fragment shading)
+    res[f"atomic_loop_k{k_al}"] = timed(lambda: rasterize_capsules_mlab(
+        csr, params, W, H, 16, 8, k_al, s.tf_color, s.tf_opacity, no_overflow=True))
+res["composite_k32"] = timed(lambda: rasterize_capsules_mlab(
+    csr, params, W, H, 16, 8, 32, s.tf_color, s.tf_opacity, deferred_shade=True, sub=32,
+    sat=0.999, composite=True))
+s4 = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+csr4, params4 = prepare_mlab_frame(scene, *cam, s4, 0.3)
+args4 = (csr4, params4, W, H, 32, 16, 32, s4.tf_color, s4.tf_opacity)
+res["composite_k32_32x16"] = timed(lambda: rasterize_capsules_mlab(
+    *args4, deferred_shade=True, sub=32, sat=0.999, composite=True))
+res["atomic_loop_k32_32x16"] = timed(lambda: rasterize_capsules_mlab(*args4, no_overflow=True))
 csr_w, params_w, _ = prepare_capsule_frame(scene, *cam, s)
 params_w[14] = 0.3
 res["wboit"] = timed(lambda: rasterize_capsules_mlab(
@@ -87,6 +120,37 @@ try:
         csr2, params2, 960, 528, 16, 8, 8, s2.tf_color, s2.tf_opacity, store_mode="gather"))
 except (NotImplementedError, ValueError):
     pass  # a tree from before the gather mode
+# use_bands at chip_smoke.py's reduced frame (480x272): the composite and
+# per-fragment shading behind the depth of an exact pass.
+s3 = RasterSettings(width=480, height=272, tile_w=16, tile_h=8)
+cam3 = camera_tensors(
+    Camera(position=(0.0, 0.1, 1.2), width=480, height=272).orbit(0.002, 0.1, 1.2), dev)
+csr3, params3 = prepare_mlab_frame(scene, *cam3, s3, 0.3)
+args3 = (csr3, params3, 480, 272, 16, 8, 8, s3.tf_color, s3.tf_opacity)
+try:
+    d3, _, _ = rasterize_capsules_mlab(*args3, no_overflow=True, use_bands=True)
+    peel3 = torch.where(d3 < 1.5, d3, -1.0).amax(dim=0).contiguous()
+    res["bands_composite"] = timed(lambda: rasterize_capsules_mlab(
+        *args3, deferred_shade=True, composite=True, use_bands=True))
+    res["bands_peel"] = timed(lambda: rasterize_capsules_mlab(
+        *args3, peel=peel3, no_overflow=True, use_bands=True))
+except TypeError:
+    pass  # a tree from before use_bands
+from linevis_tpu_torch.entry import tornado_segment_grid
+from linevis_tpu_torch.kernels import ao_grid
+from linevis_tpu_torch.render.rtao import RtaoSettings, ray_batches, rtao_gbuffer, rtao_rays
+rt = RtaoSettings()
+grid = tornado_segment_grid(scene, rt.grid_resolution)
+gbuf = rtao_gbuffer(scene, *cam, RasterSettings(width=W, height=H, tile_w=32, tile_h=16))
+gen = torch.Generator(device=dev).manual_seed(rt.seed)
+u1 = torch.rand((rt.num_samples, H, W), generator=gen, device=dev)
+u2 = torch.rand((rt.num_samples, H, W), generator=gen, device=dev)
+o, d, t_max, valid = rtao_rays(gbuf, scene.radius, rt, u1, u2)
+b0, b1 = ray_batches(o.shape[1], rt.rays_per_batch)[0]
+pairs = ao_grid.expand_ray_pairs(o[:, b0:b1], d[:, b0:b1], t_max[b0:b1], valid[b0:b1], grid,
+                                 rt.max_ray_cells)
+res["ao_grid"] = timed(lambda: ao_grid.trace_pairs(
+    pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid.records, grid.chunk))
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
