@@ -66,7 +66,11 @@ frame against the two-sided MLAB frame, of the same camera. Then it prints
 one JSON line of kernel figures, and the device line last. A kernel's bound
 is computed from its plain version's counts (the work the function needs,
 whatever implements it), with the kernel's own counts beside them; the AO
-kernel's entry also times its launch with every pair chunk empty.
+kernel's entry also times its launch with every pair chunk empty. The
+prism and wavefront kernels' entries carry their instances' registers per
+thread, local memory and resident blocks per SM (read through each
+library's `kernel_info`), the candidates per tile (largest, 99th
+centile) and the group visits per ray block (50th and 99th centile).
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. Any failed check raises.
@@ -122,6 +126,9 @@ PRISM_SIDES = 8
 # The hit rule and the tie take 6. The winner's G-buffer (per update, not per
 # evaluation) is left out.
 PRISM_OPS_PER_EVAL = 15 * PRISM_SIDES + 16 * 2 + 6
+# The kernel takes the ring planes first; a pixel that already misses after
+# them and PRISM_SIDES // 2 side planes needs those and the miss test (2).
+PRISM_OPS_PER_OUT = 16 * 2 + 15 * (PRISM_SIDES // 2) + 2
 PRISM_ROWS = 23  # payload rows the prism kernel reads per candidate (0-10, 24-35)
 # Float operations of one (slot, pixel) evaluation of the triangle kernel:
 # three edge planes and the depth plane at 2 multiplies and 2 adds each, 16,
@@ -198,6 +205,62 @@ def _time_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def prism_out_early(csr, params, width, height, tile_w, tile_h, n_sides, batch_pairs=2048):
+    """The (candidate, pixel) evaluations of the prism kernel whose pixel
+    already misses (t_in > t_out or t_out <= 0) after the ring planes and
+    n_sides // 2 side planes, the kernel's order, replayed on the plain
+    version's planes -> (evaluations, of them out early)."""
+    from linevis_tpu_torch.kernels.capsule_common import BIG, pixel_rays
+    from linevis_tpu_torch.kernels.raster_prism import _planes, ring_table
+
+    dev = csr.payload.device
+    n_tiles = csr.tile_start.shape[0]
+    dn_all, _ = pixel_rays(params, n_tiles, csr.tiles_x, tile_w, tile_h, width, height)
+    cs = ring_table(n_sides, dev)
+    counts = csr.tile_count.long()
+    total = int(counts.sum())
+    pair_tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev), counts)
+    run_base = torch.cumsum(counts, 0) - counts
+    pair_col = (csr.tile_start.long()[pair_tile] + torch.arange(total, device=dev)
+                - run_base[pair_tile])
+    out = torch.zeros((), dtype=torch.int64, device=dev)
+    for b0 in range(0, total, batch_pairs):
+        tiles = pair_tile[b0:b0 + batch_pairs]
+        planes = _planes(csr.payload[:, pair_col[b0:b0 + batch_pairs]], n_sides, cs)
+        dnx, dny, dnz = (d[tiles] for d in dn_all)
+        t_in, t_out = torch.full_like(dnx, -BIG), torch.full_like(dnx, BIG)
+        for nx, ny, nz, num in planes[n_sides:] + planes[:n_sides // 2]:
+            nx, ny, nz, num = (v[:, None] for v in (nx, ny, nz, num))
+            den = (nx * dnx + ny * dny) + nz * dnz
+            tp = -num * (1.0 / den)
+            t_in = torch.where(den <= -1e-12, torch.maximum(t_in, tp), t_in)
+            t_out = torch.where(den >= 1e-12, torch.minimum(t_out, tp), t_out)
+        out += ((t_in > t_out) | (t_out <= 0.0)).sum()
+    return total * tile_w * tile_h, int(out)
+
+
+def kernel_resources(lib):
+    """Each kernel instance of a built library through its `kernel_info`
+    entry point (cudaFuncGetAttributes and the occupancy calculator):
+    registers per thread, local memory bytes, shared memory bytes, threads
+    and resident blocks per SM."""
+    import ctypes
+
+    fn = lib.kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out = []
+    while True:
+        v, label = (ctypes.c_int * 6)(), ctypes.create_string_buffer(64)
+        rc = fn(len(out), v, label, 64)
+        if rc:
+            if not out:
+                raise RuntimeError(f"kernel_info failed: CUDA error {rc}")
+            return out
+        out.append({"instance": label.value.decode(), "registers": v[0], "local_bytes": v[1],
+                    "shared_bytes": v[2] + v[5], "threads": v[4], "blocks_per_sm": v[3]})
 
 
 def ao_root_tests(pairs, records, chunk):
@@ -417,6 +480,10 @@ def main() -> int:
                 print(f"  {name}: {line.split(chr(39))[1]}", flush=True)
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    resources = {name: kernel_resources(_build.load(name))
+                 for name in ("raster_prism", "bvh_wavefront")}
+    for name, inst in resources.items():
+        print(f"{name} instances: " + json.dumps(inst), flush=True)
 
     # 2. Trace the tornado on the card.
     t0 = time.perf_counter()
@@ -1359,6 +1426,9 @@ def main() -> int:
     prism_evaluated = int(work.sum())
     if prism_evaluated != prism_pairs:
         raise RuntimeError("the prism kernel did not evaluate every candidate")
+    per_tile = csr.tile_count.double()
+    prism_per_tile = {"candidates_per_tile_max": int(csr.tile_count.max()),
+                      "candidates_per_tile_p99": float(per_tile.quantile(0.99))}
     agree = k_out[1] == p_out[1]
     prism_id_agree = float(agree.float().mean())
     prism_max = max(float((a - b).abs()[agree].max())
@@ -1372,7 +1442,9 @@ def main() -> int:
     print(f"prism_raster vs plain: pairs {prism_pairs}, evaluated "
           f"{prism_evaluated}, id agree {prism_id_agree:.6f}, max |dz, dgbuf, dcov| "
           f"{prism_max:.3g}, image ssim {img_ssim:.6f}, mean abs {img_mad:.3g}, "
-          f"foreground {fg:.4f}", flush=True)
+          f"foreground {fg:.4f}, candidates per tile max "
+          f"{prism_per_tile['candidates_per_tile_max']}, p99 "
+          f"{prism_per_tile['candidates_per_tile_p99']:.1f}", flush=True)
     if not np.isfinite(prism_img).all():
         raise RuntimeError("non-finite pixels in the 1080p prism frame")
     if prism_id_agree < 0.999 or prism_max > 1e-5:
@@ -1390,7 +1462,11 @@ def main() -> int:
     out_bytes = 10 * n_tiles * P * 4
     in_bytes = prism_evaluated * PRISM_ROWS * 4 + 2 * n_tiles * 4 + 32 * 4
     t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
-    t_ops = prism_evaluated * P * PRISM_OPS_PER_EVAL / H100_FP32_FLOPS * 1e3
+    n_evals, n_out = prism_out_early(csr, params, W, H, 32, 16, PRISM_SIDES)
+    ops = (n_evals - n_out) * PRISM_OPS_PER_EVAL + n_out * PRISM_OPS_PER_OUT
+    t_ops = ops / H100_FP32_FLOPS * 1e3
+    print(f"prism evaluations out after the ring planes and {PRISM_SIDES // 2} sides: "
+          f"{n_out} of {n_evals} ({n_out / max(n_evals, 1):.4f})", flush=True)
     kernels.append({
         "name": "prism_raster",
         "route": "cuda",
@@ -1409,6 +1485,10 @@ def main() -> int:
         "id_agree": prism_id_agree,
         "pairs": prism_pairs,
         "evaluated": prism_evaluated,
+        "pixel_evaluations": n_evals,
+        "pixel_evaluations_out_early": n_out,
+        **prism_per_tile,
+        "instances": resources["raster_prism"],
     })
     del prism_scene, csr, k_out, p_out
 
@@ -1902,6 +1982,8 @@ def main() -> int:
         "bvh_build_s": wf_setup["build_s"], "bvh_pack_s": wf_setup["pack_s"],
         "groups": n_groups, **{k + "_per_frame": v for k, v in by.items()},
         "visits_per_block_max": int(wf_stats[:, 0].max()),
+        "visits_per_block_p50": float(wf_stats[:, 0].double().quantile(0.5)),
+        "visits_per_block_p99": float(wf_stats[:, 0].double().quantile(0.99)),
         "foreground_share": wf_fg, "K": WF_K,
         "frames": WF_FRAMES, "width": W, "height": H, "gpu": gpu,
     }
@@ -1959,6 +2041,7 @@ def main() -> int:
         "groups": n_groups,
         **by,
         "wavefront_vs_mlab_two_sided_ssim": wf_ml_ssim,
+        "instances": resources["bvh_wavefront"],
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

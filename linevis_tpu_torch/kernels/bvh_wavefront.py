@@ -69,7 +69,7 @@ __all__ = [
 
 P = 128  # rays per wavefront block
 MAX_STACK = 192  # entries of a block's traversal stack
-_K_MAX = 32  # deepest node buffer of the CUDA kernel (templated on 8/16/32)
+_K_MAX = 32  # deepest node buffer of the CUDA kernel (its nodes in shared memory)
 # Columns of the optional per-block `stats` tensor.
 STATS = ("visits", "leaf_visits", "leaf_rows", "sweeps", "members", "max_stack")
 
@@ -387,6 +387,9 @@ def trace_wavefront_kbuffer(
     if groups.dtype != torch.float32 or groups.dim() != 2 or groups.shape[0] % 8 \
             or groups.shape[1] < USED_LANES:
         raise ValueError(f"groups must be [n_groups * 8, >= {USED_LANES}] float32")
+    if groups.data_ptr() % 16 or groups.shape[1] % 4:
+        # The kernel copies group rows with TMA bulk copies.
+        raise ValueError("groups rows must start on 16-byte boundaries")
     if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[0] != 8:
         raise ValueError("rays must be [8, R] float32")
     dev = rays.device

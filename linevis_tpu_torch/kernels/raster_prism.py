@@ -248,7 +248,7 @@ def _launcher():
     its argument types declared so ctypes passes 64-bit pointers."""
     fn = _build.load("raster_prism").raster_prism_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
+    fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p, i, i, i, i, f, f, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -310,12 +310,15 @@ def rasterize_prisms(
         raise ValueError("tile_start / tile_count must be int32")
 
     cs = ring_table(n_sides, payload.device)
+    # The blocks take the tiles longest run first: the longest runs start
+    # first instead of setting the tail (each tile writes its own slot).
+    order = torch.argsort(csr.tile_count, descending=True).to(torch.int32)
     out = torch.empty((10, n_tiles, P), dtype=torch.float32, device=payload.device)
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _launcher()(
             payload.data_ptr(), payload.shape[1],
-            csr.tile_start.data_ptr(), csr.tile_count.data_ptr(),
+            csr.tile_start.data_ptr(), csr.tile_count.data_ptr(), order.data_ptr(),
             params.data_ptr(), cs.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr(),
             n_tiles, csr.tiles_x, tile_w, tile_h,

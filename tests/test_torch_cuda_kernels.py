@@ -190,10 +190,10 @@ def test_render_tubes_mlab_card_matches_cpu(cuda, renderer):
     assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3
 
 
-def _prism_frame(device, W, H, tile, n_sides, scene=(11, 10, 8, 0.02)):
+def _prism_frame(device, W, H, tile, n_sides, scene=(11, 10, 8, 0.02), lines=None):
     cam = Camera(position=(0.1, 0.2, 1.4), width=W, height=H)
     S = RasterSettings(width=W, height=H, tile_w=tile[0], tile_h=tile[1])
-    ts = ttr.build_prism_scene(*_walk(*scene), n_sides=n_sides, device=device)
+    ts = ttr.build_prism_scene(*(lines or _walk(*scene)), n_sides=n_sides, device=device)
     csr, params, _ = ttr.prepare_prism_frame(ts, *ttr.camera_tensors(cam, device), S)
     return csr, params
 
@@ -203,7 +203,7 @@ def _all_equal(k, p):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n_sides", [6, 8, MAX_SIDES])
+@pytest.mark.parametrize("n_sides", [3, 6, 8, MAX_SIDES])
 @pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
 def test_prism_kernel_matches_plain(cuda, tile, n_sides):
     W, H = 200, 120  # not a multiple of the tile: edge tiles are cropped
@@ -215,6 +215,35 @@ def test_prism_kernel_matches_plain(cuda, tile, n_sides):
     assert torch.equal(work, csr.tile_count)  # every candidate is evaluated
     p = rasterize_prisms_reference(csr, params, W, H, *tile, n_sides=n_sides)
     torch.cuda.synchronize()
+    assert (k[1] >= 0).sum().item() > 100
+    _all_equal(k, p)
+
+
+def _bundle(seed=7, L=48, P=12, radius=0.003, center=(0.35, -0.2, 0.0)):
+    """48 short random walks packed near `center`: a few tiles right of and
+    below the screen's middle hold runs of several chunks."""
+    rng = np.random.default_rng(seed)
+    pos = np.cumsum(rng.normal(0, 0.01, (L, P, 3)), axis=1).astype(np.float32)
+    pos += np.asarray(center, np.float32) - pos.mean(axis=(0, 1))
+    attrs = rng.uniform(0, 1, (L, P)).astype(np.float32)
+    return pos, np.ones((L, P), bool), attrs, radius
+
+
+@pytest.mark.parametrize("n_sides", [3, 8])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_prism_kernel_long_runs_late_tiles(cuda, tile, n_sides):
+    """Runs longer than one chunk of 128 candidates, on tiles past the
+    middle of the index order (the kernel takes the longest runs first)."""
+    W, H = 200, 120
+    csr, params = _prism_frame(cuda, W, H, tile, n_sides, lines=_bundle())
+    counts = csr.tile_count
+    assert int(counts.max()) > 2 * 128
+    assert int(counts.argmax()) > counts.numel() // 2
+    work = torch.zeros(counts.shape[0], dtype=torch.int32, device=cuda)
+    k = rasterize_prisms(csr, params, W, H, *tile, n_sides=n_sides, work=work)
+    p = rasterize_prisms_reference(csr, params, W, H, *tile, n_sides=n_sides)
+    torch.cuda.synchronize()
+    assert torch.equal(work, counts)
     assert (k[1] >= 0).sum().item() > 100
     _all_equal(k, p)
 
@@ -508,6 +537,33 @@ def test_wavefront_kernel_matches_plain(cuda, builder, K, no_overflow):
     torch.cuda.synchronize()
     assert k[0].shape == (K, n_blocks, 128) and k[1].shape == (3, K, n_blocks, 128)
     assert (k[0] < 2.0).sum().item() > 100
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(stats, p_stats)
+
+
+@pytest.mark.parametrize("no_overflow", [False, True], ids=["mlab_merge", "no_overflow"])
+@pytest.mark.parametrize("K", [8, 32])
+def test_wavefront_kernel_incoherent_rays_match_plain(cuda, K, no_overflow):
+    """Rays from random points in random directions: every block visits
+    nearly every group, the leaf rows of most, with many sweeps."""
+    groups, _, ab = _wavefront_inputs(cuda, 96, 64, "binned_sah")
+    rng = np.random.default_rng(5)
+    n = 128 * 16
+    d = rng.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0)
+    rays = np.concatenate([rng.uniform(-0.4, 0.4, (3, n)), d, np.full((1, n), 1e6),
+                           np.ones((1, n))]).astype(np.float32)
+    rays = torch.as_tensor(rays, device=cuda)
+    stats = torch.zeros((16, 6), dtype=torch.int64, device=cuda)
+    k = twf.trace_wavefront_kbuffer(groups, rays, ab, K=K, opacity=0.4,
+                                    no_overflow=no_overflow, stats=stats)
+    p_stats = torch.zeros_like(stats)
+    p = twf.trace_wavefront_kbuffer_reference(groups, rays, ab, K=K, opacity=0.4,
+                                              no_overflow=no_overflow, stats=p_stats)
+    torch.cuda.synchronize()
+    assert stats[:, 0].float().mean().item() > 0.8 * (groups.shape[0] // 8)
+    assert (k[0] < 2.0).sum().item() > 500
     for a, b in zip(k, p):
         assert torch.equal(a, b)
     assert torch.equal(stats, p_stats)

@@ -42,16 +42,22 @@ instance ptxas compiled.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 __all__ = ["main"]
 
 _CHILD = r'''
-import json, sys, torch
+import json, os, sys, torch
 from linevis_tpu_torch.kernels import _build
+groups_file, kernels = sys.argv[2], sys.argv[3].split(",")
+sources = {"b2": ("raster_capsule_oit", "raster_capsule_accum"), "b5": ("ao_grid",),
+           "b4": ("raster_prism",), "b6": ("bvh_wavefront",)}
 info = {}
-for name in ("raster_capsule_oit", "raster_capsule_accum", "ao_grid"):
+for name in [n for k in kernels for n in sources[k]]:
     if sys.argv[1] == "rebuild":  # a tree's first turn: time its build
         _build._lib_path(name).unlink(missing_ok=True)
     info.update(_build.build([name]))  # one after the other: each nvcc timed alone
@@ -63,7 +69,8 @@ from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.tube_raster import camera_tensors, prepare_capsule_frame
 
 dev = "cuda"
-scene = tornado_scene(dev, traj=tornado_trajectories(dev))
+traj = tornado_trajectories(dev)
+scene = tornado_scene(dev, traj=traj)
 W, H = 1920, 1080
 s = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
 cam = camera_tensors(
@@ -88,79 +95,124 @@ res["build"] = {
     name: {"nvcc_s": b["seconds"], "instances": b["log"].count("Compiling entry function"),
            "library_bytes": _build._lib_path(name).stat().st_size}
     for name, b in info.items()}
-csr, params = prepare_mlab_frame(scene, *cam, s, 0.3)
-res["composite"] = timed(lambda: rasterize_capsules_mlab(
-    csr, params, W, H, 16, 8, 8, s.tf_color, s.tf_opacity, deferred_shade=True, sub=32,
-    sat=0.999, composite=True))
-kargs = (csr, params, W, H, 16, 8, 8, s.tf_color, s.tf_opacity)
-d1, _, _ = rasterize_capsules_mlab(*kargs, no_overflow=True)
-peel = torch.where(d1 < 1.5, d1, -1.0).amax(dim=0).contiguous()
-res["peel_exact"] = timed(lambda: rasterize_capsules_mlab(*kargs, peel=peel, no_overflow=True))
-res["peel_merge"] = timed(lambda: rasterize_capsules_mlab(*kargs, peel=peel))
-for k_al in (16, 32):  # the Atomic Loop's exact K-buffer (per-fragment shading)
-    res[f"atomic_loop_k{k_al}"] = timed(lambda: rasterize_capsules_mlab(
-        csr, params, W, H, 16, 8, k_al, s.tf_color, s.tf_opacity, no_overflow=True))
-res["composite_k32"] = timed(lambda: rasterize_capsules_mlab(
-    csr, params, W, H, 16, 8, 32, s.tf_color, s.tf_opacity, deferred_shade=True, sub=32,
-    sat=0.999, composite=True))
-s4 = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
-csr4, params4 = prepare_mlab_frame(scene, *cam, s4, 0.3)
-args4 = (csr4, params4, W, H, 32, 16, 32, s4.tf_color, s4.tf_opacity)
-res["composite_k32_32x16"] = timed(lambda: rasterize_capsules_mlab(
-    *args4, deferred_shade=True, sub=32, sat=0.999, composite=True))
-res["atomic_loop_k32_32x16"] = timed(lambda: rasterize_capsules_mlab(*args4, no_overflow=True))
-csr_w, params_w, _ = prepare_capsule_frame(scene, *cam, s)
-params_w[14] = 0.3
-res["wboit"] = timed(lambda: rasterize_capsules_mlab(
-    csr_w, params_w, W, H, 16, 8, 1, s.tf_color, s.tf_opacity, store_mode="wboit"))
-s2 = RasterSettings(width=960, height=528, tile_w=16, tile_h=8)
-csr2, params2, _ = prepare_capsule_frame(scene, *cam, s2)
-try:
-    res["gather"] = timed(lambda: rasterize_capsules_mlab(
-        csr2, params2, 960, 528, 16, 8, 8, s2.tf_color, s2.tf_opacity, store_mode="gather"))
-except (NotImplementedError, ValueError):
-    pass  # a tree from before the gather mode
-# use_bands at chip_smoke.py's reduced frame (480x272): the composite and
-# per-fragment shading behind the depth of an exact pass.
-s3 = RasterSettings(width=480, height=272, tile_w=16, tile_h=8)
-cam3 = camera_tensors(
-    Camera(position=(0.0, 0.1, 1.2), width=480, height=272).orbit(0.002, 0.1, 1.2), dev)
-csr3, params3 = prepare_mlab_frame(scene, *cam3, s3, 0.3)
-args3 = (csr3, params3, 480, 272, 16, 8, 8, s3.tf_color, s3.tf_opacity)
-try:
-    d3, _, _ = rasterize_capsules_mlab(*args3, no_overflow=True, use_bands=True)
-    peel3 = torch.where(d3 < 1.5, d3, -1.0).amax(dim=0).contiguous()
-    res["bands_composite"] = timed(lambda: rasterize_capsules_mlab(
-        *args3, deferred_shade=True, composite=True, use_bands=True))
-    res["bands_peel"] = timed(lambda: rasterize_capsules_mlab(
-        *args3, peel=peel3, no_overflow=True, use_bands=True))
-except TypeError:
-    pass  # a tree from before use_bands
-from linevis_tpu_torch.entry import tornado_segment_grid
-from linevis_tpu_torch.kernels import ao_grid
-from linevis_tpu_torch.render.rtao import RtaoSettings, ray_batches, rtao_gbuffer, rtao_rays
-rt = RtaoSettings()
-grid = tornado_segment_grid(scene, rt.grid_resolution)
-gbuf = rtao_gbuffer(scene, *cam, RasterSettings(width=W, height=H, tile_w=32, tile_h=16))
-gen = torch.Generator(device=dev).manual_seed(rt.seed)
-u1 = torch.rand((rt.num_samples, H, W), generator=gen, device=dev)
-u2 = torch.rand((rt.num_samples, H, W), generator=gen, device=dev)
-o, d, t_max, valid = rtao_rays(gbuf, scene.radius, rt, u1, u2)
-b0, b1 = ray_batches(o.shape[1], rt.rays_per_batch)[0]
-pairs = ao_grid.expand_ray_pairs(o[:, b0:b1], d[:, b0:b1], t_max[b0:b1], valid[b0:b1], grid,
-                                 rt.max_ray_cells)
-res["ao_grid"] = timed(lambda: ao_grid.trace_pairs(
-    pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid.records, grid.chunk))
+
+
+def b2():
+    csr, params = prepare_mlab_frame(scene, *cam, s, 0.3)
+    res["composite"] = timed(lambda: rasterize_capsules_mlab(
+        csr, params, W, H, 16, 8, 8, s.tf_color, s.tf_opacity, deferred_shade=True, sub=32,
+        sat=0.999, composite=True))
+    kargs = (csr, params, W, H, 16, 8, 8, s.tf_color, s.tf_opacity)
+    d1, _, _ = rasterize_capsules_mlab(*kargs, no_overflow=True)
+    peel = torch.where(d1 < 1.5, d1, -1.0).amax(dim=0).contiguous()
+    res["peel_exact"] = timed(lambda: rasterize_capsules_mlab(*kargs, peel=peel, no_overflow=True))
+    res["peel_merge"] = timed(lambda: rasterize_capsules_mlab(*kargs, peel=peel))
+    for k_al in (16, 32):  # the Atomic Loop's exact K-buffer (per-fragment shading)
+        res[f"atomic_loop_k{k_al}"] = timed(lambda: rasterize_capsules_mlab(
+            csr, params, W, H, 16, 8, k_al, s.tf_color, s.tf_opacity, no_overflow=True))
+    res["composite_k32"] = timed(lambda: rasterize_capsules_mlab(
+        csr, params, W, H, 16, 8, 32, s.tf_color, s.tf_opacity, deferred_shade=True, sub=32,
+        sat=0.999, composite=True))
+    s4 = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+    csr4, params4 = prepare_mlab_frame(scene, *cam, s4, 0.3)
+    args4 = (csr4, params4, W, H, 32, 16, 32, s4.tf_color, s4.tf_opacity)
+    res["composite_k32_32x16"] = timed(lambda: rasterize_capsules_mlab(
+        *args4, deferred_shade=True, sub=32, sat=0.999, composite=True))
+    res["atomic_loop_k32_32x16"] = timed(lambda: rasterize_capsules_mlab(
+        *args4, no_overflow=True))
+    csr_w, params_w, _ = prepare_capsule_frame(scene, *cam, s)
+    params_w[14] = 0.3
+    res["wboit"] = timed(lambda: rasterize_capsules_mlab(
+        csr_w, params_w, W, H, 16, 8, 1, s.tf_color, s.tf_opacity, store_mode="wboit"))
+    s2 = RasterSettings(width=960, height=528, tile_w=16, tile_h=8)
+    csr2, params2, _ = prepare_capsule_frame(scene, *cam, s2)
+    try:
+        res["gather"] = timed(lambda: rasterize_capsules_mlab(
+            csr2, params2, 960, 528, 16, 8, 8, s2.tf_color, s2.tf_opacity,
+            store_mode="gather"))
+    except (NotImplementedError, ValueError):
+        pass  # a tree from before the gather mode
+    # use_bands at chip_smoke.py's reduced frame (480x272): the composite and
+    # per-fragment shading behind the depth of an exact pass.
+    s3 = RasterSettings(width=480, height=272, tile_w=16, tile_h=8)
+    cam3 = camera_tensors(
+        Camera(position=(0.0, 0.1, 1.2), width=480, height=272).orbit(0.002, 0.1, 1.2), dev)
+    csr3, params3 = prepare_mlab_frame(scene, *cam3, s3, 0.3)
+    args3 = (csr3, params3, 480, 272, 16, 8, 8, s3.tf_color, s3.tf_opacity)
+    try:
+        d3, _, _ = rasterize_capsules_mlab(*args3, no_overflow=True, use_bands=True)
+        peel3 = torch.where(d3 < 1.5, d3, -1.0).amax(dim=0).contiguous()
+        res["bands_composite"] = timed(lambda: rasterize_capsules_mlab(
+            *args3, deferred_shade=True, composite=True, use_bands=True))
+        res["bands_peel"] = timed(lambda: rasterize_capsules_mlab(
+            *args3, peel=peel3, no_overflow=True, use_bands=True))
+    except TypeError:
+        pass  # a tree from before use_bands
+
+
+def b5():
+    from linevis_tpu_torch.entry import tornado_segment_grid
+    from linevis_tpu_torch.kernels import ao_grid
+    from linevis_tpu_torch.render.rtao import RtaoSettings, ray_batches, rtao_gbuffer, rtao_rays
+    rt = RtaoSettings()
+    grid = tornado_segment_grid(scene, rt.grid_resolution)
+    gbuf = rtao_gbuffer(scene, *cam, RasterSettings(width=W, height=H, tile_w=32, tile_h=16))
+    gen = torch.Generator(device=dev).manual_seed(rt.seed)
+    u1 = torch.rand((rt.num_samples, H, W), generator=gen, device=dev)
+    u2 = torch.rand((rt.num_samples, H, W), generator=gen, device=dev)
+    o, d, t_max, valid = rtao_rays(gbuf, scene.radius, rt, u1, u2)
+    b0, b1 = ray_batches(o.shape[1], rt.rays_per_batch)[0]
+    pairs = ao_grid.expand_ray_pairs(o[:, b0:b1], d[:, b0:b1], t_max[b0:b1], valid[b0:b1],
+                                     grid, rt.max_ray_cells)
+    res["ao_grid"] = timed(lambda: ao_grid.trace_pairs(
+        pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid.records, grid.chunk))
+
+
+def b4():
+    from linevis_tpu_torch.entry import tornado_prism_scene
+    from linevis_tpu_torch.kernels.raster_prism import rasterize_prisms
+    from linevis_tpu_torch.render.tube_raster import prepare_prism_frame
+    prism_scene = tornado_prism_scene(dev, n_sides=8, traj=traj)
+    for tw, th in ((32, 16), (16, 8)):
+        sp = RasterSettings(width=W, height=H, tile_w=tw, tile_h=th)
+        csr, params, _ = prepare_prism_frame(prism_scene, *cam, sp)
+        res[f"prism_{tw}x{th}"] = timed(lambda: rasterize_prisms(
+            csr, params, W, H, tw, th, n_sides=8))
+
+
+def b6():
+    from linevis_tpu_torch.entry import tornado_wide_bvh
+    from linevis_tpu_torch.kernels.bvh_wavefront import trace_wavefront_kbuffer
+    from linevis_tpu_torch.render.ray_tracer import primary_rays
+    if os.path.exists(groups_file):
+        groups = torch.load(groups_file).to(dev)
+    else:  # the run's first turn builds the tree for every turn
+        groups, _ = tornado_wide_bvh(scene, builder="binned_sah")
+        torch.save(groups.cpu(), groups_file)
+    rays = primary_rays(cam[0], cam[1], s, 1e6)
+    for name, K, no_overflow in (("wavefront_k8", 8, False), ("wavefront_k8_no_overflow", 8, True),
+                                 ("wavefront_k16", 16, False), ("wavefront_k32", 32, False)):
+        res[name] = timed(lambda: trace_wavefront_kbuffer(
+            groups, rays, cam[2], K=K, opacity=0.3, tf_opacity=s.tf_opacity,
+            no_overflow=no_overflow), n=10)
+
+
+for k in kernels:
+    {"b2": b2, "b5": b5, "b4": b4, "b6": b6}[k]()
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
 
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
-    turns = 2
+    turns, kernels = 2, "b2,b5,b4,b6"
     if "--turns" in args:
         i = args.index("--turns")
         turns = int(args[i + 1])
+        del args[i:i + 2]
+    if "--kernels" in args:
+        i = args.index("--kernels")
+        kernels = args[i + 1]
         del args[i:i + 2]
     if not args:
         raise SystemExit(__doc__)
@@ -169,20 +221,25 @@ def main(argv=None) -> int:
         capture_output=True, text=True).stdout.strip()
     order = [t for k in range(turns) for t in (args if k % 2 == 0 else args[::-1])]
     results = {t: [] for t in args}
-    for tree in order:
-        first = "rebuild" if not results[tree] else "cached"
-        p = subprocess.run([sys.executable, "-c", _CHILD, first], cwd=tree, capture_output=True,
-                           text=True, timeout=900)
-        line = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
-        if p.returncode != 0 or not line:
-            print(f"{tree}: failed (rc {p.returncode})\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}",
-                  flush=True)
-            return 1
-        r = json.loads(line[0][len("RESULT "):])
-        if not r["build"]:
-            del r["ptxas"], r["build"]
-        results[tree].append(r)
-        print(json.dumps({"tree": tree, **r}), flush=True)
+    tmp = tempfile.mkdtemp(prefix="kernel_ab_")
+    groups_file = os.path.join(tmp, "groups.pt")
+    try:
+        for tree in order:
+            first = "rebuild" if not results[tree] else "cached"
+            p = subprocess.run([sys.executable, "-c", _CHILD, first, groups_file, kernels],
+                               cwd=tree, capture_output=True, text=True, timeout=900)
+            line = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
+            if p.returncode != 0 or not line:
+                print(f"{tree}: failed (rc {p.returncode})\n{p.stdout[-2000:]}\n"
+                      f"{p.stderr[-3000:]}", flush=True)
+                return 1
+            r = json.loads(line[0][len("RESULT "):])
+            if not r["build"]:
+                del r["ptxas"], r["build"]
+            results[tree].append(r)
+            print(json.dumps({"tree": tree, **r}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"gpu": gpu, "turns": results}), flush=True)
     return 0
 
