@@ -67,10 +67,16 @@ one JSON line of kernel figures, and the device line last. A kernel's bound
 is computed from its plain version's counts (the work the function needs,
 whatever implements it), with the kernel's own counts beside them; the AO
 kernel's entry also times its launch with every pair chunk empty. The
-prism and wavefront kernels' entries carry their instances' registers per
-thread, local memory and resident blocks per SM (read through each
-library's `kernel_info`), the candidates per tile (largest, 99th
-centile) and the group visits per ray block (50th and 99th centile).
+capsule, triangle, prism and wavefront kernels' entries carry their
+instances' registers per thread, local memory and resident blocks per SM
+(read through each library's `kernel_info`), the candidates or chunks per
+tile (50th and 99th centile, largest) and the group visits per ray block
+(50th and 99th centile). The capsule kernel is held against its plain
+version bit for bit, with AA on the capsule frame and without AA on the
+RTAO G-buffer's binning, and its bound charges the start cap and each
+part's AA distance only where the function needs them
+(`capsule_needed_work`, itself held against the plain version's
+arithmetic).
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. Any failed check raises.
@@ -95,8 +101,17 @@ H100_HBM_BYTES = 3.35e12
 # with coverage AA, each add/mul/min/max/compare/sqrt/div counted once:
 # ray re-origin and dot products 38, three quadratics and their roots 35,
 # three AA signed distances 51 (the body's through a cross product),
-# acceptance tests and selects 19.
+# acceptance tests and selects 19; 143 with every part.
 CAPSULE_OPS_PER_EVAL = 143
+# The parts that the function needs only at some (candidate, pixel) pairs:
+# the start cap (root 9, tests 4) only where payload row 13 holds one; a
+# part's AA distance (the body's 31, a cap's 10) only where the rest of its
+# test holds (`capsule_needed_work`). Every evaluation needs the rest, 79.
+CAPSULE_OPS_START_CAP = 13
+CAPSULE_OPS_BODY_AA = 31
+CAPSULE_OPS_CAP_AA = 10
+CAPSULE_OPS_BASE = (CAPSULE_OPS_PER_EVAL - CAPSULE_OPS_START_CAP - CAPSULE_OPS_BODY_AA
+                    - 2 * CAPSULE_OPS_CAP_AA)
 STAGED_ROWS = 13  # payload rows the capsule kernel reads per candidate
 # Float operations of the MLAB kernel (each add/mul/min/max/compare/select/
 # sqrt/div counted once, an FMA twice), front faces only:
@@ -239,6 +254,69 @@ def prism_out_early(csr, params, width, height, tile_w, tile_h, n_sides, batch_p
             t_out = torch.where(den >= 1e-12, torch.minimum(t_out, tp), t_out)
         out += ((t_in > t_out) | (t_out <= 0.0)).sum()
     return total * tile_w * tile_h, int(out)
+
+
+def capsule_needed_work(csr, params, width, height, tile_w, tile_h, work, batch_pairs=2048):
+    """The (candidate, pixel) evaluations of the capsule function with AA
+    in the candidates each tile evaluated (`work`), and among them those
+    that need each optional part, replayed on the plain version's
+    arithmetic: the start cap where payload row 13 holds one, and a part's
+    AA distance where the rest of its test holds (the body's axial range
+    and t > 0; each cap's axial side and t > 0). The replay is held against
+    the plain version's `_candidates` on the same batches: the same
+    re-origin t0 bit for bit, and every hit there the t of a part that the
+    replay counts as needed; it raises otherwise.
+    -> {"evaluations", "start_cap", "body_aa", "cap_a_aa", "cap_b_aa", "hits"}."""
+    from linevis_tpu_torch.kernels.capsule_common import BIG, pixel_rays
+    from linevis_tpu_torch.kernels.raster_capsule import _candidates
+
+    dev = csr.payload.device
+    n_tiles = csr.tile_start.shape[0]
+    P = tile_w * tile_h
+    dn_all, invlen_all = pixel_rays(params, n_tiles, csr.tiles_x, tile_w, tile_h, width,
+                                    height)
+    counts = csr.tile_count.long()
+    pair_tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev), counts)
+    run_base = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(pair_tile.numel(), device=dev) - run_base[pair_tile]
+    keep = rank < work.long()[pair_tile]
+    pair_tile = pair_tile[keep]
+    pair_col = csr.tile_start.long()[pair_tile] + rank[keep]
+    acc = torch.zeros(5, dtype=torch.int64, device=dev)
+    for b0 in range(0, pair_tile.numel(), batch_pairs):
+        tiles = pair_tile[b0:b0 + batch_pairs]
+        s = csr.payload[:, pair_col[b0:b0 + batch_pairs]][:, :, None]
+        dn = tuple(d[tiles] for d in dn_all)
+        dnx, dny, dnz = dn
+        bard = s[3] * dnx + s[4] * dny + s[5] * dnz
+        rdoa = s[0] * dnx + s[1] * dny + s[2] * dnz
+        baba, rr = s[10], s[6] * s[6]
+        t0 = -(rdoa + 0.5 * bard)
+        oax, oay, oaz = s[0] + t0 * dnx, s[1] + t0 * dny, s[2] + t0 * dnz
+        baoa = s[3] * oax + s[4] * oay + s[5] * oaz
+        oaoa = oax * oax + oay * oay + oaz * oaz
+        rd = rdoa + t0
+        k2 = torch.clamp(baba - bard * bard, min=1e-20)
+        k1 = baba * rd - baoa * bard
+        h = k1 * k1 - k2 * (baba * oaoa - baoa * baoa - rr * baba)
+        tb = (-k1 - torch.sqrt(torch.clamp(h, min=0.0))) / k2
+        yb = baoa + tb * bard
+        ta = -rd - torch.sqrt(torch.clamp(rd * rd - (oaoa - rr), min=0.0))
+        b1b = rd - bard
+        tbb = -b1b - torch.sqrt(torch.clamp(b1b * b1b - (oaoa - 2.0 * baoa + baba - rr), min=0.0))
+        cap = (s[13] > 0.5).expand_as(yb)
+        body = (yb > 0.0) & (yb < baba) & (t0 + tb > 0.0)
+        cap_a = cap & (baoa + ta * bard <= 0.0) & (t0 + ta > 0.0)
+        cap_b = (baoa + tbb * bard >= baba) & (t0 + tbb > 0.0)
+        tall, t0_plain, _, _ = _candidates(s, dn, invlen_all[tiles], params[19], True)
+        hit = tall < BIG
+        explained = ((tall == tb) & body) | ((tall == ta) & cap_a) | ((tall == tbb) & cap_b)
+        if not torch.equal(t0_plain, t0) or bool((hit & ~explained).any()):
+            raise RuntimeError("the capsule replay drifted from the plain version's arithmetic")
+        acc += torch.stack([cap.sum(), body.sum(), cap_a.sum(), cap_b.sum(), hit.sum()])
+    start_cap, body, cap_a, cap_b, hits = acc.tolist()
+    return {"evaluations": pair_tile.numel() * P, "start_cap": start_cap, "body_aa": body,
+            "cap_a_aa": cap_a, "cap_b_aa": cap_b, "hits": hits}
 
 
 def kernel_resources(lib):
@@ -481,7 +559,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     resources = {name: kernel_resources(_build.load(name))
-                 for name in ("raster_prism", "bvh_wavefront")}
+                 for name in ("raster_capsule", "raster_triangle", "raster_prism", "bvh_wavefront")}
     for name, inst in resources.items():
         print(f"{name} instances: " + json.dumps(inst), flush=True)
 
@@ -560,6 +638,12 @@ def main() -> int:
     planes_p = [p_out[0], *p_out[2][:7]]
     max_gbuf = max(float((a - b).abs()[agree].max()) for a, b in zip(planes_k, planes_p))
     max_cov = float((k_out[2][7] - p_out[2][7]).abs()[agree].max())
+    cap_equal = all(bool(torch.equal(a, b)) for a, b in zip(
+        [k_out[0], ids_k, *k_out[2]], [p_out[0], ids_p, *p_out[2]]))
+    cap_per_tile = csr.tile_count.double()
+    cap_tiles = {"candidates_per_tile_p50": float(cap_per_tile.quantile(0.5)),
+                 "candidates_per_tile_p99": float(cap_per_tile.quantile(0.99)),
+                 "candidates_per_tile_max": int(csr.tile_count.max())}
     img_k = resolve_capsule_frame(scene, csr, k_out, *cams[0], basis, settings)
     img_p = resolve_capsule_frame(scene, csr, p_out, *cams[0], basis, settings)
     img_k_np = img_k.permute(1, 2, 0).cpu().numpy()
@@ -568,13 +652,16 @@ def main() -> int:
     img_mad = float(np.abs(img_k_np - img_p_np).mean())
     fg = float((ids_k >= 0).float().mean())
     print(f"capsule_raster vs plain: pairs {pairs}, evaluated after early-z {evaluated}, "
-          f"id agree {id_agree:.6f}, max |dz, dgbuf| {max_gbuf:.3g}, max |dcov| "
-          f"{max_cov:.3g}, image ssim {img_ssim:.6f}, mean abs {img_mad:.3g}, "
-          f"foreground {fg:.4f}", flush=True)
+          f"equal {cap_equal}, id agree {id_agree:.6f}, max |dz, dgbuf| {max_gbuf:.3g}, "
+          f"max |dcov| {max_cov:.3g}, image ssim {img_ssim:.6f}, mean abs {img_mad:.3g}, "
+          f"foreground {fg:.4f}, candidates per tile p50 "
+          f"{cap_tiles['candidates_per_tile_p50']:.1f}, p99 "
+          f"{cap_tiles['candidates_per_tile_p99']:.1f}, max "
+          f"{cap_tiles['candidates_per_tile_max']}", flush=True)
     if not np.isfinite(img_k_np).all():
         raise RuntimeError("non-finite pixels in the 1080p frame")
-    if id_agree < 0.999 or max_gbuf > 1e-5 or max_cov > 2e-3:
-        raise RuntimeError("capsule kernel disagrees with its plain version")
+    if not cap_equal:
+        raise RuntimeError("capsule kernel differs from its plain version")
     if img_ssim < 0.999 or img_mad > 2e-3:
         raise RuntimeError("kernel image disagrees with the plain version's")
     if fg < 0.01:
@@ -590,9 +677,14 @@ def main() -> int:
     )
     out_bytes = 10 * n_tiles * P * 4
     in_bytes = evaluated * STAGED_ROWS * 4 + 2 * n_tiles * 4 + 32 * 4
-    ops = evaluated * P * CAPSULE_OPS_PER_EVAL
+    need = capsule_needed_work(csr, params, W, H, 32, 16, work)
+    ops = (need["evaluations"] * CAPSULE_OPS_BASE + need["start_cap"] * CAPSULE_OPS_START_CAP
+           + need["body_aa"] * CAPSULE_OPS_BODY_AA
+           + (need["cap_a_aa"] + need["cap_b_aa"]) * CAPSULE_OPS_CAP_AA)
     t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
     t_ops = ops / H100_FP32_FLOPS * 1e3
+    t_ops_every_part = evaluated * P * CAPSULE_OPS_PER_EVAL / H100_FP32_FLOPS * 1e3
+    print("capsule_raster needed work: " + json.dumps(need), flush=True)
     kernels = [{
         "name": "capsule_raster",
         "route": "cuda",
@@ -607,13 +699,18 @@ def main() -> int:
         "bytes": in_bytes + out_bytes,
         "bytes_ms": t_bytes,
         "operations_ms": t_ops,
+        "operations_ms_every_part": t_ops_every_part,
         "library_ms": None,
+        "equal": cap_equal,
         "id_agree": id_agree,
         "max_abs_gbuf": max_gbuf,
         "max_abs_cov": max_cov,
         "kernel_ms": kernel_ms,
         "pairs": pairs,
         "evaluated": evaluated,
+        "needed_work": need,
+        **cap_tiles,
+        "instances": resources["raster_capsule"],
     }]
 
     # 7. The transparent path: N_FRAMES MLAB frames through render_tubes_mlab.
@@ -1578,6 +1675,10 @@ def main() -> int:
     base = csr.tile_chunk_base.long()
     tri_evaluated = int((cum[base + work.long()] - cum[base]).sum())
     tri_chunks_evaluated = int(work.sum())
+    tri_per_tile = csr.tile_num_chunks.double()
+    tri_tiles = {"chunks_per_tile_p50": float(tri_per_tile.quantile(0.5)),
+                 "chunks_per_tile_p99": float(tri_per_tile.quantile(0.99)),
+                 "chunks_per_tile_max": int(csr.tile_num_chunks.max())}
     tri_ids_equal = bool(torch.equal(k_out[1], p_out[1]))
     tri_depth_equal = bool(torch.equal(k_out[0], p_out[0]))
     tri_id_agree = float((k_out[1] == p_out[1]).float().mean())
@@ -1592,7 +1693,9 @@ def main() -> int:
           f"after early-z {tri_chunks_evaluated} chunks / {tri_evaluated} pairs, updates "
           f"{stats['takes']}, ids equal {tri_ids_equal} ({tri_id_agree:.6f}), depth equal "
           f"{tri_depth_equal}, max |dz, dplanes| {tri_max:.3g}, image ssim {img_ssim:.6f}, "
-          f"mean abs {img_mad:.3g}, foreground {fg:.4f}", flush=True)
+          f"mean abs {img_mad:.3g}, foreground {fg:.4f}, chunks per tile p50 "
+          f"{tri_tiles['chunks_per_tile_p50']:.1f}, p99 {tri_tiles['chunks_per_tile_p99']:.1f}, "
+          f"max {tri_tiles['chunks_per_tile_max']}", flush=True)
     if not np.isfinite(tri_img).all():
         raise RuntimeError("non-finite pixels in the 1080p triangle frame")
     if not (tri_ids_equal and tri_depth_equal) or tri_max > 1e-5:
@@ -1651,6 +1754,8 @@ def main() -> int:
         "prism_vs_triangle_ssim": parity_ssim,
         "prism_only_pixels": prism_only,
         "triangle_only_pixels": tri_only,
+        **tri_tiles,
+        "instances": resources["raster_triangle"],
     })
     del mesh, batch, csr, k_out, p_out, real, cum, work
     torch.cuda.empty_cache()
@@ -1756,6 +1861,22 @@ def main() -> int:
     img_main = render_tubes_rtao(scene, *rcams[0], settings, rt, frame=0, grid=grid)
     if not torch.equal(img_staged, img_main):
         raise RuntimeError("the staged RTAO frame differs from render_tubes_rtao's")
+    # The capsule kernel's instance without AA, as the G-buffer launches it,
+    # against its plain version bit for bit on frame 0's binning.
+    csr_g, params_g, _ = prepare_capsule_frame(scene, *rcams[0], settings)
+    g_args = (csr_g, params_g, W, H, settings.tile_w, settings.tile_h)
+    k_gout = rasterize_capsules(*g_args, use_aa=False)
+    p_gout = rasterize_capsules_reference(*g_args, use_aa=False)
+    g_no_aa_equal = all(bool(torch.equal(a, b)) for a, b in zip(
+        [k_gout[0], k_gout[1], *k_gout[2]], [p_gout[0], p_gout[1], *p_gout[2]]))
+    g_fg = float((k_gout[1] >= 0).float().mean())
+    print(f"capsule_raster without AA (RTAO G-buffer, frame 0) vs plain: pairs "
+          f"{int(csr_g.tile_count.sum())}, equal {g_no_aa_equal}, foreground {g_fg:.4f}",
+          flush=True)
+    if not g_no_aa_equal:
+        raise RuntimeError("capsule kernel without AA differs from its plain version")
+    next(k for k in kernels if k["name"] == "capsule_raster")["equal_no_aa"] = g_no_aa_equal
+    del csr_g, params_g, k_gout, p_gout
     rtao_fg = float(gbuf.fg.float().mean())
     ao_fg_mean = float(ao_map[gbuf.fg].mean())
     if rtao_fg < 0.01 or not 0.05 < ao_fg_mean < 0.999:

@@ -212,7 +212,7 @@ def _launcher():
     its argument types declared so ctypes passes 64-bit pointers."""
     fn = _build.load("raster_capsule").raster_capsule_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, i, i, i, i, f, f, i, i, p]
+    fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, i, i, i, i, f, f, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -250,8 +250,9 @@ def rasterize_capsules(
 
     n_tiles = csr.tile_start.shape[0]
     P = tile_w * tile_h
-    if P % 32 or P > _MAX_PIXELS:
-        raise ValueError(f"tile of {P} pixels: need a multiple of 32, at most {_MAX_PIXELS}")
+    if tile_w % 8 or tile_h % 4 or P > _MAX_PIXELS:
+        raise ValueError(f"tile {tile_w}x{tile_h}: the kernel's warps take 8x4 pixel blocks, "
+                         f"at most {_MAX_PIXELS} pixels")
     if payload.dtype != torch.float32 or payload.dim() != 2 or payload.shape[0] < 16:
         raise ValueError("payload must be [R >= 16, pairs] float32")
     if params.dtype != torch.float32 or params.numel() < 20:
@@ -267,12 +268,15 @@ def rasterize_capsules(
     if csr.tile_start.dtype != torch.int32 or csr.tile_count.dtype != torch.int32:
         raise ValueError("tile_start / tile_count must be int32")
 
+    # The blocks take the tiles longest run first: the longest runs start
+    # first instead of setting the tail (each tile writes its own slot).
+    order = torch.argsort(csr.tile_count, descending=True).to(torch.int32)
     out = torch.empty((10, n_tiles, P), dtype=torch.float32, device=payload.device)
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _launcher()(
             payload.data_ptr(), payload.shape[1],
-            csr.tile_start.data_ptr(), csr.tile_count.data_ptr(),
+            csr.tile_start.data_ptr(), csr.tile_count.data_ptr(), order.data_ptr(),
             params.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr(),
             n_tiles, csr.tiles_x, tile_w, tile_h,

@@ -52,8 +52,12 @@ __all__ = [
     "rasterize_depth", "rasterize_gbuffer", "rasterize_triangles_reference",
 ]
 
-_MAX_PIXELS = 512  # threads per block in the CUDA kernel
-_MAX_SHARED = 48 * 1024  # bytes of shared memory a chunk's rows may take
+_MAX_PIXELS = 512  # pixels per tile in the CUDA kernel
+_THREAD_PIXELS = (2, 2)  # columns x rows of pixels a thread owns (PIX_ROWS)
+# Shared memory a block may opt in to on sm_90, the kernel's build target:
+# it stages rows 0-15 of a chunk in two buffers, 2 * 16 * 4 B per slot.
+_MAX_SHARED = 227 * 1024
+_SHARED_PER_SLOT = 2 * 16 * 4
 MAX_ID = 1 << 24  # float32 holds ids exactly below this
 
 
@@ -434,7 +438,7 @@ def _launcher():
     its argument types declared so ctypes passes 64-bit pointers."""
     fn = _build.load("raster_triangle").raster_triangle_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -452,6 +456,10 @@ def _rasterize(csr, tile_w, tile_h, num_attr_planes, use_early_z, work):
     P = tile_w * tile_h
     if P % 32 or P > _MAX_PIXELS:
         raise ValueError(f"tile of {P} pixels: need a multiple of 32, at most {_MAX_PIXELS}")
+    tx, ty = _THREAD_PIXELS
+    if tile_w % tx or tile_h % ty or (P // (tx * ty)) % 32:
+        raise ValueError(f"tile {tile_w}x{tile_h}: the kernel's threads own {tx}x{ty} pixels "
+                         "and form whole warps")
     if payload.dtype != torch.float32 or payload.dim() != 3:
         raise ValueError("payload must be [R, chunks, chunk] float32")
     R, cap_chunks, C = payload.shape
@@ -460,9 +468,9 @@ def _rasterize(csr, tile_w, tile_h, num_attr_planes, use_early_z, work):
             f"payload [{R}, ., {C}] does not hold chunk {csr.chunk} with "
             f"{num_attr_planes} attribute planes"
         )
-    rows = 16 + 3 * num_attr_planes
-    if rows * C * 4 > _MAX_SHARED:
-        raise ValueError(f"{rows} rows x chunk {C} exceed {_MAX_SHARED} B of shared memory")
+    if C * _SHARED_PER_SLOT > _MAX_SHARED:
+        raise ValueError(f"chunk {C}: two staged chunks of 16 rows exceed {_MAX_SHARED} B "
+                         "of shared memory")
     if csr.num_primitives > MAX_ID:
         raise ValueError(
             f"{csr.num_primitives} primitives: ids are not exact in float32 beyond 2^24"
@@ -478,13 +486,16 @@ def _rasterize(csr, tile_w, tile_h, num_attr_planes, use_early_z, work):
     if csr.tile_chunk_base.dtype != torch.int32 or csr.tile_num_chunks.dtype != torch.int32:
         raise ValueError("tile_chunk_base / tile_num_chunks must be int32")
 
+    # The blocks take the tiles longest run first: the longest runs start
+    # first instead of setting the tail (each tile writes its own slot).
+    order = torch.argsort(csr.tile_num_chunks, descending=True).to(torch.int32)
     out = torch.empty((2 + num_attr_planes, n_tiles, P), dtype=torch.float32,
                       device=payload.device)
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _launcher()(
             payload.data_ptr(), csr.tile_chunk_base.data_ptr(),
-            csr.tile_num_chunks.data_ptr(), out.data_ptr(),
+            csr.tile_num_chunks.data_ptr(), order.data_ptr(), out.data_ptr(),
             None if work is None else work.data_ptr(),
             cap_chunks, C, n_tiles, csr.tiles_x, tile_w, tile_h,
             num_attr_planes, int(use_early_z), stream,

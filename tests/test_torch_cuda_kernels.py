@@ -5,11 +5,10 @@ Marked `cuda`: each test skips where torch.cuda.is_available() is false
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
-Bars (kernel vs plain version, same inputs on the card): segment ids equal
-on >= 99.9% of pixels, z_ndc and G-buffer within 1e-5 where they agree,
-coverage within 2e-3. For the MLAB kernel: node depths and alpha within
-1e-5 on >= 99.9% of pixels, features within 1e-5 there, composited RGBA
-within 1e-4 on >= 99.9% of pixels (the composite's powf may differ from
+Bars (kernel vs plain version, same inputs on the card): for the capsule
+kernel bit for bit (`torch.equal` on every output). For the MLAB kernel:
+node depths and alpha within 1e-5 on >= 99.9% of pixels, features within
+1e-5 there, composited RGBA within 1e-4 on >= 99.9% of pixels (the composite's powf may differ from
 torch.pow by an ulp). For the accumulation kernel: counts exactly, the
 WBOIT and MBOIT moment sums within 1e-5 of each pixel's scale (its sum of
 weights, or b0) on >= 99.9% of pixels, the MBOIT resolve within 1e-4 (the
@@ -72,22 +71,19 @@ def _walk(seed, L, P, radius):
     return pos, np.ones((L, P), bool), attrs, radius
 
 
-def _frame(device, W, H, tile, use_aa, scene=(11, 10, 8, 0.02)):
+def _frame(device, W, H, tile, use_aa, scene=(11, 10, 8, 0.02), lines=None):
     cam = Camera(position=(0.1, 0.2, 1.4), width=W, height=H)
     S = RasterSettings(width=W, height=H, tile_w=tile[0], tile_h=tile[1], aa=use_aa)
-    ts = ttr.build_capsule_scene(*_walk(*scene), device=device)
+    ts = ttr.build_capsule_scene(*(lines or _walk(*scene)), device=device)
     csr, params, _ = ttr.prepare_capsule_frame(
         ts, *ttr.camera_tensors(cam, device), S, aa_margin=0.5 if use_aa else 0.0
     )
     return csr, params, S
 
 
-def _check(k, p):
-    agree = k[1] == p[1]
-    assert agree.float().mean().item() >= 0.999
-    for a, b in zip([k[0], *k[2][:7]], [p[0], *p[2][:7]]):
-        assert (a - b).abs()[agree].max().item() <= 1e-5
-    assert (k[2][7] - p[2][7]).abs()[agree].max().item() <= 2e-3
+def _all_equal(k, p):
+    for a, b in zip([k[0], k[1], *k[2]], [p[0], p[1], *p[2]]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("use_aa", [False, True], ids=["aa_off", "aa_on"])
@@ -101,7 +97,55 @@ def test_capsule_kernel_matches_plain(cuda, tile, use_aa):
     p = rasterize_capsules_reference(csr, params, W, H, *tile, use_aa=use_aa)
     torch.cuda.synchronize()
     assert (k[1] >= 0).sum().item() > 100
-    _check(k, p)
+    _all_equal(k, p)
+
+
+@pytest.mark.parametrize("use_aa", [False, True], ids=["aa_off", "aa_on"])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_capsule_kernel_start_caps_mid_line(cuda, tile, use_aa):
+    """Lines broken by masked points: start caps (payload row 13) sit in
+    mid-line, where the kernel evaluates them behind a uniform branch."""
+    W, H = 200, 120
+    pos, mask, attrs, radius = _walk(11, 10, 24, 0.02)
+    mask[:, 4::5] = False  # every line breaks into five chains
+    csr, params, _ = _frame(cuda, W, H, tile, use_aa, lines=(pos, mask, attrs, radius))
+    runs = csr.payload[:, :int(csr.tile_count.sum())]  # the tiles' runs, in order
+    capped = torch.unique(runs[9][runs[13] > 0.5])
+    assert capped.numel() > 10  # more start caps than the 10 lines' own starts
+    k = rasterize_capsules(csr, params, W, H, *tile, use_aa=use_aa)
+    p = rasterize_capsules_reference(csr, params, W, H, *tile, use_aa=use_aa)
+    torch.cuda.synchronize()
+    assert (k[1] >= 0).sum().item() > 100
+    _all_equal(k, p)
+
+
+@pytest.mark.parametrize("use_aa", [False, True], ids=["aa_off", "aa_on"])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_capsule_kernel_long_runs_late_tiles(cuda, tile, use_aa):
+    """Runs longer than one chunk of 128 candidates, on tiles past the
+    middle of the index order (the kernel takes the longest runs first)."""
+    W, H = 200, 120
+    csr, params, _ = _frame(cuda, W, H, tile, use_aa, lines=_bundle())
+    counts = csr.tile_count
+    assert int(counts.max()) > 128
+    assert int(counts.argmax()) > counts.numel() // 2
+    p = rasterize_capsules_reference(csr, params, W, H, *tile, use_aa=use_aa)
+    assert (p[1] >= 0).sum().item() > 50  # the bundle covers a small patch
+    for early_z in (False, True):
+        work = torch.zeros(counts.shape[0], dtype=torch.int32, device=cuda)
+        k = rasterize_capsules(csr, params, W, H, *tile, use_early_z=early_z, use_aa=use_aa,
+                               work=work)
+        torch.cuda.synchronize()
+        assert torch.equal(work, counts) if not early_z else bool((work <= counts).all())
+        _all_equal(k, p)
+
+
+def test_capsule_wrapper_rejects_bad_tiles(cuda):
+    W, H = 64, 32
+    csr, params, _ = _frame(cuda, W, H, (16, 8), True)
+    for tile in ((12, 8), (16, 6), (64, 16)):  # not 8x4 blocks, or over 512 pixels
+        with pytest.raises(ValueError):
+            rasterize_capsules(csr, params, W, H, *tile)
 
 
 def test_early_z_preserves_result(cuda):
@@ -198,11 +242,6 @@ def _prism_frame(device, W, H, tile, n_sides, scene=(11, 10, 8, 0.02), lines=Non
     return csr, params
 
 
-def _all_equal(k, p):
-    for a, b in zip([k[0], k[1], *k[2]], [p[0], p[1], *p[2]]):
-        assert torch.equal(a, b)
-
-
 @pytest.mark.parametrize("n_sides", [3, 6, 8, MAX_SIDES])
 @pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
 def test_prism_kernel_matches_plain(cuda, tile, n_sides):
@@ -268,8 +307,8 @@ def test_prism_wrapper_rejects_bad_inputs(cuda):
         rasterize_prisms(csr, params, W, H, 24, 9)  # 216 pixels: not whole warps
 
 
-def _triangle_csr(device, W, H, tile, chunk, rows=40, scene=(11, 10, 8, 0.02)):
-    pos, mask, attrs, radius = _walk(*scene)
+def _triangle_csr(device, W, H, tile, chunk, rows=40, scene=(11, 10, 8, 0.02), lines=None):
+    pos, mask, attrs, radius = lines or _walk(*scene)
     mesh = build_tube_triangle_mesh(pos, mask, attrs, radius=radius, device=device)
     cam = Camera(position=(0.1, 0.2, 1.4), width=W, height=H)
     vp = ttr.camera_tensors(cam, device)[0]
@@ -297,6 +336,76 @@ def test_triangle_kernel_matches_plain(cuda, tile, chunk, mode):
     torch.cuda.synchronize()
     assert (k[1] >= 0).sum().item() > 100 and len(k[2]) == planes
     _all_equal(k, p)
+
+
+def _layered_csr(device, W, H, tile, chunk, layers=5, seed=5):
+    """Planes that cover the whole frame (edge planes (0, 0, 1)), one chunk
+    of them per depth layer, each layer nearer than the one before: every
+    row 15 is 0, so the CSR keeps their order and a pixel's winner changes
+    chunk at nearly every chunk. Within a layer every depth plane comes
+    twice (exact ties, ids in random order); the last layer repeats the
+    depth planes of the one before it, so it never wins (a later chunk
+    must be strictly nearer). -> (csr, ids of the last layer)."""
+    rng = np.random.default_rng(seed)
+    T = layers * chunk
+    pay = np.zeros((40, T), np.float32)
+    pay[[2, 5, 8]] = 1.0
+    layer = np.arange(T) // chunk
+    pay[9:11] = rng.uniform(-2e-4, 2e-4, (2, T))
+    pay[11] = 0.85 - 0.15 * layer + rng.uniform(-0.05, 0.05, T)
+    pay[9:12, 1::2] = pay[9:12, 0::2]  # ties inside each layer
+    pay[9:12, T - chunk:] = pay[9:12, T - 2 * chunk:T - chunk]
+    ids = rng.permutation(T).astype(np.float32)
+    pay[14] = ids
+    pay[16:] = rng.uniform(-1e-2, 1e-2, (24, T))
+    pay[18::3] = rng.uniform(-1.0, 1.0, (8, T))
+    tiles_x, tiles_y = -(-W // tile[0]), -(-H // tile[1])
+    full = torch.ones(T, device=device)
+    csr = trp.build_csr_binning_bbox(
+        0 * full, W * full, 0 * full, H * full, torch.tensor(pay, device=device),
+        full > 0, W, H, *tile, chunk, tiles_x, tiles_y, T * tiles_x * tiles_y)
+    return csr, torch.tensor(ids[T - chunk:], device=device).int()
+
+
+@pytest.mark.parametrize("mode", ["depth", "gbuffer"])
+@pytest.mark.parametrize("chunk", [16, 128])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_triangle_kernel_winner_changes_chunk(cuda, tile, chunk, mode):
+    """A pixel's winner moves to a later chunk several times: its planes
+    must be the last winner's; an equal depth in a later chunk keeps the
+    earlier winner, an equal depth in the same chunk goes to the lower id."""
+    W, H = 200, 120
+    planes = 8 if mode == "gbuffer" else 0
+    csr, last_ids = _layered_csr(cuda, W, H, tile, chunk)
+    assert int(csr.overflow) == 0
+    stats = {}
+    p = trp.rasterize_triangles_reference(csr, *tile, planes, stats=stats)
+    k = trp.rasterize_gbuffer(csr, planes, *tile)
+    torch.cuda.synchronize()
+    n_pixels = p[0].numel()
+    assert stats["takes"] > 3 * n_pixels  # four changes of chunk a pixel, nearly
+    assert bool((p[1] >= 0).all()) and not bool(torch.isin(p[1], last_ids).any())
+    _all_equal(k, p)
+
+
+@pytest.mark.parametrize("mode", ["depth", "gbuffer"])
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_triangle_kernel_long_runs_late_tiles(cuda, tile, mode):
+    """Runs of several chunks on tiles past the middle of the index order
+    (the kernel takes the longest runs first)."""
+    W, H = 200, 120
+    planes = 8 if mode == "gbuffer" else 0
+    csr = _triangle_csr(cuda, W, H, tile, 16, lines=_bundle())
+    nch = csr.tile_num_chunks
+    assert int(nch.max()) > 4 and int(nch.argmax()) > nch.numel() // 2
+    p = trp.rasterize_triangles_reference(csr, *tile, planes)
+    for early_z in (False, True):
+        work = torch.zeros(nch.shape[0], dtype=torch.int32, device=cuda)
+        k = trp.rasterize_gbuffer(csr, planes, *tile, use_early_z=early_z, work=work)
+        torch.cuda.synchronize()
+        assert torch.equal(work, nch) if not early_z else bool((work <= nch).all())
+        assert (k[1] >= 0).sum().item() > 50  # the bundle covers a small patch
+        _all_equal(k, p)
 
 
 def test_triangle_early_z_preserves_result(cuda):
@@ -327,9 +436,17 @@ def test_triangle_wrapper_rejects_bad_inputs(cuda):
     for b in bad:
         with pytest.raises(ValueError):
             trp.rasterize_gbuffer(b, 8, 16, 8)
-    big = _triangle_csr(cuda, 64, 32, (16, 8), 512)  # 40 rows x 512 slots > 48 KB
+    # The kernel stages 16 rows of two chunks: chunk 512 takes 64 KB (opted
+    # in), chunk 2048 256 KB, past the 227 KB a block may have.
+    wide = _triangle_csr(cuda, 64, 32, (16, 8), 512)
+    _all_equal(trp.rasterize_gbuffer(wide, 8, 16, 8),
+               trp.rasterize_triangles_reference(wide, 16, 8, 8))
+    big = _triangle_csr(cuda, 64, 32, (16, 8), 2048)
     with pytest.raises(ValueError):
         trp.rasterize_gbuffer(big, 8, 16, 8)
+    for tile in ((24, 4), (16, 3)):  # not whole warps of 2x2-pixel threads
+        with pytest.raises(ValueError):
+            trp.rasterize_gbuffer(csr, 8, *tile)
 
 
 @pytest.mark.parametrize("geometry", ["prism", "triangle"])

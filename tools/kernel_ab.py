@@ -1,10 +1,9 @@
-"""The port's K-buffer kernel (B2), its accumulation kernel and the AO grid trace (B5) timed across source trees.
+"""The port's hand-written kernels (B1-B6) timed across source trees.
 
 A one-off A/B script beside `chip_smoke.py`, not part of the port's
 package. It compares two or more source trees of this repository on one
-card, in turns, so that a change to `csrc/raster_capsule_oit.cu`,
-`csrc/raster_capsule_accum.cu` or `csrc/ao_grid.cu` can be held against its
-parent (unpack the parent with `git archive` into a directory that
+card, in turns, so that a change to a kernel under `csrc/` can be held
+against its parent (unpack the parent with `git archive` into a directory that
 `.gitignore` lists). Each turn is a fresh process in the tree's root, which
 builds the tree's own kernels and times, on the first orbit camera of
 `chip_smoke.py` over the 1920x1080 tornado (tile 16x8):
@@ -26,17 +25,21 @@ builds the tree's own kernels and times, on the first orbit camera of
     (K=8);
   - B5 (`trace_pairs`) on the first batch of rays of `chip_smoke.py`'s
     first RTAO frame (tile 32x16);
+  - B4 (8 sides) at 32x16 and 16x8; B6 at K=8 (MLAB merge and
+    `no_overflow`), K=16 and K=32 on the binned-SAH tree (10 launches);
+  - B1 at 32x16 with AA (the capsule frame) and without (the RTAO
+    G-buffer's pass), and at 16x8 with AA;
+  - B3 at 32x16 (chunk 128) with 8 attribute planes and depth only;
 each the mean of 40 launches between CUDA events.
 
-    python3 tools/kernel_ab.py TREE [TREE ...] [--turns N]
+    python3 tools/kernel_ab.py TREE [TREE ...] [--turns N] [--kernels b2,b5,b4,b6,b1,b3]
 
 runs the trees in the order given, then reversed, N times (default 2),
 printing one JSON line per turn and a last line with the card and every
 turn. On a tree's first turn, which builds its three kernel sources anew,
 the line also holds each source's build cost: nvcc's seconds (compiled one
 after the other), the number of kernel instances ptxas compiled, the
-library's bytes, and the ptxas registers and spills of the last K-buffer
-instance ptxas compiled.
+library's bytes and its ptxas register and spill lines.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ import json, os, sys, torch
 from linevis_tpu_torch.kernels import _build
 groups_file, kernels = sys.argv[2], sys.argv[3].split(",")
 sources = {"b2": ("raster_capsule_oit", "raster_capsule_accum"), "b5": ("ao_grid",),
-           "b4": ("raster_prism",), "b6": ("bvh_wavefront",)}
+           "b4": ("raster_prism",), "b6": ("bvh_wavefront",), "b1": ("raster_capsule",),
+           "b3": ("raster_triangle",)}
 info = {}
 for name in [n for k in kernels for n in sources[k]]:
     if sys.argv[1] == "rebuild":  # a tree's first turn: time its build
@@ -93,7 +97,9 @@ log = info.get("raster_capsule_oit", {}).get("log", "")
 res = {"ptxas": [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l][-2:]}
 res["build"] = {
     name: {"nvcc_s": b["seconds"], "instances": b["log"].count("Compiling entry function"),
-           "library_bytes": _build._lib_path(name).stat().st_size}
+           "library_bytes": _build._lib_path(name).stat().st_size,
+           "ptxas": sorted({l.split(":")[-1].strip() for l in b["log"].splitlines()
+                            if "Used" in l or "spill" in l})}
     for name, b in info.items()}
 
 
@@ -197,15 +203,42 @@ def b6():
             no_overflow=no_overflow), n=10)
 
 
+def b1():
+    from linevis_tpu_torch.kernels.raster_capsule import rasterize_capsules
+    # The capsule frame (AA, 0.5 px of cull slack) at both tiles, and the
+    # RTAO G-buffer's pass (no AA, no slack).
+    for key, tw, th, aa in (("capsule_aa_32x16", 32, 16, True),
+                            ("capsule_no_aa_32x16", 32, 16, False),
+                            ("capsule_aa_16x8", 16, 8, True)):
+        sc = RasterSettings(width=W, height=H, tile_w=tw, tile_h=th)
+        csr, params, _ = prepare_capsule_frame(scene, *cam, sc, aa_margin=0.5 if aa else 0.0)
+        res[key] = timed(lambda csr=csr, params=params, tw=tw, th=th, aa=aa: rasterize_capsules(
+            csr, params, W, H, tw, th, use_aa=aa))
+
+
+def b3():
+    from linevis_tpu_torch.entry import tornado_tube_mesh
+    from linevis_tpu_torch.kernels import raster_pallas
+    from linevis_tpu_torch.render.pipeline import build_payload, tube_vertex_stage
+    st = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+    batch = tube_vertex_stage(tornado_tube_mesh(dev, num_subdivisions=8, traj=traj), cam[0], W, H)
+    csr = raster_pallas.build_csr_binning(
+        batch.tri_x, batch.tri_y, build_payload(batch), batch.tri_valid, W, H, 32, 16,
+        st.chunk, st.span_x, st.span_y, st.pairs_capacity)
+    del batch
+    res["triangle_gbuffer_32x16"] = timed(lambda: raster_pallas.rasterize_gbuffer(csr, 8, 32, 16))
+    res["triangle_depth_32x16"] = timed(lambda: raster_pallas.rasterize_depth(csr, 32, 16))
+
+
 for k in kernels:
-    {"b2": b2, "b5": b5, "b4": b4, "b6": b6}[k]()
+    {"b2": b2, "b5": b5, "b4": b4, "b6": b6, "b1": b1, "b3": b3}[k]()
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
 
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
-    turns, kernels = 2, "b2,b5,b4,b6"
+    turns, kernels = 2, "b2,b5,b4,b6,b1,b3"
     if "--turns" in args:
         i = args.index("--turns")
         turns = int(args[i + 1])

@@ -1,9 +1,9 @@
-"""Where the time of B2's K-buffer kernel, B5's AO grid trace, B4's prism raster and B6's wavefront traversal goes, on one card.
+"""Where the time of the port's hand-written kernels (B1-B6) goes, on one card.
 
 A one-off measurement script beside `chip_smoke.py` and `tools/kernel_ab.py`,
 not part of the port's package. Run from the root of a source tree:
 
-    python3 tools/kernel_split.py [--turns N] [--out FILE] [--kernels b5,b2,b4,b6]
+    python3 tools/kernel_split.py [--turns N] [--out FILE] [--kernels b5,b2,b4,b6,b1,b3]
 
 B5 (`csrc/ao_grid.cu`), on the first 1080p batch of rays of `chip_smoke.py`'s
 first RTAO frame: the launch as it is; the same launch with every
@@ -11,46 +11,50 @@ first RTAO frame: the launch as it is; the same launch with every
 those without the longest walk; and the longest walk alone. It also prints
 the walk lengths (record chunks per active pair chunk).
 
-Then the tree's B5 against its variants (`B5_VARIANTS`, for the redesign),
-in turns.
+Then the tree's B5 against its variants (`B5_VARIANTS`: block shapes and
+register budgets), in turns.
+
+Every kernel's variants are text substitutions of the tree's own source,
+each built into a library of its own and timed in turns with the source as
+it is; a variant that changes the function says so (`equal_to_base`). A
+source that no longer holds a variant's text exactly once stops the script:
+the variants follow the committed sources (git history keeps those of the
+first designs). Each time is the mean of 40 launches between CUDA events.
 
 B2 (`csrc/raster_capsule_oit.cu`), on the first orbit camera of the 1080p
-tornado (tile 16x8, K=8, opacity 0.3): ablation variants of the tree's own
-kernel, each built from a copy of its source with one part taken out or
-changed by text substitution, timed in turns with the source as it is. The
-variants are those of the tree's design: `FIRST_DESIGN_VARIANTS` where the
-source is the first design (per-thread hit arrays rescanned for each tie
-window; unpack such a tree with `git archive` and run the script from its
-root), `VARIANTS` where it is the redesign (a sorted per-thread list of
-the nearest hits); a source that matches neither set stops the script.
-The modes timed: the MLAB composite,
-the exact peel pass (per-fragment shading behind a peel depth) and the
-'gather' at 960x528. A variant that changes the function says so
-(`equal_to_base`). Each time is the mean of 40 launches between CUDA events.
+tornado (tile 16x8, K=8, opacity 0.3), against `VARIANTS`: the MLAB
+composite, the exact peel pass (per-fragment shading behind a peel depth)
+and the 'gather' at 960x528.
 
 B4 (`csrc/raster_prism.cu`), on the first orbit camera of the 1080p prism
 tornado (8 sides, tile 32x16, and 16x8): the histogram of candidates per
 tile, the longest run's tile alone (every other tile's run emptied), and
-the tree's kernel against its variants (`B4_PARENT_VARIANTS` for the first
-design: the set-up alone, the pixel loop alone, a warp's exit once its
-pixels miss; `B4_VARIANTS` for the redesign: register budgets, no miss
-vote, tiles in index order, the set-up alone), and `clock64()` phase
-shares.
+the tree's kernel against `B4_VARIANTS` (register budgets, no miss vote,
+tiles in index order, the set-up alone) with `clock64()` phase shares.
 
 B6 (`csrc/bvh_wavefront.cu`), on that camera's 1080p primary rays through
 the binned-SAH tree (K=8, opacity 0.3): the histogram of group visits per
 ray block, the block with the most visits alone, and the tree's kernel
-against its variants (`B6_PARENT_VARIANTS` for the first design,
-`B6_VARIANTS` for the redesign, which adds register budgets, the sweeps
-without the members' shading or without the insertion, and the next
-record waited for as soon as its copy starts): the traversal alone (leaf
-rows treated as none), the leaf tests without sweeps, and `clock64()`
-phase shares of the warp-cycles (record wait, slab test with its
-reduction and barriers, leaf tests, sweeps, push; the compiler moves
-independent work across the clock reads, so the shares are rough). For
-both: registers, local memory, static shared memory and resident blocks
-per SM of every instance, read through the library (`kernel_info`;
-appended to a source of the first designs).
+against `B6_VARIANTS` (register budgets, the traversal alone with leaf rows
+treated as none, the leaf tests without sweeps, the sweeps without the
+members' shading or without the insertion, the next record waited for as
+soon as its copy starts) and `clock64()` phase shares of the warp-cycles
+(record wait, slab test with its reduction and barrier, leaf tests,
+sweeps, push; the compiler moves independent work across the clock reads,
+so the shares are rough).
+
+B1 (`csrc/raster_capsule.cu`), on that camera's 1080p capsule frame at
+32x16 with AA, the RTAO G-buffer's pass (32x16, no AA) and 16x8 with AA:
+the histogram of candidates per tile, the start caps among the pairs,
+whether the kernel equals its plain version bit for bit, and the tree's
+kernel against `B1_VARIANTS`, the longest run's tile alone timed as one
+more mode. B3 (`csrc/raster_triangle.cu`), on the 1080p triangle tubes (8
+subdivisions, 32x16, chunk 128) with 8 attribute planes and depth only:
+the histogram of chunks per tile and the same against `B3_VARIANTS`.
+
+For B4, B6, B1 and B3: registers, local memory, shared memory and
+resident blocks per SM of every instance of every variant, read through
+the library's `kernel_info`.
 
 The last line holds the card's name and power limit and every figure (also
 written to FILE with --out).
@@ -69,36 +73,12 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["main", "FIRST_DESIGN_VARIANTS", "VARIANTS", "B5_VARIANTS", "B4_PARENT_VARIANTS",
-           "B4_VARIANTS", "B6_PARENT_VARIANTS", "B6_VARIANTS"]
+__all__ = ["main", "VARIANTS", "B5_VARIANTS", "B4_VARIANTS", "B6_VARIANTS", "B1_VARIANTS",
+           "B3_VARIANTS"]
 
-# name -> [(old, new), ...] applied to csrc/raster_capsule_oit.cu: parts
-# taken out of the first design.
-FIRST_DESIGN_VARIANTS = {
-    # The composite epilogue over nodes with alpha only (an empty node adds
-    # exactly 0 and multiplies T by 1: the same function).
-    "epilogue_filled_only": [(
-        "      if (q < K) {\n        const float aN = na[q];",
-        "      if (q < K && na[q] != 0.0f) {\n        const float aN = na[q];")],
-    # No sweeps: hits found and stored, nothing extracted (the stores die).
-    "no_sweeps": [("for (int sw = 0; sw < K; ++sw) {", "for (int sw = 0; sw < 0; ++sw) {")],
-    # No tile-wide bound: no reduction, no barrier but the staging one, no
-    # T_K (the culls and the rejection never fire on the tornado at K=8).
-    "no_tile_bound": [
-        ("    float zk = tile_bound();  // synchronises: the staged rows are visible",
-         "    __syncthreads();\n    float zk = 2.0f;"),
-        ("      if (!first) zk = tile_bound();", "      if (!first) zk = 2.0f;")],
-    # Staging without the integer division: rows outer, columns inner.
-    "staging_no_division": [(
-        "    for (int i = tid; i < NROWS * C; i += P) {\n"
-        "      const int r = i / C, j = i - r * C;\n"
-        "      if (c0 + j >= lo && c0 + j < hi) s[r][j] = payload[(long long)r * ld + c0 + j];\n"
-        "    }",
-        "    for (int r = warp; r < NROWS; r += nwarps)\n"
-        "      for (int j = lo - c0 + lane; j < hi - c0; j += 32)\n"
-        "        s[r][j] = payload[(long long)r * ld + c0 + j];")],
-}
-# The same for the redesign.
+# name -> [(old, new), ...] applied to csrc/raster_capsule_oit.cu (B2: a
+# sorted per-thread list of the nearest hits, the nodes in shared memory):
+# parts taken out or changed.
 VARIANTS = {
     "slots_4": [("#define SLOTS 6 ", "#define SLOTS 4 ")],
     "slots_8": [("#define SLOTS 6 ", "#define SLOTS 8 ")],
@@ -113,7 +93,7 @@ VARIANTS = {
                            ("      launch<16, 5>(", "      launch<16, 0>("),
                            ("      launch<32, 5>(", "      launch<32, 0>("),
                            ("      launch<32, 3>(", "      launch<32, 0>(")],
-    # The redesign's phases timed with clock64() by lane 0 of each warp:
+    # The phases timed with clock64() by lane 0 of each warp:
     # the hit scans (fill), the window loop (scans included), the wait at
     # the tile-wide bound's barrier, the epilogue and the whole kernel,
     # summed into `g_phase` (read back and zeroed by `read_phase`).
@@ -148,8 +128,7 @@ VARIANTS = {
          "    atomicAdd(&g_phase[4], (unsigned long long)(ph_end - ph_e0));\n  }\n"
          "  if (work != nullptr && tid == 0) work[tile] = evaluated;")],
 }
-# The same for the redesigned csrc/ao_grid.cu (the first design has none):
-# block shapes and register budgets (4 slot groups of 32 slots per ray:
+# The same for csrc/ao_grid.cu (B5): block shapes and register budgets (4 slot groups of 32 slots per ray:
 # blocks of 512 threads; no minimum of resident blocks per SM, which lets
 # the registers exceed 32).
 B5_VARIANTS = {
@@ -158,91 +137,8 @@ B5_VARIANTS = {
                              ("__launch_bounds__(C * SPLIT, 2)", "__launch_bounds__(C * SPLIT, 4)")],
 }
 
-# B4, the first design of csrc/raster_prism.cu (one thread per candidate builds its
-# S + 2 planes; the plane loop to the run-time n_planes): parts taken out or
-# changed.
-B4_PARENT_VARIANTS = {
-    # The set-up alone: no pixel loop.
-    "setup_only": [("    for (int j = 0; j < n; ++j) {\n      // Slab clip:",
-                    "    for (int j = 0; j < 0; ++j) {\n      // Slab clip:")],
-    # The pixel loop alone: every plane a cheap stand-in (the frame loads,
-    # corners, cross products and normalisations die; the function changes).
-    "pixel_loop_only": [
-        ("        s_plane[j][k] = plane_of(nq, dot(nq, mid), oa);",
-         "        s_plane[j][k] = make_float4(ba.x, ba.y, ba.z, oa.x - (float)k);"),
-        ("      s_plane[j][n_sides] = plane_of(scale(cross(na, bna), -1.0f), 0.0f, oa);",
-         "      s_plane[j][n_sides] = make_float4(ba.x, ba.y, ba.z, oa.x);"),
-        ("      s_plane[j][n_sides + 1] = plane_of(tb, dot(tb, ba), oa);",
-         "      s_plane[j][n_sides + 1] = make_float4(ba.x, ba.y, ba.z, -oa.x);")],
-    # A warp leaves a candidate's plane loop once each of its pixels misses
-    # (t_in > t_out, t_out <= 0 or a parallel reject): the same function.
-    "miss_exit": [("        rej = rej || (para && pl.w > 0.0f);\n      }",
-                   "        rej = rej || (para && pl.w > 0.0f);\n"
-                   "        if (__all_sync(0xffffffffu, rej || t_in > t_out || t_out <= 0.0f)) break;\n"
-                   "      }")],
-    # The same with the two ring planes first (max and min do not depend
-    # on the order).
-    "ring_first_miss_exit": [
-        ("      for (int k = 0; k < n_planes; ++k) {\n        const float4 pl = s_plane[j][k];",
-         "      for (int kk = 0; kk < n_planes; ++kk) {\n"
-         "        const int k = kk < 2 ? n_sides + kk : kk - 2;\n"
-         "        const float4 pl = s_plane[j][k];"),
-        ("        rej = rej || (para && pl.w > 0.0f);\n      }",
-         "        rej = rej || (para && pl.w > 0.0f);\n"
-         "        if (__all_sync(0xffffffffu, rej || t_in > t_out || t_out <= 0.0f)) break;\n"
-         "      }")],
-    # Warp-cycles by clock64() (lane 0 of each warp): the set-up with its
-    # barrier, the pixel loop, the closing barrier, the whole kernel.
-    "phase_clock": [
-        ('#include "capsule_common.cuh"\n',
-         '#include "capsule_common.cuh"\n__device__ unsigned long long g_phase[8];\n'
-         'extern "C" int read_phase(unsigned long long* h) {\n'
-         '  const int e = (int)cudaMemcpyFromSymbol(h, g_phase, sizeof(g_phase));\n'
-         '  const unsigned long long z[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n'
-         '  cudaMemcpyToSymbol(g_phase, z, sizeof(z));\n  return e;\n}\n'),
-        ("  const int start = tile_start[tile];\n",
-         "  long long ph_setup = 0, ph_pix = 0, ph_bar = 0;\n"
-         "  const long long ph_start = clock64();\n  const int start = tile_start[tile];\n"),
-        ("    const int n = min(CHUNK, count - c0);\n",
-         "    const int n = min(CHUNK, count - c0);\n    const long long ph0 = clock64();\n"),
-        ("    __syncthreads();\n\n    for (int j = 0; j < n; ++j) {",
-         "    __syncthreads();\n    const long long ph1 = clock64();\n    ph_setup += ph1 - ph0;\n\n"
-         "    for (int j = 0; j < n; ++j) {"),
-        ("    __syncthreads();  // the next chunk overwrites the staged candidates\n",
-         "    const long long ph2 = clock64();\n    ph_pix += ph2 - ph1;\n"
-         "    __syncthreads();  // the next chunk overwrites the staged candidates\n"
-         "    ph_bar += clock64() - ph2;\n"),
-        ("  if (work != nullptr && tid == 0) work[tile] = count;",
-         "  if ((tid & 31) == 0) {\n"
-         "    atomicAdd(&g_phase[0], (unsigned long long)ph_setup);\n"
-         "    atomicAdd(&g_phase[1], (unsigned long long)ph_pix);\n"
-         "    atomicAdd(&g_phase[2], (unsigned long long)ph_bar);\n"
-         "    atomicAdd(&g_phase[3], (unsigned long long)(clock64() - ph_start));\n  }\n"
-         "  if (work != nullptr && tid == 0) work[tile] = count;")],
-}
-# The first design's third phase is its closing barrier, the redesign's the
-# winner's G-buffer.
-B4_PHASES = ("setup", "pixels", "after_pixels", "total")
-# `kernel_info` for a source of that design, which lacks it.
-B4_PARENT_INFO = r"""
-extern "C" int kernel_info(int i, int* v, char* label, int cap) {
-  if (i < 0 || i > 1) return (int)cudaErrorInvalidValue;
-  const int threads = i == 0 ? 512 : 128;
-  const char* nm = i == 0 ? "512 threads (32x16)" : "128 threads (16x8)";
-  cudaFuncAttributes a;
-  int e = (int)cudaFuncGetAttributes(&a, (const void*)prism_raster_kernel);
-  int nb = 0;
-  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, prism_raster_kernel, threads, 0);
-  v[0] = a.numRegs; v[1] = (int)a.localSizeBytes; v[2] = (int)a.sharedSizeBytes; v[3] = nb;
-  v[4] = threads; v[5] = 0;
-  int k = 0;
-  for (; nm[k] && k < cap - 1; ++k) label[k] = nm[k];
-  label[k] = 0;
-  return e;
-}
-"""
-# The same for the redesign (S a template argument, set-up one thread per
-# (plane, candidate), tiles longest run first).
+# The `phase_clock` variants' counters: warp-cycles summed into `g_phase`
+# by lane 0 of each warp, read back and zeroed by `read_phase`.
 _PHASE_COUNTERS = (
     '#include "capsule_common.cuh"\n',
     '#include "capsule_common.cuh"\n__device__ unsigned long long g_phase[8];\n'
@@ -250,6 +146,8 @@ _PHASE_COUNTERS = (
     '  const int e = (int)cudaMemcpyFromSymbol(h, g_phase, sizeof(g_phase));\n'
     '  const unsigned long long z[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n'
     '  cudaMemcpyToSymbol(g_phase, z, sizeof(z));\n  return e;\n}\n')
+# The same for csrc/raster_prism.cu (B4: S a template argument, set-up one
+# thread per (plane, candidate), tiles longest run first).
 B4_VARIANTS = {
     # Register budgets of the 8-side instance: 3 resident blocks per SM (at
     # most 40 registers) or 1 (at most 128).
@@ -287,80 +185,10 @@ B4_VARIANTS = {
          "    atomicAdd(&g_phase[3], (unsigned long long)(clock64() - ph_start));\n  }\n"
          "  if (work != nullptr && tid == 0) work[tile] = count;")],
 }
+B4_PHASES = ("setup", "pixels", "winner_gbuffer", "total")
 
-# B6, the first design of csrc/bvh_wavefront.cu (K nodes in registers, the record
-# fetched after the pop, three barriers a visit).
-B6_PARENT_VARIANTS = {
-    # The traversal alone: leaf rows treated as none.
-    "traversal_only": [("    if (has_leaf) {\n      ++leaf_visits;",
-                        "    if (false) {\n      ++leaf_visits;")],
-    # The leaf tests without sweeps (their hit count kept alive).
-    "no_sweeps": [("      for (int sw = 0; sw < K && nhit > 0; ++sw) {",
-                   "      my_members += nhit;\n      for (int sw = 0; sw < 0 && nhit > 0; ++sw) {")],
-    # Warp-cycles by clock64() (lane 0 of each warp): the pop and record
-    # fetch with the two barriers around it, the slab test with the
-    # reduction and its barrier, the leaf tests, the sweeps, the push, the
-    # whole kernel.
-    "phase_clock": [
-        ('#include "capsule_common.cuh"\n',
-         '#include "capsule_common.cuh"\n__device__ unsigned long long g_phase[8];\n'
-         'extern "C" int read_phase(unsigned long long* h) {\n'
-         '  const int e = (int)cudaMemcpyFromSymbol(h, g_phase, sizeof(g_phase));\n'
-         '  const unsigned long long z[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n'
-         '  cudaMemcpyToSymbol(g_phase, z, sizeof(z));\n  return e;\n}\n'),
-        ("  bool failed = false;\n",
-         "  bool failed = false;\n"
-         "  long long ph_wait = 0, ph_slab = 0, ph_leaf = 0, ph_sweep = 0, ph_push = 0;\n"
-         "  const long long ph_start = clock64();\n"),
-        ("  while (sp > 0) {\n    __syncthreads();",
-         "  while (sp > 0) {\n    const long long ph0 = clock64();\n    __syncthreads();"),
-        ("    __syncthreads();\n    ++visits;\n",
-         "    __syncthreads();\n    ++visits;\n    const long long ph1 = clock64();\n"
-         "    ph_wait += ph1 - ph0;\n"),
-        ("    const unsigned any = s_any;\n",
-         "    const unsigned any = s_any;\n    const long long ph2 = clock64();\n"
-         "    ph_slab += ph2 - ph1;\n"),
-        ("      // At most K sweeps: the nearest tie window each.\n",
-         "      const long long ph3 = clock64();\n      ph_leaf += ph3 - ph2;\n"
-         "      // At most K sweeps: the nearest tie window each.\n"),
-        ("      }\n    }\n\n    // Push the internal children that any ray still wants, in row order.\n",
-         "      }\n      ph_sweep += clock64() - ph3;\n    }\n\n    const long long ph4 = clock64();\n"
-         "    // Push the internal children that any ray still wants, in row order.\n"),
-        ("    max_sp = max(max_sp, sp);\n  }\n",
-         "    max_sp = max(max_sp, sp);\n    ph_push += clock64() - ph4;\n  }\n"),
-        ("  if (failed && tid == 0) atomicExch(overflow, 1);",
-         "  if ((tid & 31) == 0) {\n"
-         "    atomicAdd(&g_phase[0], (unsigned long long)ph_wait);\n"
-         "    atomicAdd(&g_phase[1], (unsigned long long)ph_slab);\n"
-         "    atomicAdd(&g_phase[2], (unsigned long long)ph_leaf);\n"
-         "    atomicAdd(&g_phase[3], (unsigned long long)ph_sweep);\n"
-         "    atomicAdd(&g_phase[4], (unsigned long long)ph_push);\n"
-         "    atomicAdd(&g_phase[5], (unsigned long long)(clock64() - ph_start));\n  }\n"
-         "  if (failed && tid == 0) atomicExch(overflow, 1);")],
-}
-B6_PHASES = ("pop_fetch", "slab", "leaf_tests", "sweeps", "push", "total")
-B6_PARENT_INFO = r"""
-extern "C" int kernel_info(int i, int* v, char* label, int cap) {
-  const void* f;
-  const char* nm;
-  if (i == 0) { f = (const void*)wavefront_kernel<8>; nm = "KMAX 8"; }
-  else if (i == 1) { f = (const void*)wavefront_kernel<16>; nm = "KMAX 16"; }
-  else if (i == 2) { f = (const void*)wavefront_kernel<32>; nm = "KMAX 32"; }
-  else return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  int e = (int)cudaFuncGetAttributes(&a, f);
-  int nb = 0;
-  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, f, P, 0);
-  v[0] = a.numRegs; v[1] = (int)a.localSizeBytes; v[2] = (int)a.sharedSizeBytes; v[3] = nb;
-  v[4] = P; v[5] = 0;
-  int k = 0;
-  for (; nm[k] && k < cap - 1; ++k) label[k] = nm[k];
-  label[k] = 0;
-  return e;
-}
-"""
-# The same for the redesign (nodes in shared memory, the next record in
-# flight during the leaf work, one barrier a visit).
+# The same for csrc/bvh_wavefront.cu (B6: nodes in shared memory, the next
+# record in flight during the leaf work, one barrier a visit).
 B6_VARIANTS = {
     # Register budgets: 8, 6 or 4 resident blocks per SM.
     "min_blocks_8": [("#define MIN_BLOCKS 5 ", "#define MIN_BLOCKS 8 ")],
@@ -427,6 +255,124 @@ B6_VARIANTS = {
          "    atomicAdd(&g_phase[5], (unsigned long long)(clock64() - ph_start));\n  }\n"
          "  if (failed && tid == 0) atomicExch(overflow, 1);")],
 }
+B6_PHASES = ("record_wait", "slab", "leaf_tests", "sweeps", "push", "total")
+
+# The same for csrc/raster_capsule.cu (B1: tiles longest run first, AA and
+# early-z template arguments, warps on 8x4 pixel blocks with votes, the
+# start cap behind a uniform branch, double-buffered staging).
+_B1_VOTES_OFF = [
+    ("      if (AA || __any_sync(FULL, h >= 0.0f)) {", "      if (true) {"),
+    ("      if (AA && __any_sync(FULL, okb)) {", "      if (AA) {"),
+    ("        if (AA || __any_sync(FULL, ha >= 0.0f)) {", "        if (true) {"),
+    ("        if (AA && __any_sync(FULL, oka)) {", "        if (AA) {"),
+    ("      if (AA || __any_sync(FULL, hb >= 0.0f)) {", "      if (true) {"),
+    ("      if (AA && __any_sync(FULL, okb2)) {", "      if (AA) {")]
+B1_VARIANTS = {
+    # Tiles in index order (the same function).
+    "index_order": [("  const int tile = order[blockIdx.x];", "  const int tile = blockIdx.x;")],
+    # No warp votes (the same function).
+    "no_votes": _B1_VOTES_OFF,
+    # Warps on rows of 32 pixels (the same function).
+    "rows_of_32": [(
+        "  const int pix = ((warp / bw) * 4 + lane / 8) * tile_w + (warp % bw) * 8 + lane % 8;",
+        "  const int pix = tid;")],
+    # The start cap evaluated for every candidate (the same function).
+    "no_cap_skip": [
+        ("      if (sc[ROW_CAP_A][j] > 0.5f) {", "      if (true) {"),
+        ("          oka = (AA || ha >= 0.0f) && (ya <= 0.0f) && (t0 + ta > 0.0f);",
+         "          oka = (AA || ha >= 0.0f) && (ya <= 0.0f) && (t0 + ta > 0.0f)\n"
+         "                && sc[ROW_CAP_A][j] > 0.5f;")],
+    # One resident block per SM (up to 128 registers).
+    "min_blocks_1": [("#define MIN_BLOCKS 2 ", "#define MIN_BLOCKS 1 ")],
+    # The candidate loop unrolled by 2 (the same function).
+    "unroll_2": [("    for (int j = 0; j < n; ++j) {\n      const float oa0",
+                  "#pragma unroll 2\n    for (int j = 0; j < n; ++j) {\n      const float oa0")],
+    # Warp-cycles: the staging with its barrier and early-z, per candidate
+    # the set-up and body (with its AA distance), the two caps (with
+    # theirs), the rest of the pixel loop (nearest part, winner update),
+    # the whole kernel.
+    "phase_clock": [
+        _PHASE_COUNTERS,
+        ("  int evaluated = 0;\n",
+         "  int evaluated = 0;\n  long long ph_stage = 0, ph_body = 0, ph_caps = 0, ph_loop = 0;\n"
+         "  const long long ph_start = clock64();\n"),
+        ("    const int n = min(CHUNK, count - c0);\n",
+         "    const int n = min(CHUNK, count - c0);\n    const long long p0 = clock64();\n"),
+        ("    evaluated += n;\n",
+         "    evaluated += n;\n    const long long p1 = clock64();\n    ph_stage += p1 - p0;\n"),
+        ("      const float oa0 = sc[0][j], oa1 = sc[1][j], oa2 = sc[2][j];\n",
+         "      const long long q0 = clock64();\n"
+         "      const float oa0 = sc[0][j], oa1 = sc[1][j], oa2 = sc[2][j];\n"),
+        ("      // Sphere cap at a: only at a chain start (uniform across the block).\n",
+         "      const long long q1 = clock64();\n      ph_body += q1 - q0;\n"
+         "      // Sphere cap at a: only at a chain start (uniform across the block).\n"),
+        ("      const float tall = fminf(",
+         "      ph_caps += clock64() - q1;\n      const float tall = fminf("),
+        ("    }\n  }\n\n  const long long plane",
+         "    }\n    ph_loop += clock64() - p1;\n  }\n\n  const long long plane"),
+        ("  if (work != nullptr && tid == 0) work[tile] = evaluated;",
+         "  if ((tid & 31) == 0) {\n"
+         "    atomicAdd(&g_phase[0], (unsigned long long)ph_stage);\n"
+         "    atomicAdd(&g_phase[1], (unsigned long long)ph_body);\n"
+         "    atomicAdd(&g_phase[2], (unsigned long long)ph_caps);\n"
+         "    atomicAdd(&g_phase[3], (unsigned long long)(ph_loop - ph_body - ph_caps));\n"
+         "    atomicAdd(&g_phase[4], (unsigned long long)(clock64() - ph_start));\n  }\n"
+         "  if (work != nullptr && tid == 0) work[tile] = evaluated;")],
+}
+B1_PHASES = ("staging", "body", "caps", "winner", "total")
+# The same for csrc/raster_triangle.cu (B3: tiles longest run first, 2 x PIX_ROWS pixels a thread, rows 0-15
+# staged slot-major in two buffers, one branch a slot, the slot loop
+# unrolled by 4, the winner's planes at the end).
+B3_VARIANTS = {
+    # Tiles in index order (the same function).
+    "index_order": [("  const int tile = order[blockIdx.x];", "  const int tile = blockIdx.x;")],
+    # The slot loop not unrolled, or unrolled by 2 (the same function).
+    "no_unroll": [("#pragma unroll 4\n    for (int j = 0; j < C; ++j) {",
+                   "    for (int j = 0; j < C; ++j) {")],
+    "unroll_2": [("#pragma unroll 4\n    for (int j = 0; j < C; ++j) {",
+                  "#pragma unroll 2\n    for (int j = 0; j < C; ++j) {")],
+    # At most 64 registers (8 resident blocks of 128 per SM).
+    "min_blocks_8": [("#define MIN_BLOCKS 4 ", "#define MIN_BLOCKS 8 ")],
+    # Two pixels a thread (256 threads at 32x16; the same function).
+    "pixel_rows_1": [("#define PIX_ROWS 2 ", "#define PIX_ROWS 1 ")],
+    # A warp vote after the first edge plane: a slot whose e0 is negative
+    # at every pixel of the warp is left (the same function).
+    "edge0_vote": [(
+        "#pragma unroll\n      for (int r = 0; r < PIX_ROWS; ++r) {\n        const float e0y",
+        "      bool any0 = false;\n#pragma unroll\n      for (int r = 0; r < PIX_ROWS; ++r)\n"
+        "#pragma unroll\n        for (int i = 0; i < 2; ++i)\n"
+        "          any0 = any0 || ((e0x[i] + A.y * gy[r]) + A.z >= 0.0f);\n"
+        "      if (!__any_sync(0xffffffffu, any0)) continue;\n"
+        "#pragma unroll\n      for (int r = 0; r < PIX_ROWS; ++r) {\n        const float e0y")],
+    # A branch for each pixel, as the first build had it (the same function).
+    "branch_per_pixel": [(
+        "      if (any) {\n        const float4 D = sb[j * 4 + 3];  // rows 12-15: the id plane\n"
+        "#pragma unroll\n        for (int k = 0; k < NPIX; ++k) {\n          if (!cover[k]) continue;\n",
+        "      {\n        const float4 D = sb[j * 4 + 3];  // rows 12-15: the id plane\n"
+        "#pragma unroll\n        for (int k = 0; k < NPIX; ++k) {\n          if (!cover[k]) continue;\n")],
+    # Warp-cycles: the staging with its barrier and early-z, the slot loop,
+    # the epilogue (depth, id and the winner's planes), the whole kernel.
+    "phase_clock": [
+        _PHASE_COUNTERS,
+        ("  int evaluated = 0;\n",
+         "  int evaluated = 0;\n  long long ph_stage = 0, ph_slot = 0;\n"
+         "  const long long ph_start = clock64();\n"),
+        ("    float4* const sb = s_slots + (c & 1) * C * 4;\n",
+         "    float4* const sb = s_slots + (c & 1) * C * 4;\n    const long long p0 = clock64();\n"),
+        ("    ++evaluated;\n",
+         "    ++evaluated;\n    const long long p1 = clock64();\n    ph_stage += p1 - p0;\n"),
+        ("    }\n  }\n\n  const long long plane",
+         "    }\n    ph_slot += clock64() - p1;\n  }\n  const long long p9 = clock64();\n\n"
+         "  const long long plane"),
+        ("  if (work != nullptr && tid == 0) work[tile] = evaluated;",
+         "  if ((tid & 31) == 0) {\n"
+         "    atomicAdd(&g_phase[0], (unsigned long long)ph_stage);\n"
+         "    atomicAdd(&g_phase[1], (unsigned long long)ph_slot);\n"
+         "    atomicAdd(&g_phase[2], (unsigned long long)(clock64() - p9));\n"
+         "    atomicAdd(&g_phase[3], (unsigned long long)(clock64() - ph_start));\n  }\n"
+         "  if (work != nullptr && tid == 0) work[tile] = evaluated;")],
+}
+B3_PHASES = ("staging", "slot_loop", "epilogue", "total")
 
 
 def _events():
@@ -445,23 +391,18 @@ def _timed(fn, n=40):
     return a.elapsed_time(b) / n
 
 
-def _build_variants(out_dir: Path, source: str, variant_sets: list, info: str = ""):
-    """Each variant of csrc/<source>.cu, of the first set in `variant_sets`
-    whose every text the source holds once, compiled into its own library,
-    all nvcc started together -> {name: (path, ptxas lines, seconds)}.
-    `info` (a `kernel_info` entry point) is appended to a source that has
-    none."""
+def _build_variants(out_dir: Path, source: str, variants: dict):
+    """csrc/<source>.cu and each of its `variants`, compiled into a library
+    each, all nvcc started together -> {name: (path, ptxas lines, seconds)}.
+    Stops if the source does not hold a variant's text exactly once."""
     from linevis_tpu_torch.kernels import _build
 
     src = (_build.CSRC / f"{source}.cu").read_text()
-    if info and "kernel_info" not in src:
-        src += info
     out_dir.mkdir(parents=True, exist_ok=True)
-    for variants in variant_sets:
-        if all(src.count(old) == 1 for subs in variants.values() for old, _ in subs):
-            break
-    else:
-        raise SystemExit(f"{source}.cu matches none of the variant sets")
+    stale = sorted({name for name, subs in variants.items()
+                    for old, _ in subs if src.count(old) != 1})
+    if stale:
+        raise SystemExit(f"{source}.cu no longer matches the variants {stale}")
     jobs = {"base": src}
     for name, subs in variants.items():
         text = src
@@ -552,7 +493,7 @@ def _b5(dev, scene, W, H, res, turns):
     print("b5: " + json.dumps(res["b5"]), flush=True)
 
     from linevis_tpu_torch.kernels import _build
-    libs = _build_variants(_build.BUILD_DIR / "split", "ao_grid", [B5_VARIANTS, {}])
+    libs = _build_variants(_build.BUILD_DIR / "split", "ao_grid", B5_VARIANTS)
     fig = {name: {"ptxas": libs[name][1][-3:], "ms": []} for name in libs}
     for name in libs:
         _build._loaded["ao_grid"] = ctypes.CDLL(str(libs[name][0]))
@@ -577,8 +518,7 @@ def _b2(dev, scene, W, H, res, turns):
     from linevis_tpu_torch.render.tube_raster import camera_tensors, prepare_capsule_frame
 
     t0 = time.perf_counter()
-    libs = _build_variants(_build.BUILD_DIR / "split", "raster_capsule_oit",
-                           [FIRST_DESIGN_VARIANTS, VARIANTS])
+    libs = _build_variants(_build.BUILD_DIR / "split", "raster_capsule_oit", VARIANTS)
     res["b2_build_s"] = time.perf_counter() - t0
     s = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
     cam = camera_tensors(Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
@@ -754,8 +694,7 @@ def _b4(dev, traj, W, H, res, turns):
                     "longest_tile": longest, "ms_as_is": _timed(run),
                     "ms_longest_tile_alone": _timed(lambda r=run, c=csr_alone: r(c))}
         print(f"b4 {key}: " + json.dumps(fig[key]), flush=True)
-    libs = _build_variants(_build.BUILD_DIR / "split", "raster_prism",
-                           [B4_PARENT_VARIANTS, B4_VARIANTS], B4_PARENT_INFO)
+    libs = _build_variants(_build.BUILD_DIR / "split", "raster_prism", B4_VARIANTS)
     fig["variants"] = _variant_figures("raster_prism", libs, modes, turns, B4_PHASES)
     for name, v in fig["variants"].items():
         print(f"b4 {name}: " + json.dumps(v), flush=True)
@@ -796,12 +735,113 @@ def _b6(dev, scene, W, H, res, turns):
     print("b6: " + json.dumps(fig), flush=True)
     p_stats = torch.zeros_like(stats)
     modes = {"k8_mlab": lambda: run(stats=p_stats)}
-    libs = _build_variants(_build.BUILD_DIR / "split", "bvh_wavefront",
-                           [B6_PARENT_VARIANTS, B6_VARIANTS], B6_PARENT_INFO)
+    libs = _build_variants(_build.BUILD_DIR / "split", "bvh_wavefront", B6_VARIANTS)
     fig["variants"] = _variant_figures("bvh_wavefront", libs, modes, turns, B6_PHASES)
     for name, v in fig["variants"].items():
         print(f"b6 {name}: " + json.dumps(v), flush=True)
     res["b6"] = fig
+
+
+def _differing(k, p):
+    """Per output plane, the pixels where kernel and plain version differ
+    (NaN equals NaN)."""
+    return [int((~((a == b) | (a.isnan() & b.isnan()))).sum()) for a, b in zip(k, p)]
+
+
+def _b1(dev, scene, W, H, res, turns):
+    import dataclasses
+
+    from linevis_tpu_torch.kernels import _build
+    from linevis_tpu_torch.kernels.raster_capsule import (
+        rasterize_capsules, rasterize_capsules_reference)
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.tube_raster import camera_tensors, prepare_capsule_frame
+
+    cam = camera_tensors(Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+                         .orbit(0.002, 0.1, 1.2), dev)
+    # The capsule frame (coverage AA, 0.5 px of cull slack) at both tiles,
+    # and the RTAO G-buffer's pass (no AA, no slack).
+    cases = {"aa_32x16": (32, 16, True), "no_aa_32x16": (32, 16, False), "aa_16x8": (16, 8, True)}
+    fig, modes = {}, {}
+    for key, (tw, th, aa) in cases.items():
+        s = RasterSettings(width=W, height=H, tile_w=tw, tile_h=th)
+        csr, params, _ = prepare_capsule_frame(scene, *cam, s, aa_margin=0.5 if aa else 0.0)
+        counts = csr.tile_count.long()
+        longest = int(counts.argmax())
+        alone = torch.zeros_like(csr.tile_count)
+        alone[longest] = csr.tile_count[longest]
+
+        def run(c=csr, tw=tw, th=th, p=params, aa=aa):
+            z, ids, g = rasterize_capsules(c, p, W, H, tw, th, use_aa=aa)
+            return [z, ids, *g]
+
+        k = run()
+        pz, pids, pg = rasterize_capsules_reference(csr, params, W, H, tw, th, use_aa=aa)
+        diff = _differing(k, [pz, pids, *pg])
+        modes[key] = run
+        if key == "aa_32x16":
+            modes["aa_32x16_longest_tile_alone"] = (
+                lambda r=run, c=dataclasses.replace(csr, tile_count=alone): r(c))
+        fig[key] = {"tiles": counts.numel(), "pairs": int(counts.sum()),
+                    "start_caps": int((csr.payload[13, :int(counts.sum())] > 0.5).sum()),
+                    "candidates_per_tile": _histogram(counts, 16), "longest_tile": longest,
+                    "longest_tile_rank_in_index_order": longest / counts.numel(),
+                    "equal_to_plain": sum(diff) == 0, "pixels_differing_per_plane": diff,
+                    "ms_as_is": _timed(run),
+                    "ms_longest_tile_alone": _timed(
+                        lambda r=run, c=dataclasses.replace(csr, tile_count=alone): r(c))}
+        print(f"b1 {key}: " + json.dumps(fig[key]), flush=True)
+    libs = _build_variants(_build.BUILD_DIR / "split", "raster_capsule", B1_VARIANTS)
+    fig["variants"] = _variant_figures("raster_capsule", libs, modes, turns, B1_PHASES)
+    for name, v in fig["variants"].items():
+        print(f"b1 {name}: " + json.dumps(v), flush=True)
+    res["b1"] = fig
+
+
+def _b3(dev, traj, W, H, res, turns):
+    import dataclasses
+
+    from linevis_tpu_torch.entry import tornado_tube_mesh
+    from linevis_tpu_torch.kernels import _build, raster_pallas
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.pipeline import (
+        RasterSettings, build_payload, tube_vertex_stage)
+    from linevis_tpu_torch.render.tube_raster import camera_tensors
+
+    mesh = tornado_tube_mesh(dev, num_subdivisions=8, traj=traj)
+    cam = camera_tensors(Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+                         .orbit(0.002, 0.1, 1.2), dev)
+    s = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+    batch = tube_vertex_stage(mesh, cam[0], W, H)
+    csr = raster_pallas.build_csr_binning(
+        batch.tri_x, batch.tri_y, build_payload(batch), batch.tri_valid, W, H,
+        s.tile_w, s.tile_h, s.chunk, s.span_x, s.span_y, s.pairs_capacity)
+    del batch, mesh
+    nch = csr.tile_num_chunks.long()
+    longest = int(nch.argmax())
+    alone = torch.zeros_like(csr.tile_num_chunks)
+    alone[longest] = csr.tile_num_chunks[longest]
+    csr_alone = dataclasses.replace(csr, tile_num_chunks=alone)
+
+    def run(c=csr, planes=8):
+        z, ids, g = raster_pallas.rasterize_gbuffer(c, planes, 32, 16)
+        return [z, ids, *g]
+
+    modes = {"gbuffer_32x16": run, "depth_32x16": lambda: run(planes=0),
+             "gbuffer_32x16_longest_tile_alone": lambda: run(csr_alone)}
+    real = (csr.payload[15] < 2.5).sum(dim=1)
+    fig = {"tiles": nch.numel(), "chunks": int(nch.sum()), "pairs": int(real.sum()),
+           "chunks_per_tile": _histogram(nch, 1), "longest_tile": longest,
+           "longest_tile_rank_in_index_order": longest / nch.numel(),
+           "ms_as_is": {m: _timed(fn) for m, fn in modes.items()},
+           "ms_longest_tile_alone": _timed(lambda: run(csr_alone))}
+    print("b3: " + json.dumps(fig), flush=True)
+    libs = _build_variants(_build.BUILD_DIR / "split", "raster_triangle", B3_VARIANTS)
+    fig["variants"] = _variant_figures("raster_triangle", libs, modes, turns, B3_PHASES)
+    for name, v in fig["variants"].items():
+        print(f"b3 {name}: " + json.dumps(v), flush=True)
+    res["b3"] = fig
 
 
 def main(argv=None) -> int:
@@ -821,12 +861,12 @@ def main(argv=None) -> int:
     traj = tornado_trajectories(dev)
     scene = tornado_scene(dev, traj=traj)
     res = {"gpu": gpu}
-    which = (args[args.index("--kernels") + 1] if "--kernels" in args else "b5,b2,b4,b6")
+    which = (args[args.index("--kernels") + 1] if "--kernels" in args else "b5,b2,b4,b6,b1,b3")
     for k in which.split(","):
-        if k == "b4":
-            _b4(dev, traj, W, H, res, turns)
+        if k in ("b4", "b3"):
+            {"b4": _b4, "b3": _b3}[k](dev, traj, W, H, res, turns)
         else:
-            {"b5": _b5, "b2": _b2, "b6": _b6}[k](dev, scene, W, H, res, turns)
+            {"b5": _b5, "b2": _b2, "b6": _b6, "b1": _b1}[k](dev, scene, W, H, res, turns)
     print(json.dumps(res), flush=True)
     if "--out" in args:
         out = Path(args[args.index("--out") + 1])
