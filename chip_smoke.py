@@ -32,9 +32,9 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   MLAB buckets (`render_tubes_mlab_buckets`, K=8; capsule_mlab twice) and
   depth peeling (`render_tubes_depth_peeling`, K=8, 4 passes; capsule_mlab
   four times, with a peel depth and per-fragment shading). Each mode is held
-  against its plain version on frame 0 (count exactly, WBOIT and MBOIT
-  moments within 1e-5 of the pixel's scale, the resolve and the peel passes'
-  nodes within 1e-4), each frame against the same frame on the plain path,
+  against its plain version on frame 0 (the accumulation modes, count, WBOIT
+  and both MBOIT passes, bit for bit; the peel passes' nodes within 1e-4),
+  each frame against the same frame on the plain path,
   the MBOIT variants (6/8 power, 4/6/8 trigonometric moments, unorm16) at
   480x272, and depth peeling against the Atomic Loop K=32, MBOIT and WBOIT
   against MLAB K=8;
@@ -76,7 +76,10 @@ version bit for bit, with AA on the capsule frame and without AA on the
 RTAO G-buffer's binning, and its bound charges the start cap and each
 part's AA distance only where the function needs them
 (`capsule_needed_work`, itself held against the plain version's
-arithmetic).
+arithmetic). The accumulation modes' bounds charge each part's root and
+tests only where its discriminant is not negative, and the world t and clip
+only where a surface exists (`accum_needed_work`, held alike); each row also
+carries the bound with every part charged at every evaluation.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 repository beside it. Any failed check raises.
@@ -120,6 +123,16 @@ STAGED_ROWS = 13  # payload rows the capsule kernel reads per candidate
 # three roots, axial positions and acceptance tests 40, the world t, NDC clip
 # and rejection 6;
 MLAB_OPS_PER_EVAL = 95
+# The accumulation modes (front faces) charge each evaluation only what the
+# function needs there (`accum_needed_work`): at every one the dot products
+# and the re-origin 20, the three discriminants 23 and their signs 3; a
+# part's root, axial position and acceptance tests only where its
+# discriminant is not negative (the body's 15, the start cap's 15 and only
+# where payload row 13 holds one, the end cap's 13); the world t, NDC clip
+# and rejection 6 only where a surface exists. 95 with every part.
+ACCUM_OPS_BASE = 46
+ACCUM_OPS_PART = (15, 15, 13)  # the body, the start cap, the end cap
+ACCUM_OPS_SURFACE = 6
 # per fragment in an extracted tie window 45: its axial position, attribute,
 # the two headlight cosines through the tube-axis identities 29, the
 # opacity TF 10, the window sums 4, and the window test 2;
@@ -191,13 +204,17 @@ OIT_SMALL = (480, 272)  # the reduced frame of the MBOIT variants
 # specular and shade 6, the depth cue 8, the color mix 12); per fragment of
 # an accumulation mode its terms: count 1, wboit 35 (weight 20, log 10, sums
 # 5), mboit_gen 4 moments 45 (warp 14, absorbance 11, moments 20),
-# mboit_resolve 4 moments 150 (warp 14, the 4-moment transmittance ~125,
-# sums 8, the discard 3); per fragment of a peel pass its NDC depth and the
-# peel test 5.
+# mboit_resolve 4 moments 100 (warp 14, the transmittance at the fragment's
+# depth from the pixel's factors 77, the discard's select 1, sums 8); per
+# pixel whose moments the resolve keeps (b0 at or above the discard
+# threshold), its moment factors once: 31 (the normalization by b0 6, the
+# biased moments 12, the Cholesky factors 12, the discard test 1); per
+# fragment of a peel pass its NDC depth and the peel test 5.
 OIT_OPS_PER_SHADE = 80
 # With use_bands the diffuse powers are their bases: two powf fewer.
 OIT_OPS_PER_SHADE_BANDS = OIT_OPS_PER_SHADE - 2 * 8
-OIT_OPS_PER_ACCUM = {"count": 1, "wboit": 35, "mboit_gen": 45, "mboit_resolve": 150}
+OIT_OPS_PER_ACCUM = {"count": 1, "wboit": 35, "mboit_gen": 45, "mboit_resolve": 100}
+OIT_OPS_RESOLVE_PIXEL = 31
 OIT_OPS_PER_PEEL = 5
 OO_FRAMES = 8  # opacity-optimization frames (bench.py cfg5's flight)
 # Float operations per fragment in an extracted tie window of the importance
@@ -319,6 +336,72 @@ def capsule_needed_work(csr, params, width, height, tile_w, tile_h, work, batch_
             "cap_a_aa": cap_a, "cap_b_aa": cap_b, "hits": hits}
 
 
+def accum_needed_work(csr, params, width, height, tile_w, tile_h, batch_pairs=2048):
+    """The (candidate, pixel) evaluations of the accumulation modes' front-face
+    test (every candidate of every run), and among them those that need each
+    part's root and tests (its discriminant not negative; the start cap only
+    where payload row 13 holds one) and those with a surface (world t and
+    clip), replayed on the plain version's arithmetic. The replay is held
+    against the plain version's `_surfaces` on the same batches: the same t0
+    bit for bit, and every surface there the root of a part that the replay
+    counts as needed; it raises otherwise.
+    -> {"evaluations", "body", "start_cap", "end_cap", "surfaces"}."""
+    from linevis_tpu_torch.kernels.capsule_common import BIG, fma32, pixel_rays
+    from linevis_tpu_torch.kernels.raster_capsule_oit import _surfaces
+
+    dev = csr.payload.device
+    n_tiles = csr.tile_start.shape[0]
+    dn_all, _ = pixel_rays(params, n_tiles, csr.tiles_x, tile_w, tile_h, width, height)
+    counts = csr.tile_count.long()
+    pair_tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev), counts)
+    run_base = torch.cumsum(counts, 0) - counts
+    pair_col = (csr.tile_start.long()[pair_tile] + torch.arange(pair_tile.numel(), device=dev)
+                - run_base[pair_tile])
+    acc = torch.zeros(4, dtype=torch.int64, device=dev)
+    for b0 in range(0, pair_tile.numel(), batch_pairs):
+        tiles = pair_tile[b0:b0 + batch_pairs]
+        s = csr.payload[:, pair_col[b0:b0 + batch_pairs]][:, :, None]
+        dn = tuple(d[tiles] for d in dn_all)
+        dnx, dny, dnz = dn
+        bard = s[3] * dnx + s[4] * dny + s[5] * dnz
+        rdoa = s[0] * dnx + s[1] * dny + s[2] * dnz
+        t0 = -(rdoa + 0.5 * bard)
+        rd = -0.5 * bard
+        baoa = fma32(t0, bard, s[16])
+        oaoa = fma32(t0, rdoa + rd, s[17])
+        baba, rr = s[10], s[22]
+        k2 = torch.clamp(baba - bard * bard, min=1e-20)
+        k1 = baba * rd - baoa * bard
+        h = k1 * k1 - k2 * (baba * oaoa - baoa * baoa - s[19])
+        ha = rd * rd - (oaoa - rr)
+        b1b = rd - bard
+        hb = b1b * b1b - ((oaoa - 2.0 * baoa + baba) - rr)
+        body, cap_a, cap_b = h >= 0.0, (ha >= 0.0) & (s[13] > 0.5), hb >= 0.0
+        tcand, t0_plain, _ = _surfaces(s, dn, True, False)
+        tb = (-k1 - torch.sqrt(torch.clamp(h, min=0.0))) / k2
+        ta = -rd - torch.sqrt(torch.clamp(ha, min=0.0))
+        tc = -b1b - torch.sqrt(torch.clamp(hb, min=0.0))
+        hit = tcand < BIG
+        explained = ((tcand == tb) & body) | ((tcand == ta) & cap_a) | ((tcand == tc) & cap_b)
+        if not torch.equal(t0_plain.expand_as(t0), t0) or bool((hit & ~explained).any()):
+            raise RuntimeError("the accumulation replay drifted from the plain version's "
+                               "arithmetic")
+        acc += torch.stack([body.sum(), cap_a.sum(), cap_b.sum(), hit.sum()])
+    body, start_cap, end_cap, surfaces = acc.tolist()
+    return {"evaluations": pair_tile.numel() * tile_w * tile_h, "body": body,
+            "start_cap": start_cap, "end_cap": end_cap, "surfaces": surfaces}
+
+
+def accum_eval_ops(need):
+    """Operations of the accumulation modes' evaluations -> (the needed work
+    of `need`, every part charged at every evaluation)."""
+    parts = (need["body"], need["start_cap"], need["end_cap"])
+    return (need["evaluations"] * ACCUM_OPS_BASE
+            + sum(n * o for n, o in zip(parts, ACCUM_OPS_PART))
+            + need["surfaces"] * ACCUM_OPS_SURFACE,
+            need["evaluations"] * MLAB_OPS_PER_EVAL)
+
+
 def kernel_resources(lib):
     """Each kernel instance of a built library through its `kernel_info`
     entry point (cudaFuncGetAttributes and the occupancy calculator):
@@ -427,6 +510,7 @@ def main() -> int:
         rasterize_capsules_reference,
     )
     from linevis_tpu_torch.kernels.raster_capsule_oit import (
+        MBOIT_DISCARD_B0,
         rasterize_capsules_accum,
         rasterize_capsules_mlab,
         rasterize_capsules_mlab_reference,
@@ -1020,9 +1104,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, a.elapsed_time(b)
 
-    def accum_check(mode, csr, params, K, **kw):
-        """The accumulation kernel vs its plain version in `mode` -> (kernel
-        output, plain output, entry fields)."""
+    def accum_check(mode, csr, params, K, need, kept=None, **kw):
+        """The accumulation kernel vs its plain version in `mode`, bit for
+        bit -> (kernel output, entry fields). need: `accum_needed_work` of
+        the binning. kept: for 'mboit_resolve', the pixels whose moments it
+        keeps and their fragments, which need the moment factors and the
+        transmittance."""
         args = (csr, params, W, H, 16, 8, K, s_oit.tf_color, s_oit.tf_opacity)
         k = rasterize_capsules_mlab(*args, store_mode=mode, **kw)
         stats = {}
@@ -1031,55 +1118,75 @@ def main() -> int:
         kp, pp = planes(k), planes(p)
         if not bool(torch.isfinite(kp).all()):
             raise RuntimeError(f"non-finite {mode} accumulators")
-        if mode == "count":
-            agree = float(torch.equal(kp, pp))
-        elif mode == "wboit":
-            agree = share_within(kp, pp, pp[4 * K].abs() + 1e-30, 1e-5)
-        elif mode == "mboit_gen":
-            agree = share_within(kp, pp, pp[0].abs() + 1e-30, 1e-5)
-        else:
-            agree = share_within(kp, pp, 1.0, 1e-4)
+        equal = torch.equal(kp, pp)
         max_err = float((kp - pp).abs().max())
         ms = _time_ms(lambda: rasterize_capsules_mlab(*args, store_mode=mode, **kw), 20)
         pairs = int(csr.tile_count.sum())
-        ops = (pairs * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * (
+        per_fragment = OIT_OPS_PER_ACCUM[mode]
+        extra = 0
+        if mode == "mboit_resolve":
+            # The transmittance only at the kept pixels' fragments; the
+            # factors once per kept pixel.
+            per_fragment = 8
+            extra = (kept["fragments"] * (OIT_OPS_PER_ACCUM[mode] - 8)
+                     + kept["pixels"] * OIT_OPS_RESOLVE_PIXEL)
+        frag_ops = extra + stats["hits"] * (
             (0 if mode == "count" else MLAB_OPS_PER_MEMBER)
             + (OIT_OPS_PER_SHADE if mode in ("wboit", "mboit_resolve") else 0)
-            + OIT_OPS_PER_ACCUM[mode]))
+            + per_fragment)
+        eval_ops, eval_ops_every = accum_eval_ops(need)
         print(f"capsule_accum:{mode} vs plain: pairs {pairs}, fragments {stats['hits']}, "
-              f"within the bar on {agree:.6f} of pixels, max |diff| {max_err:.3g}, kernel "
-              f"{ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
-        bar = 1.0 if mode == "count" else 0.999
-        if agree < bar:
-            raise RuntimeError(f"accumulation kernel disagrees with its plain version ({mode})")
-        return k, dict(max_err=max_err, ms=ms, plain_ms=p_ms, evaluated=pairs, ops=ops,
-                       pairs=pairs, fragments=stats["hits"], agree=agree)
+              f"equal {equal}, max |diff| {max_err:.3g}, kernel {ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms", flush=True)
+        if not equal:
+            raise RuntimeError(f"accumulation kernel differs from its plain version ({mode})")
+        return k, dict(max_err=max_err, ms=ms, plain_ms=p_ms, evaluated=pairs,
+                       ops=eval_ops + frag_ops, ops_every_part=eval_ops_every + frag_ops,
+                       pairs=pairs, fragments=stats["hits"], equal=equal)
+
+    def accum_entry(name, launches, f, n_tiles, K, need, **extra):
+        """The `kernels` row of an accumulation mode: its bound from the
+        needed work, and beside it the bound with every part of the test
+        charged at every evaluation (both printed)."""
+        e = oit_entry(name, "raster_capsule_accum.cu", launches, f["max_err"], f["ms"],
+                      f["plain_ms"], f["evaluated"], n_tiles, K, f["ops"], pairs=f["pairs"],
+                      fragments=f["fragments"], needed_work=need, **extra)
+        e["bound_ms_every_part"] = max(e["bytes_ms"],
+                                       f["ops_every_part"] / H100_FP32_FLOPS * 1e3)
+        print(f"{name} bound: {e['bound_ms']:.5f} ms from the needed work "
+              f"{json.dumps(need)} (every part at every evaluation: "
+              f"{e['bound_ms_every_part']:.5f} ms)", flush=True)
+        return e
 
     csr, params, _ = prepare_capsule_frame(scene, *cams[0], s_oit)
     params[14] = OIT_OPACITY
     n_tiles = csr.tile_start.shape[0]
     new_kernels = []
+    need = accum_needed_work(csr, params, W, H, 16, 8)
     for mode, label in (("count", "depth complexity"), ("wboit", "wboit")):
-        _, f = accum_check(mode, csr, params, 1)
-        new_kernels.append(oit_entry(
-            f"capsule_accum:{mode}", "raster_capsule_accum.cu",
-            oit_launches[label]["capsule_accum"], f["max_err"], f["ms"], f["plain_ms"],
-            f["evaluated"], n_tiles, 1, f["ops"], pairs=f["pairs"], fragments=f["fragments"],
-            agree=f["agree"]))
+        k_acc, f = accum_check(mode, csr, params, 1, need)
+        if mode == "count":
+            frag_count = k_acc[0][0]  # fragments per pixel
+        new_kernels.append(accum_entry(f"capsule_accum:{mode}",
+                                       oit_launches[label]["capsule_accum"], f, n_tiles, 1,
+                                       need, equal=f["equal"]))
+    csr_c = csr
     csr, params, _ = prepare_mboit_frame(scene, *cams[0], s_oit, 4, OIT_OPACITY)
-    gen, f = accum_check("mboit_gen", csr, params, 2, n_mom=4)
-    new_kernels.append(oit_entry(
-        "capsule_accum:mboit_gen", "raster_capsule_accum.cu",
-        oit_launches["mboit"]["capsule_accum"] // 2, f["max_err"], f["ms"], f["plain_ms"],
-        f["evaluated"], n_tiles, 2, f["ops"], pairs=f["pairs"], fragments=f["fragments"],
-        agree=f["agree"]))
+    if not torch.equal(csr.tile_count, csr_c.tile_count):
+        raise RuntimeError("the MBOIT frame's binning differs from the capsule frame's")
+    need = accum_needed_work(csr, params, W, H, 16, 8)
+    gen, f = accum_check("mboit_gen", csr, params, 2, need, n_mom=4)
+    new_kernels.append(accum_entry("capsule_accum:mboit_gen",
+                                   oit_launches["mboit"]["capsule_accum"] // 2, f, n_tiles, 2,
+                                   need, equal=f["equal"]))
     moments = torch.stack([gen[0][0], gen[1][0, 0], gen[1][1, 0], gen[0][1], gen[1][0, 1]])
-    _, f = accum_check("mboit_resolve", csr, params, 1, n_mom=4, moments=moments)
-    new_kernels.append(oit_entry(
-        "capsule_accum:mboit_resolve", "raster_capsule_accum.cu",
-        oit_launches["mboit"]["capsule_accum"] // 2, f["max_err"], f["ms"], f["plain_ms"],
-        f["evaluated"], n_tiles, 1, f["ops"], extra_in_planes=5, pairs=f["pairs"],
-        fragments=f["fragments"], agree=f["agree"]))
+    kept_px = moments[0] >= MBOIT_DISCARD_B0
+    kept = {"pixels": int(kept_px.sum()), "fragments": int(frag_count[kept_px].sum())}
+    _, f = accum_check("mboit_resolve", csr, params, 1, need, kept, n_mom=4, moments=moments)
+    new_kernels.append(accum_entry("capsule_accum:mboit_resolve",
+                                   oit_launches["mboit"]["capsule_accum"] // 2, f, n_tiles, 1,
+                                   need, extra_in_planes=5, equal=f["equal"],
+                                   kept_pixels=kept["pixels"], kept_fragments=kept["fragments"]))
 
     # The K-buffer with a peel depth and per-fragment shading: the second
     # pass of depth peeling (exact) and of MLAB buckets (MLAB merge).
@@ -1349,6 +1456,9 @@ def main() -> int:
                                                 s_small.tf_color, s_small.tf_opacity,
                                                 store_mode="mboit_gen", n_mom=4)
     moments_s = torch.stack([gen_d[0], gen_rgb[0, 0], gen_rgb[1, 0], gen_d[1], gen_rgb[0, 1]])
+    kept_s = moments_s[0] >= MBOIT_DISCARD_B0
+    frags_s = rasterize_capsules_mlab(csr_m, params_mb, sw, sh_, 16, 8, 1, s_small.tf_color,
+                                      s_small.tf_opacity, store_mode="count")[0][0]
     band_cases = {
         "shade_peel": ((csr_s, params_s), 8, dict(peel=peel_s, no_overflow=True)),
         "composite": ((csr_s, params_s), 8, dict(deferred_shade=True, composite=True)),
@@ -1389,8 +1499,14 @@ def main() -> int:
         ms = _time_ms(lambda: rasterize_capsules_mlab(*args, use_bands=True, **kw), 10)
         pairs = int(c.tile_count.sum())
         if accum:
-            ops = pairs * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * (
+            need_b = accum_needed_work(c, p, sw, sh_, 16, 8)
+            eval_ops, eval_ops_every = accum_eval_ops(need_b)
+            frag_ops = stats["hits"] * (
                 MLAB_OPS_PER_MEMBER + OIT_OPS_PER_SHADE_BANDS + OIT_OPS_PER_ACCUM[kw["store_mode"]])
+            if key == "mboit_resolve":  # the transmittance at kept pixels only, as at 1080p
+                frag_ops += (int(kept_s.sum()) * OIT_OPS_RESOLVE_PIXEL - (
+                    stats["hits"] - int(frags_s[kept_s].sum())) * (OIT_OPS_PER_ACCUM[key] - 8))
+            ops = eval_ops + frag_ops
             evaluated = pairs
         else:
             evaluated = int(p_work.sum())
@@ -1412,6 +1528,13 @@ def main() -> int:
             p_ms, evaluated, c.tile_start.shape[0], K_b, ops,
             extra_in_planes={"shade_peel": 1, "mboit_resolve": 5}.get(key, 0), pairs=pairs,
             agree=agree, shape=[sw, sh_])
+        if accum:
+            entry_["needed_work"] = need_b
+            entry_["bound_ms_every_part"] = max(
+                entry_["bytes_ms"], (eval_ops_every + frag_ops) / H100_FP32_FLOPS * 1e3)
+            print(f"use_bands {key} bound: {entry_['bound_ms']:.5f} ms from the needed work "
+                  f"{json.dumps(need_b)} (every part at every evaluation: "
+                  f"{entry_['bound_ms_every_part']:.5f} ms)", flush=True)
         if key == "composite":  # 4 output planes, not 5 K
             out_b = 4 * c.tile_start.shape[0] * 128 * 4
             entry_["bytes"] += out_b - 5 * K_b * c.tile_start.shape[0] * 128 * 4

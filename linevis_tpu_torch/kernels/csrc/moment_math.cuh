@@ -3,7 +3,9 @@
 // One for one with linevis_tpu_torch/kernels/moment_math.py (the JAX
 // package's linevis_tpu/kernels/moment_math.py; the reference's
 // MomentMath.glsl, the published CC0 code of Munstermann, Krumpen, Klein,
-// Peters, "Moment-Based Order-Independent Transparency", i3D 2018). Every
+// Peters, "Moment-Based Order-Independent Transparency", i3D 2018), except
+// that each transmittance_at_depth_N is split into a per-pixel part,
+// moment_setup_N, and a per-depth part, transmittance_N (below). Every
 // `torch.where` of the plain version is a select here, both sides computed;
 // the same degree-11 atan polynomial, the same safe reciprocal
 // (sign(x) / max(|x|, eps): the reciprocal of 0 is 0). Built with
@@ -160,31 +162,46 @@ __device__ __forceinline__ void mm_solve_quartic_neumark(float c0, float c1, flo
 
 __device__ __forceinline__ float mm_clamp01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
 
-// 4 power moments -> transmittance at `depth` (MomentMath.glsl:246-301).
-// b_even: (m2, m4); b_odd: (m1, m3), normalized by b0.
-__device__ __forceinline__ float transmittance_at_depth_4(float b0, const float* b_even,
-                                                         const float* b_odd, float depth,
-                                                         float bias, float overestimation) {
-  const float b1 = mm_mix(b_odd[0], 0.0f, bias);
-  const float b2 = mm_mix(b_even[0], 0.375f, bias);
+// 4, 6 and 8 power moments -> transmittance at `depth` (MomentMath.glsl:246-301,
+// :305-385, :389-505), each in two parts for a caller that evaluates one
+// pixel's moments at many depths: `moment_setup_N` depends on the moments
+// only (b_even: (m2, m4, ...), b_odd: (m1, m3, ...), normalized by b0; the
+// biased moments and the Cholesky factors of the moment matrix),
+// `transmittance_N` is the part at one depth. Together they do the
+// operations of moment_math.py's transmittance_at_depth_N in the same order,
+// so they round alike.
+
+struct Moments4 {
+  float b0, b1, b2, L21, InvD11, D22;
+};
+
+__device__ __forceinline__ Moments4 moment_setup_4(float b0, const float* b_even,
+                                                   const float* b_odd, float bias) {
+  Moments4 m;
+  m.b0 = b0;
+  m.b1 = mm_mix(b_odd[0], 0.0f, bias);
+  m.b2 = mm_mix(b_even[0], 0.375f, bias);
   const float b3 = mm_mix(b_odd[1], 0.0f, bias);
   const float b4 = mm_mix(b_even[1], 0.375f, bias);
+  const float L21D11 = -m.b1 * m.b2 + b3;
+  const float D11 = fmaxf(-m.b1 * m.b1 + m.b2, 1e-10f);
+  m.InvD11 = 1.0f / D11;
+  m.L21 = L21D11 * m.InvD11;
+  const float sq_var = -m.b2 * m.b2 + b4;
+  m.D22 = fmaxf(-L21D11 * m.L21 + sq_var, 1e-10f);
+  return m;
+}
+
+__device__ __forceinline__ float transmittance_4(const Moments4& m, float depth,
+                                                 float overestimation) {
   const float z0 = depth;
-
-  const float L21D11 = -b1 * b2 + b3;
-  const float D11 = fmaxf(-b1 * b1 + b2, 1e-10f);
-  const float InvD11 = 1.0f / D11;
-  const float L21 = L21D11 * InvD11;
-  const float sq_var = -b2 * b2 + b4;
-  const float D22 = fmaxf(-L21D11 * L21 + sq_var, 1e-10f);
-
   float c0 = 1.0f;
-  float c1 = z0 - b1;
-  float c2 = z0 * z0 - b2 - L21 * c1;
-  c1 = c1 * InvD11;
-  c2 = c2 / D22;
-  c1 = c1 - L21 * c2;
-  c0 = c0 - c1 * b1 - c2 * b2;
+  float c1 = z0 - m.b1;
+  float c2 = z0 * z0 - m.b2 - m.L21 * c1;
+  c1 = c1 * m.InvD11;
+  c2 = c2 / m.D22;
+  c1 = c1 - m.L21 * c2;
+  c0 = c0 - c1 * m.b1 - c2 * m.b2;
 
   const float InvC2 = mm_safe_rcp(c2);
   const float p = c1 * InvC2;
@@ -206,14 +223,16 @@ __device__ __forceinline__ float transmittance_at_depth_4(float b0, const float*
   const float p2 = p1;
   p1 = p0 - p1 * z0;
   p0 = f0 - p0 * z0;
-  const float absorbance = p0 + b1 * p1 + b2 * p2;
-  return mm_clamp01(expf(-b0 * absorbance));
+  const float absorbance = p0 + m.b1 * p1 + m.b2 * p2;
+  return mm_clamp01(expf(-m.b0 * absorbance));
 }
 
-// 6 power moments (MomentMath.glsl:305-385).
-__device__ __forceinline__ float transmittance_at_depth_6(float b0, const float* b_even,
-                                                         const float* b_odd, float depth,
-                                                         float bias, float overestimation) {
+struct Moments6 {
+  float b0, b[3], L21, L31, L32, InvD11, InvD22, InvD33;
+};
+
+__device__ __forceinline__ Moments6 moment_setup_6(float b0, const float* b_even,
+                                                   const float* b_odd, float bias) {
   float b[6];
   b[0] = mm_mix(b_odd[0], 0.0f, bias);
   b[1] = mm_mix(b_even[0], 0.48f, bias);
@@ -221,32 +240,41 @@ __device__ __forceinline__ float transmittance_at_depth_6(float b0, const float*
   b[3] = mm_mix(b_even[1], 0.451f, bias);
   b[4] = mm_mix(b_odd[2], 0.0f, bias);
   b[5] = mm_mix(b_even[2], 0.45f, bias);
-  const float z0 = depth;
-
-  const float InvD11 = 1.0f / fmaxf(-b[0] * b[0] + b[1], 1e-10f);
+  Moments6 m;
+  m.b0 = b0;
+  m.b[0] = b[0];
+  m.b[1] = b[1];
+  m.b[2] = b[2];
+  m.InvD11 = 1.0f / fmaxf(-b[0] * b[0] + b[1], 1e-10f);
   const float L21D11 = -b[0] * b[1] + b[2];
-  const float L21 = L21D11 * InvD11;
-  const float D22 = fmaxf(-L21D11 * L21 + (-b[1] * b[1] + b[3]), 1e-10f);
+  m.L21 = L21D11 * m.InvD11;
+  const float D22 = fmaxf(-L21D11 * m.L21 + (-b[1] * b[1] + b[3]), 1e-10f);
   const float L31D11 = -b[0] * b[2] + b[3];
-  const float L31 = L31D11 * InvD11;
-  const float InvD22 = 1.0f / D22;
-  const float L32D22 = -L21D11 * L31 + (-b[1] * b[2] + b[4]);
-  const float L32 = L32D22 * InvD22;
-  const float D33 = fmaxf((-b[2] * b[2] + b[5]) - (L31D11 * L31 + L32D22 * L32), 1e-10f);
-  const float InvD33 = 1.0f / D33;
+  m.L31 = L31D11 * m.InvD11;
+  m.InvD22 = 1.0f / D22;
+  const float L32D22 = -L21D11 * m.L31 + (-b[1] * b[2] + b[4]);
+  m.L32 = L32D22 * m.InvD22;
+  const float D33 = fmaxf((-b[2] * b[2] + b[5]) - (L31D11 * m.L31 + L32D22 * m.L32), 1e-10f);
+  m.InvD33 = 1.0f / D33;
+  return m;
+}
 
+__device__ __forceinline__ float transmittance_6(const Moments6& m, float depth,
+                                                 float overestimation) {
+  const float* b = m.b;
+  const float z0 = depth;
   float c0 = 1.0f;
   float c1 = z0;
   float c2 = c1 * z0;
   float c3 = c2 * z0;
   c1 = c1 - b[0];
-  c2 = c2 - (L21 * c1 + b[1]);
-  c3 = c3 - b[2] - L31 * c1 - L32 * c2;
-  c1 = c1 * InvD11;
-  c2 = c2 * InvD22;
-  c3 = c3 * InvD33;
-  c2 = c2 - L32 * c3;
-  c1 = c1 - (L21 * c2 + L31 * c3);
+  c2 = c2 - (m.L21 * c1 + b[1]);
+  c3 = c3 - b[2] - m.L31 * c1 - m.L32 * c2;
+  c1 = c1 * m.InvD11;
+  c2 = c2 * m.InvD22;
+  c3 = c3 * m.InvD33;
+  c2 = c2 - m.L32 * c3;
+  c1 = c1 - (m.L21 * c2 + m.L31 * c3);
   c0 = c0 - (b[0] * c1 + b[1] * c2 + b[2] * c3);
 
   float z1, z2, z3;
@@ -273,13 +301,15 @@ __device__ __forceinline__ float transmittance_at_depth_6(float b0, const float*
   p1 = p1 * (-z0) + p0;
   p0 = p0 * (-z0) + f0;
   const float absorbance = p0 + p1 * b[0] + p2 * b[1] + p3 * b[2];
-  return mm_clamp01(expf(-b0 * absorbance));
+  return mm_clamp01(expf(-m.b0 * absorbance));
 }
 
-// 8 power moments (MomentMath.glsl:389-505).
-__device__ __forceinline__ float transmittance_at_depth_8(float b0, const float* b_even,
-                                                         const float* b_odd, float depth,
-                                                         float bias, float overestimation) {
+struct Moments8 {
+  float b0, b[4], L32, L42, L52, L43, L53, L54, InvD22, InvD33, InvD44, InvD55;
+};
+
+__device__ __forceinline__ Moments8 moment_setup_8(float b0, const float* b_even,
+                                                   const float* b_odd, float bias) {
   float b[8];
   b[0] = mm_mix(b_odd[0], 0.0f, bias);
   b[1] = mm_mix(b_even[0], 0.75f, bias);
@@ -289,49 +319,58 @@ __device__ __forceinline__ float transmittance_at_depth_8(float b0, const float*
   b[5] = mm_mix(b_even[2], 0.63f, bias);
   b[6] = mm_mix(b_odd[3], 0.0f, bias);
   b[7] = mm_mix(b_even[3], 0.60030303030303034f, bias);
-  const float z0 = depth;
+  Moments8 m;
+  m.b0 = b0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m.b[i] = b[i];
 
   const float D22 = fmaxf(-b[0] * b[0] + b[1], 1e-10f);
-  const float InvD22 = 1.0f / D22;
+  m.InvD22 = 1.0f / D22;
   const float L32D22 = -b[1] * b[0] + b[2];
-  const float L32 = L32D22 * InvD22;
+  m.L32 = L32D22 * m.InvD22;
   const float L42D22 = -b[2] * b[0] + b[3];
-  const float L42 = L42D22 * InvD22;
+  m.L42 = L42D22 * m.InvD22;
   const float L52D22 = -b[3] * b[0] + b[4];
-  const float L52 = L52D22 * InvD22;
+  m.L52 = L52D22 * m.InvD22;
 
-  const float D33 = fmaxf(-L32 * L32D22 + (-b[1] * b[1] + b[3]), 1e-10f);
-  const float InvD33 = 1.0f / D33;
-  const float L43D33 = -L42 * L32D22 + (-b[2] * b[1] + b[4]);
-  const float L43 = L43D33 * InvD33;
-  const float L53D33 = -L52 * L32D22 + (-b[3] * b[1] + b[5]);
-  const float L53 = L53D33 * InvD33;
+  const float D33 = fmaxf(-m.L32 * L32D22 + (-b[1] * b[1] + b[3]), 1e-10f);
+  m.InvD33 = 1.0f / D33;
+  const float L43D33 = -m.L42 * L32D22 + (-b[2] * b[1] + b[4]);
+  m.L43 = L43D33 * m.InvD33;
+  const float L53D33 = -m.L52 * L32D22 + (-b[3] * b[1] + b[5]);
+  m.L53 = L53D33 * m.InvD33;
 
-  const float D44 = fmaxf((-b[2] * b[2] + b[5]) - (L42 * L42D22 + L43 * L43D33), 1e-10f);
-  const float InvD44 = 1.0f / D44;
-  const float L54D44 = (-b[3] * b[2] + b[6]) - (L52 * L42D22 + L53 * L43D33);
-  const float L54 = L54D44 * InvD44;
+  const float D44 = fmaxf((-b[2] * b[2] + b[5]) - (m.L42 * L42D22 + m.L43 * L43D33), 1e-10f);
+  m.InvD44 = 1.0f / D44;
+  const float L54D44 = (-b[3] * b[2] + b[6]) - (m.L52 * L42D22 + m.L53 * L43D33);
+  m.L54 = L54D44 * m.InvD44;
 
-  const float D55 =
-      fmaxf((-b[3] * b[3] + b[7]) - (L52 * L52D22 + L53 * L53D33 + L54 * L54D44), 1e-10f);
-  const float InvD55 = 1.0f / D55;
+  const float D55 = fmaxf(
+      (-b[3] * b[3] + b[7]) - (m.L52 * L52D22 + m.L53 * L53D33 + m.L54 * L54D44), 1e-10f);
+  m.InvD55 = 1.0f / D55;
+  return m;
+}
 
+__device__ __forceinline__ float transmittance_8(const Moments8& m, float depth,
+                                                 float overestimation) {
+  const float* b = m.b;
+  const float z0 = depth;
   float c0 = 1.0f;
   float c1 = z0;
   float c2 = c1 * z0;
   float c3 = c2 * z0;
   float c4 = c3 * z0;
   c1 = c1 - b[0];
-  c2 = c2 - (L32 * c1 + b[1]);
-  c3 = c3 - b[2] - (L42 * c1 + L43 * c2);
-  c4 = c4 - b[3] - (L52 * c1 + L53 * c2 + L54 * c3);
-  c1 = c1 * InvD22;
-  c2 = c2 * InvD33;
-  c3 = c3 * InvD44;
-  c4 = c4 * InvD55;
-  c3 = c3 - L54 * c4;
-  c2 = c2 - (L53 * c4 + L43 * c3);
-  c1 = c1 - (L52 * c4 + L42 * c3 + L32 * c2);
+  c2 = c2 - (m.L32 * c1 + b[1]);
+  c3 = c3 - b[2] - (m.L42 * c1 + m.L43 * c2);
+  c4 = c4 - b[3] - (m.L52 * c1 + m.L53 * c2 + m.L54 * c3);
+  c1 = c1 * m.InvD22;
+  c2 = c2 * m.InvD33;
+  c3 = c3 * m.InvD44;
+  c4 = c4 * m.InvD55;
+  c3 = c3 - m.L54 * c4;
+  c2 = c2 - (m.L53 * c4 + m.L43 * c3);
+  c1 = c1 - (m.L52 * c4 + m.L42 * c3 + m.L32 * c2);
   c0 = c0 - (b[3] * c4 + b[2] * c3 + b[1] * c2 + b[0] * c1);
 
   float z[4];
@@ -369,5 +408,5 @@ __device__ __forceinline__ float transmittance_at_depth_8(float b0, const float*
   P1 = -P1 * z0 + P_0;
   P_0 = -P_0 * z0 + f0;
   const float absorbance = P_0 + P1 * b[0] + P2 * b[1] + P3 * b[2] + P4 * b[3];
-  return mm_clamp01(expf(-b0 * absorbance));
+  return mm_clamp01(expf(-m.b0 * absorbance));
 }

@@ -3,7 +3,8 @@
 // One for one with linevis_tpu_torch/kernels/trig_moment_math.py (the JAX
 // package's linevis_tpu/kernels/trig_moment_math.py; the reference's
 // `usePowerMoments = false` mode, TrigonometricMomentMath.glsl and
-// ComplexAlgebra.glsl). Complex numbers are (re, im) pairs of floats; sin and
+// ComplexAlgebra.glsl), except that its _transmittance_trig is split into
+// trig_moment_setup and transmittance_trig (below). Complex numbers are (re, im) pairs of floats; sin and
 // cos are the degree-9 polynomial `sin_poly`, atan2 the polynomial of
 // moment_math.cuh. Every operation rounds as its plain counterpart does
 // (--fmad=false, no fast math).
@@ -210,42 +211,60 @@ __device__ __forceinline__ float newton_eval(const cpx* zs, const float* fs, con
 }
 
 // n complex moments (n = 2, 3, 4: NUM_MOMENTS 4, 6, 8) -> transmittance at
-// `depth`. trig_b[k] = (Re, Im) of moment k + 1, normalized by b0.
+// `depth`, in two parts for a caller that evaluates one pixel's moments at
+// many depths, as moment_math.cuh splits the power moments:
+// `trig_moment_setup` depends on the moments only (trig_b[k] = (Re, Im) of
+// moment k + 1, normalized by b0; the biased moments and the LDL* factors of
+// their Hermitian Toeplitz matrix, entry (i, j) = b[i - j]),
+// `transmittance_trig` solves (LDL*) c = the powers of the circle point at
+// the query depth and weights the roots. Together they do the operations of
+// trig_moment_math.py's _transmittance_trig in the same order.
 template <int n>
-__device__ __forceinline__ float transmittance_at_depth_trig(float b0, const cpx* trig_b,
-                                                            float depth, float bias,
-                                                            float overestimation, float wzp_y,
-                                                            float wzp_z, float wzp_w) {
-  const float scale = 1.0f - bias;
+struct MomentsTrig {
+  float b0;
   cpx bs[n + 1];
-  bs[0] = cx(1.0f, 0.0f);
-#pragma unroll
-  for (int k = 0; k < n; ++k) bs[k + 1] = cscale(trig_b[k], scale);
+  cpx L[n + 1][n + 1];  // strictly lower part
+  float invD[n + 1];
+};
 
-  // LDL* of the Hermitian Toeplitz moment matrix, entry (i, j) = b[i - j].
+template <int n>
+__device__ __forceinline__ MomentsTrig<n> trig_moment_setup(float b0, const cpx* trig_b,
+                                                            float bias) {
+  MomentsTrig<n> m;
+  m.b0 = b0;
+  const float scale = 1.0f - bias;
+  m.bs[0] = cx(1.0f, 0.0f);
+#pragma unroll
+  for (int k = 0; k < n; ++k) m.bs[k + 1] = cscale(trig_b[k], scale);
+
   const float eps = 1e-12f;
-  float D[n + 1], invD[n + 1];
-  cpx L[n + 1][n + 1];
-  D[0] = bs[0].re;
-  invD[0] = 1.0f / fmaxf(D[0], eps);
+  float D[n + 1];
+  D[0] = m.bs[0].re;
+  m.invD[0] = 1.0f / fmaxf(D[0], eps);
 #pragma unroll
   for (int i = 1; i <= n; ++i) {
 #pragma unroll
     for (int j = 0; j < i; ++j) {
-      cpx acc = bs[i - j];
+      cpx acc = m.bs[i - j];
 #pragma unroll
-      for (int k = 0; k < j; ++k) acc = csub(acc, cscale(cmul(L[i][k], cconj(L[j][k])), D[k]));
-      L[i][j] = cscale(acc, invD[j]);
+      for (int k = 0; k < j; ++k)
+        acc = csub(acc, cscale(cmul(m.L[i][k], cconj(m.L[j][k])), D[k]));
+      m.L[i][j] = cscale(acc, m.invD[j]);
     }
-    float di = bs[0].re;
+    float di = m.bs[0].re;
 #pragma unroll
     for (int k = 0; k < i; ++k)
-      di = di - D[k] * (L[i][k].re * L[i][k].re + L[i][k].im * L[i][k].im);
+      di = di - D[k] * (m.L[i][k].re * m.L[i][k].re + m.L[i][k].im * m.L[i][k].im);
     D[i] = di;
-    invD[i] = 1.0f / (fabsf(di) > eps ? di : (di >= 0.0f ? eps : -eps));
+    m.invD[i] = 1.0f / (fabsf(di) > eps ? di : (di >= 0.0f ? eps : -eps));
   }
+  return m;
+}
 
-  // Solve (LDL*) c = powers of the circle point at the query depth.
+template <int n>
+__device__ __forceinline__ float transmittance_trig(const MomentsTrig<n>& m, float depth,
+                                                    float overestimation, float wzp_y,
+                                                    float wzp_z, float wzp_w) {
   const cpx cp = sincos_poly(wzp_y * (depth + 1.0f));
   cpx c[n + 1];
   c[0] = cx(1.0f, 0.0f);
@@ -254,13 +273,13 @@ __device__ __forceinline__ float transmittance_at_depth_trig(float b0, const cpx
 #pragma unroll
   for (int i = 1; i <= n; ++i)  // forward substitution
 #pragma unroll
-    for (int j = 0; j < i; ++j) c[i] = csub(c[i], cmul(L[i][j], c[j]));
+    for (int j = 0; j < i; ++j) c[i] = csub(c[i], cmul(m.L[i][j], c[j]));
 #pragma unroll
-  for (int i = 0; i <= n; ++i) c[i] = cscale(c[i], invD[i]);
+  for (int i = 0; i <= n; ++i) c[i] = cscale(c[i], m.invD[i]);
 #pragma unroll
   for (int i = n - 1; i >= 0; --i)  // backward substitution (conjugates)
 #pragma unroll
-    for (int j = i + 1; j <= n; ++j) c[i] = csub(c[i], cmul(cconj(L[j][i]), c[j]));
+    for (int j = i + 1; j <= n; ++j) c[i] = csub(c[i], cmul(cconj(m.L[j][i]), c[j]));
 
   cpx coeffs[n + 1];
 #pragma unroll
@@ -281,6 +300,6 @@ __device__ __forceinline__ float transmittance_at_depth_trig(float b0, const cpx
 #pragma unroll
   for (int k = 1; k <= n; ++k)
     fs[k] = root_weight_factor(depth_param, circle_to_parameter(zs[k]), wzp_z, wzp_w);
-  const float weight_sum = newton_eval<n + 1>(zs, fs, bs);
-  return expf(-b0 * weight_sum);
+  const float weight_sum = newton_eval<n + 1>(zs, fs, m.bs);
+  return expf(-m.b0 * weight_sum);
 }

@@ -630,7 +630,7 @@ def _launcher(name):
                        i, i, i, i, f, f, i, i, i, i, i, i, i, i, i, i, f, p]
     else:
         fn = _build.load(name).raster_capsule_accum_launch
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p,
+        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, p, p, p, p,
                        i, i, i, i, f, f, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
@@ -773,14 +773,17 @@ def rasterize_capsules_accum(csr, params, tf, width, height, tile_w, tile_h, K, 
                              use_bands=False):
     """Launch `csrc/raster_capsule_accum.cu`, the accumulation modes' kernel,
     on CUDA inputs that `rasterize_capsules_mlab` checked -> [5 * K, n_tiles,
-    P] planes; counts the launch in `rasterize_capsules_accum.launches`."""
+    P] planes; counts the launch in `rasterize_capsules_accum.launches`. The
+    blocks take the tiles longest run first (`csr.longest_first`); each warp
+    holds an 8x4 block of a tile's pixels where such blocks cover the tile,
+    else 32 pixels in row-major order."""
     n_tiles = csr.tile_start.shape[0]
     P = tile_w * tile_h
     out = torch.empty((5 * K, n_tiles, P), dtype=torch.float32, device=csr.payload.device)
     with torch.cuda.device(csr.payload.device):
         rc = _launcher("raster_capsule_accum")(
             csr.payload.data_ptr(), csr.payload.shape[1],
-            csr.tile_start.data_ptr(), csr.tile_count.data_ptr(),
+            csr.tile_start.data_ptr(), csr.tile_count.data_ptr(), csr.longest_first.data_ptr(),
             params.data_ptr(), tf.data_ptr(),
             moments.data_ptr() if store_mode == "mboit_resolve" else None,
             None if peel is None else peel.data_ptr(), out.data_ptr(),

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -78,6 +79,13 @@ class SortedBinning:
     tiles_x: int
     tiles_y: int
     chunk: int
+
+    @functools.cached_property
+    def longest_first(self) -> torch.Tensor:
+        """[n_tiles] int32: the tiles longest run first, the order in which
+        the capsule, prism and accumulation kernels' blocks take them;
+        computed once per binning (MBOIT's two passes share one)."""
+        return torch.argsort(self.tile_count, descending=True).to(torch.int32)
 
 
 def _tile_index(v: torch.Tensor, size: int, n: int) -> torch.Tensor:

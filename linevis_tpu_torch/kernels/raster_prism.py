@@ -312,7 +312,7 @@ def rasterize_prisms(
     cs = ring_table(n_sides, payload.device)
     # The blocks take the tiles longest run first: the longest runs start
     # first instead of setting the tail (each tile writes its own slot).
-    order = torch.argsort(csr.tile_count, descending=True).to(torch.int32)
+    order = csr.longest_first
     out = torch.empty((10, n_tiles, P), dtype=torch.float32, device=payload.device)
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -853,6 +853,195 @@ def test_accum_kernel_edge_cases(cuda):
     assert (kr[2][0][:, ::3] > 0).sum().item() > 10
 
 
+# The accumulation kernel's design: tiles longest run first, a warp per 8x4
+# pixel block with votes on the discriminants, each chunk's fragments
+# marked first and then shaded and added in candidate order, the resolve's
+# moment factors once per pixel. Its parent equals the plain version bit for
+# bit, and so must it: every plane of every case below (NaN where the plain
+# version has NaN).
+
+_ACCUM_MODES4 = ("count", "wboit", "mboit_gen", "mboit_resolve")
+
+
+def _accum_frame(device, W, H, tile=(16, 8), chunk=32, lines=None, n_mom=4, trig=False,
+                 position=(0.0, 0.1, 1.2)):
+    cam = Camera(position=position, width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=tile[0], tile_h=tile[1], chunk=chunk,
+                       depth_cue_strength=0.2)
+    ts = ttr.build_capsule_scene(*(lines or _walk(12, 10, 8, 0.03)), device=device)
+    cams = ttr.camera_tensors(cam, device)
+    csr, params, _ = toit.prepare_mboit_frame(ts, *cams, S, n_mom, 0.4, trigonometric=trig)
+    return csr, params, S, ts, cams
+
+
+def _accum_planes(out):
+    return torch.cat([out[0], out[1].flatten(0, 1), out[2]])
+
+
+def _same_bits(k, p):
+    """Equal in every element, NaN where the other is NaN."""
+    return bool(((k == p) | (k.isnan() & p.isnan())).all())
+
+
+def _accum_vs_plain(csr, params, S, W, H, tile, store_mode, n_mom=4, trig=False, **kw):
+    """The kernel (one launch) and the plain version in `store_mode` ->
+    their planes; 'mboit_resolve' reads the kernel's own pass-1 moments
+    unless `moments` is given."""
+    K = 2 if store_mode == "mboit_gen" else 1
+    kw = dict(tf_color=S.tf_color, tf_opacity=S.tf_opacity, n_mom=n_mom, trig=trig, **kw)
+    if store_mode == "mboit_resolve" and "moments" not in kw:
+        kw["moments"] = _kernel_moments(csr, params, W, H, tile, **kw)
+    before = tk_accum().launches
+    k = rasterize_capsules_mlab(csr, params, W, H, *tile, K, store_mode=store_mode, **kw)
+    assert tk_accum().launches == before + 1
+    p = rasterize_capsules_mlab_reference(csr, params, W, H, *tile, K, store_mode=store_mode,
+                                          **kw)
+    torch.cuda.synchronize()
+    return _accum_planes(k), _accum_planes(p)
+
+
+def _kernel_moments(csr, params, W, H, tile, n_mom, **kw):
+    d, rgb, a = rasterize_capsules_mlab(csr, params, W, H, *tile, 2, store_mode="mboit_gen",
+                                        n_mom=n_mom, **kw)
+    nh = n_mom // 2
+    return torch.stack([d[0], *(rgb[0, 0], rgb[1, 0], rgb[2, 0], a[0])[:nh],
+                        *(d[1], rgb[0, 1], rgb[1, 1], rgb[2, 1])[:nh]]).contiguous()
+
+
+@pytest.mark.parametrize("store_mode", _ACCUM_MODES4)
+@pytest.mark.parametrize("tile", [(16, 8), (32, 16)])
+def test_accum_kernel_longest_run_taken_first(cuda, tile, store_mode):
+    """The longest run, past the middle of the index order and longer than
+    one chunk of 128, taken first, at 16x8 and 32x16 tiles."""
+    W, H = 200, 120
+    csr, params, S, _, _ = _accum_frame(cuda, W, H, tile, 128, _bundle(),
+                                        position=(0.1, 0.2, 1.4))
+    counts = csr.tile_count
+    assert int(counts.max()) > 128 and int(counts.argmax()) > counts.numel() // 2
+    assert int(csr.longest_first[0]) == int(counts.argmax())
+    k, p = _accum_vs_plain(csr, params, S, W, H, tile, store_mode)
+    assert (p[0] != 0).sum().item() + (p[4] != 0).sum().item() > 50
+    assert _same_bits(k, p)
+
+
+@pytest.mark.parametrize("store_mode", _ACCUM_MODES4)
+@pytest.mark.parametrize("chunk", [8, 32, 128, 256])
+def test_accum_kernel_runs_over_chunks(cuda, chunk, store_mode):
+    """Runs of several chunks at every staged width, and empty runs (all
+    planes zero)."""
+    W, H = 200, 120
+    csr, params, S, _, _ = _accum_frame(cuda, W, H, chunk=chunk, lines=_bundle(),
+                                        position=(0.1, 0.2, 1.4))
+    counts = csr.tile_count
+    assert int(counts.max()) > min(chunk, 128) and bool((counts == 0).any())
+    k, p = _accum_vs_plain(csr, params, S, W, H, (16, 8), store_mode)
+    assert _same_bits(k, p)
+    assert bool((k[:, counts == 0] == 0).all())
+
+
+@pytest.mark.parametrize("store_mode", _ACCUM_MODES4)
+def test_accum_kernel_peel_two_sided(cuda, store_mode):
+    """Entry and exit surfaces behind a peel depth."""
+    W, H = 160, 120
+    csr, params, S, _, _ = _accum_frame(cuda, W, H, chunk=8, lines=_walk(3, 24, 12, 0.05))
+    d1 = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, 1, S.tf_color,
+                                           S.tf_opacity, deferred_shade=True,
+                                           no_overflow=True)[0][0]
+    peel = torch.where(d1 < 1.5, d1, -1.0).contiguous()
+    k, p = _accum_vs_plain(csr, params, S, W, H, (16, 8), store_mode, peel=peel, two_sided=True)
+    assert (p[0] != 0).sum().item() + (p[4] != 0).sum().item() > 100
+    assert _same_bits(k, p)
+
+
+@pytest.mark.parametrize("store_mode", ["wboit", "mboit_gen", "mboit_resolve"])
+def test_accum_kernel_alpha_from_rows(cuda, store_mode):
+    """Alpha from payload rows 11-12 (alpha0 + dalpha * u) instead of the
+    opacity TF."""
+    W, H = 200, 120
+    _, params, S, ts, cams = _accum_frame(cuda, W, H)
+    rng = np.random.default_rng(5)
+    seg_alpha = torch.tensor(np.stack([rng.uniform(0.1, 0.6, ts.num_segments),
+                                       rng.uniform(-0.1, 0.3, ts.num_segments)]),
+                             dtype=torch.float32, device=cuda)
+    csr, _, _ = ttr.prepare_capsule_frame(ts, *cams, S, seg_alpha=seg_alpha)
+    k, p = _accum_vs_plain(csr, params, S, W, H, (16, 8), store_mode, alpha_from_rows=True)
+    k1, p1 = _accum_vs_plain(csr, params, S, W, H, (16, 8), store_mode)
+    assert not torch.equal(p, p1)  # the rows change the alpha
+    assert _same_bits(k, p)
+
+
+def test_accum_kernel_lone_lanes(cuda):
+    """Capsules under a pixel across, each hitting one lane of its warp's
+    8x4 block (the votes pass, every other lane misses), in every mode."""
+    W, H = 160, 96
+    rng = np.random.default_rng(9)
+    pos = np.zeros((40, 2, 3), np.float32)
+    pos[:, 0, :2] = rng.uniform(-0.35, 0.35, (40, 2))
+    pos[:, 1] = pos[:, 0] + rng.normal(0, 0.002, (40, 3))
+    lines = (pos, np.ones((40, 2), bool), rng.uniform(0, 1, (40, 2)).astype(np.float32), 0.0025)
+    csr, params, S, _, _ = _accum_frame(cuda, W, H, lines=lines)
+    for store_mode in _ACCUM_MODES4:
+        k, p = _accum_vs_plain(csr, params, S, W, H, (16, 8), store_mode)
+        if store_mode == "count":
+            # The warps' 8x4 blocks: some hold exactly one pixel with a fragment.
+            blocks = p[0].reshape(-1, 2, 4, 2, 8).permute(0, 1, 3, 2, 4).reshape(-1, 32)
+            assert ((blocks > 0).sum(dim=1) == 1).sum().item() >= 5
+        assert _same_bits(k, p)
+
+
+@pytest.mark.parametrize("store_mode", _ACCUM_MODES4)
+@pytest.mark.parametrize("tile", [(12, 8), (4, 16), (32, 1)])
+def test_accum_kernel_tiles_off_8x4_blocks(cuda, tile, store_mode):
+    """Tiles that the warps' 8x4 pixel blocks do not cover (any tile of a
+    multiple of 32 pixels is taken): each warp holds 32 pixels in row-major
+    order, and every plane equals the plain version's."""
+    W, H = 200, 120
+    csr, params, S, _, _ = _accum_frame(cuda, W, H, tile)
+    k, p = _accum_vs_plain(csr, params, S, W, H, tile, store_mode)
+    assert (p[0] != 0).sum().item() + (p[4] != 0).sum().item() > 100
+    assert _same_bits(k, p)
+
+
+def test_accum_kernel_instances_spill_free(cuda, tmp_path):
+    """No instance of the accumulation kernel spills (ptxas's report of a
+    fresh build), and each has few enough registers for a block of 512
+    pixels (it has no launch bounds). A 32-byte stack frame is cosf/sinf's
+    range reduction in the power-moment resolves, not a spill."""
+    import ctypes
+    import subprocess
+
+    from linevis_tpu_torch.kernels import _build
+
+    p = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp_path / "lib.so"),
+                        str(_build.CSRC / "raster_capsule_accum.cu")],
+                       capture_output=True, text=True)
+    assert p.returncode == 0, p.stderr
+    reports = [ln for ln in (p.stdout + p.stderr).splitlines() if "spill stores" in ln]
+    assert len(reports) == 21
+    assert all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in reports), reports
+    fn = _build.load("raster_capsule_accum").kernel_info
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+    for i in range(21):
+        v, label = (ctypes.c_int * 6)(), ctypes.create_string_buffer(64)
+        assert fn(i, v, label, 64) == 0
+        assert v[0] * 512 <= 65536, (label.value, v[0])
+
+
+@pytest.mark.parametrize("n_mom,trig", [(n, t) for t in (False, True) for n in (4, 6, 8)])
+def test_accum_resolve_discarded_pixels(cuda, n_mom, trig):
+    """Every resolve instance on moments whose b0 is under the discard
+    threshold at every third pixel column (T = 1 there)."""
+    W, H = 160, 120
+    csr, params, S, _, _ = _accum_frame(cuda, W, H, n_mom=n_mom, trig=trig)
+    mom = _kernel_moments(csr, params, W, H, (16, 8), n_mom, tf_color=S.tf_color,
+                          tf_opacity=S.tf_opacity, trig=trig)
+    mom[0, :, ::3] = 5e-4
+    k, p = _accum_vs_plain(csr, params, S, W, H, (16, 8), "mboit_resolve", n_mom, trig,
+                           moments=mom)
+    assert (p[4][:, ::3] > 0).sum().item() > 10
+    assert _same_bits(k, p)
+
+
 @pytest.mark.parametrize("K", [8, 16, 32])
 def test_kbuffer_peel_per_fragment_matches_plain(cuda, K):
     """Per-fragment shading with a peel depth (a depth-peeling pass): node

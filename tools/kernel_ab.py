@@ -20,9 +20,15 @@ builds the tree's own kernels and times, on the first orbit camera of
   - where the tree has `use_bands`, its two K-buffer cases at
     `chip_smoke.py`'s 480x272 frame: the composite, and per-fragment
     shading behind an exact pass;
-  - 'wboit';
   - where the tree has it, the opacity optimization's 'gather' at 960x528
     (K=8);
+  - the accumulation kernel (`accum`): 'count' and 'wboit' on the capsule
+    binning, 'mboit_gen' and 'mboit_resolve' with 4, 6 and 8 power and
+    trigonometric moments on `prepare_mboit_frame`'s (each resolve on its
+    tree's own pass-1 moments), and 'wboit' and 'mboit_resolve' (4 power
+    moments) with `use_bands` at 480x272. Every output plane of every case
+    is held bit for bit (`torch.equal` of the int32 views) against the
+    first tree's, which its first turn saves in a temporary file;
   - B5 (`trace_pairs`) on the first batch of rays of `chip_smoke.py`'s
     first RTAO frame (tile 32x16);
   - B4 (8 sides) at 32x16 and 16x8; B6 at K=8 (MLAB merge and
@@ -32,11 +38,11 @@ builds the tree's own kernels and times, on the first orbit camera of
   - B3 at 32x16 (chunk 128) with 8 attribute planes and depth only;
 each the mean of 40 launches between CUDA events.
 
-    python3 tools/kernel_ab.py TREE [TREE ...] [--turns N] [--kernels b2,b5,b4,b6,b1,b3]
+    python3 tools/kernel_ab.py TREE [TREE ...] [--turns N] [--kernels b2,b5,b4,b6,b1,b3,accum]
 
 runs the trees in the order given, then reversed, N times (default 2),
 printing one JSON line per turn and a last line with the card and every
-turn. On a tree's first turn, which builds its three kernel sources anew,
+turn. On a tree's first turn, which builds its kernel sources anew,
 the line also holds each source's build cost: nvcc's seconds (compiled one
 after the other), the number of kernel instances ptxas compiled, the
 library's bytes and its ptxas register and spill lines.
@@ -57,9 +63,9 @@ _CHILD = r'''
 import json, os, sys, torch
 from linevis_tpu_torch.kernels import _build
 groups_file, kernels = sys.argv[2], sys.argv[3].split(",")
-sources = {"b2": ("raster_capsule_oit", "raster_capsule_accum"), "b5": ("ao_grid",),
+sources = {"b2": ("raster_capsule_oit",), "b5": ("ao_grid",),
            "b4": ("raster_prism",), "b6": ("bvh_wavefront",), "b1": ("raster_capsule",),
-           "b3": ("raster_triangle",)}
+           "b3": ("raster_triangle",), "accum": ("raster_capsule_accum",)}
 info = {}
 for name in [n for k in kernels for n in sources[k]]:
     if sys.argv[1] == "rebuild":  # a tree's first turn: time its build
@@ -98,8 +104,8 @@ res = {"ptxas": [l.strip() for l in log.splitlines() if "registers" in l or "spi
 res["build"] = {
     name: {"nvcc_s": b["seconds"], "instances": b["log"].count("Compiling entry function"),
            "library_bytes": _build._lib_path(name).stat().st_size,
-           "ptxas": sorted({l.split(":")[-1].strip() for l in b["log"].splitlines()
-                            if "Used" in l or "spill" in l})}
+           "ptxas": [l.split(":")[-1].strip() for l in b["log"].splitlines()
+                     if "Used" in l or "spill" in l]}
     for name, b in info.items()}
 
 
@@ -126,10 +132,6 @@ def b2():
         *args4, deferred_shade=True, sub=32, sat=0.999, composite=True))
     res["atomic_loop_k32_32x16"] = timed(lambda: rasterize_capsules_mlab(
         *args4, no_overflow=True))
-    csr_w, params_w, _ = prepare_capsule_frame(scene, *cam, s)
-    params_w[14] = 0.3
-    res["wboit"] = timed(lambda: rasterize_capsules_mlab(
-        csr_w, params_w, W, H, 16, 8, 1, s.tf_color, s.tf_opacity, store_mode="wboit"))
     s2 = RasterSettings(width=960, height=528, tile_w=16, tile_h=8)
     csr2, params2, _ = prepare_capsule_frame(scene, *cam, s2)
     try:
@@ -154,6 +156,68 @@ def b2():
             *args3, peel=peel3, no_overflow=True, use_bands=True))
     except TypeError:
         pass  # a tree from before use_bands
+
+
+def accum():
+    from linevis_tpu_torch.render.oit import prepare_mboit_frame
+
+    def planes(out):
+        return [out[0], out[1].flatten(0, 1), out[2]]
+
+    def moments_of(gen, n_mom):
+        d, rgb, a = gen
+        nh = n_mom // 2
+        return torch.stack([d[0], *(rgb[0, 0], rgb[1, 0], rgb[2, 0], a[0])[:nh],
+                            *(d[1], rgb[0, 1], rgb[1, 1], rgb[2, 1])[:nh]]).contiguous()
+
+    cases = {}
+    csr_w, params_w, _ = prepare_capsule_frame(scene, *cam, s)
+    params_w[14] = 0.3
+    for mode in ("count", "wboit"):
+        cases[mode] = (lambda mode=mode: rasterize_capsules_mlab(
+            csr_w, params_w, W, H, 16, 8, 1, s.tf_color, s.tf_opacity, store_mode=mode))
+    for trig in (False, True):
+        for n_mom in (4, 6, 8):
+            key = f"{'trig' if trig else 'power'}{n_mom}"
+            csr_m, params_m, _ = prepare_mboit_frame(scene, *cam, s, n_mom, 0.3,
+                                                     trigonometric=trig)
+            margs = (csr_m, params_m, W, H, 16, 8)
+            kw = dict(tf_color=s.tf_color, tf_opacity=s.tf_opacity, n_mom=n_mom, trig=trig)
+            cases[f"mboit_gen_{key}"] = (lambda margs=margs, kw=kw: rasterize_capsules_mlab(
+                *margs, 2, store_mode="mboit_gen", **kw))
+            mom = moments_of(cases[f"mboit_gen_{key}"](), n_mom)
+            cases[f"mboit_resolve_{key}"] = (lambda margs=margs, kw=kw, mom=mom:
+                                             rasterize_capsules_mlab(
+                                                 *margs, 1, store_mode="mboit_resolve",
+                                                 moments=mom, **kw))
+    # use_bands at chip_smoke.py's reduced frame (480x272).
+    s3 = RasterSettings(width=480, height=272, tile_w=16, tile_h=8)
+    cam3 = camera_tensors(
+        Camera(position=(0.0, 0.1, 1.2), width=480, height=272).orbit(0.002, 0.1, 1.2), dev)
+    csr3, params3, _ = prepare_capsule_frame(scene, *cam3, s3)
+    params3[14] = 0.3
+    cases["bands_wboit"] = lambda: rasterize_capsules_mlab(
+        csr3, params3, 480, 272, 16, 8, 1, s3.tf_color, s3.tf_opacity, store_mode="wboit",
+        use_bands=True)
+    csr3m, params3m, _ = prepare_mboit_frame(scene, *cam3, s3, 4, 0.3)
+    mom3 = moments_of(rasterize_capsules_mlab(csr3m, params3m, 480, 272, 16, 8, 2, s3.tf_color,
+                                              s3.tf_opacity, store_mode="mboit_gen", n_mom=4),
+                      4)
+    cases["bands_mboit_resolve"] = lambda: rasterize_capsules_mlab(
+        csr3m, params3m, 480, 272, 16, 8, 1, s3.tf_color, s3.tf_opacity,
+        store_mode="mboit_resolve", n_mom=4, moments=mom3, use_bands=True)
+
+    ref_file = os.path.join(os.path.dirname(groups_file), "accum_first_tree.pt")
+    outs = {k: [x.view(torch.int32).cpu() for x in planes(fn())] for k, fn in cases.items()}
+    if os.path.exists(ref_file):
+        ref = torch.load(ref_file)
+        res["accum_equal_to_first_tree"] = {
+            k: all(torch.equal(a, b) for a, b in zip(v, ref[k])) for k, v in outs.items()}
+    else:
+        torch.save(outs, ref_file)
+    del outs
+    for k, fn in cases.items():
+        res[f"accum_{k}"] = timed(fn)
 
 
 def b5():
@@ -231,14 +295,14 @@ def b3():
 
 
 for k in kernels:
-    {"b2": b2, "b5": b5, "b4": b4, "b6": b6, "b1": b1, "b3": b3}[k]()
+    {"b2": b2, "b5": b5, "b4": b4, "b6": b6, "b1": b1, "b3": b3, "accum": accum}[k]()
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
 
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
-    turns, kernels = 2, "b2,b5,b4,b6,b1,b3"
+    turns, kernels = 2, "b2,b5,b4,b6,b1,b3,accum"
     if "--turns" in args:
         i = args.index("--turns")
         turns = int(args[i + 1])

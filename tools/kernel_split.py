@@ -3,7 +3,7 @@
 A one-off measurement script beside `chip_smoke.py` and `tools/kernel_ab.py`,
 not part of the port's package. Run from the root of a source tree:
 
-    python3 tools/kernel_split.py [--turns N] [--out FILE] [--kernels b5,b2,b4,b6,b1,b3]
+    python3 tools/kernel_split.py [--turns N] [--out FILE] [--kernels b5,b2,b4,b6,b1,b3,accum]
 
 B5 (`csrc/ao_grid.cu`), on the first 1080p batch of rays of `chip_smoke.py`'s
 first RTAO frame: the launch as it is; the same launch with every
@@ -52,9 +52,21 @@ more mode. B3 (`csrc/raster_triangle.cu`), on the 1080p triangle tubes (8
 subdivisions, 32x16, chunk 128) with 8 attribute planes and depth only:
 the histogram of chunks per tile and the same against `B3_VARIANTS`.
 
-For B4, B6, B1 and B3: registers, local memory, shared memory and
-resident blocks per SM of every instance of every variant, read through
-the library's `kernel_info`.
+The accumulation kernel (`csrc/raster_capsule_accum.cu`, `accum`), on that
+camera's 1080p frame at 16x8 (chunk 128): 'count' and 'wboit' on the
+capsule binning, both MBOIT passes (4 power moments; the resolve also with
+8 trigonometric ones) on `prepare_mboit_frame`'s, and 'wboit' with the
+longest run's tile alone: the histogram of candidates per tile, the
+fragments and the pixels whose moments the resolve keeps, whether the
+kernel equals its plain version bit for bit in each mode, and the tree's
+kernel against `ACCUM_VARIANTS` with the share of (warp, candidate) pairs
+in which no lane has a fragment; 'count' also with the 132 longest runs
+alone and with every run but them.
+
+For B4, B6, B1, B3 and the accumulation kernel: registers, local memory,
+shared memory and resident blocks per SM of every instance of every
+variant, read through the library's `kernel_info`, and each variant's
+ptxas lines (registers, stack frame, spills).
 
 The last line holds the card's name and power limit and every figure (also
 written to FILE with --out).
@@ -74,7 +86,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["main", "VARIANTS", "B5_VARIANTS", "B4_VARIANTS", "B6_VARIANTS", "B1_VARIANTS",
-           "B3_VARIANTS"]
+           "B3_VARIANTS", "ACCUM_VARIANTS"]
 
 # name -> [(old, new), ...] applied to csrc/raster_capsule_oit.cu (B2: a
 # sorted per-thread list of the nearest hits, the nodes in shared memory):
@@ -374,6 +386,90 @@ B3_VARIANTS = {
 }
 B3_PHASES = ("staging", "slot_loop", "epilogue", "total")
 
+# The same for csrc/raster_capsule_accum.cu (the accumulation modes of B2:
+# tiles longest run first, one thread a pixel in 8x4 warp blocks, votes on
+# the discriminants, fragments marked in pass 1 and shaded in pass 2).
+_VOTES_OFF = [
+    ("      const bool pb = __any_sync(FULL, d.h >= 0.0f);", "      const bool pb = true;"),
+    ("      const bool pa = cj[13] > 0.5f && __any_sync(FULL, d.ha >= 0.0f);",
+     "      const bool pa = cj[13] > 0.5f;"),
+    ("      const bool pc = __any_sync(FULL, d.hb >= 0.0f);", "      const bool pc = true;")]
+ACCUM_VARIANTS = {
+    # Tiles in index order (the same function).
+    "index_order": [("  const int tile = order[blockIdx.x];", "  const int tile = blockIdx.x;")],
+    # __launch_bounds__(512): ptxas then holds every instance at 64
+    # registers and spills (the same function).
+    "launch_bounds_512": [("__global__ void accum_kernel(",
+                           "__global__ void __launch_bounds__(MAX_THREADS) accum_kernel(")],
+    # No warp votes (the same function).
+    "no_votes": _VOTES_OFF,
+    # Warps on rows of 32 pixels (the same function).
+    "rows_of_32": [("  const bool blocks = tile_w % 8 == 0 && tile_h % 4 == 0;",
+                    "  const bool blocks = false;")],
+    # Empty tiles walk the set-up like the others (the same function).
+    "no_empty_exit": [("  if (count == 0) {  // the whole block",
+                       "  if (count < 0) {  // the whole block")],
+    # Pass 2 word by word: a warp takes the most fragments of any lane in
+    # each mark word, summed over the words (the same function).
+    "pass2_per_word": [(
+        "      int w = 0;\n      unsigned m = mk[0];\n      for (;;) {\n"
+        "        while (m == 0u && ++w < nw) m = mk[w * P];\n        if (m == 0u) break;\n",
+        "      for (int w = 0; w < nw; ++w)\n      for (unsigned m = mk[w * P]; m != 0u;) {\n")],
+    # Only the first chunk staged (changes the function on longer runs).
+    "staged_once": [("    for (int r = warp; r < NROWS; r += P >> 5)\n",
+                     "    if (c0 == 0)\n    for (int r = warp; r < NROWS; r += P >> 5)\n")],
+    # Pass 1 alone: no fragment shaded or added (changes the function but
+    # in 'count').
+    "pass1_only": [("      for (;;) {\n        while (m == 0u && ++w < nw)",
+                    "      for (; n < 0;) {\n        while (m == 0u && ++w < nw)")],
+    # The (warp, candidate) counts of pass 1, into g_phase by lane 0 of each
+    # warp: [0] pairs, [1] those with no discriminant >= 0, [2] those with
+    # no fragment, [3] the lanes with a fragment, summed, [4] those with a
+    # fragment.
+    "warp_hits": [
+        _PHASE_COUNTERS,
+        ("  const int start = tile_start[tile];\n",
+         "  unsigned long long wc_[5] = {0, 0, 0, 0, 0};\n  const int start = tile_start[tile];\n"),
+        ("      if (!(pb || pa || pc)) continue;\n",
+         "      wc_[0] += 1;\n      if (!(pb || pa || pc)) {\n"
+         "        wc_[1] += 1;\n        wc_[2] += 1;\n        continue;\n      }\n"
+         "      bool frag_ = false;\n"),
+        ("        mk[(bit >> 5) * P] |= 1u << (bit & 31);\n      }\n",
+         "        mk[(bit >> 5) * P] |= 1u << (bit & 31);\n        frag_ = true;\n      }\n"
+         "      const unsigned bf_ = __ballot_sync(FULL, frag_);\n"
+         "      wc_[2] += bf_ == 0u;\n      wc_[3] += __popc(bf_);\n      wc_[4] += bf_ != 0u;\n"),
+        ("  for (int p = 0; p < 5 * K; ++p) {\n    float v = 0.0f;\n",
+         "  if (lane == 0)\n    for (int i = 0; i < 5; ++i) atomicAdd(&g_phase[i], wc_[i]);\n"
+         "  for (int p = 0; p < 5 * K; ++p) {\n    float v = 0.0f;\n")],
+    # Warp-cycles: staging with its barrier, pass 1, pass 2, the epilogue,
+    # the whole kernel (tiles with a run).
+    "phase_clock": [
+        _PHASE_COUNTERS,
+        ("  const int start = tile_start[tile];\n",
+         "  long long ph_stage = 0, ph_p1 = 0, ph_p2 = 0;\n"
+         "  const long long ph_start = clock64();\n  const int start = tile_start[tile];\n"),
+        ("    const int n = min(C, count - c0);\n",
+         "    const int n = min(C, count - c0);\n    const long long p0 = clock64();\n"),
+        ("    __syncthreads();\n\n    // Pass 1",
+         "    __syncthreads();\n    const long long p1 = clock64();\n    ph_stage += p1 - p0;\n\n"
+         "    // Pass 1"),
+        ("\n    // Pass 2: the marked fragments",
+         "    const long long p2 = clock64();\n    ph_p1 += p2 - p1;\n\n"
+         "    // Pass 2: the marked fragments"),
+        ("      }\n    }\n  }\n\n  for (int p = 0; p < 5 * K; ++p) {",
+         "      }\n    }\n    ph_p2 += clock64() - p2;\n  }\n  const long long p9 = clock64();\n\n"
+         "  for (int p = 0; p < 5 * K; ++p) {"),
+        ("    px[(long long)p * plane] = v;\n  }\n}",
+         "    px[(long long)p * plane] = v;\n  }\n"
+         "  if (lane == 0) {\n    const long long p10 = clock64();\n"
+         "    atomicAdd(&g_phase[0], (unsigned long long)ph_stage);\n"
+         "    atomicAdd(&g_phase[1], (unsigned long long)ph_p1);\n"
+         "    atomicAdd(&g_phase[2], (unsigned long long)ph_p2);\n"
+         "    atomicAdd(&g_phase[3], (unsigned long long)(p10 - p9));\n"
+         "    atomicAdd(&g_phase[4], (unsigned long long)(p10 - ph_start));\n  }\n}")],
+}
+ACCUM_PHASES = ("staging", "pass1", "pass2", "epilogue", "total")
+
 
 def _events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -609,7 +705,7 @@ def _kernel_info(lib):
 def _variant_figures(source, libs, modes, turns, phases):
     """Each variant library of `source` in turn: its instances, whether
     every mode's output equals the base's, its times over `turns`, and the
-    warp-cycle shares of `phases` where it has `read_phase`."""
+    warp-cycle shares of `phases` where it is named `phase_clock`."""
     from linevis_tpu_torch.kernels import _build
 
     def use(name):
@@ -634,9 +730,9 @@ def _variant_figures(source, libs, modes, turns, phases):
             for m, fn in modes.items():
                 fig[name]["ms"].setdefault(m, []).append(_timed(fn))
     for name in names:
-        lib = use(name)
-        if not hasattr(lib, "read_phase"):
+        if name != "phase_clock":
             continue
+        lib = use(name)
         buf = (ctypes.c_ulonglong * 8)()
         lib.read_phase(buf)  # zero the counters
         fig[name]["phase_share"] = {}
@@ -844,6 +940,117 @@ def _b3(dev, traj, W, H, res, turns):
     res["b3"] = fig
 
 
+def _accum(dev, scene, W, H, res, turns):
+    import dataclasses
+
+    from linevis_tpu_torch.kernels import _build
+    from linevis_tpu_torch.kernels.raster_capsule_oit import (
+        rasterize_capsules_mlab, rasterize_capsules_mlab_reference)
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.oit import prepare_mboit_frame
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.tube_raster import camera_tensors, prepare_capsule_frame
+
+    s = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
+    cam = camera_tensors(Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+                         .orbit(0.002, 0.1, 1.2), dev)
+    # 'count' and 'wboit' on the capsule binning, the MBOIT passes (4 power
+    # moments) on prepare_mboit_frame's, as chip_smoke.py checks them.
+    csr, params, _ = prepare_capsule_frame(scene, *cam, s)
+    params[14] = 0.3
+    csr_m, params_m, _ = prepare_mboit_frame(scene, *cam, s, 4, 0.3)
+    if not (torch.equal(csr.tile_count, csr_m.tile_count)
+            and torch.equal(csr.tile_start, csr_m.tile_start)):
+        raise SystemExit("the capsule and the MBOIT binnings differ")
+    counts = csr.tile_count.long()
+    longest = int(counts.argmax())
+    alone = torch.zeros_like(csr.tile_count)
+    alone[longest] = csr.tile_count[longest]
+    csr_alone = dataclasses.replace(csr, tile_count=alone)
+    # The 132 longest runs (one a SM) alone, and every run but them.
+    top = csr.longest_first[:132].long()
+    top_alone = torch.zeros_like(csr.tile_count)
+    top_alone[top] = csr.tile_count[top]
+    without_top = csr.tile_count.clone()
+    without_top[top] = 0
+    csr_top = dataclasses.replace(csr, tile_count=top_alone)
+    csr_rest = dataclasses.replace(csr, tile_count=without_top)
+    tf = (s.tf_color, s.tf_opacity)
+
+    def flat(out):
+        return [out[0], out[1].flatten(0, 1), out[2]]
+
+    def call(mode, c=csr, p=params, K=1, fn=rasterize_capsules_mlab, **kw):
+        return flat(fn(c, p, W, H, 16, 8, K, *tf, store_mode=mode, **kw))
+
+    gen = call("mboit_gen", csr_m, params_m, 2, n_mom=4)
+    d, rgb = gen[0], gen[1].reshape(3, 2, *gen[0].shape[1:])
+    moments = torch.stack([d[0], rgb[0, 0], rgb[1, 0], d[1], rgb[0, 1]]).contiguous()
+    csr_t, params_t, _ = prepare_mboit_frame(scene, *cam, s, 8, 0.3, trigonometric=True)
+    gen_t = call("mboit_gen", csr_t, params_t, 2, n_mom=8, trig=True)
+    d, rgb, a = gen_t[0], gen_t[1].reshape(3, 2, *gen_t[0].shape[1:]), gen_t[2]
+    moments_t = torch.stack([d[0], rgb[0, 0], rgb[1, 0], rgb[2, 0], a[0],
+                             d[1], rgb[0, 1], rgb[1, 1], rgb[2, 1]]).contiguous()
+    modes = {
+        "count": lambda: call("count"),
+        "wboit": lambda: call("wboit"),
+        "mboit_gen": lambda: call("mboit_gen", csr_m, params_m, 2, n_mom=4),
+        "mboit_resolve": lambda: call("mboit_resolve", csr_m, params_m, n_mom=4,
+                                      moments=moments),
+        "mboit_resolve_trig8": lambda: call("mboit_resolve", csr_t, params_t, n_mom=8,
+                                            trig=True, moments=moments_t),
+        "wboit_longest_tile_alone": lambda: call("wboit", csr_alone),
+        "count_longest_132_alone": lambda: call("count", csr_top),
+        "count_without_longest_132": lambda: call("count", csr_rest),
+    }
+    plain = {
+        "count": call("count", fn=rasterize_capsules_mlab_reference),
+        "wboit": call("wboit", fn=rasterize_capsules_mlab_reference),
+        "mboit_gen": call("mboit_gen", csr_m, params_m, 2, n_mom=4,
+                          fn=rasterize_capsules_mlab_reference),
+        "mboit_resolve": call("mboit_resolve", csr_m, params_m, n_mom=4, moments=moments,
+                              fn=rasterize_capsules_mlab_reference),
+        "mboit_resolve_trig8": call("mboit_resolve", csr_t, params_t, n_mom=8, trig=True,
+                                    moments=moments_t, fn=rasterize_capsules_mlab_reference)}
+    frags = modes["count"]()[0][0]
+    fig = {"tiles": counts.numel(), "pairs": int(counts.sum()),
+           "fragments": int(frags.sum()), "pixels_with_fragments": int((frags > 0).sum()),
+           "pixels_resolved": int((moments[0] >= 0.00100050033).sum()),
+           "fragments_resolved": int(frags[moments[0] >= 0.00100050033].sum()),
+           "candidates_per_tile": _histogram(counts, 16), "longest_tile": longest,
+           "longest_tile_rank_in_index_order": longest / counts.numel(),
+           "equal_to_plain": {}, "pixels_differing_per_plane": {},
+           "ms_as_is": {m: _timed(fn) for m, fn in modes.items()}}
+    for m, p in plain.items():
+        diff = _differing(modes[m](), p)
+        fig["equal_to_plain"][m] = sum(diff) == 0
+        fig["pixels_differing_per_plane"][m] = diff
+    print("accum: " + json.dumps(fig), flush=True)
+
+    t0 = time.perf_counter()
+    libs = _build_variants(_build.BUILD_DIR / "split", "raster_capsule_accum", ACCUM_VARIANTS)
+    fig["build_s"] = time.perf_counter() - t0
+    fig["variants"] = _variant_figures("raster_capsule_accum", libs, modes, turns,
+                                       ACCUM_PHASES)
+    for name in [n for n in libs if n.startswith("warp_hits")]:
+        lib = ctypes.CDLL(str(libs[name][0]))
+        _build._loaded["raster_capsule_accum"] = lib
+        buf = (ctypes.c_ulonglong * 8)()
+        lib.read_phase(buf)  # zero the counters
+        modes["count"]()
+        torch.cuda.synchronize()
+        lib.read_phase(buf)
+        n, no_disc, no_frag, lanes, with_frag = (int(x) for x in buf[:5])
+        fig["variants"][name]["warp_candidates"] = {
+            "pairs": n, "no_discriminant_share": no_disc / n, "no_fragment_share": no_frag / n,
+            "lanes_per_pair_with_a_fragment": lanes / max(with_frag, 1)}
+    _build._loaded.pop("raster_capsule_accum", None)
+    for name, v in fig["variants"].items():
+        print(f"accum {name}: " + json.dumps({k: x for k, x in v.items() if k != "ptxas"}),
+              flush=True)
+    res["accum"] = fig
+
+
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     turns = int(args[args.index("--turns") + 1]) if "--turns" in args else 2
@@ -866,7 +1073,8 @@ def main(argv=None) -> int:
         if k in ("b4", "b3"):
             {"b4": _b4, "b3": _b3}[k](dev, traj, W, H, res, turns)
         else:
-            {"b5": _b5, "b2": _b2, "b6": _b6, "b1": _b1}[k](dev, scene, W, H, res, turns)
+            {"b5": _b5, "b2": _b2, "b6": _b6, "b1": _b1, "accum": _accum}[k](
+                dev, scene, W, H, res, turns)
     print(json.dumps(res), flush=True)
     if "--out" in args:
         out = Path(args[args.index("--out") + 1])
