@@ -52,7 +52,24 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   port's renderer registry draws, by name, on a small scene, card vs CPU
   (RTAO, whose samples each device draws itself, on the mean of 8
   accumulated frames), and the registry's RTAO mode on the tornado at
-  1080p (its first frame equal to `render_tubes_rtao`'s, 8 frames timed).
+  1080p (its first frame equal to `render_tubes_rtao`'s, 8 frames timed);
+- the repo's five reference configs (tests/baseline_scenes.py, six images)
+  through the registry at full size, `entry.BASELINE_CONFIGS` on the card:
+  config 1 (tornado, Opaque, 800x600), 2 (tornado, Per-Pixel Linked Lists,
+  K=32), 4 and 4b (the Femur-like stress lines, MLAB and MBOIT, opacity 0.45)
+  and 5 (tornado, opacity optimization along its circle path) 8 frames each
+  on an orbit of cameras, config 3 (convection rolls traced on the card,
+  RTAO) its 2 accumulating frames; each frame timed with CUDA events and the
+  host clock (a registry frame hands back a numpy image), its launches
+  counted. B2's composite at K=32 on config 2's frame 0 and on the Femur's
+  (also in bench.py's form with per-segment alpha rows, whose frames are
+  timed too), and both MBOIT passes on the Femur's frame 0 (bit for bit),
+  against their plain versions; each config at scale 0.1 on the card
+  against the CPU's plain path (config 3: its 2 frames on identical samples,
+  and 8 accumulated registry frames, each device drawing its own samples,
+  for no bias; config 5, whose frame an ulp of its input moves, at a lower
+  SSIM floor and stage by stage: the gather's nodes on most pixels, the
+  solve on identical nodes and the final render on identical opacities).
 For each path it times the frames and their stages with CUDA events, checks
 that exactly the expected kernels were launched the expected number of
 times, holds the path's kernel against its plain PyTorch version on the same
@@ -76,9 +93,9 @@ version bit for bit, with AA on the capsule frame and without AA on the
 RTAO G-buffer's binning, and its bound charges the start cap and each
 part's AA distance only where the function needs them
 (`capsule_needed_work`, itself held against the plain version's
-arithmetic). The accumulation modes' bounds charge each part's root and
-tests only where its discriminant is not negative, and the world t and clip
-only where a surface exists (`accum_needed_work`, held alike); each row also
+arithmetic). B2's bounds, in every mode, charge each part's root and tests
+only where its discriminant is not negative, and the world t and clip only
+where a surface exists (the plain version's `stats`); each B2 row also
 carries the bound with every part charged at every evaluation.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -123,16 +140,18 @@ STAGED_ROWS = 13  # payload rows the capsule kernel reads per candidate
 # three roots, axial positions and acceptance tests 40, the world t, NDC clip
 # and rejection 6;
 MLAB_OPS_PER_EVAL = 95
-# The accumulation modes (front faces) charge each evaluation only what the
-# function needs there (`accum_needed_work`): at every one the dot products
-# and the re-origin 20, the three discriminants 23 and their signs 3; a
-# part's root, axial position and acceptance tests only where its
-# discriminant is not negative (the body's 15, the start cap's 15 and only
-# where payload row 13 holds one, the end cap's 13); the world t, NDC clip
-# and rejection 6 only where a surface exists. 95 with every part.
-ACCUM_OPS_BASE = 46
-ACCUM_OPS_PART = (15, 15, 13)  # the body, the start cap, the end cap
-ACCUM_OPS_SURFACE = 6
+# Every mode of B2 (the K-buffer modes and the accumulation modes) charges
+# each evaluation only what the function needs there (the plain version's
+# `stats`): at every one the dot products and the re-origin 20, the three
+# discriminants 23 and their signs 3; a part's root, axial position and
+# acceptance tests only where its discriminant is not negative (the body's
+# 15, the start cap's 15 and only where payload row 13 holds one, the end
+# cap's 13); the world t, NDC clip and rejection 6 only where a surface
+# exists. 95 with every part.
+HIT_OPS_BASE = 46
+HIT_OPS_PART = (15, 15, 13)  # the body, the start cap, the end cap
+HIT_OPS_SURFACE = 6
+NEED_KEYS = ("evaluations", "body", "start_cap", "end_cap", "surfaces")
 # per fragment in an extracted tie window 45: its axial position, attribute,
 # the two headlight cosines through the tube-axis identities 29, the
 # opacity TF 10, the window sums 4, and the window test 2;
@@ -217,6 +236,19 @@ OIT_OPS_PER_ACCUM = {"count": 1, "wboit": 35, "mboit_gen": 45, "mboit_resolve": 
 OIT_OPS_RESOLVE_PIXEL = 31
 OIT_OPS_PER_PEEL = 5
 OO_FRAMES = 8  # opacity-optimization frames (bench.py cfg5's flight)
+BASE_FRAMES = 8  # frames of each baseline config but config 3 (its own 2)
+BASE_CHECK_SCALE = 0.1  # the baseline configs' card-vs-CPU frames
+BASE_CHECK_RTAO_FRAMES = 8
+# Config 5's solve on identical gathered nodes, card vs CPU: the device's
+# powf against the CPU's pow, through 15 Laplacian steps.
+OO_SOLVE_TOL = 1e-5
+# Config 5's stages that an ulp of their input moves (K-buffer truncation in
+# the gather), card vs CPU, held at floors set from the readings: its
+# registry frame at SSIM >= OO_FRAME_SSIM (0.9799 read on the card, 0.984
+# for one ulp of the positions on the CPU alone, tools/ulp_sensitivity.py),
+# the gather's nodes equal on >= OO_GATHER_NODES of pixels (99.91% read).
+OO_FRAME_SSIM = 0.95
+OO_GATHER_NODES = 0.99
 # Float operations per fragment in an extracted tie window of the importance
 # gather: its axial position and attribute 7, the window sums 4, the window
 # test 2 (no shading, no TF).
@@ -336,70 +368,16 @@ def capsule_needed_work(csr, params, width, height, tile_w, tile_h, work, batch_
             "cap_a_aa": cap_a, "cap_b_aa": cap_b, "hits": hits}
 
 
-def accum_needed_work(csr, params, width, height, tile_w, tile_h, batch_pairs=2048):
-    """The (candidate, pixel) evaluations of the accumulation modes' front-face
-    test (every candidate of every run), and among them those that need each
-    part's root and tests (its discriminant not negative; the start cap only
-    where payload row 13 holds one) and those with a surface (world t and
-    clip), replayed on the plain version's arithmetic. The replay is held
-    against the plain version's `_surfaces` on the same batches: the same t0
-    bit for bit, and every surface there the root of a part that the replay
-    counts as needed; it raises otherwise.
-    -> {"evaluations", "body", "start_cap", "end_cap", "surfaces"}."""
-    from linevis_tpu_torch.kernels.capsule_common import BIG, fma32, pixel_rays
-    from linevis_tpu_torch.kernels.raster_capsule_oit import _surfaces
-
-    dev = csr.payload.device
-    n_tiles = csr.tile_start.shape[0]
-    dn_all, _ = pixel_rays(params, n_tiles, csr.tiles_x, tile_w, tile_h, width, height)
-    counts = csr.tile_count.long()
-    pair_tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev), counts)
-    run_base = torch.cumsum(counts, 0) - counts
-    pair_col = (csr.tile_start.long()[pair_tile] + torch.arange(pair_tile.numel(), device=dev)
-                - run_base[pair_tile])
-    acc = torch.zeros(4, dtype=torch.int64, device=dev)
-    for b0 in range(0, pair_tile.numel(), batch_pairs):
-        tiles = pair_tile[b0:b0 + batch_pairs]
-        s = csr.payload[:, pair_col[b0:b0 + batch_pairs]][:, :, None]
-        dn = tuple(d[tiles] for d in dn_all)
-        dnx, dny, dnz = dn
-        bard = s[3] * dnx + s[4] * dny + s[5] * dnz
-        rdoa = s[0] * dnx + s[1] * dny + s[2] * dnz
-        t0 = -(rdoa + 0.5 * bard)
-        rd = -0.5 * bard
-        baoa = fma32(t0, bard, s[16])
-        oaoa = fma32(t0, rdoa + rd, s[17])
-        baba, rr = s[10], s[22]
-        k2 = torch.clamp(baba - bard * bard, min=1e-20)
-        k1 = baba * rd - baoa * bard
-        h = k1 * k1 - k2 * (baba * oaoa - baoa * baoa - s[19])
-        ha = rd * rd - (oaoa - rr)
-        b1b = rd - bard
-        hb = b1b * b1b - ((oaoa - 2.0 * baoa + baba) - rr)
-        body, cap_a, cap_b = h >= 0.0, (ha >= 0.0) & (s[13] > 0.5), hb >= 0.0
-        tcand, t0_plain, _ = _surfaces(s, dn, True, False)
-        tb = (-k1 - torch.sqrt(torch.clamp(h, min=0.0))) / k2
-        ta = -rd - torch.sqrt(torch.clamp(ha, min=0.0))
-        tc = -b1b - torch.sqrt(torch.clamp(hb, min=0.0))
-        hit = tcand < BIG
-        explained = ((tcand == tb) & body) | ((tcand == ta) & cap_a) | ((tcand == tc) & cap_b)
-        if not torch.equal(t0_plain.expand_as(t0), t0) or bool((hit & ~explained).any()):
-            raise RuntimeError("the accumulation replay drifted from the plain version's "
-                               "arithmetic")
-        acc += torch.stack([body.sum(), cap_a.sum(), cap_b.sum(), hit.sum()])
-    body, start_cap, end_cap, surfaces = acc.tolist()
-    return {"evaluations": pair_tile.numel() * tile_w * tile_h, "body": body,
-            "start_cap": start_cap, "end_cap": end_cap, "surfaces": surfaces}
-
-
-def accum_eval_ops(need):
-    """Operations of the accumulation modes' evaluations -> (the needed work
-    of `need`, every part charged at every evaluation)."""
+def hit_ops(stats):
+    """Operations of B2's front-face test from the plain version's `stats`
+    -> (the needed work, every part charged at every evaluation, the
+    needed-work counts)."""
+    need = {k: stats[k] for k in NEED_KEYS}
     parts = (need["body"], need["start_cap"], need["end_cap"])
-    return (need["evaluations"] * ACCUM_OPS_BASE
-            + sum(n * o for n, o in zip(parts, ACCUM_OPS_PART))
-            + need["surfaces"] * ACCUM_OPS_SURFACE,
-            need["evaluations"] * MLAB_OPS_PER_EVAL)
+    return (need["evaluations"] * HIT_OPS_BASE
+            + sum(n * o for n, o in zip(parts, HIT_OPS_PART))
+            + need["surfaces"] * HIT_OPS_SURFACE,
+            need["evaluations"] * MLAB_OPS_PER_EVAL, need)
 
 
 def kernel_resources(lib):
@@ -495,7 +473,11 @@ def main() -> int:
         tornado_tube_mesh,
         tornado_wide_bvh,
         _small_lines,
+        BASELINE_CONFIGS,
+        TORNADO_LINE_WIDTH,
         TORNADO_RADIUS,
+        convection_line_data,
+        femur_line_data,
     )
     from linevis_tpu_torch.core.settings import SettingsMap
     from linevis_tpu_torch.core.trajectories import Trajectories
@@ -529,6 +511,7 @@ def main() -> int:
         OpacityOptimizationRenderer,
         OpacityOptimizationSettings,
         final_render,
+        gather_importance,
         gather_settings,
         solve_vertex_opacity,
     )
@@ -831,12 +814,6 @@ def main() -> int:
             deferred_shade=True, sub=MLAB_SUB, sat=0.999, composite=composite, **kw
         )
 
-    def mlab_plain(csr, params, composite=True, **kw):
-        return rasterize_capsules_mlab_reference(
-            csr, params, W, H, 16, 8, MLAB_K, s_oit.tf_color, s_oit.tf_opacity,
-            deferred_shade=True, sub=MLAB_SUB, sat=0.999, composite=composite, **kw
-        )
-
     def untile(csr, x):
         return unpack_tiles(x, csr.tiles_x, csr.tiles_y, 16, 8, W, H)
 
@@ -862,60 +839,114 @@ def main() -> int:
     }
     print("mlab frame: " + json.dumps(mlab_line), flush=True)
 
-    # 8. The MLAB kernel vs its plain version on frame 0's inputs, composite
-    # and node mode.
-    csr, params = prepare_mlab_frame(scene, *cams[0], s_oit, MLAB_OPACITY)
-    n_tiles = csr.tile_start.shape[0]
-    P = 16 * 8
-    mlab_pairs = int(csr.tile_count.sum())
-    work = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    k_rgba = mlab_kernel(csr, params, work=work)
-    k_nodes = mlab_kernel(csr, params, composite=False)
-    stats = {}
-    p_work = torch.zeros_like(work)
-    a, b = _events()
-    a.record()
-    p_rgba = mlab_plain(csr, params, stats=stats, work=p_work)
-    b.record()
-    p_nodes = mlab_plain(csr, params, composite=False)
-    torch.cuda.synchronize()
-    mlab_plain_ms = a.elapsed_time(b)
-    # The bound is the work of the plain version, whatever implements it;
-    # the kernel's own count stands beside it.
-    mlab_evaluated = int(p_work.sum())
-    mlab_k_evaluated = int(work.sum())
-    d_err = (k_nodes[0] - p_nodes[0]).abs().amax(dim=0)
-    a_err = (k_nodes[2] - p_nodes[2]).abs().amax(dim=0)
-    f_err = (k_nodes[1] - p_nodes[1]).abs().amax(dim=(0, 1))
-    rgba_err = (k_rgba - p_rgba).abs().amax(dim=0)
-    nodes_agree = (d_err <= 1e-5) & (a_err <= 1e-5)
-    nodes_ok = float(nodes_agree.float().mean())
-    f_err_ok = float(f_err[nodes_agree].max())
-    rgba_ok = float((rgba_err <= 1e-4).float().mean())
-    img_k = torch.stack([untile(csr, k_rgba[c]) for c in range(4)]).permute(1, 2, 0)
-    img_p = torch.stack([untile(csr, p_rgba[c]) for c in range(4)]).permute(1, 2, 0)
-    img_k, img_p = img_k.cpu().numpy(), img_p.cpu().numpy()
-    mlab_ssim = ssim(img_k[..., :3], img_p[..., :3])
-    mlab_mad = float(np.abs(img_k - img_p).mean())
-    mlab_max_err = max(float(d_err.max()), float(a_err.max()), float(f_err.max()),
-                       float(rgba_err.max()))
-    print(f"capsule_mlab vs plain: pairs {mlab_pairs}, evaluated after culls "
-          f"{mlab_evaluated} (kernel {mlab_k_evaluated}), hits {stats['hits']}, sweeps "
-          f"{stats['sweeps']}, "
-          f"members {stats['members']}; node depth+alpha within 1e-5 on "
-          f"{nodes_ok:.6f} of pixels (max |dd| {float(d_err.max()):.3g}, |da| "
-          f"{float(a_err.max()):.3g}, |dfeat| {float(f_err.max()):.3g}, there "
-          f"{f_err_ok:.3g}), rgba within "
-          f"1e-4 on {rgba_ok:.6f} (max {float(rgba_err.max()):.3g}), image ssim "
-          f"{mlab_ssim:.6f}, mean abs {mlab_mad:.3g}", flush=True)
-    if not np.isfinite(img_k).all():
-        raise RuntimeError("non-finite pixels in the 1080p MLAB frame")
-    if nodes_ok < 0.999 or f_err_ok > 1e-5 or rgba_ok < 0.999:
-        raise RuntimeError("MLAB kernel disagrees with its plain version")
-    if mlab_k_evaluated != mlab_evaluated:
-        raise RuntimeError("the MLAB kernel's work count differs from its plain version's")
-    if mlab_ssim < 0.999 or mlab_mad > 2e-3:
-        raise RuntimeError("MLAB kernel image disagrees with the plain version's")
+    def timed_plain(fn):
+        a, b = _events()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def oit_entry(name, source, launches, max_err, ms, plain_ms, n_tiles, K, stats, ops,
+                  extra_in_planes=0, out_planes=None, P=16 * 8, **extra):
+        """A B2 `kernels` row. Its bound: the front-face test's needed work
+        from the plain version's `stats` (`hit_ops`) and `ops`, the rest of
+        the work; beside it the bound with every part of the test charged
+        at every evaluation. Output: 5K planes, or `out_planes`."""
+        evaluated = stats["evaluations"] // P
+        hit, hit_every, need = hit_ops(stats)
+        in_bytes = (evaluated * MLAB_ROWS * 4 + 2 * n_tiles * 4 + 32 * 4
+                    + extra_in_planes * n_tiles * P * 4)
+        out_bytes = (5 * K if out_planes is None else out_planes) * n_tiles * P * 4
+        t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
+        t_ops = (hit + ops) / H100_FP32_FLOPS * 1e3
+        row = {
+            "name": name, "route": "cuda",
+            "source": f"linevis_tpu_torch/kernels/csrc/{source}",
+            "replaces": "linevis_tpu/kernels/raster_capsule_oit.py:116",
+            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "evaluated": evaluated,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": in_bytes + out_bytes, "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "library_ms": None, "needed_work": need,
+            "bound_ms_every_part": max(t_bytes, (hit_every + ops) / H100_FP32_FLOPS * 1e3),
+            **extra,
+        }
+        print(f"{name} bound: {row['bound_ms']:.5f} ms from the needed work "
+              f"{json.dumps(need)} (every part at every evaluation: "
+              f"{row['bound_ms_every_part']:.5f} ms)", flush=True)
+        return row
+
+    def composite_gate(name, scene_g, cam, s_g, K, opacity, launches, seg_alpha=None,
+                       **extra):
+        """B2's composite (deferred shading, sub MLAB_SUB, sat 0.999) on one
+        frame (camera tensors `cam`) against its plain version: depths and
+        alpha within 1e-5 on >= 99.9% of pixels, features there within 1e-5,
+        RGBA within 1e-4 on >= 99.9%, equal work counts, the image at SSIM
+        >= 0.999 and mean abs <= 2e-3 -> (its `kernels` row, the prepared
+        frame)."""
+        csr_g, params_g = prepare_mlab_frame(scene_g, *cam, s_g, opacity, seg_alpha)
+        n_t = csr_g.tile_start.shape[0]
+        args = (csr_g, params_g, s_g.width, s_g.height, s_g.tile_w, s_g.tile_h, K,
+                s_g.tf_color, s_g.tf_opacity)
+        kw = dict(deferred_shade=True, sub=MLAB_SUB, sat=0.999,
+                  alpha_from_rows=seg_alpha is not None)
+        work_g = torch.zeros(n_t, dtype=torch.int32, device=dev)
+        k_rgba = rasterize_capsules_mlab(*args, composite=True, work=work_g, **kw)
+        k_nodes = rasterize_capsules_mlab(*args, composite=False, **kw)
+        st, p_work_g = {}, torch.zeros_like(work_g)
+        p_rgba, p_ms = timed_plain(lambda: rasterize_capsules_mlab_reference(
+            *args, composite=True, stats=st, work=p_work_g, **kw))
+        p_nodes = rasterize_capsules_mlab_reference(*args, composite=False, **kw)
+        d_err = (k_nodes[0] - p_nodes[0]).abs().amax(dim=0)
+        a_err = (k_nodes[2] - p_nodes[2]).abs().amax(dim=0)
+        f_err = (k_nodes[1] - p_nodes[1]).abs().amax(dim=(0, 1))
+        rgba_err = (k_rgba - p_rgba).abs().amax(dim=0)
+        agree = (d_err <= 1e-5) & (a_err <= 1e-5)
+        nodes_ok_g = float(agree.float().mean())
+        f_ok = float(f_err[agree].max())
+        rgba_ok_g = float((rgba_err <= 1e-4).float().mean())
+
+        def img(x):
+            return torch.stack([unpack_tiles(x[c], csr_g.tiles_x, csr_g.tiles_y, s_g.tile_w,
+                                             s_g.tile_h, s_g.width, s_g.height)
+                                for c in range(4)]).permute(1, 2, 0).cpu().numpy()
+
+        i_k, i_p = img(k_rgba), img(p_rgba)
+        s_img, mad_img = ssim(i_k[..., :3], i_p[..., :3]), float(np.abs(i_k - i_p).mean())
+        evaluated, k_evaluated = int(p_work_g.sum()), int(work_g.sum())
+        max_err = max(float(d_err.max()), float(a_err.max()), float(f_err.max()),
+                      float(rgba_err.max()))
+        print(f"{name} vs plain: K {K}, pairs {int(csr_g.tile_count.sum())}, evaluated "
+              f"{evaluated} (kernel {k_evaluated}), hits {st['hits']}, sweeps {st['sweeps']}, "
+              f"members {st['members']}; node depth+alpha within 1e-5 on {nodes_ok_g:.6f} "
+              f"(max |dd| {float(d_err.max()):.3g}, |da| {float(a_err.max()):.3g}, features "
+              f"there {f_ok:.3g}), rgba within 1e-4 on {rgba_ok_g:.6f} (max "
+              f"{float(rgba_err.max()):.3g}), image ssim {s_img:.6f}, mean abs {mad_img:.3g}",
+              flush=True)
+        if not np.isfinite(i_k).all() or (i_k[..., 3] > 0).mean() < 0.01:
+            raise RuntimeError(f"{name}: the kernel's frame is non-finite or empty")
+        if nodes_ok_g < 0.999 or f_ok > 1e-5 or rgba_ok_g < 0.999:
+            raise RuntimeError(f"{name}: the kernel disagrees with its plain version")
+        if k_evaluated != evaluated:
+            raise RuntimeError(f"{name}: the kernel's work count differs from its plain "
+                               "version's")
+        if s_img < 0.999 or mad_img > 2e-3:
+            raise RuntimeError(f"{name}: the kernel's image disagrees with the plain version's")
+        ms = _time_ms(lambda: rasterize_capsules_mlab(*args, composite=True, **kw), 20)
+        ops = (st["members"] * MLAB_OPS_PER_MEMBER
+               + st["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * K))
+        return oit_entry(
+            name, "raster_capsule_oit.cu", launches, max_err, ms, p_ms, n_t, K, st, ops,
+            out_planes=4, P=s_g.tile_w * s_g.tile_h, node_agree=nodes_ok_g,
+            rgba_agree=rgba_ok_g, pairs=int(csr_g.tile_count.sum()),
+            kernel_evaluated=k_evaluated, hits=st["hits"], sweeps=st["sweeps"],
+            members=st["members"], shape=[s_g.width, s_g.height], **extra), (csr_g, params_g)
+
+    # 8. The MLAB kernel vs its plain version on frame 0's inputs (composite
+    # and node mode), and its figures at the 1080p shapes.
+    kernels.append(composite_gate("capsule_mlab", scene, cams[0], s_oit, MLAB_K, MLAB_OPACITY,
+                                  mlab_launches)[0])
 
     # 9. A small MLAB frame on the card against the plain path on the CPU.
     card_vs_cpu(entry_mlab, "entry_mlab")
@@ -942,40 +973,6 @@ def main() -> int:
         raise RuntimeError("atomic loop card frame is non-finite or empty")
     if al_ssim < 0.999 or al_mad > 2e-3:
         raise RuntimeError("card atomic loop frame disagrees with the CPU plain path")
-
-    # 10. MLAB kernel figures at the 1080p shapes.
-    mlab_ms = _time_ms(lambda: mlab_kernel(csr, params), 20)
-    out_bytes = 4 * n_tiles * P * 4
-    in_bytes = mlab_evaluated * MLAB_ROWS * 4 + 2 * n_tiles * 4 + 32 * 4
-    ops = (mlab_evaluated * P * MLAB_OPS_PER_EVAL
-           + stats["members"] * MLAB_OPS_PER_MEMBER
-           + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * MLAB_K))
-    t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
-    t_ops = ops / H100_FP32_FLOPS * 1e3
-    kernels.append({
-        "name": "capsule_mlab",
-        "route": "cuda",
-        "source": "linevis_tpu_torch/kernels/csrc/raster_capsule_oit.cu",
-        "replaces": "linevis_tpu/kernels/raster_capsule_oit.py:116",
-        "launches": mlab_launches,
-        "max_abs_err": mlab_max_err,
-        "ms": mlab_ms,
-        "plain_ms": mlab_plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "bytes": in_bytes + out_bytes,
-        "bytes_ms": t_bytes,
-        "operations_ms": t_ops,
-        "library_ms": None,
-        "node_agree": nodes_ok,
-        "rgba_agree": rgba_ok,
-        "pairs": mlab_pairs,
-        "evaluated": mlab_evaluated,
-        "kernel_evaluated": mlab_k_evaluated,
-        "hits": stats["hits"],
-        "sweeps": stats["sweeps"],
-        "members": stats["members"],
-    })
 
     # 10a. The rest of the OIT family: OIT_FRAMES frames of each renderer
     # through its entry point, launches counted per phase.
@@ -1077,40 +1074,15 @@ def main() -> int:
     def planes(out):
         return torch.cat([out[0], out[1].flatten(0, 1), out[2]])
 
-    def oit_entry(name, source, launches, max_err, ms, plain_ms, evaluated, n_tiles, K,
-                  ops, extra_in_planes=0, **extra):
-        P = 16 * 8
-        in_bytes = (evaluated * MLAB_ROWS * 4 + 2 * n_tiles * 4 + 32 * 4
-                    + extra_in_planes * n_tiles * P * 4)
-        out_bytes = 5 * K * n_tiles * P * 4
-        t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
-        t_ops = ops / H100_FP32_FLOPS * 1e3
-        return {
-            "name": name, "route": "cuda",
-            "source": f"linevis_tpu_torch/kernels/csrc/{source}",
-            "replaces": "linevis_tpu/kernels/raster_capsule_oit.py:116",
-            "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "evaluated": evaluated,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bytes": in_bytes + out_bytes, "bytes_ms": t_bytes, "operations_ms": t_ops,
-            "library_ms": None, **extra,
-        }
-
-    def timed_plain(fn):
-        a, b = _events()
-        a.record()
-        out = fn()
-        b.record()
-        torch.cuda.synchronize()
-        return out, a.elapsed_time(b)
-
-    def accum_check(mode, csr, params, K, need, kept=None, **kw):
+    def accum_check(mode, csr, params, K, kept=None, s=None, **kw):
         """The accumulation kernel vs its plain version in `mode`, bit for
-        bit -> (kernel output, entry fields). need: `accum_needed_work` of
-        the binning. kept: for 'mboit_resolve', the pixels whose moments it
-        keeps and their fragments, which need the moment factors and the
-        transmittance."""
-        args = (csr, params, W, H, 16, 8, K, s_oit.tf_color, s_oit.tf_opacity)
+        bit -> (kernel output, entry fields). kept: for 'mboit_resolve', the
+        pixels whose moments it keeps and their fragments, which need the
+        moment factors and the transmittance. s: the frame's RasterSettings
+        (s_oit if None)."""
+        s = s or s_oit
+        args = (csr, params, s.width, s.height, s.tile_w, s.tile_h, K, s.tf_color,
+                s.tf_opacity)
         k = rasterize_capsules_mlab(*args, store_mode=mode, **kw)
         stats = {}
         p, p_ms = timed_plain(lambda: rasterize_capsules_mlab_reference(
@@ -1134,58 +1106,44 @@ def main() -> int:
             (0 if mode == "count" else MLAB_OPS_PER_MEMBER)
             + (OIT_OPS_PER_SHADE if mode in ("wboit", "mboit_resolve") else 0)
             + per_fragment)
-        eval_ops, eval_ops_every = accum_eval_ops(need)
         print(f"capsule_accum:{mode} vs plain: pairs {pairs}, fragments {stats['hits']}, "
               f"equal {equal}, max |diff| {max_err:.3g}, kernel {ms:.3f} ms, plain "
               f"{p_ms:.1f} ms", flush=True)
         if not equal:
             raise RuntimeError(f"accumulation kernel differs from its plain version ({mode})")
-        return k, dict(max_err=max_err, ms=ms, plain_ms=p_ms, evaluated=pairs,
-                       ops=eval_ops + frag_ops, ops_every_part=eval_ops_every + frag_ops,
+        return k, dict(max_err=max_err, ms=ms, plain_ms=p_ms, stats=stats, ops=frag_ops,
                        pairs=pairs, fragments=stats["hits"], equal=equal)
 
-    def accum_entry(name, launches, f, n_tiles, K, need, **extra):
-        """The `kernels` row of an accumulation mode: its bound from the
-        needed work, and beside it the bound with every part of the test
-        charged at every evaluation (both printed)."""
-        e = oit_entry(name, "raster_capsule_accum.cu", launches, f["max_err"], f["ms"],
-                      f["plain_ms"], f["evaluated"], n_tiles, K, f["ops"], pairs=f["pairs"],
-                      fragments=f["fragments"], needed_work=need, **extra)
-        e["bound_ms_every_part"] = max(e["bytes_ms"],
-                                       f["ops_every_part"] / H100_FP32_FLOPS * 1e3)
-        print(f"{name} bound: {e['bound_ms']:.5f} ms from the needed work "
-              f"{json.dumps(need)} (every part at every evaluation: "
-              f"{e['bound_ms_every_part']:.5f} ms)", flush=True)
-        return e
+    def accum_entry(name, launches, f, n_tiles, K, **extra):
+        """The `kernels` row of an accumulation mode (`oit_entry`)."""
+        return oit_entry(name, "raster_capsule_accum.cu", launches, f["max_err"], f["ms"],
+                         f["plain_ms"], n_tiles, K, f["stats"], f["ops"], pairs=f["pairs"],
+                         fragments=f["fragments"], equal=f["equal"], **extra)
 
     csr, params, _ = prepare_capsule_frame(scene, *cams[0], s_oit)
     params[14] = OIT_OPACITY
     n_tiles = csr.tile_start.shape[0]
     new_kernels = []
-    need = accum_needed_work(csr, params, W, H, 16, 8)
     for mode, label in (("count", "depth complexity"), ("wboit", "wboit")):
-        k_acc, f = accum_check(mode, csr, params, 1, need)
+        k_acc, f = accum_check(mode, csr, params, 1)
         if mode == "count":
             frag_count = k_acc[0][0]  # fragments per pixel
         new_kernels.append(accum_entry(f"capsule_accum:{mode}",
-                                       oit_launches[label]["capsule_accum"], f, n_tiles, 1,
-                                       need, equal=f["equal"]))
+                                       oit_launches[label]["capsule_accum"], f, n_tiles, 1))
     csr_c = csr
     csr, params, _ = prepare_mboit_frame(scene, *cams[0], s_oit, 4, OIT_OPACITY)
     if not torch.equal(csr.tile_count, csr_c.tile_count):
         raise RuntimeError("the MBOIT frame's binning differs from the capsule frame's")
-    need = accum_needed_work(csr, params, W, H, 16, 8)
-    gen, f = accum_check("mboit_gen", csr, params, 2, need, n_mom=4)
+    gen, f = accum_check("mboit_gen", csr, params, 2, n_mom=4)
     new_kernels.append(accum_entry("capsule_accum:mboit_gen",
-                                   oit_launches["mboit"]["capsule_accum"] // 2, f, n_tiles, 2,
-                                   need, equal=f["equal"]))
+                                   oit_launches["mboit"]["capsule_accum"] // 2, f, n_tiles, 2))
     moments = torch.stack([gen[0][0], gen[1][0, 0], gen[1][1, 0], gen[0][1], gen[1][0, 1]])
     kept_px = moments[0] >= MBOIT_DISCARD_B0
     kept = {"pixels": int(kept_px.sum()), "fragments": int(frag_count[kept_px].sum())}
-    _, f = accum_check("mboit_resolve", csr, params, 1, need, kept, n_mom=4, moments=moments)
+    _, f = accum_check("mboit_resolve", csr, params, 1, kept, n_mom=4, moments=moments)
     new_kernels.append(accum_entry("capsule_accum:mboit_resolve",
                                    oit_launches["mboit"]["capsule_accum"] // 2, f, n_tiles, 1,
-                                   need, extra_in_planes=5, equal=f["equal"],
+                                   extra_in_planes=5,
                                    kept_pixels=kept["pixels"], kept_fragments=kept["fragments"]))
 
     # The K-buffer with a peel depth and per-fragment shading: the second
@@ -1215,7 +1173,7 @@ def main() -> int:
         max_err = max(float(d_err.max()), float(rgba_err.max()))
         behind = bool(((kd > peel[None]) | (kd == 2.0)).all())
         ms = _time_ms(lambda: rasterize_capsules_mlab(*kargs, **kw), 20)
-        ops = (evaluated * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * OIT_OPS_PER_PEEL
+        ops = (stats["hits"] * OIT_OPS_PER_PEEL
                + stats["members"] * (MLAB_OPS_PER_MEMBER + OIT_OPS_PER_SHADE)
                + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * 8))
         print(f"{name} vs plain (peel behind an exact K=8 pass): evaluated {evaluated} "
@@ -1227,7 +1185,7 @@ def main() -> int:
         if agree < 0.999 or not behind or not bool(torch.isfinite(kc).all()):
             raise RuntimeError(f"{name}: the kernel disagrees with its plain version")
         new_kernels.append(oit_entry(
-            name, "raster_capsule_oit.cu", launches, max_err, ms, p_ms, evaluated, n_tiles, 8,
+            name, "raster_capsule_oit.cu", launches, max_err, ms, p_ms, n_tiles, 8, stats,
             ops, extra_in_planes=1, hits=stats["hits"], kernel_evaluated=k_evaluated,
             sweeps=stats["sweeps"], members=stats["members"], node_agree=agree))
 
@@ -1430,11 +1388,12 @@ def main() -> int:
         raise RuntimeError("the vertex opacities differ from the plain path's")
     if oo_line["foreground_share"] < 0.01 or oo_line["half_res_pixels_with_nodes"] < 0.01:
         raise RuntimeError("the opacity-optimization frames are almost empty")
-    ops = (g_evaluated * 128 * MLAB_OPS_PER_EVAL + stats["members"] * GATHER_OPS_PER_MEMBER
+    ops = (stats["members"] * GATHER_OPS_PER_MEMBER
            + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * K_g))
     new_kernels.append(oit_entry(
         "capsule_mlab:gather", "raster_capsule_oit.cu", oo_launches // 2, g_err, g_ms,
-        g_plain_ms, g_evaluated, n_tiles2, K_g, ops, pairs=g_pairs, hits=stats["hits"],
+        g_plain_ms, n_tiles2, K_g, stats, ops, P=s2.tile_w * s2.tile_h, pairs=g_pairs,
+        hits=stats["hits"],
         kernel_evaluated=g_k_evaluated,
         sweeps=stats["sweeps"], members=stats["members"], equal=g_equal,
         shape=[s2.width, s2.height]))
@@ -1444,7 +1403,6 @@ def main() -> int:
     # peel depth), the composite, 'wboit' and 'mboit_resolve'. No path of
     # the port passes it (the JAX package's neither): no main-path launches.
     csr_s, params_s = prepare_mlab_frame(scene, *cam_small, s_small, OIT_OPACITY)
-    nt_s = csr_s.tile_start.shape[0]
     sargs = (csr_s, params_s, sw, sh_, 16, 8)
     d1, _, _ = rasterize_capsules_mlab(*sargs, 8, s_small.tf_color, s_small.tf_opacity,
                                        no_overflow=True, use_bands=True)
@@ -1476,9 +1434,8 @@ def main() -> int:
                 rasterize_capsules_accum.launches - before[1]) != ((0, 1) if accum else (1, 0)):
             raise RuntimeError(f"use_bands {key} did not launch its kernel once")
         stats = {}
-        p_work = None if accum else torch.zeros(nt_s, dtype=torch.int32, device=dev)
         p_out, p_ms = timed_plain(lambda: rasterize_capsules_mlab_reference(
-            *args, use_bands=True, stats=stats, work=p_work, **kw))
+            *args, use_bands=True, stats=stats, **kw))
         k17 = rasterize_capsules_mlab(*args, **kw)
         if key == "composite":
             kp, pp, k17p = k, p_out, k17
@@ -1499,22 +1456,16 @@ def main() -> int:
         ms = _time_ms(lambda: rasterize_capsules_mlab(*args, use_bands=True, **kw), 10)
         pairs = int(c.tile_count.sum())
         if accum:
-            need_b = accum_needed_work(c, p, sw, sh_, 16, 8)
-            eval_ops, eval_ops_every = accum_eval_ops(need_b)
-            frag_ops = stats["hits"] * (
+            ops = stats["hits"] * (
                 MLAB_OPS_PER_MEMBER + OIT_OPS_PER_SHADE_BANDS + OIT_OPS_PER_ACCUM[kw["store_mode"]])
             if key == "mboit_resolve":  # the transmittance at kept pixels only, as at 1080p
-                frag_ops += (int(kept_s.sum()) * OIT_OPS_RESOLVE_PIXEL - (
+                ops += (int(kept_s.sum()) * OIT_OPS_RESOLVE_PIXEL - (
                     stats["hits"] - int(frags_s[kept_s].sum())) * (OIT_OPS_PER_ACCUM[key] - 8))
-            ops = eval_ops + frag_ops
-            evaluated = pairs
         else:
-            evaluated = int(p_work.sum())
             shade = OIT_OPS_PER_SHADE_BANDS if key == "shade_peel" else 0
-            ops = (evaluated * 128 * MLAB_OPS_PER_EVAL + stats["hits"] * (
-                OIT_OPS_PER_PEEL if key == "shade_peel" else 0)
-                + stats["members"] * (MLAB_OPS_PER_MEMBER + shade)
-                + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * 8))
+            ops = (stats["hits"] * (OIT_OPS_PER_PEEL if key == "shade_peel" else 0)
+                   + stats["members"] * (MLAB_OPS_PER_MEMBER + shade)
+                   + stats["sweeps"] * (MLAB_OPS_PER_SWEEP + MLAB_OPS_PER_SWEEP_NODE * 8))
         band_figures[key] = {"agree": agree, "max_abs_err": max_err,
                              "moved_by_the_exponent": moved, "ms": ms, "plain_ms": p_ms}
         if agree < 0.999 or moved < 1e-4:
@@ -1524,24 +1475,11 @@ def main() -> int:
         # `use_bands` in the row of the kernel mode it modifies.
         parent = f"capsule_accum:{key}" if accum else "capsule_mlab"
         entry_ = oit_entry(
-            parent, "raster_capsule_accum.cu" if accum else "raster_capsule_oit.cu", 0, max_err, ms,
-            p_ms, evaluated, c.tile_start.shape[0], K_b, ops,
-            extra_in_planes={"shade_peel": 1, "mboit_resolve": 5}.get(key, 0), pairs=pairs,
-            agree=agree, shape=[sw, sh_])
-        if accum:
-            entry_["needed_work"] = need_b
-            entry_["bound_ms_every_part"] = max(
-                entry_["bytes_ms"], (eval_ops_every + frag_ops) / H100_FP32_FLOPS * 1e3)
-            print(f"use_bands {key} bound: {entry_['bound_ms']:.5f} ms from the needed work "
-                  f"{json.dumps(need_b)} (every part at every evaluation: "
-                  f"{entry_['bound_ms_every_part']:.5f} ms)", flush=True)
-        if key == "composite":  # 4 output planes, not 5 K
-            out_b = 4 * c.tile_start.shape[0] * 128 * 4
-            entry_["bytes"] += out_b - 5 * K_b * c.tile_start.shape[0] * 128 * 4
-            entry_["bytes_ms"] = entry_["bytes"] / H100_HBM_BYTES * 1e3
-            entry_["bound_ms"] = max(entry_["bytes_ms"], entry_["operations_ms"])
-            entry_["bound_by"] = ("operations" if entry_["operations_ms"] >= entry_["bytes_ms"]
-                                  else "bytes")
+            f"use_bands {key}", "raster_capsule_accum.cu" if accum else "raster_capsule_oit.cu",
+            0, max_err, ms, p_ms, c.tile_start.shape[0], K_b, stats, ops,
+            extra_in_planes={"shade_peel": 1, "mboit_resolve": 5}.get(key, 0),
+            out_planes=4 if key == "composite" else None, pairs=pairs, agree=agree,
+            shape=[sw, sh_])
         row = next(r for r in kernels + new_kernels if r["name"] == parent)
         for k_ in ("name", "route", "source", "replaces", "launches"):
             del entry_[k_]
@@ -2287,6 +2225,285 @@ def main() -> int:
         "wavefront_vs_mlab_two_sided_ssim": wf_ml_ssim,
         "instances": resources["bvh_wavefront"],
     })
+    # 19. The repo's five reference configs (tests/baseline_scenes.py, six
+    # images) through the port's registry at full size:
+    # entry.BASELINE_CONFIGS on the card, each config's frames timed with its
+    # launches counted; B2's composite at K=32 (config 2) and on the Femur
+    # (config 4, also in bench.py's form with per-segment alpha rows) and
+    # both MBOIT passes on the Femur (config 4b) against their plain
+    # versions; each config at scale BASE_CHECK_SCALE, card against the CPU.
+    t0 = time.perf_counter()
+    ld_tornado = LineData(traj)
+    ld_tornado.set_line_width(TORNADO_LINE_WIDTH)
+    ld_conv = convection_line_data(dev)
+    conv_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ld_femur = femur_line_data()
+    femur_s = time.perf_counter() - t0
+    base_line_data = {
+        "cfg1_tornado_opaque_800x600": ld_tornado, "cfg2_tornado_ppll_1080p": ld_tornado,
+        "cfg3_convection_rtao_1080p": ld_conv, "cfg4_femur_mlab_1080p": ld_femur,
+        "cfg4b_femur_mboit_1080p": ld_femur, "cfg5_tornado_opacityopt_1080p": ld_tornado,
+    }
+    rt_base = RtaoSettings()
+    base_lines, base_runs = {}, {}
+    for name, build in BASELINE_CONFIGS.items():
+        ld = base_line_data[name]
+        run = build(device=dev, frames=None if name.startswith("cfg3") else BASE_FRAMES,
+                    line_data=ld)
+        cams_b = run.cameras
+        w_b, h_b = cams_b[0].width, cams_b[0].height
+        per_frame = {
+            "cfg1": {"capsule_raster": 1}, "cfg2": {"capsule_mlab": 1},
+            "cfg3": {"capsule_raster": 1,
+                     "ao_grid": len(ray_batches(rt_base.num_samples * w_b * h_b,
+                                                rt_base.rays_per_batch))},
+            "cfg4": {"capsule_mlab": 1}, "cfg4b": {"capsule_accum": 2},
+            "cfg5": {"capsule_mlab": 2},
+        }[name.split("_")[0]]
+        # Warm-up at a camera off the run's: builds the scene (and RTAO's
+        # grid, the opacity solver's state) on the card.
+        run.renderer.render(cams_b[0].orbit(0.5, 0.3, 1.3))
+        torch.cuda.synchronize()
+        reset_launches()
+        ev_b, host_ms, img_b = [_events() for _ in cams_b], [], None
+        for (a, b), cam in zip(ev_b, cams_b):
+            t1 = time.perf_counter()
+            a.record()
+            img_b = run.renderer.render(cam)
+            b.record()
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+            if not np.isfinite(img_b).all():
+                raise RuntimeError(f"{name}: non-finite frame")
+        torch.cuda.synchronize()
+        got = expect_launches({k: n * len(cams_b) for k, n in per_frame.items()})
+        fg = float((np.abs(img_b[..., :3] - 1.0).max(-1) > 1e-3).mean())
+        if fg < 0.01:
+            raise RuntimeError(f"{name}: the frame is almost empty")
+        scene_b = ld.get_capsule_scene(device=dev)
+        med = float(np.median([a.elapsed_time(b) for a, b in ev_b]))
+        base_lines[name] = {
+            "frame_ms_median": med, "fps": 1000.0 / med,
+            "host_frame_ms_median": float(np.median(host_ms)),
+            "launches_per_frame": per_frame, "launches": got,
+            "mode": run.renderer.name, "frames": len(cams_b), "width": w_b, "height": h_b,
+            "segments": scene_b.num_segments, "valid_segments": int(scene_b.mask.sum()),
+            "lines": ld.num_lines, "foreground_share": fg, "gpu": gpu,
+        }
+        base_runs[name] = run
+
+    # Counts of frame 0 of each config: pairs, fragments, rays.
+    def cam0(name):
+        return base_runs[name].cameras[0]
+
+    def reg_settings(name):
+        return base_runs[name].renderer._raster_settings(cam0(name))
+
+    c1 = cam0("cfg1_tornado_opaque_800x600")
+    csr_b, _, _ = prepare_capsule_frame(ld_tornado.get_capsule_scene(device=dev),
+                                        *camera_tensors(c1, dev),
+                                        reg_settings("cfg1_tornado_opaque_800x600"),
+                                        aa_margin=0.5)
+    base_lines["cfg1_tornado_opaque_800x600"]["pairs"] = int(csr_b.tile_count.sum())
+    c3 = cam0("cfg3_convection_rtao_1080p")
+    csr_b, _, _ = prepare_capsule_frame(ld_conv.get_capsule_scene(device=dev),
+                                        *camera_tensors(c3, dev),
+                                        reg_settings("cfg3_convection_rtao_1080p"))
+    base_lines["cfg3_convection_rtao_1080p"].update(
+        pairs=int(csr_b.tile_count.sum()), rays=rt_base.num_samples * c3.width * c3.height,
+        grid_records=int(base_runs["cfg3_convection_rtao_1080p"].renderer._grid.cell_count.sum()),
+        trace_s=conv_s)
+    base_lines["cfg4_femur_mlab_1080p"]["scene_s"] = femur_s
+
+    # Config 2: B2's composite at K=32, newly on a main path.
+    c2 = "cfg2_tornado_ppll_1080p"
+    f_k32, _ = composite_gate("capsule_mlab:k32", ld_tornado.get_capsule_scene(device=dev),
+                              camera_tensors(cam0(c2), dev), reg_settings(c2),
+                              base_runs[c2].renderer.K, base_runs[c2].renderer.opacity,
+                              base_lines[c2]["launches"]["capsule_mlab"], config=c2)
+    base_lines[c2]["pairs"] = f_k32["pairs"]
+    base_lines[c2]["fragments"] = f_k32["hits"]
+    kernels.append(f_k32)
+
+    # Config 4: the registry's MLAB composite on the Femur, and bench.py's
+    # form of the same frame (alpha rows from the hierarchy opacities).
+    c4, c4b = "cfg4_femur_mlab_1080p", "cfg4b_femur_mboit_1080p"
+    femur_scene = ld_femur.get_capsule_scene(device=dev)
+    s4 = reg_settings(c4)
+    f_f4, _ = composite_gate("capsule_mlab:femur", femur_scene, camera_tensors(cam0(c4), dev),
+                             s4, base_runs[c4].renderer.K, base_runs[c4].renderer.opacity,
+                             base_lines[c4]["launches"]["capsule_mlab"], config=c4)
+    base_lines[c4]["pairs"] = f_f4["pairs"]
+    base_lines[c4]["fragments"] = f_f4["hits"]
+    seg_alpha4 = torch.tensor(ld_femur.get_segment_opacity_rows(), device=dev)
+    # bench.py's Femur frame: render_tubes_mlab with the alpha rows at its
+    # camera, BASE_FRAMES orbit frames, launches counted.
+    bench_cams = [camera_tensors(c, dev) for c in base_runs[c4].cameras]
+    render_tubes_mlab(femur_scene, *bench_cams[0], s4, K=8, opacity=0.45, seg_alpha=seg_alpha4)
+    torch.cuda.synchronize()
+    reset_launches()
+    ev_b = [_events() for _ in bench_cams]
+    imgs_sum = torch.zeros((), device=dev)
+    for (a, b), cam in zip(ev_b, bench_cams):
+        a.record()
+        img = render_tubes_mlab(femur_scene, *cam, s4, K=8, opacity=0.45, seg_alpha=seg_alpha4)
+        b.record()
+        imgs_sum += img.sum()
+    torch.cuda.synchronize()
+    bench_launches = expect_launches({"capsule_mlab": len(bench_cams)})["capsule_mlab"]
+    if not bool(torch.isfinite(imgs_sum)):
+        raise RuntimeError("non-finite frame of bench.py's Femur MLAB form")
+    med = float(np.median([a.elapsed_time(b) for a, b in ev_b]))
+    base_lines[c4]["bench_alpha_rows_frame_ms_median"] = med
+    print("femur mlab bench.py form (render_tubes_mlab, seg_alpha rows, K=8, opacity 0.45): "
+          + json.dumps({"frame_ms_median": med, "fps": 1000.0 / med, "frames": len(bench_cams),
+                        "launches": bench_launches, "width": s4.width, "height": s4.height,
+                        "gpu": gpu}), flush=True)
+    f_f4["alpha_from_rows"], _ = composite_gate(
+        "capsule_mlab:femur alpha_from_rows (bench.py)", femur_scene,
+        camera_tensors(cam0(c4), dev), s4, 8, 0.45, bench_launches, seg_alpha=seg_alpha4)
+    kernels.append(f_f4)
+
+    # Config 4b: both MBOIT passes on the Femur, bit for bit.
+    r4b = base_runs[c4b].renderer
+    s4b = reg_settings(c4b)
+    csr_m, params_m, _ = prepare_mboit_frame(femur_scene, *camera_tensors(cam0(c4b), dev), s4b,
+                                             r4b.n_mom, r4b.opacity)
+    n_t = csr_m.tile_start.shape[0]
+    frags = rasterize_capsules_mlab(csr_m, params_m, s4b.width, s4b.height, 16, 8, 1,
+                                    s4b.tf_color, s4b.tf_opacity, store_mode="count")[0][0]
+    gen_m, f_gen = accum_check("mboit_gen", csr_m, params_m, 2, s=s4b, n_mom=r4b.n_mom)
+    mboit_launches = base_lines[c4b]["launches"]["capsule_accum"] // 2
+    kernels.append(accum_entry("capsule_accum:mboit_gen:femur", mboit_launches, f_gen, n_t, 2,
+                               config=c4b))
+    mom_m = torch.stack([gen_m[0][0], gen_m[1][0, 0], gen_m[1][1, 0], gen_m[0][1],
+                         gen_m[1][0, 1]])
+    kept_m = mom_m[0] >= MBOIT_DISCARD_B0
+    kept_m = {"pixels": int(kept_m.sum()), "fragments": int(frags[kept_m].sum())}
+    _, f_res = accum_check("mboit_resolve", csr_m, params_m, 1, kept_m, s=s4b,
+                           n_mom=r4b.n_mom, moments=mom_m)
+    kernels.append(accum_entry("capsule_accum:mboit_resolve:femur", mboit_launches, f_res, n_t,
+                               1, extra_in_planes=5, config=c4b,
+                               kept_pixels=kept_m["pixels"],
+                               kept_fragments=kept_m["fragments"]))
+    base_lines[c4b].update(pairs=f_gen["pairs"], fragments=f_gen["fragments"])
+    c5 = "cfg5_tornado_opacityopt_1080p"
+    csr_b, _ = prepare_mlab_frame(ld_tornado.get_capsule_scene(device=dev),
+                                  *camera_tensors(cam0(c5), dev), reg_settings(c5), 0.3)
+    base_lines[c5]["pairs"] = int(csr_b.tile_count.sum())
+    del csr_b, csr_m, params_m, gen_m, mom_m, frags
+    for name, line in base_lines.items():
+        print(f"baseline config {name}: " + json.dumps(line), flush=True)
+
+    # Each config at BASE_CHECK_SCALE on the card against the CPU's plain
+    # path, on the same line data. Config 3's registry frames draw their
+    # samples on each device, from generators that differ: its
+    # BASE_CHECK_RTAO_FRAMES accumulated frames are two independent
+    # estimates, held for no bias (the mean RGB difference within 4 standard
+    # errors of the per-pixel differences) and equal alpha; its 2 frames are
+    # held at the image bars on identical samples drawn on the CPU, through
+    # the registry's render function.
+    def rtao_same_samples(build, d, line_data):
+        run_ = build(device=d, scale=BASE_CHECK_SCALE, line_data=line_data)
+        cam_ = run_.cameras[0]
+        s_ = run_.renderer._raster_settings(cam_)
+        scene_ = line_data.get_capsule_scene(device=d)
+        grid_ = ao_grid.build_segment_grid(scene_.a, scene_.ba, scene_.radius, scene_.mask,
+                                           resolution=rt_base.grid_resolution)
+        acc = None
+        for f in range(len(run_.cameras)):
+            gen = torch.Generator().manual_seed(rt_base.seed + f)
+            u = tuple(torch.rand((rt_base.num_samples, s_.height, s_.width), generator=gen).to(d)
+                      for _ in range(2))
+            img_f = render_tubes_rtao(scene_, *camera_tensors(cam_, d), s_, rt_base, frame=f,
+                                      grid=grid_, uniforms=u)
+            acc = img_f if acc is None else (acc * f + img_f) / (f + 1)
+        return acc.permute(1, 2, 0).cpu().numpy()
+
+    # Config 5's frame turns on which fragments the importance gather keeps
+    # per pixel (K=8 of hundreds on the tornado at scale 0.1): on the CPU
+    # alone, positions moved by one ulp move its image to SSIM 0.984
+    # (tools/ulp_sensitivity.py). So its registry frame card vs CPU is held
+    # at OO_FRAME_SSIM, and the config stage by stage on frame 0's camera:
+    # the gather card vs CPU (the nodes equal on OO_GATHER_NODES of pixels;
+    # whether the payload is equal is a reading), the solve on the card's
+    # nodes (vertex opacities within OO_SOLVE_TOL), the final render on the
+    # CPU solve's opacities (the image bars).
+    def oo_stages(build, line_data):
+        run_ = build(device="cpu", scale=BASE_CHECK_SCALE, line_data=line_data)
+        cam_ = run_.cameras[0]
+        s_ = run_.renderer._raster_settings(cam_)
+        oo_s = OpacityOptimizationSettings()
+        t_ = line_data.trajectories
+        got = []
+        for d in (dev, "cpu"):
+            sc = line_data.get_capsule_scene(device=d)
+            ct = camera_tensors(cam_, d)
+            csr_, _, _ = prepare_capsule_frame(sc, *ct, gather_settings(s_, oo_s))
+            got.append((sc, ct, csr_.payload.cpu(),
+                        [x.cpu() for x in gather_importance(sc, *ct, s_, oo_s)]))
+        (sc_g, ct_g, pay_g, nodes_g), (sc_c, ct_c, pay_c, nodes_c) = got
+        same_shape = pay_g.shape == pay_c.shape
+        prep_equal = same_shape and bool(torch.equal(pay_g, pay_c))
+        node_ok = ((nodes_g[0] - nodes_c[0]).abs() <= 1e-5) & (nodes_g[2] == nodes_c[2])
+        nodes_agree = float(node_ok.all(dim=0).float().mean())
+        prev = torch.ones((t_.num_lines, t_.max_points))
+        solve = [solve_vertex_opacity(*(x.to(d) for x in nodes_g), prev.to(d), oo_s,
+                                      t_.num_lines, t_.max_points, sc_c.num_segments).cpu()
+                 for d in (dev, "cpu")]
+        solve_err = float((solve[0] - solve[1]).abs().max())
+        imgs = [final_render(sc, *ct, solve[1].to(sc.a.device), s_, oo_s.render_k)
+                .permute(1, 2, 0).cpu().numpy() for sc, ct in ((sc_g, ct_g), (sc_c, ct_c))]
+        s_r = ssim(imgs[0][..., :3], imgs[1][..., :3])
+        mad_r = float(np.abs(imgs[0] - imgs[1]).mean())
+        ok = (nodes_agree >= OO_GATHER_NODES and solve_err <= OO_SOLVE_TOL
+              and np.isfinite(imgs[0]).all() and s_r >= 0.999 and mad_r <= 2e-3)
+        return ok, {"gather_prep_payload_equal": prep_equal,
+                    "gather_pixels_with_equal_nodes": nodes_agree,
+                    "solve_on_the_cards_nodes_max_abs": solve_err,
+                    "final_render_same_opacities_ssim": s_r,
+                    "final_render_same_opacities_mean_abs": mad_r}
+
+    base_check = {}
+    for name, build in BASELINE_CONFIGS.items():
+        rtao_cfg = name.startswith("cfg3")
+        out = []
+        for d in (dev, "cpu"):
+            t1 = time.perf_counter()
+            out.append(build(device=d, scale=BASE_CHECK_SCALE,
+                             frames=BASE_CHECK_RTAO_FRAMES if rtao_cfg else None,
+                             line_data=base_line_data[name]).render())
+            if d == "cpu":
+                cpu_s = time.perf_counter() - t1
+        g_img, c_img = out
+        s_, mad = ssim(g_img[..., :3], c_img[..., :3]), float(np.abs(g_img - c_img).mean())
+        base_check[name] = {"ssim": s_, "mean_abs": mad, "shape": list(g_img.shape[:2]),
+                            "cpu_s": cpu_s}
+        if rtao_cfg:
+            diff = (g_img[..., :3] - c_img[..., :3]).astype(np.float64)
+            mean_diff, se = float(diff.mean()), float(diff.std() / np.sqrt(diff.size))
+            g_same, c_same = (rtao_same_samples(build, d, base_line_data[name])
+                              for d in (dev, "cpu"))
+            s_same = ssim(g_same[..., :3], c_same[..., :3])
+            mad_same = float(np.abs(g_same - c_same).mean())
+            base_check[name].update(mean_rgb_diff=mean_diff, standard_error=se,
+                                    same_samples_ssim=s_same, same_samples_mean_abs=mad_same)
+            agree = (abs(mean_diff) <= 4 * se and np.array_equal(g_img[..., 3], c_img[..., 3])
+                     and np.isfinite(g_same).all() and s_same >= 0.999 and mad_same <= 2e-3)
+        elif name.startswith("cfg5"):
+            agree, stages = oo_stages(build, base_line_data[name])
+            agree = agree and s_ >= OO_FRAME_SSIM
+            base_check[name].update(stages)
+        else:
+            agree = s_ >= 0.999 and mad <= 2e-3
+        if not np.isfinite(g_img).all() or not agree:
+            raise RuntimeError(f"{name}: the card frame disagrees with the CPU's "
+                               f"({base_check[name]})")
+    print(f"baseline configs card vs cpu at scale {BASE_CHECK_SCALE}: "
+          + json.dumps(base_check), flush=True)
+    del base_runs, femur_scene
+    torch.cuda.empty_cache()
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,7 +9,7 @@ that take the time.
     python -m linevis_tpu_torch.automation.profiling [OUT_DIR [PATH]]
 
 PATH: opaque|mlab|prism|triangle|rtao|wavefront|wboit|depth_peeling|mlab_buckets|mboit|
-      depth_complexity|opacity_optimization|rtao_registry
+      depth_complexity|opacity_optimization|rtao_registry|a name of entry.BASELINE_CONFIGS
 
 profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
 default) the opaque capsule frame (`render_tubes`, tile 32x16, AA on),
@@ -31,8 +31,12 @@ half-res importance gather, the plain solve and the final MLAB render; every
 frame moves the camera, so every frame solves); `rtao_registry` the RTAO
 frame as the renderer registry draws it (`create_renderer("RTAO")` on a
 `LineData` of the tornado, the image handed back as numpy; the camera moves,
-so no frames accumulate). It runs 8 orbit-camera frames (4 of the three
-ray-traced paths) after 2 warm-up frames, timed once without
+so no frames accumulate); a name of `entry.BASELINE_CONFIGS` that reference
+config through the registry at its own resolution, on its frames (an orbit
+of cameras; config 3 accumulates at one camera, config 5 follows its circle
+path; configs 4 and 4b draw the Femur-like stress lines). It runs 8 frames
+(4 of the ray-traced paths: `rtao`, `wavefront`, `rtao_registry` and a
+config whose renderer is RTAO) after 2 warm-up frames, timed once without
 the profiler (the window the idle share is taken against) and once
 recorded, and prints one JSON line; with OUT_DIR (give "" for none) it
 also writes that line to OUT_DIR/summary.json and the Chrome trace to
@@ -92,6 +96,7 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     from functools import partial
 
     from linevis_tpu_torch.entry import (
+        BASELINE_CONFIGS,
         TORNADO_RADIUS,
         tornado_prism_scene,
         tornado_scene,
@@ -125,9 +130,9 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         "depth_complexity": ("render_depth_complexity", {}),
     }
     paths = ("opaque", "prism", "triangle", "rtao", "wavefront", *oit_paths,
-             "opacity_optimization", "rtao_registry")
-    # These two take the Camera, the rest its tensors.
-    takes_camera = ("opacity_optimization", "rtao_registry")
+             "opacity_optimization", "rtao_registry", *BASELINE_CONFIGS)
+    # These take the Camera, the rest its tensors.
+    takes_camera = ("opacity_optimization", "rtao_registry", *BASELINE_CONFIGS)
     if path not in paths:
         raise SystemExit(f"profiling: unknown path {path!r} (one of {', '.join(paths)})")
     if not torch.cuda.is_available():
@@ -139,6 +144,8 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     dev = torch.device("cuda", 0)
     W, H = 1920, 1080
     n = 4 if path in ("rtao", "wavefront", "rtao_registry") else 8
+    base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    cams = [base.orbit(0.002 * (i + 1), 0.1, 1.2) for i in range(n + 2)]
     wide = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
     if path == "opaque":
         scene = tornado_scene(dev)
@@ -165,6 +172,14 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
 
         def render(_scene, camera):
             return registry.render(camera)
+    elif path in BASELINE_CONFIGS:
+        run = BASELINE_CONFIGS[path](device=dev, frames=n + 2)
+        if run.renderer.name == "RTAO":
+            n = 4
+        scene, cams = run.renderer.line_data, run.cameras[:n + 2]
+
+        def render(_scene, camera):
+            return run.renderer.render(camera)
     elif path == "prism":
         scene = tornado_prism_scene(dev)
         render = partial(render_tubes_prism, settings=wide)
@@ -184,8 +199,6 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
 
         def render(mesh, view_proj, position, _proj_ab):
             return render_opaque(mesh, view_proj, position, table, wide)
-    base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
-    cams = [base.orbit(0.002 * (i + 1), 0.1, 1.2) for i in range(n + 2)]
     cams = [(c,) if path in takes_camera else camera_tensors(c, dev) for c in cams]
     for cam in cams[:2]:
         render(scene, *cam)

@@ -17,11 +17,30 @@ the scene of the JAX package's primary benchmark (`bench.py`: 512 seeds x 400
 RK4 steps, dt 1/150, tube radius 0.0015) from one traced line set
 (`tornado_trajectories`); `tornado_segment_grid` and `tornado_wide_bvh` build
 the AO grid and the packed 8-wide BVH of a capsule scene.
+
+`BASELINE_CONFIGS` is the counterpart of `tests/baseline_scenes.py`: the
+repo's five reference configs (`BASELINE.md`, six images), each a builder
+`(device="cuda", scale=1.0, frames=None, line_data=None)` that sets up the
+registry's renderer of the config on `device` and returns a `BaselineRun`
+whose `render()` draws the config's frames and returns the last image.
+`scale` shrinks every resolution as `LINEVIS_BASELINE_SCALE` does for the JAX
+builders; `frames` replaces the config's frame sequence by an orbit of that
+many cameras (config 3: that many accumulating frames; config 5: the first
+frames of its circle path); `line_data` hands in the config's line data (for
+example one traced once and shared by several configs or devices).
+`tornado_line_data`, `convection_line_data` and `femur_line_data` build it:
+the tornado and the convection rolls (`convection_velocity`) traced on a
+device, the Femur-like stress lines (`synth_v3_blocks`) written to a v3
+`.dat` file of its own and read back.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import tempfile
 from functools import partial
+from typing import List
 
 import numpy as np
 
@@ -31,6 +50,8 @@ __all__ = [
     "entry_mboit", "entry_depth_complexity", "entry_opacity_optimization",
     "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
     "tornado_tube_mesh", "tornado_segment_grid", "tornado_wide_bvh",
+    "BASELINE_CONFIGS", "BaselineRun", "tornado_line_data", "convection_line_data",
+    "femur_line_data", "convection_velocity", "synth_v3_blocks",
 ]
 
 TORNADO_RADIUS = 0.0015
@@ -306,3 +327,255 @@ def tornado_wide_bvh(scene, builder="binned_sah"):
 
     timings = {}
     return build_wide_capsule_bvh(scene, builder=builder, timings=timings), timings
+
+
+# The repo's five reference configs (tests/baseline_scenes.py) through the
+# port's registry.
+
+TORNADO_LINE_WIDTH = 0.003
+CONVECTION_LINE_WIDTH = 0.004
+FEMUR_LINE_WIDTH = 0.012
+BASELINE_CAMERA = (0.0, 0.1, 1.2)
+ORBIT_STEP = 0.01  # yaw between two cameras of an orbit, radians
+
+
+@dataclasses.dataclass
+class BaselineRun:
+    """One baseline config set up on a device: the registry's renderer,
+    holding the config's line data, and the cameras of its frames in order."""
+
+    name: str
+    renderer: object  # render.renderer.LineRenderer
+    cameras: List[object]  # render.camera.Camera
+
+    def render(self) -> np.ndarray:
+        """Draw every frame in order -> the last image, numpy [H, W, 4]."""
+        img = None
+        for cam in self.cameras:
+            img = self.renderer.render(cam)
+        return img
+
+
+def _res(w, h, scale):
+    """tests/baseline_scenes.py `_res` at an explicit scale."""
+    return (max(int(w * scale) // 16 * 16, 32), max(int(h * scale) // 16 * 16, 16))
+
+
+def _orbit(cam, n):
+    """`cam` and n - 1 cameras orbiting its look-at point by ORBIT_STEP each,
+    at its pitch and distance."""
+    import math
+
+    x, y, z = (p - c for p, c in zip(cam.position, cam.look_at_point))
+    radius = math.sqrt(x * x + y * y + z * z)
+    pitch, yaw = math.asin(y / radius), math.atan2(x, z)
+    return [cam] + [cam.orbit(yaw + ORBIT_STEP * i, pitch, radius) for i in range(1, n)]
+
+
+def _baseline(name, mode, line_data, w, h, device, frames, settings=None, repeat=1):
+    """The registry's renderer of `mode` with `settings` on `line_data`, its
+    frames at the baseline camera (`repeat` of them), or an orbit of
+    `frames` cameras."""
+    from linevis_tpu_torch.core.settings import SettingsMap
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.renderer import create_renderer
+
+    r = create_renderer(mode, SettingsMap(settings or {}), device=device)
+    r.set_line_data(line_data)
+    cam = Camera(position=BASELINE_CAMERA, look_at_point=(0.0, 0.0, 0.0), width=w, height=h)
+    cams = [cam] * repeat if frames is None else _orbit(cam, frames)
+    return BaselineRun(name, r, cams)
+
+
+def tornado_line_data(device="cuda"):
+    """The tornado of configs 1, 2 and 5 (`tornado_trajectories`: 512 seeds x
+    400 RK4 steps, dt 1/150, traced on `device`) as LineData of line width
+    0.003."""
+    from linevis_tpu_torch.scene.line_data import LineData
+
+    ld = LineData(tornado_trajectories(device))
+    ld.set_line_width(TORNADO_LINE_WIDTH)
+    return ld
+
+
+def convection_velocity(p, time=0.0):
+    """Analytic Rayleigh-Benard-style convection rolls (config 3's field,
+    tests/baseline_scenes.py and bench.py). p: [..., 3] -> [..., 3]."""
+    import torch
+
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    k = 2.0 * np.pi
+    vx = torch.sin(k * x) * torch.cos(k * y)
+    vy = -torch.cos(k * x) * torch.sin(k * y)
+    vz = 0.3 * torch.sin(k * x) * torch.sin(k * z)
+    return torch.stack([vx, vy, vz], dim=-1)
+
+
+def convection_trajectories(device="cuda", seeds=None):
+    """Config 3's streamlines: 256 seeds (`seeds`, or the tracer's default
+    draw from np.random.default_rng(42)) x 300 RK4 steps, dt 1/120, traced on
+    `device` through `convection_velocity`, positions and attributes
+    normalized."""
+    from linevis_tpu_torch.core.trajectories import (
+        normalize_attributes,
+        normalize_trajectories,
+    )
+    from linevis_tpu_torch.trace.streamline import (
+        StreamlineTracingSettings,
+        trace_streamlines,
+    )
+
+    traj = trace_streamlines(
+        convection_velocity,
+        StreamlineTracingSettings(num_seeds=256, max_steps=300, dt=1.0 / 120.0),
+        seeds=seeds, device=device,
+    )
+    return normalize_attributes(normalize_trajectories(traj))
+
+
+def convection_line_data(device="cuda"):
+    """Config 3's line data (`convection_trajectories` on `device`), line
+    width 0.004."""
+    from linevis_tpu_torch.scene.line_data import LineData
+
+    ld = LineData(convection_trajectories(device))
+    ld.set_line_width(CONVECTION_LINE_WIDTH)
+    return ld
+
+
+def synth_v3_blocks(rng, lines_per_ps=24, n=48):
+    """Three PS families of helical lines on a bone-like capsule volume
+    (the port's copy of examples/render_stress_bands.py:synth_v3_blocks)."""
+    from linevis_tpu_torch.core.trajectories import RaggedTrajectories
+    from linevis_tpu_torch.loaders.stress_dat import RaggedStressTrajectories
+
+    blocks = []
+    for ps in range(3):
+        block = RaggedStressTrajectories(
+            trajectories=RaggedTrajectories([], [], []), ps_index=ps
+        )
+        for li in range(lines_per_ps):
+            t = np.linspace(0, 1, n, dtype=np.float32)
+            phase = rng.uniform(0, 2 * np.pi)
+            z = t * 2.0 - 1.0
+            r = 0.35 + 0.1 * np.cos(3 * np.pi * z)
+            if ps == 0:  # major: longitudinal
+                ang = phase + 0.8 * t
+                pos = np.stack([r * np.cos(ang), r * np.sin(ang), z], 1)
+            elif ps == 1:  # medium: helical
+                ang = phase + 6.0 * t
+                pos = np.stack([r * np.cos(ang), r * np.sin(ang), z * 0.8], 1)
+            else:  # minor: hoops
+                ang = phase + 2 * np.pi * t
+                zz = np.full_like(t, rng.uniform(-0.9, 0.9))
+                rr = 0.35 + 0.1 * np.cos(3 * np.pi * zz)
+                pos = np.stack([rr * np.cos(ang), rr * np.sin(ang), zz], 1)
+            pos = pos.astype(np.float32)
+            block.trajectories.positions.append(pos)
+            # Right vector: radial direction (band plane tangent to surface).
+            right = pos.copy()
+            right[:, 2] = 0
+            nrm = np.maximum(np.linalg.norm(right, axis=1, keepdims=True), 1e-5)
+            right = (right / nrm).astype(np.float32)
+            block.band_points_left.append(-right)
+            block.band_points_right.append(right)
+            block.band_points_left_unsmoothed.append(-right)
+            block.band_points_right_unsmoothed.append(right)
+            attrs = np.zeros((9, n), np.float32)
+            sigma = (1.0 - np.abs(z)) * (3 - ps)  # principal stress
+            attrs[0] = sigma
+            attrs[1] = np.abs(sigma)
+            attrs[2] = np.abs(sigma) * 0.9  # von Mises
+            attrs[3:6] = rng.normal(0, 0.3, (3, n)).astype(np.float32) + sigma
+            attrs[6:9] = rng.normal(0, 0.2, (3, n)).astype(np.float32)
+            block.trajectories.attributes.append(attrs)
+            block.hierarchy_levels.append(
+                [float(np.abs(sigma).mean() / 3.0)] * 4
+            )
+            block.appearance_orders.append(li)
+            block.seed_positions.append(pos[0])
+        blocks.append(block)
+    return blocks
+
+
+def femur_line_data():
+    """Config 4's Femur-like stress lines: `synth_v3_blocks` of
+    np.random.default_rng(11) (72 lines of 48 points), written as a v3
+    `.dat` to a temporary file of its own (removed after reading; never the
+    JAX builder's shared file) and loaded as LineDataStress of line width
+    0.012."""
+    from linevis_tpu_torch.loaders.stress_dat import write_stress_trajectories_dat_v3
+    from linevis_tpu_torch.scene.line_data_stress import LineDataStress
+
+    fd, path = tempfile.mkstemp(suffix=".dat", prefix="femur_psl_v3_")
+    os.close(fd)
+    try:
+        write_stress_trajectories_dat_v3(path, synth_v3_blocks(np.random.default_rng(11)))
+        ld = LineDataStress.load_from_dat([path], version=3)
+    finally:
+        os.remove(path)
+    ld.set_line_width(FEMUR_LINE_WIDTH)
+    return ld
+
+
+def config1_tornado_opaque(device="cuda", scale=1.0, frames=None, line_data=None):
+    return _baseline("cfg1_tornado_opaque_800x600", "Opaque",
+                     line_data or tornado_line_data(device), *_res(800, 600, scale),
+                     device, frames)
+
+
+def config2_tornado_ppll(device="cuda", scale=1.0, frames=None, line_data=None):
+    return _baseline("cfg2_tornado_ppll_1080p", "Per-Pixel Linked Lists",
+                     line_data or tornado_line_data(device), *_res(1920, 1080, scale),
+                     device, frames, settings={"opacity": 0.3})
+
+
+def config3_convection_rtao(device="cuda", scale=1.0, frames=None, line_data=None):
+    """RTAO reference defaults: 4 samples a frame, accumulating (2 frames, as
+    the JAX builder draws them; `frames` accumulating frames at the same
+    camera)."""
+    return _baseline("cfg3_convection_rtao_1080p", "RTAO",
+                     line_data or convection_line_data(device), *_res(1920, 1080, scale),
+                     device, None, repeat=frames or 2)
+
+
+def config4_femur_mlab(device="cuda", scale=1.0, frames=None, line_data=None):
+    return _baseline("cfg4_femur_mlab_1080p", "Multi-Layer Alpha Blending",
+                     line_data or femur_line_data(), *_res(1920, 1080, scale), device,
+                     frames, settings={"opacity": 0.45})
+
+
+def config4b_femur_mboit(device="cuda", scale=1.0, frames=None, line_data=None):
+    return _baseline("cfg4b_femur_mboit_1080p", "Moment-Based OIT",
+                     line_data or femur_line_data(), *_res(1920, 1080, scale), device,
+                     frames, settings={"opacity": 0.45})
+
+
+def config5_tornado_opacity_opt_replay(device="cuda", scale=1.0, frames=None,
+                                       line_data=None):
+    """Opacity optimization at the end of a short camera flight (replay
+    semantics: the 3rd frame of a circle path; `frames` of its first frames)."""
+    from linevis_tpu_torch.automation.camera_path import CameraPath
+    from linevis_tpu_torch.render.camera import Camera
+
+    run = _baseline("cfg5_tornado_opacityopt_1080p", "Opacity Optimization",
+                    line_data or tornado_line_data(device), *_res(1920, 1080, scale),
+                    device, None)
+    path = CameraPath.from_circle_path(run.renderer.line_data.get_aabb())
+    w, h = run.cameras[0].width, run.cameras[0].height
+    run.cameras = []
+    for i in range(frames or 3):
+        pos, look = path.camera_at(i / 16.0 * path.total_time)
+        run.cameras.append(Camera(position=tuple(pos), look_at_point=tuple(look),
+                                  width=w, height=h))
+    return run
+
+
+BASELINE_CONFIGS = {
+    "cfg1_tornado_opaque_800x600": config1_tornado_opaque,
+    "cfg2_tornado_ppll_1080p": config2_tornado_ppll,
+    "cfg3_convection_rtao_1080p": config3_convection_rtao,
+    "cfg4_femur_mlab_1080p": config4_femur_mlab,
+    "cfg4b_femur_mboit_1080p": config4b_femur_mboit,
+    "cfg5_tornado_opacityopt_1080p": config5_tornado_opacity_opt_replay,
+}

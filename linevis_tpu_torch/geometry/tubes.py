@@ -121,11 +121,13 @@ def build_tube_triangle_mesh(
     attrs,
     radius: float = 0.0025,
     num_subdivisions: int = 8,
+    ellipse_ratio: float = 1.0,
     device="cuda",
 ) -> TubeMesh:
     """Mesh all padded lines into one tube surface on `device`.
 
     positions [L, P, 3], mask [L, P], attrs [L, P] (selected attribute).
+    `ellipse_ratio` scales the ring's binormal axis (elliptic tubes).
     """
     pos = torch.tensor(np.asarray(positions, np.float32), device=device)
     m = torch.tensor(np.asarray(mask, bool), device=device)
@@ -139,7 +141,7 @@ def build_tube_triangle_mesh(
 
     ring = torch.tensor(tube_ring_directions(S), device=device)  # [S, 2]
     cosr = ring[:, 0].reshape(1, S, 1, 1)
-    sinr = ring[:, 1].reshape(1, S, 1, 1)
+    sinr = (ring[:, 1] * float(ellipse_ratio)).reshape(1, S, 1, 1)
     dir3 = cosr * cf(normals) + sinr * cf(binormals)  # [3, S, L, P]
     verts = cf(pos) + float(radius) * dir3
     vnorm = dir3 / torch.clamp(

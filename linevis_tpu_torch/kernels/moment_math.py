@@ -6,8 +6,12 @@ Münstermann, Krumpen, Klein, Peters, "Moment-Based Order-Independent
 Transparency", i3D 2018): the same branch-free formulation (every
 conditional a `torch.where`), the same degree-11 atan polynomial and the
 same `_safe_rcp`. `csrc/moment_math.cuh` holds the same functions as
-device code, one for one, for the accumulation kernel; each rounds as its
-device counterpart does:
+device code for the accumulation kernel, one for one except the
+transmittance: the device splits each `transmittance_at_depth_N` into
+`moment_setup_N` (the factors of a pixel's moments, once a pixel) and
+`transmittance_N` (the reconstruction at one depth), which together take
+the same operations in the same order. Each rounds as its device
+counterpart does:
 - a division by a constant divides by a tensor (`_div`): on the card
   PyTorch turns `x / python_scalar` into a multiply by the reciprocal;
 - a square is written `x * x`, never `x ** 2`;

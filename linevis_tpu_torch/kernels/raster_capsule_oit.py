@@ -160,11 +160,15 @@ def _two(x, two_sided, interleave):
     return x.repeat_interleave(2, dim=1) if interleave else torch.cat([x, x], dim=1)
 
 
-def _surfaces(s, dn, in_run, two_sided, interleave=False):
+def _surfaces(s, dn, in_run, two_sided, interleave=False, need=None):
     """Capsule hits of candidates `s` ([ROWS, A, M, 1] payload rows) against
     rays dn ([A, 1, P] each): (tcand [A, M', P] relative t or BIG, t0, and
     the per-candidate scalars the shading reuses). M' = 2M with the exit
-    surfaces ordered as `_two` orders them."""
+    surfaces ordered as `_two` orders them. `need`, an optional int64 [4]
+    tensor, receives the in-run (candidate, pixel) evaluations at which the
+    front-face test needs each part's root and tests (its discriminant not
+    negative; the start cap only where payload row 13 holds one: body,
+    start cap, end cap) and those with a front surface."""
     dnx, dny, dnz = dn
     baoa0, oaoa0, rrbaba, rr, baba = s[16], s[17], s[19], s[22], s[10]
     bard = s[3] * dnx + s[4] * dny + s[5] * dnz
@@ -208,6 +212,9 @@ def _surfaces(s, dn, in_run, two_sided, interleave=False):
         )
 
     tcand = surface_t(True)
+    if need is not None:
+        need += torch.stack([((h >= 0.0) & in_run).sum(), ((ha >= 0.0) & cap_a_on & in_run).sum(),
+                             ((hb >= 0.0) & in_run).sum(), (tcand < BIG).sum()])
     if two_sided:
         t_out = surface_t(False)
         tcand = (torch.stack([tcand, t_out], dim=2).flatten(1, 2) if interleave
@@ -490,10 +497,13 @@ def rasterize_capsules_mlab_reference(
     batching at each index the tiles whose run reaches it (`batch_tiles` at
     a time); `work`, an optional [n_tiles] int32 tensor, receives the
     candidates each tile evaluated after the culls. `stats`, an optional
-    dict, receives the work the run's data needed: "hits" ((candidate,
-    pixel) fragments past the clip, the peel and the rejection), "sweeps"
-    ((pixel, sweep) extractions) and "members" (fragments in the extracted
-    tie windows); the accumulation modes have no sweeps."""
+    dict, receives the work the run's data needed: "evaluations" ((candidate,
+    pixel) front-face tests after the culls), among them "body", "start_cap"
+    and "end_cap" (those that need the part's root and tests, `_surfaces`)
+    and "surfaces" (those with a front surface), "hits" ((candidate, pixel)
+    fragments past the clip, the peel and the rejection), "sweeps" ((pixel,
+    sweep) extractions) and "members" (fragments in the extracted tie
+    windows); the accumulation modes have no sweeps."""
     if stats is not None:
         stats.update(hits=0, sweeps=0, members=0)
     dev = csr.payload.device
@@ -521,6 +531,7 @@ def rasterize_capsules_mlab_reference(
     slots = _accum_slots(store_mode, n_mom) if accum else []
     stopped = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
     evaluated = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    need = None if stats is None else torch.zeros(4, dtype=torch.int64, device=dev)
     lane = torch.arange(sub, device=dev)
     lane_c = torch.arange(C, device=dev)
 
@@ -560,7 +571,7 @@ def rasterize_capsules_mlab_reference(
             invlen = invlen_all[tiles][:, None, :]
             len_p = 1.0 / invlen
 
-            tcand, t0, geo = _surfaces(s, dn, in_run, two_sided, interleave=accum)
+            tcand, t0, geo = _surfaces(s, dn, in_run, two_sided, interleave=accum, need=need)
             tw = torch.where(tcand < BIG, _two(t0, two_sided, accum) + tcand, BIG)
             # Near/far clip in NDC, as world-t bounds of the pixel's ray.
             tw_lo = (zB / zA) * len_p
@@ -611,6 +622,9 @@ def rasterize_capsules_mlab_reference(
 
     if work is not None:
         work.copy_(evaluated)
+    if stats is not None:
+        stats["evaluations"] = int(evaluated.sum()) * P
+        stats.update(zip(("body", "start_cap", "end_cap", "surfaces"), need.tolist()))
     out = st_all.permute(1, 2, 0, 3)  # [5, K, T, P]
     if composite:
         rgb = shade_nodes(out[0], out[1:4], out[4], params[9], params[10], params[11],

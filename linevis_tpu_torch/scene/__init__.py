@@ -4,3 +4,4 @@ from linevis_tpu_torch.scene.filters import (  # noqa: F401
     MaxLineAttributeFilter,
 )
 from linevis_tpu_torch.scene.line_data import LineData, LineDataFlow  # noqa: F401
+from linevis_tpu_torch.scene.line_data_stress import LineDataStress  # noqa: F401

@@ -9,9 +9,8 @@ getters build the port's capsule scene, prism scene and tube mesh on the
 `device` they are given (the card unless the caller asks for the CPU); the
 device is part of the cache key.
 
-Not ported yet: the line-segment representation (ROADMAP queue A item 8),
-`LineDataFlow`'s ribbon and helicity-band meshes (A3) and loading from a
-file (A7); they raise NotImplementedError.
+Not ported yet: the line-segment representation (ROADMAP queue A item 8)
+and loading from a file (A7); they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from linevis_tpu_torch.core.settings import SettingsMap
 from linevis_tpu_torch.core.trajectories import Trajectories, compute_trajectories_aabb
@@ -171,7 +171,13 @@ class LineData:
 
 class LineDataFlow(LineData):
     """Flow trajectories (reference `LineDataFlow`, LineDataFlow.hpp:35).
-    Its ribbon and helicity-band meshes are not ported yet."""
+
+    Optional ribbon rendering (`LineDataFlow.hpp:158-161`): per-point
+    ribbon right-vectors feed elliptic band geometry. Helicity bands
+    (`:163-171`): the band right-vector rotates around the tangent
+    proportionally to the helicity attribute times
+    `helicity_rotation_factor`.
+    """
 
     data_set_type = "flow"
 
@@ -186,14 +192,51 @@ class LineDataFlow(LineData):
         self.use_ribbons = True
         self.mark_dirty()
 
-    def get_ribbon_mesh(self, band_width: float = 0.005, num_subdivisions: int = 8):
-        raise NotImplementedError(
-            "ribbon meshes (geometry/bands.py) are not ported yet: ROADMAP queue A item 3")
+    def get_ribbon_mesh(self, band_width: float = 0.005, num_subdivisions: int = 8,
+                        device="cuda"):
+        """Flow-ribbon band geometry on `device` from the ribbon right-vectors."""
+        from linevis_tpu_torch.geometry.bands import build_band_tube_mesh
+
+        if self.ribbon_directions is None:
+            raise ValueError("no ribbon directions loaded/traced")
+        key = ("ribbons", band_width, num_subdivisions, self.selected_attribute_index,
+               str(device))
+        return self._cached(key, lambda: build_band_tube_mesh(
+            *self._lines(), self.ribbon_directions, band_width=band_width,
+            num_subdivisions=num_subdivisions, device=device))
 
     def get_helicity_band_mesh(self, band_width: float = 0.005, num_subdivisions: int = 8,
-                               helicity_attribute: str = "Helicity"):
-        raise NotImplementedError(
-            "helicity bands (geometry/bands.py) are not ported yet: ROADMAP queue A item 3")
+                               helicity_attribute: str = "Helicity", device="cuda"):
+        """Helicity-rotating bands on `device` (LineDataFlow.hpp:163-171): the
+        right vector starts at the parallel-transport normal and accumulates
+        a twist angle of helicity * factor per step."""
+        key = ("helicity_bands", band_width, num_subdivisions,
+               self.helicity_rotation_factor, str(device))
+        return self._cached(key, lambda: self._helicity_band_mesh(
+            band_width, num_subdivisions, helicity_attribute, device))
+
+    def _helicity_band_mesh(self, band_width, num_subdivisions, helicity_attribute, device):
+        from linevis_tpu_torch.geometry.bands import build_band_tube_mesh
+        from linevis_tpu_torch.geometry.frames import parallel_transport_frames
+
+        try:
+            h_idx = self.attribute_names.index(helicity_attribute)
+        except ValueError:
+            h_idx = self.selected_attribute_index
+        hel = torch.tensor(self.trajectories.attributes[:, h_idx], device=device)
+        hmax = torch.clamp(torch.max(torch.abs(hel)), min=1e-12)
+        angle = torch.cumsum(hel / hmax * self.helicity_rotation_factor, dim=1)
+        pos = torch.tensor(self.trajectories.positions, device=device)
+        m = torch.tensor(self.get_filtered_point_mask(), device=device)
+        # The JAX package unpacks (tangents, normals, binormals) as (normals,
+        # binormals, _), so its twist starts at the tangent and turns towards
+        # the normal; the port keeps that (ROADMAP queue C).
+        tangents, normals, _ = parallel_transport_frames(pos, m)
+        right = (torch.cos(angle)[..., None] * tangents
+                 + torch.sin(angle)[..., None] * normals)
+        return build_band_tube_mesh(pos, m, self.selected_attributes(), right,
+                                    band_width=band_width,
+                                    num_subdivisions=num_subdivisions, device=device)
 
     @classmethod
     def load_from_file(cls, filename: str, name: str = "", transform=None,

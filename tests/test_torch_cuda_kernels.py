@@ -234,6 +234,95 @@ def test_render_tubes_mlab_card_matches_cpu(cuda, renderer):
     assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3
 
 
+@pytest.mark.parametrize("alpha_rows", [False, True], ids=["tf_alpha", "alpha_from_rows"])
+@pytest.mark.parametrize("K", [8, 32])
+def test_mlab_composite_femur_matches_plain(cuda, K, alpha_rows):
+    """B2's composite on a small frame of config 4's Femur (opacity 0.45, the
+    baseline camera, tile 16x8) at K=32, as the Per-Pixel Linked Lists mode
+    takes it, and K=8, also with bench.py's per-segment alpha rows."""
+    from linevis_tpu_torch.entry import femur_line_data
+
+    W, H = 240, 136
+    ld = femur_line_data()
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
+    seg_alpha = torch.tensor(ld.get_segment_opacity_rows(), device=cuda) if alpha_rows else None
+    csr, params = toit.prepare_mlab_frame(ld.get_capsule_scene(device=cuda),
+                                          *ttr.camera_tensors(cam, cuda), S, 0.45, seg_alpha)
+    kw = dict(K=K, tf_color=S.tf_color, tf_opacity=S.tf_opacity, deferred_shade=True,
+              composite=True, alpha_from_rows=alpha_rows)
+    before = rasterize_capsules_mlab.launches
+    work = torch.zeros(csr.tile_start.shape[0], dtype=torch.int32, device=cuda)
+    k = rasterize_capsules_mlab(csr, params, W, H, 16, 8, work=work, **kw)
+    assert rasterize_capsules_mlab.launches == before + 1
+    p_work = torch.zeros_like(work)
+    p = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, work=p_work, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(work, p_work)
+    assert bool(torch.isfinite(k).all())
+    assert ((k - p).abs().amax(dim=0) <= 1e-4).float().mean().item() >= 0.999
+    assert (k[3] > 0).sum().item() > 500
+
+
+@pytest.mark.parametrize("kernel", ["capsule", "mlab", "mboit"])
+def test_degenerate_point_spheres_match_plain(cuda, kernel):
+    """Config 4's Femur with degenerate-point spheres: capsules whose ba is
+    (w * 1e-3, 0, 0). B1 (with AA), B2's composite and its MBOIT passes on
+    them against their plain versions, at their bars; no non-finite value."""
+    from linevis_tpu_torch.entry import femur_line_data
+    from linevis_tpu_torch.kernels.raster_capsule_oit import rasterize_capsules_accum
+
+    W, H = 240, 136
+    ld = femur_line_data()
+    rng = np.random.default_rng(3)
+    ld.degenerate_points = rng.uniform(-0.4, 0.4, (40, 3)).astype(np.float32)
+    ld.set_show_degenerate_points(True)
+    scene = ld.get_capsule_scene(device=cuda)
+    assert scene.num_segments == 72 * 47 + 40
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    if kernel == "capsule":
+        S = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+        csr, params, _ = ttr.prepare_capsule_frame(scene, *ttr.camera_tensors(cam, cuda), S,
+                                                   aa_margin=0.5)
+        k = rasterize_capsules(csr, params, W, H, 32, 16, use_aa=True)
+        p = rasterize_capsules_reference(csr, params, W, H, 32, 16, use_aa=True)
+        torch.cuda.synchronize()
+        assert (k[1] >= 72 * 47).sum().item() > 50  # sphere pixels
+        _all_equal(k, p)
+        return
+    S = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
+    if kernel == "mlab":
+        csr, params = toit.prepare_mlab_frame(scene, *ttr.camera_tensors(cam, cuda), S, 0.45)
+        kw = dict(K=8, tf_color=S.tf_color, tf_opacity=S.tf_opacity, deferred_shade=True,
+                  composite=True)
+        k = rasterize_capsules_mlab(csr, params, W, H, 16, 8, **kw)
+        p = rasterize_capsules_mlab_reference(csr, params, W, H, 16, 8, **kw)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(k).all())
+        assert ((k - p).abs().amax(dim=0) <= 1e-4).float().mean().item() >= 0.999
+        return
+    csr, params, _ = toit.prepare_mboit_frame(scene, *ttr.camera_tensors(cam, cuda), S, 4, 0.45)
+    args = (csr, params, W, H, 16, 8)
+    before = rasterize_capsules_accum.launches
+    gen = rasterize_capsules_mlab(*args, 2, S.tf_color, S.tf_opacity, store_mode="mboit_gen",
+                                  n_mom=4)
+    p_gen = rasterize_capsules_mlab_reference(*args, 2, S.tf_color, S.tf_opacity,
+                                              store_mode="mboit_gen", n_mom=4)
+    moments = torch.stack([gen[0][0], gen[1][0, 0], gen[1][1, 0], gen[0][1], gen[1][0, 1]])
+    res = rasterize_capsules_mlab(*args, 1, S.tf_color, S.tf_opacity,
+                                  store_mode="mboit_resolve", n_mom=4, moments=moments)
+    p_res = rasterize_capsules_mlab_reference(*args, 1, S.tf_color, S.tf_opacity,
+                                              store_mode="mboit_resolve", n_mom=4,
+                                              moments=moments)
+    torch.cuda.synchronize()
+    assert rasterize_capsules_accum.launches == before + 2
+    for a, b in ((gen, p_gen), (res, p_res)):
+        ka = torch.cat([a[0], a[1].flatten(0, 1), a[2]])
+        pa = torch.cat([b[0], b[1].flatten(0, 1), b[2]])
+        assert bool(torch.isfinite(ka).all())
+        assert torch.equal(ka, pa)
+
+
 def _prism_frame(device, W, H, tile, n_sides, scene=(11, 10, 8, 0.02), lines=None):
     cam = Camera(position=(0.1, 0.2, 1.4), width=W, height=H)
     S = RasterSettings(width=W, height=H, tile_w=tile[0], tile_h=tile[1])

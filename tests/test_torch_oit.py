@@ -149,7 +149,7 @@ def _check_spread(err):
 
 @pytest.mark.parametrize(
     "K,no_overflow,two_sided",
-    list(itertools.product([4, 8, 16], [False, True], [False, True])),
+    list(itertools.product([4, 8, 16, 32], [False, True], [False, True])),
 )
 def test_mlab_nodes_match_jax(K, no_overflow, two_sided):
     csr, params, S = _port_frame()
@@ -178,6 +178,16 @@ def test_mlab_composite_matches_jax_and_deferred_resolve():
         T = T * (1.0 - a[i])
     resolved = torch.cat([acc + T * params[24:27, None, None], (1.0 - T)[None]])
     np.testing.assert_allclose(resolved.numpy(), t, rtol=0, atol=1e-6)
+
+
+def test_mlab_composite_k32_matches_jax():
+    """The composite at K=32 (the Per-Pixel Linked Lists mode's, config 2)."""
+    csr, params, S = _port_frame()
+    j = _jax_kernel(csr, params, S, K=32, composite=True)
+    t = _port_kernel(csr, params, S, K=32, composite=True)
+    assert t.shape == j.shape == (4, csr.tile_start.shape[0], 128)
+    assert (t[3] > 0).sum() > 300
+    _check_spread(np.abs(j - t).max(axis=0))
 
 
 def test_mlab_alpha_from_rows_matches_jax():
@@ -379,6 +389,29 @@ def test_plain_version_batches_do_not_change_result():
         assert torch.equal(x, y)
     assert torch.equal(w1, w2)
     assert (w1 <= csr.tile_count).all() and int(w1.sum()) > 0
+
+
+def test_plain_version_counts_the_needed_work():
+    """`stats` counts the front-face test's needed work (the smoke's B2
+    bounds): every evaluation of the work count once, a part where its
+    discriminant is not negative, a surface where one is hit before the
+    clip. With no cull, the K-buffer and the accumulation modes count the
+    same."""
+    csr, params, S = _port_frame()
+    keys = ("evaluations", "body", "start_cap", "end_cap", "surfaces")
+    got = []
+    for kw in (dict(K=32, deferred_shade=True, composite=True), dict(K=1, store_mode="count")):
+        st, work = {}, torch.zeros(csr.tile_start.shape[0], dtype=torch.int32)
+        tk.rasterize_capsules_mlab_reference(csr, params, W, H, *TILE, tf_color=S.tf_color,
+                                             tf_opacity=S.tf_opacity, work=work, stats=st, **kw)
+        assert st["evaluations"] == int(work.sum()) * TILE[0] * TILE[1]
+        assert st["evaluations"] > st["body"] > st["surfaces"] >= st["hits"] > 300
+        assert 0 < st["end_cap"] < st["evaluations"]
+        assert 0 <= st["start_cap"] < st["evaluations"]
+        # Every surface is the root of a part whose discriminant is not negative.
+        assert st["body"] + st["start_cap"] + st["end_cap"] >= st["surfaces"]
+        got.append({k: st[k] for k in keys})
+    assert got[0] == got[1]
 
 
 def test_row_product_matches_jax():

@@ -156,10 +156,14 @@ def test_representations_on_the_cpu():
     with pytest.raises(NotImplementedError, match="item 8"):
         ld.get_line_segments(device="cpu")
     flow = LineDataFlow(_traj())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        flow.get_ribbon_mesh()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        flow.get_helicity_band_mesh()
+    with pytest.raises(ValueError, match="no ribbon directions"):
+        flow.get_ribbon_mesh(device="cpu")
+    flow.set_ribbon_directions(np.tile([0.0, 0.0, 1.0], flow.trajectories.positions.shape[:2] + (1,)))
+    ribbons = flow.get_ribbon_mesh(num_subdivisions=6, device="cpu")
+    bands = flow.get_helicity_band_mesh(num_subdivisions=6, device="cpu")
+    assert ribbons.num_subdivisions == bands.num_subdivisions == 6
+    assert ribbons.positions.device.type == bands.positions.device.type == "cpu"
+    assert flow.get_helicity_band_mesh(num_subdivisions=6, device="cpu") is bands
     with pytest.raises(NotImplementedError, match="item 7"):
         LineDataFlow.load_from_file("lines.obj")
 
