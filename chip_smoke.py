@@ -69,7 +69,24 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   and 8 accumulated registry frames, each device drawing its own samples,
   for no bias; config 5, whose frame an ulp of its input moves, at a lower
   SSIM floor and stage by stage: the gather's nodes on most pixels, the
-  solve on identical nodes and the final render on identical opacities).
+  solve on identical nodes and the final render on identical opacities);
+- the transparent ray tracer (the registry's "Vulkan Ray Tracer") on the
+  tornado over the registry's default "linear" tree, opacity 0.3: the
+  re-cast loop through `render_tubes_raytraced` (32 casts; kernel
+  bvh_closest_hit once a cast) and MLAT through `render_tubes_mlat` (K=8;
+  kernel bvh_mlat once), 4 frames each, each cast's launch timed on frame
+  0; on one band (a tile row of 16x8 tiles, see RT_BAND_MIN_HITS) both
+  kernels against their lockstep plain versions: bvh_closest_hit's
+  (t, prim) and per-ray counts on every cast, the band's re-cast image, and
+  bvh_mlat's nodes and counts, all bit for bit;
+- the deferred family and the RTAO denoisers: `render_tubes_deferred` equal
+  to `render_tubes` and a static camera's motion vectors near zero, the
+  registry's "Deferred Opaque" at upscaling factor 2, `render_tubes_rtao`
+  with "EAW" and "Spatial Hashing" and the registry's RTAO with "SVGF
+  (Temporal)" on a moving camera, 4 frames each, and each denoiser on the
+  small scene card vs CPU on identical samples; SSAO and GTAO on the RTAO
+  G-buffer (a reading); the AO bake of the whole tornado (`AoBakeSettings`'
+  defaults, 32 launches of ao_grid; seconds, a reading).
 For each path it times the frames and their stages with CUDA events, checks
 that exactly the expected kernels were launched the expected number of
 times, holds the path's kernel against its plain PyTorch version on the same
@@ -104,6 +121,7 @@ repository beside it. Any failed check raises.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -235,6 +253,34 @@ OIT_OPS_PER_SHADE_BANDS = OIT_OPS_PER_SHADE - 2 * 8
 OIT_OPS_PER_ACCUM = {"count": 1, "wboit": 35, "mboit_gen": 45, "mboit_resolve": 100}
 OIT_OPS_RESOLVE_PIXEL = 31
 OIT_OPS_PER_PEEL = 5
+RT_FRAMES = 4  # frames of each ray-tracer, deferred and denoiser phase
+RT_CASTS, RT_MLAT_K, RT_OPACITY = 32, 8, 0.3  # the registry's Vulkan Ray Tracer defaults
+# The band of the ray tracer's gates against the lockstep plain versions: the
+# tile row (8 pixel rows) with the shortest longest walk among the rows where
+# at least this share of the rays hits a surface at the first cast.
+RT_BAND_MIN_HITS = 0.15
+# Float operations of the per-ray traversal kernels, counted as above. Per
+# node visit 28: the six slab distances 12, the entry and exit t 10, the hit
+# test 6 (MLAT 30: the saturation cull 2 more). Per leaf test of the closest
+# hit 138: o - a 3, five dot products 25, the three quadratics and roots 31,
+# per surface side (entry, exit) 36 (three roots 6, axial positions 6, the
+# acceptance tests with the (t, prim) bound 19, selects and mins 5), the
+# mask and the (t, prim) comparison 7. Per leaf test of MLAT 145: the same
+# quadratics and roots 131 and per side its NDC clip 7. Per surface inserted
+# 95: the features 73 (the point, the axial position, the attribute, the
+# normal, the tube's direction, the two headlight cosines), the opacity TF 8,
+# the alpha and premultiplied features 4, the merge into node K-1 10; and 1
+# per node compared (K).
+RT_OPS_PER_VISIT = 28
+RT_OPS_PER_LEAF = 138
+MLAT_OPS_PER_VISIT = 30
+MLAT_OPS_PER_LEAF = 145
+MLAT_OPS_PER_INSERT = 95
+# A static camera's motion vectors round-trip each pixel through its NDC
+# depth and the projection: float32 pixel coordinates near 1920 have an ulp
+# of 1.2e-4 px (2.4e-4 px read on the 1080p tornado); tests/test_deferred.py's
+# bar.
+DEFERRED_STATIC_MV = 1e-3
 OO_FRAMES = 8  # opacity-optimization frames (bench.py cfg5's flight)
 BASE_FRAMES = 8  # frames of each baseline config but config 3 (its own 2)
 BASE_CHECK_SCALE = 0.1  # the baseline configs' card-vs-CPU frames
@@ -482,6 +528,13 @@ def main() -> int:
     from linevis_tpu_torch.core.settings import SettingsMap
     from linevis_tpu_torch.core.trajectories import Trajectories
     from linevis_tpu_torch.kernels import _build, ao_grid, raster_pallas
+    from linevis_tpu_torch.kernels.bvh_closest_hit import (
+        capsule_closest_hit,
+        capsule_closest_hit_reference,
+    )
+    from linevis_tpu_torch.kernels.bvh_mlat import STATS as MLAT_STATS
+    from linevis_tpu_torch.kernels.bvh_mlat import mlat_nodes, mlat_nodes_reference
+    from linevis_tpu_torch.ops.lbvh import lbvh_on
     from linevis_tpu_torch.kernels.bvh_wavefront import (
         STATS as WF_STATS,
         trace_wavefront_kbuffer,
@@ -543,11 +596,22 @@ def main() -> int:
         shade_gbuffer,
         tube_vertex_stage,
     )
+    from linevis_tpu_torch.render.ao_bake import AoBakeSettings, bake_ambient_occlusion
+    from linevis_tpu_torch.render.deferred import motion_vectors, render_tubes_deferred
+    from linevis_tpu_torch.render.denoiser import svgf_temporal_denoise
     from linevis_tpu_torch.render.ray_tracer import (
+        RT_TILE,
+        _depth_cue_range,
+        build_capsule_bvh,
         primary_rays,
+        render_tubes_mlat,
+        render_tubes_raytraced,
         render_tubes_raytraced_wavefront,
         resolve_wavefront_nodes,
+        tile_rays,
+        trace_recast,
     )
+    from linevis_tpu_torch.render.ssao import gtao, ssao
     from linevis_tpu_torch.render.rtao import (
         RtaoSettings,
         ray_batches,
@@ -558,6 +622,7 @@ def main() -> int:
     )
     from linevis_tpu_torch.render.transfer_function import TransferFunction
     from linevis_tpu_torch.render.tube_raster import (
+        _ray_basis,
         camera_tensors,
         prepare_capsule_frame,
         prepare_prism_frame,
@@ -571,6 +636,7 @@ def main() -> int:
         "capsule_accum": rasterize_capsules_accum,
         "prism_raster": rasterize_prisms, "triangle_raster": raster_pallas.rasterize_gbuffer,
         "ao_grid": ao_grid.trace_pairs, "bvh_wavefront": trace_wavefront_kbuffer,
+        "bvh_closest_hit": capsule_closest_hit, "bvh_mlat": mlat_nodes,
     }
 
     def reset_launches():
@@ -626,7 +692,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     resources = {name: kernel_resources(_build.load(name))
-                 for name in ("raster_capsule", "raster_triangle", "raster_prism", "bvh_wavefront")}
+                 for name in ("raster_capsule", "raster_triangle", "raster_prism", "bvh_wavefront",
+                              "bvh_closest_hit", "bvh_mlat")}
     for name, inst in resources.items():
         print(f"{name} instances: " + json.dumps(inst), flush=True)
 
@@ -1496,13 +1563,18 @@ def main() -> int:
     small_cam = Camera(position=(0.0, 0.3, 1.2), width=256, height=128)
     registry_check = {}
     modes = [(m, {}) for m in RENDERING_MODE_ALL if m not in UNPORTED_MODES]
-    modes += [("Opaque", {"tubeGeometry": "prism"}), ("Opaque", {"tubeGeometry": "triangle"})]
+    modes += [("Opaque", {"tubeGeometry": "prism"}), ("Opaque", {"tubeGeometry": "triangle"}),
+              ("Vulkan Ray Tracer", {"use_mlat": True}),
+              ("Deferred Opaque", {"upscaling_factor": 2})]
     for mode, mode_settings in modes:
         ld = LineData(small_traj)
         ld.set_line_width(0.04)
         out = {}
         for d in (dev, "cpu"):
             r = create_renderer(mode, SettingsMap(mode_settings), device=d)
+            # Deferred Opaque takes its factor after creation (as the JAX
+            # renderer does); a second call changes no other mode.
+            r.set_new_settings(SettingsMap(mode_settings))
             r.set_line_data(ld)
             # RTAO draws its samples on each device, and the card's generator
             # is not the CPU's: it is held statistically, on the mean of
@@ -1511,7 +1583,8 @@ def main() -> int:
                 out[str(d)] = r.render(small_cam)
         g_img, c_img = out[str(dev)], out["cpu"]
         s_, mad = ssim(g_img[..., :3], c_img[..., :3]), float(np.abs(g_img - c_img).mean())
-        label = " ".join([mode, *mode_settings.values()])
+        label = " ".join([mode, *(v if isinstance(v, str) else f"{k}={v}"
+                                  for k, v in mode_settings.items())])
         registry_check[label] = [s_, mad]
         agree = s_ >= 0.999 and mad <= 2e-3
         if mode == "RTAO":
@@ -2502,6 +2575,361 @@ def main() -> int:
     print(f"baseline configs card vs cpu at scale {BASE_CHECK_SCALE}: "
           + json.dumps(base_check), flush=True)
     del base_runs, femur_scene
+    torch.cuda.empty_cache()
+
+    # 20. The transparent ray tracer (the registry's "Vulkan Ray Tracer")
+    # on the 1080p tornado over the registry's default "linear" tree:
+    # RT_FRAMES re-cast frames (RT_CASTS casts, bvh_closest_hit once a cast)
+    # and RT_FRAMES MLAT frames (K = RT_MLAT_K, bvh_mlat once), opacity
+    # RT_OPACITY, launches counted.
+    t0 = time.perf_counter()
+    rt_tree = lbvh_on(build_capsule_bvh(scene), dev)
+    torch.cuda.synchronize()
+    rt_build_s = time.perf_counter() - t0
+    s_rt = RasterSettings(width=W, height=H)
+    rt_cams = cams[:RT_FRAMES]
+
+    def recast_frame(cam):
+        return render_tubes_raytraced(scene, *cam, s_rt, max_depth_complexity=RT_CASTS,
+                                      opacity=RT_OPACITY, bvh=rt_tree)
+
+    def mlat_frame(cam):
+        return render_tubes_mlat(scene, *cam, s_rt, K=RT_MLAT_K, opacity=RT_OPACITY,
+                                 bvh=rt_tree)
+
+    rt_lines, rt_launches, rt_imgs = {}, {}, {}
+    for name, fn, kernel, per_frame in (("recast", recast_frame, "bvh_closest_hit", RT_CASTS),
+                                        ("mlat", mlat_frame, "bvh_mlat", 1)):
+        fn(rt_cams[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        frame_ev = [_events() for _ in rt_cams]
+        imgs_sum = torch.zeros((), device=dev)
+        for (a, b), cam in zip(frame_ev, rt_cams):
+            a.record()
+            img = fn(cam)
+            b.record()
+            imgs_sum += img.sum()
+        torch.cuda.synchronize()
+        rt_launches[kernel] = expect_launches({kernel: per_frame * RT_FRAMES})[kernel]
+        if not bool(torch.isfinite(imgs_sum)):
+            raise RuntimeError(f"non-finite {name} frame on the main path")
+        rt_imgs[name] = fn(rt_cams[0]).permute(1, 2, 0).cpu().numpy()
+        med = float(np.median([a.elapsed_time(b) for a, b in frame_ev]))
+        rt_lines[name] = {"frame_ms_median": med, "fps": 1000.0 / med,
+                          "launches_per_frame": {kernel: per_frame},
+                          "foreground_share": float((rt_imgs[name][..., 3] > 0.01).mean())}
+    rt_vs_mlat = ssim(rt_imgs["recast"][..., :3], rt_imgs["mlat"][..., :3])
+
+    # Frame 0 launch by launch: each cast's kernel time, and each cast's
+    # node visits and leaf tests (the bound's counts).
+    cam = rt_cams[0]
+    o_rt, d_rt, wz_rt, pad_rt = tile_rays(cam[0], cam[1], s_rt)
+    n_rt = o_rt.shape[0]
+    dmin_rt, dmax_rt = _depth_cue_range(scene, cam[0])
+    cast_ev, cast_counts = [], []
+
+    def timed_hit(*args):
+        a, b = _events()
+        a.record()
+        out = capsule_closest_hit(*args)
+        b.record()
+        cast_ev.append((a, b))
+        return out
+
+    def counted_hit(*args):
+        st = torch.zeros((n_rt, 2), dtype=torch.int64, device=dev)
+        out = capsule_closest_hit(*args, stats=st)
+        cast_counts.append(st)
+        return out
+
+    trace_recast(rt_tree, scene, o_rt, d_rt, wz_rt, pad_rt, cam[2], s_rt, RT_CASTS, RT_OPACITY,
+                 dmin_rt, dmax_rt, closest_hit=timed_hit)
+    torch.cuda.synchronize()
+    cast_ms = [a.elapsed_time(b) for a, b in cast_ev]
+    trace_recast(rt_tree, scene, o_rt, d_rt, wz_rt, pad_rt, cam[2], s_rt, RT_CASTS, RT_OPACITY,
+                 dmin_rt, dmax_rt, closest_hit=counted_hit)
+    r1_visits = int(sum(int(c[:, 0].sum()) for c in cast_counts))
+    r1_leaves = int(sum(int(c[:, 1].sum()) for c in cast_counts))
+
+    # The band: a tile row where the rays find surfaces and walk least.
+    row_rays = -(-W // RT_TILE[0]) * RT_TILE[0] * RT_TILE[1]
+    first = cast_counts[0]
+    t_first, p_first = capsule_closest_hit(
+        rt_tree, scene, o_rt, d_rt, torch.zeros(n_rt, device=dev),
+        torch.full((n_rt,), np.iinfo(np.int32).max, dtype=torch.int32, device=dev), pad_rt)
+    row_hits = (p_first >= 0).reshape(-1, row_rays).float().mean(dim=1)
+    row_walk = first[:, 0].reshape(-1, row_rays).max(dim=1).values
+    rows_ok = torch.nonzero(row_hits >= RT_BAND_MIN_HITS).flatten()
+    if rows_ok.numel() == 0:
+        raise RuntimeError("no tile row of the ray tracer's frame hits enough surfaces")
+    band_row = int(rows_ok[torch.argmin(row_walk[rows_ok])])
+    band = slice(band_row * row_rays, (band_row + 1) * row_rays)
+    band_args = (o_rt[band], d_rt[band], wz_rt[band], pad_rt[band])
+
+    # R1 against the plain ray_query on every cast of the band's re-cast
+    # loop (both on the same inputs, the loop going on with the plain
+    # version's output), then the band's image through the kernel alone
+    # against that loop's.
+    casts_equal, plain_s = [], [0.0]
+
+    def both_hits(*args):
+        ks = torch.zeros((args[2].shape[0], 2), dtype=torch.int64, device=dev)
+        ps = torch.zeros_like(ks)
+        k = capsule_closest_hit(*args, stats=ks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p = capsule_closest_hit_reference(*args, stats=ps)
+        torch.cuda.synchronize()
+        plain_s[0] += time.perf_counter() - t1
+        casts_equal.append(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+                           and torch.equal(ks, ps))
+        return p
+
+    acc_p, T_p = trace_recast(rt_tree, scene, *band_args[:3], band_args[3], cam[2], s_rt,
+                              RT_CASTS, RT_OPACITY, dmin_rt, dmax_rt, closest_hit=both_hits)
+    acc_k, T_k = trace_recast(rt_tree, scene, *band_args[:3], band_args[3], cam[2], s_rt,
+                              RT_CASTS, RT_OPACITY, dmin_rt, dmax_rt)
+    band_img_equal = torch.equal(acc_k, acc_p) and torch.equal(T_k, T_p)
+    r1_equal = all(casts_equal) and len(casts_equal) == RT_CASTS
+    # R2 against its plain version on the band.
+    k_st = torch.zeros((row_rays, len(MLAT_STATS)), dtype=torch.int64, device=dev)
+    p_st = torch.zeros_like(k_st)
+    mlat_kw = dict(K=RT_MLAT_K, opacity=RT_OPACITY, tf_opacity=s_rt.tf_opacity)
+    k_nodes = mlat_nodes(rt_tree, scene, *band_args, cam[2], stats=k_st, **mlat_kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    p_nodes = mlat_nodes_reference(rt_tree, scene, *band_args, cam[2], stats=p_st, **mlat_kw)
+    torch.cuda.synchronize()
+    mlat_plain_ms = (time.perf_counter() - t1) * 1e3
+    r2_equal = all(torch.equal(a, b) for a, b in zip(k_nodes, p_nodes)) and torch.equal(k_st, p_st)
+    # R2's full-frame counts and time.
+    m_st = torch.zeros((n_rt, len(MLAT_STATS)), dtype=torch.int64, device=dev)
+    mlat_nodes(rt_tree, scene, o_rt, d_rt, wz_rt, pad_rt, cam[2], stats=m_st, **mlat_kw)
+    r2_counts = dict(zip(MLAT_STATS, m_st.sum(dim=0).tolist()))
+    r2_ms = _time_ms(lambda: mlat_nodes(rt_tree, scene, o_rt, d_rt, wz_rt, pad_rt, cam[2],
+                                        **mlat_kw), 3)
+    band_line = {
+        "tile_row": band_row, "rays": row_rays,
+        "first_cast_hit_share": float(row_hits[band_row]),
+        "longest_walk_first_cast": int(row_walk[band_row]),
+        "casts_equal": sum(casts_equal), "casts": len(casts_equal),
+        "image_equal": band_img_equal, "mlat_nodes_equal": r2_equal,
+        "plain_recast_s": plain_s[0], "plain_mlat_s": mlat_plain_ms / 1e3,
+    }
+    print("ray tracer frame: " + json.dumps({
+        **{k: v for k, v in rt_lines.items()}, "recast_vs_mlat_ssim": rt_vs_mlat,
+        "bvh_build_s": rt_build_s, "builder": "linear", "casts": RT_CASTS, "K": RT_MLAT_K,
+        "opacity": RT_OPACITY, "cast_ms": cast_ms, "visits_per_frame": r1_visits,
+        "leaf_tests_per_frame": r1_leaves, "mlat_counts": r2_counts, "frames": RT_FRAMES,
+        "width": W, "height": H, "gpu": gpu}), flush=True)
+    print("ray tracer band vs plain: " + json.dumps(band_line), flush=True)
+    if not (r1_equal and band_img_equal and r2_equal):
+        raise RuntimeError("a ray-tracer kernel disagrees with its plain version on the band")
+    if min(v["foreground_share"] for v in rt_lines.values()) < 0.01:
+        raise RuntimeError("the ray tracer's frame is almost empty")
+    n_leaves = rt_tree.leaf_prim.shape[0]
+    tree_bytes = (n_leaves - 1) * 8 + (2 * n_leaves - 1) * 24 + n_leaves * 4
+    S_seg = scene.num_segments
+    r1_bytes = tree_bytes + S_seg * (12 + 12 + 4 + 1) + n_rt * (12 + 12 + 4 + 4 + 1 + 4 + 4)
+    r1_ops = (r1_visits * RT_OPS_PER_VISIT + r1_leaves * RT_OPS_PER_LEAF) / RT_CASTS
+    t_bytes, t_ops = r1_bytes / H100_HBM_BYTES * 1e3, r1_ops / H100_FP32_FLOPS * 1e3
+    kernels.append({
+        "name": "bvh_closest_hit",
+        "route": "cuda",
+        "source": "linevis_tpu_torch/kernels/csrc/bvh_closest_hit.cu",
+        "replaces": "linevis_tpu/ops/lbvh.py:211",
+        "replaces_note": "no pallas_call: ray_query's vmapped while_loop with the leaf "
+                         "function of linevis_tpu/render/ray_tracer.py:147",
+        "launches": rt_launches["bvh_closest_hit"],
+        "max_abs_err": 0.0,  # (t, prim) equal on every cast of the band (gated above)
+        "ms": float(np.mean(cast_ms)),
+        "plain_ms": plain_s[0] * 1e3 / RT_CASTS,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bytes": r1_bytes,
+        "bytes_ms": t_bytes,
+        "operations_ms": t_ops,
+        "library_ms": None,
+        "ms_first_cast": cast_ms[0],
+        "per_launch": "the mean of the frame's casts; bound and plain_ms per launch",
+        "plain_on": f"tile row {band_row} ({row_rays} rays), every cast",
+        "node_visits_per_frame": r1_visits,
+        "leaf_tests_per_frame": r1_leaves,
+        "instances": resources["bvh_closest_hit"],
+    })
+    r2_bytes = (tree_bytes + S_seg * (12 + 12 + 4 + 1 + 4 + 4) + n_rt * (12 + 12 + 4 + 1)
+                + 5 * RT_MLAT_K * n_rt * 4)
+    r2_ops = (r2_counts["visits"] * MLAT_OPS_PER_VISIT + r2_counts["leaf_tests"]
+              * MLAT_OPS_PER_LEAF + r2_counts["inserts"] * (MLAT_OPS_PER_INSERT + RT_MLAT_K))
+    t_bytes, t_ops = r2_bytes / H100_HBM_BYTES * 1e3, r2_ops / H100_FP32_FLOPS * 1e3
+    kernels.append({
+        "name": "bvh_mlat",
+        "route": "cuda",
+        "source": "linevis_tpu_torch/kernels/csrc/bvh_mlat.cu",
+        "replaces": "linevis_tpu/render/ray_tracer.py:441",
+        "replaces_note": "no pallas_call: render_tubes_mlat's vmapped while_loop",
+        "launches": rt_launches["bvh_mlat"],
+        "max_abs_err": max(float((a - b).abs().nan_to_num(0.0).max())
+                           for a, b in zip(k_nodes, p_nodes)),
+        "ms": r2_ms,
+        "plain_ms": mlat_plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bytes": r2_bytes,
+        "bytes_ms": t_bytes,
+        "operations_ms": t_ops,
+        "library_ms": None,
+        "plain_on": f"tile row {band_row} ({row_rays} rays)",
+        **{k + "_per_frame": v for k, v in r2_counts.items()},
+        "K": RT_MLAT_K,
+        "instances": resources["bvh_mlat"],
+    })
+    del o_rt, d_rt, wz_rt, pad_rt, cast_counts, first, m_st, k_nodes, p_nodes
+    torch.cuda.empty_cache()
+
+    # 21. The deferred family and the RTAO denoisers at 1080p.
+    cam = cams[0]
+    img_fwd = render_tubes(scene, *cam, settings)
+    img_def, mv_static = render_tubes_deferred(scene, *cam, settings, prev_view_proj=cam[0],
+                                               with_motion=True)
+    deferred_equal = torch.equal(img_def, img_fwd)
+    mv_static_max = float(mv_static.abs().max())
+    ld_rt = LineData(traj)
+    ld_rt.set_line_width(2.0 * TORNADO_RADIUS)
+    cam_base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    orbit = [cam_base.orbit(0.002 * (i + 1), 0.1, 1.2) for i in range(RT_FRAMES)]
+
+    def timed_registry(r, expected, moving=True):
+        """RT_FRAMES registry frames (orbit cameras, or the first one
+        throughout) after a warm-up at a camera off the orbit: CUDA events
+        and the host clock around render(), launches checked."""
+        r.render(cam_base.orbit(0.5, 0.3, 1.3))
+        torch.cuda.synchronize()
+        reset_launches()
+        ev, host = [_events() for _ in orbit], []
+        for i, (a, b) in enumerate(ev):
+            t1 = time.perf_counter()
+            a.record()
+            img_r = r.render(orbit[i] if moving else orbit[0])
+            b.record()
+            host.append((time.perf_counter() - t1) * 1e3)
+            if not np.isfinite(img_r).all():
+                raise RuntimeError(f"{r.name}: non-finite registry frame")
+        torch.cuda.synchronize()
+        expect_launches({k: n * RT_FRAMES for k, n in expected.items()})
+        return {"frame_ms_median": float(np.median([a.elapsed_time(b) for a, b in ev])),
+                "host_frame_ms_median": float(np.median(host)),
+                "launches_per_frame": expected}
+
+    den_lines = {}
+    r_def = create_renderer("Deferred Opaque", device=dev)
+    r_def.set_line_data(ld_rt)
+    r_def.set_new_settings(SettingsMap({"upscaling_factor": 2}))
+    den_lines["deferred_opaque_upscaling_2"] = timed_registry(r_def, {"capsule_raster": 1})
+    grid_rt = tornado_segment_grid(scene, rt.grid_resolution)
+    per_rtao = {"capsule_raster": 1, "ao_grid": len(batches)}
+    for den in ("EAW", "Spatial Hashing"):
+        rt_den = dataclasses.replace(rt, denoiser=den)
+        render_tubes_rtao(scene, *cams[0], settings, rt_den, frame=0, grid=grid_rt)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        ev = [_events() for _ in range(RT_FRAMES)]
+        imgs_sum = torch.zeros((), device=dev)
+        for i, (a, b) in enumerate(ev):
+            a.record()
+            img = render_tubes_rtao(scene, *cams[i], settings, rt_den, frame=i, grid=grid_rt)
+            b.record()
+            imgs_sum += img.sum()
+        torch.cuda.synchronize()
+        expect_launches({k: n * RT_FRAMES for k, n in per_rtao.items()})
+        if not bool(torch.isfinite(imgs_sum)):
+            raise RuntimeError(f"non-finite RTAO frame with the {den} denoiser")
+        den_lines[f"rtao_{den}"] = {
+            "frame_ms_median": float(np.median([a.elapsed_time(b) for a, b in ev])),
+            "launches_per_frame": per_rtao}
+    r_svgf = create_renderer("RTAO", SettingsMap({"denoiser": "SVGF (Temporal)"}), device=dev)
+    r_svgf.set_line_data(ld_rt)
+    den_lines["rtao_svgf_temporal_registry"] = timed_registry(r_svgf, per_rtao)
+    den_lines["rtao_svgf_temporal_registry"]["history_length_max"] = float(
+        r_svgf._svgf_state.length.max())
+    if r_svgf._frame != RT_FRAMES + 1:
+        raise RuntimeError("the temporal SVGF frame count restarted on a camera move")
+
+    # Card vs CPU on the small scene and identical samples (entry_rtao's):
+    # EAW and Spatial Hashing, and two temporal SVGF frames of a moving
+    # camera, the state carried.
+    def rtao_small(d, den):
+        fn, args = entry_rtao(device=d)
+        return fn(*args, rtao=dataclasses.replace(fn.keywords["rtao"], denoiser=den))
+
+    def svgf_small(d):
+        fn, args = entry_rtao(device=d)
+        state, prev, out = None, None, None
+        for i in range(2):
+            ct = camera_tensors(Camera(position=(0.02 * i, 0.3, 1.2), width=256, height=128), d)
+            img_s, (pos, nrm, fg) = fn(args[0], *ct, return_features=True)
+            mv = (torch.zeros((2,) + tuple(fg.shape), device=d) if prev is None
+                  else motion_vectors(pos, fg, prev))
+            out, state = svgf_temporal_denoise(img_s[:3], mv, pos, state, normal=nrm)
+            prev = ct[0]
+        return torch.cat([out, img_s[3:4]])
+
+    den_check = {}
+    for label, make in (("EAW", lambda d: rtao_small(d, "EAW")),
+                        ("Spatial Hashing", lambda d: rtao_small(d, "Spatial Hashing")),
+                        ("SVGF (Temporal)", svgf_small)):
+        g_img, c_img = (make(d).permute(1, 2, 0).cpu().numpy() for d in (dev, "cpu"))
+        s_, mad = ssim(g_img[..., :3], c_img[..., :3]), float(np.abs(g_img - c_img).mean())
+        den_check[label] = [s_, mad]
+        if not np.isfinite(g_img).all() or s_ < 0.999 or mad > 2e-3:
+            raise RuntimeError(f"RTAO with {label}: the card frame disagrees with the CPU's")
+    print("deferred and denoisers: " + json.dumps({
+        "deferred_equals_render_tubes": deferred_equal,
+        "static_motion_max_px": mv_static_max, **den_lines,
+        "card_vs_cpu_small (ssim, mean abs)": den_check, "frames": RT_FRAMES,
+        "width": W, "height": H, "gpu": gpu}), flush=True)
+    if not deferred_equal or mv_static_max > DEFERRED_STATIC_MV:
+        raise RuntimeError("the deferred frame differs from render_tubes', or a static camera "
+                           "moves")
+
+    # 22. SSAO and GTAO on the 1080p capsule G-buffer (a reading).
+    # View depth along the unit forward axis (the pixel rays have a unit
+    # forward component); the background far away.
+    gbuf = rtao_gbuffer(scene, *cam, settings)
+    basis = _ray_basis(cam[0])
+    view_z = torch.where(gbuf.fg, torch.sum((gbuf.pos - cam[1][:, None, None])
+                                            * basis[:, 2][:, None, None], dim=0), 1e6)
+    ao_lines = {}
+    for name, fn in (("ssao", lambda: ssao(view_z, gbuf.normal, basis, gbuf.fg)),
+                     ("gtao", lambda: gtao(view_z, gbuf.normal, basis, gbuf.fg))):
+        ao_map = fn()
+        ms = _time_ms(fn, 2)
+        ao_lines[name] = {"ms": ms, "mean_ao_on_foreground": float(ao_map[gbuf.fg].mean())}
+        if not bool(torch.isfinite(ao_map).all()):
+            raise RuntimeError(f"non-finite {name} map")
+    print("ssao and gtao: " + json.dumps({**ao_lines, "width": W, "height": H, "gpu": gpu}),
+          flush=True)
+    del gbuf, view_z, grid_rt
+
+    # 23. The AO bake of the whole tornado (AoBakeSettings' defaults): ring
+    # points of every vertex, traced through B5 once per sample and frame.
+    bake = AoBakeSettings()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    baked = bake_ambient_occlusion(traj.positions, traj.mask, TORNADO_RADIUS, bake, device=dev)
+    bake_s = time.perf_counter() - t0
+    bake_launches = expect_launches({"ao_grid": bake.num_frames * bake.samples_per_frame})
+    valid_pts = traj.mask.astype(bool)
+    bake_line = {"seconds": bake_s, "shape": list(baked.shape),
+                 "ring_points": int(valid_pts.sum()) * bake.num_tube_subdivisions,
+                 "rays": int(np.prod(baked.shape)) * bake.num_frames * bake.samples_per_frame,
+                 "mean_ao_valid": float(baked[valid_pts].mean()),
+                 "launches": bake_launches["ao_grid"], "gpu": gpu}
+    print("ao bake: " + json.dumps(bake_line), flush=True)
+    if not np.isfinite(baked).all() or not 0.05 < bake_line["mean_ao_valid"] < 1.0:
+        raise RuntimeError("the AO bake is non-finite or has no occlusion")
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)

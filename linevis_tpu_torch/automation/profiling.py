@@ -8,8 +8,8 @@ that take the time.
 
     python -m linevis_tpu_torch.automation.profiling [OUT_DIR [PATH]]
 
-PATH: opaque|mlab|prism|triangle|rtao|wavefront|wboit|depth_peeling|mlab_buckets|mboit|
-      depth_complexity|opacity_optimization|rtao_registry|a name of entry.BASELINE_CONFIGS
+PATH: opaque|mlab|prism|triangle|rtao|wavefront|recast|mlat|wboit|depth_peeling|mlab_buckets|
+      mboit|depth_complexity|opacity_optimization|rtao_registry|a name of entry.BASELINE_CONFIGS
 
 profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
 default) the opaque capsule frame (`render_tubes`, tile 32x16, AA on),
@@ -20,7 +20,10 @@ subdivisions, tile 32x16), `rtao` the ray-traced ambient occlusion frame
 (`render_tubes_rtao`, 4 rays per pixel, radius 0.1, grid 64^3, tile 32x16;
 4 frames), `wavefront` the wavefront ray tracer's frame
 (`render_tubes_raytraced_wavefront`, binned-SAH tree, tile 16x8, K=8,
-opacity 0.3; 4 frames), and the rest of the transparent family at tile 16x8
+opacity 0.3; 4 frames), `recast` and `mlat` the transparent ray tracer's
+re-cast frame (`render_tubes_raytraced`, 32 casts) and MLAT frame
+(`render_tubes_mlat`, K=8) over the linear tree, opacity 0.3 (4 frames
+each), and the rest of the transparent family at tile 16x8
 and opacity 0.3: `wboit` (`render_tubes_wboit`), `depth_peeling`
 (`render_tubes_depth_peeling`, K=8, 4 passes), `mlab_buckets`
 (`render_tubes_mlab_buckets`, K=8), `mboit` (`render_tubes_mboit`, 4 power
@@ -35,8 +38,8 @@ so no frames accumulate); a name of `entry.BASELINE_CONFIGS` that reference
 config through the registry at its own resolution, on its frames (an orbit
 of cameras; config 3 accumulates at one camera, config 5 follows its circle
 path; configs 4 and 4b draw the Femur-like stress lines). It runs 8 frames
-(4 of the ray-traced paths: `rtao`, `wavefront`, `rtao_registry` and a
-config whose renderer is RTAO) after 2 warm-up frames, timed once without
+(4 of the ray-traced paths: `rtao`, `wavefront`, `recast`, `mlat`,
+`rtao_registry` and a config whose renderer is RTAO) after 2 warm-up frames, timed once without
 the profiler (the window the idle share is taken against) and once
 recorded, and prints one JSON line; with OUT_DIR (give "" for none) it
 also writes that line to OUT_DIR/summary.json and the Chrome trace to
@@ -110,7 +113,13 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     from linevis_tpu_torch.render.opacity_optimization import OpacityOptimizationRenderer
     from linevis_tpu_torch.render.opaque import render_opaque
     from linevis_tpu_torch.render.pipeline import RasterSettings
-    from linevis_tpu_torch.render.ray_tracer import render_tubes_raytraced_wavefront
+    from linevis_tpu_torch.ops.lbvh import lbvh_on
+    from linevis_tpu_torch.render.ray_tracer import (
+        build_capsule_bvh,
+        render_tubes_mlat,
+        render_tubes_raytraced,
+        render_tubes_raytraced_wavefront,
+    )
     from linevis_tpu_torch.render.renderer import create_renderer
     from linevis_tpu_torch.render.rtao import RtaoSettings, render_tubes_rtao
     from linevis_tpu_torch.render.transfer_function import TransferFunction
@@ -129,7 +138,7 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         "mboit": ("render_tubes_mboit", dict(n_mom=4, opacity=0.3)),
         "depth_complexity": ("render_depth_complexity", {}),
     }
-    paths = ("opaque", "prism", "triangle", "rtao", "wavefront", *oit_paths,
+    paths = ("opaque", "prism", "triangle", "rtao", "wavefront", "recast", "mlat", *oit_paths,
              "opacity_optimization", "rtao_registry", *BASELINE_CONFIGS)
     # These take the Camera, the rest its tensors.
     takes_camera = ("opacity_optimization", "rtao_registry", *BASELINE_CONFIGS)
@@ -143,7 +152,7 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     W, H = 1920, 1080
-    n = 4 if path in ("rtao", "wavefront", "rtao_registry") else 8
+    n = 4 if path in ("rtao", "wavefront", "recast", "mlat", "rtao_registry") else 8
     base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
     cams = [base.orbit(0.002 * (i + 1), 0.1, 1.2) for i in range(n + 2)]
     wide = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
@@ -193,6 +202,12 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         render = partial(render_tubes_raytraced_wavefront,
                          settings=RasterSettings(width=W, height=H, tile_w=16, tile_h=8),
                          K=8, opacity=0.3, wide_groups=tornado_wide_bvh(scene)[0])
+    elif path in ("recast", "mlat"):
+        scene = tornado_scene(dev)
+        kw = dict(settings=RasterSettings(width=W, height=H), opacity=0.3,
+                  bvh=lbvh_on(build_capsule_bvh(scene), dev))
+        render = (partial(render_tubes_raytraced, max_depth_complexity=32, **kw)
+                  if path == "recast" else partial(render_tubes_mlat, K=8, **kw))
     else:
         scene = tornado_tube_mesh(dev)
         table = torch.as_tensor(TransferFunction.standard().table, device=dev)

@@ -6,7 +6,8 @@ The system has no weights: its state is the scene. A caller holding a
 numpy arrays (e.g. `{f.name: np.asarray(getattr(s, f.name)) for f in
 dataclasses.fields(s)}`), and gets the port's counterpart back. The state
 of an `OpacityOptimizationRenderer` carries over into the port's renderer
-(`opacity_state_from_numpy`), so that a run can continue in the port.
+(`opacity_state_from_numpy`), and an `SvgfTemporalState` history into the
+port's (`svgf_state_from_numpy`), so that a run can continue in the port.
 """
 
 from __future__ import annotations
@@ -18,12 +19,13 @@ from linevis_tpu_torch.core.trajectories import Trajectories
 from linevis_tpu_torch.geometry.tubes import TubeMesh
 from linevis_tpu_torch.kernels.ao_grid import SegmentGrid
 from linevis_tpu_torch.ops.lbvh import Lbvh
+from linevis_tpu_torch.render.denoiser import SvgfTemporalState
 from linevis_tpu_torch.render.tube_raster import CapsuleScene, PrismScene
 
 __all__ = [
     "capsule_scene_from_numpy", "prism_scene_from_numpy", "tube_mesh_from_numpy",
     "trajectories_from_numpy", "segment_grid_from_numpy", "lbvh_from_numpy",
-    "wide_groups_from_numpy", "opacity_state_from_numpy",
+    "wide_groups_from_numpy", "opacity_state_from_numpy", "svgf_state_from_numpy",
 ]
 
 
@@ -134,3 +136,13 @@ def opacity_state_from_numpy(renderer, d):
     vp = d.get("last_vp")
     renderer._last_vp = None if vp is None else np.asarray(vp)
     return renderer
+
+
+def svgf_state_from_numpy(d, device="cuda") -> SvgfTemporalState:
+    """{color [3, H, W], moments [2, H, W], length [H, W], position [3, H, W]}
+    -> SvgfTemporalState on `device` (the history `svgf_temporal_denoise`
+    carries from frame to frame)."""
+    return SvgfTemporalState(**{
+        name: torch.tensor(np.asarray(d[name]), dtype=torch.float32, device=device)
+        for name in ("color", "moments", "length", "position")
+    })

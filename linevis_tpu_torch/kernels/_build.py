@@ -32,7 +32,7 @@ BUILD_DIR = _HERE / "build"
 
 KERNELS = (
     "raster_capsule", "raster_capsule_oit", "raster_capsule_accum", "raster_prism",
-    "raster_triangle", "ao_grid", "bvh_wavefront",
+    "raster_triangle", "ao_grid", "bvh_wavefront", "bvh_closest_hit", "bvh_mlat",
 )
 
 NVCC_FLAGS = (

@@ -46,6 +46,7 @@ import torch
 from linevis_tpu_torch.kernels import _build
 from linevis_tpu_torch.kernels.capsule_common import BIG
 from linevis_tpu_torch.kernels.raster_capsule_oit import tf_table
+from linevis_tpu_torch.ops.lbvh import StackOverflowError
 from linevis_tpu_torch.ops.wide_bvh import (
     LANE_A,
     LANE_ATTR0,
@@ -72,10 +73,6 @@ MAX_STACK = 192  # entries of a block's traversal stack
 _K_MAX = 32  # deepest node buffer of the CUDA kernel (its nodes in shared memory)
 # Columns of the optional per-block `stats` tensor.
 STATS = ("visits", "leaf_visits", "leaf_rows", "sweeps", "members", "max_stack")
-
-
-class StackOverflowError(RuntimeError):
-    """A ray block's traversal stack would have passed MAX_STACK entries."""
 
 
 def _pad_rays(rays: torch.Tensor) -> torch.Tensor:

@@ -18,8 +18,11 @@ Layout shared by all four (N leaves, N-1 internal nodes): internal nodes
 `leaf_prim` of the primitives. With one primitive the tree is the single
 leaf node 0.
 
-The closest-hit traversal `ray_query` is not ported yet (ROADMAP queue A
-item 4).
+`ray_query` is the stack-based closest-hit traversal, written as a lockstep
+loop over all rays: each step pops one node of every ray whose stack is not
+empty, so the loop runs as many steps as the longest walk. It is the plain
+version of the per-ray traversal kernels (`kernels/bvh_closest_hit.py`,
+`kernels/bvh_mlat.py`), which walk the same nodes in the same order.
 """
 
 from __future__ import annotations
@@ -31,8 +34,12 @@ import torch
 
 __all__ = [
     "Lbvh", "morton_codes", "build_lbvh", "build_bvh_sah", "build_bvh_sweep_sah",
-    "build_bvh_ploc",
+    "build_bvh_ploc", "lbvh_on", "ray_query", "safe_inv", "StackOverflowError",
 ]
+
+
+class StackOverflowError(RuntimeError):
+    """A traversal stack would have passed its capacity."""
 
 
 def _expand_bits(v):
@@ -69,6 +76,20 @@ class Lbvh:
             return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
         return Lbvh(*(host(getattr(self, f.name)) for f in dataclasses.fields(self)))
+
+
+def lbvh_on(bvh: Lbvh, device) -> Lbvh:
+    """The tree as contiguous tensors on `device`: int32 child and leaf
+    arrays, float32 [2N-1, 3] boxes (what the traversal kernels read)."""
+    def t(x, dtype):
+        if not isinstance(x, torch.Tensor):
+            x = torch.tensor(np.asarray(x))
+        return x.to(device=device, dtype=dtype).contiguous()
+
+    return Lbvh(left=t(bvh.left, torch.int32), right=t(bvh.right, torch.int32),
+                node_min=t(bvh.node_min, torch.float32),
+                node_max=t(bvh.node_max, torch.float32),
+                leaf_prim=t(bvh.leaf_prim, torch.int32))
 
 
 def _bit_length(x):
@@ -412,3 +433,111 @@ def build_bvh_ploc(aabb_min, aabb_max, search_radius: int = 16) -> Lbvh:
                 stack.append((next_internal, int(side)))
                 next_internal += 1
     return _fill_bounds(left, right, perm, amin, amax)
+
+
+def safe_inv(d: torch.Tensor) -> torch.Tensor:
+    """Slab reciprocal of ray directions: 1/d, or +-1e12 (the sign of
+    d + 1e-30) where |d| < 1e-12."""
+    tiny = torch.abs(d) < 1e-12
+    return torch.where(tiny, 1e12 * torch.sign(d + 1e-30), 1.0 / torch.where(tiny, 1.0, d))
+
+
+def _ray_aabb(o, inv_d, bmin, bmax, t_best, t_min=None):
+    """Slab test of rays [A, 3] against boxes [A, 3] -> hit [A]: the box
+    is entered in front of the origin, no later than t_best, and (with
+    `t_min`) left no earlier than t_min."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    tn = torch.minimum(t0, t1).amax(dim=1)
+    tf = torch.maximum(t0, t1).amin(dim=1)
+    hit = (tf >= torch.clamp(tn, min=0.0)) & (tn <= t_best)
+    if t_min is not None:
+        hit = hit & (tf >= t_min)
+    return hit
+
+
+def ray_query(
+    bvh: Lbvh,
+    origins: torch.Tensor,  # [R, 3]
+    directions: torch.Tensor,  # [R, 3]
+    prim_hit_fn=None,  # (prim [A], o [A, 3], d [A, 3]) -> t [A] (inf on miss); None: AABB t
+    max_stack: int = 64,
+    t_min: torch.Tensor = None,  # [R] enumerate hits with (t, prim) >
+    prim_min: torch.Tensor = None,  # [R] ... lexicographically (t_min, prim_min)
+    done: torch.Tensor = None,  # [R] bool: rays that query nothing
+    stats: torch.Tensor = None,  # [R, 2] int64: node visits, leaf tests
+):
+    """Closest-hit traversal -> (t [R] float32, prim [R] int32; inf and -1
+    on a miss) on the rays' device.
+
+    With `t_min`/`prim_min` given, returns the closest hit STRICTLY
+    lexicographically after (t_min, prim_min): repeated queries from a fixed
+    origin enumerate every surface along the ray in (t, prim) order, ties on
+    t going to the smaller prim id. `prim_hit_fn` is then called as
+    (prim, o, d, t_min, prim_min), on the rays that reach a leaf at that step,
+    and must itself honor the lexicographic lower bound among its surfaces.
+
+    Each ray pops its stack's top, tests the node's box, runs the primitive
+    test at a leaf and pushes an internal node's left child, then its right
+    (popped first). A push past `max_stack` raises StackOverflowError (the
+    JAX function writes it to the last slot unchecked). Rays flagged `done`
+    return (inf, -1) and visit nothing. `stats` receives each ray's node
+    visits and leaf tests (leaves whose box test passed).
+    """
+    if (t_min is None) != (prim_min is None):
+        raise ValueError("t_min and prim_min go together")
+    dev = origins.device
+    tree = lbvh_on(bvh, dev)
+    n = tree.leaf_prim.shape[0]
+    R = origins.shape[0]
+    inv_d = safe_inv(directions)
+    stack = torch.zeros((R, max_stack), dtype=torch.int64, device=dev)
+    sp = torch.ones(R, dtype=torch.int64, device=dev)
+    if done is not None:
+        sp = torch.where(done, 0, sp)
+    t_best = torch.full((R,), float("inf"), dtype=torch.float32, device=dev)
+    best = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    counts = torch.zeros((R, 2), dtype=torch.int64, device=dev)
+    while True:
+        act = torch.nonzero(sp > 0).flatten()
+        if act.numel() == 0:
+            break
+        sp_a = sp[act] - 1
+        node = stack[act, sp_a]
+        hit = _ray_aabb(origins[act], inv_d[act], tree.node_min[node], tree.node_max[node],
+                        t_best[act], None if t_min is None else t_min[act])
+        is_leaf = node >= n - 1
+        leaf = is_leaf & hit
+        counts[act, 0] += 1
+        counts[act, 1] += leaf
+        if bool(leaf.any()):
+            la = act[leaf]
+            ln = node[leaf]
+            prim = tree.leaf_prim[ln - (n - 1)].long()
+            if prim_hit_fn is None:
+                t0 = (tree.node_min[ln] - origins[la]) * inv_d[la]
+                t1 = (tree.node_max[ln] - origins[la]) * inv_d[la]
+                t_leaf = torch.clamp(torch.minimum(t0, t1).amax(dim=1), min=0.0)
+            elif t_min is None:
+                t_leaf = prim_hit_fn(prim, origins[la], directions[la])
+            else:
+                t_leaf = prim_hit_fn(prim, origins[la], directions[la], t_min[la], prim_min[la])
+            tb, bb = t_best[la], best[la]
+            closer = t_leaf < tb
+            if t_min is not None:
+                closer = closer | ((t_leaf == tb) & torch.isfinite(t_leaf) & (prim < bb))
+            t_best[la] = torch.where(closer, t_leaf, tb)
+            best[la] = torch.where(closer, prim, bb)
+        push = ~is_leaf & hit
+        if bool(push.any()):
+            pa, ps, pn = act[push], sp_a[push], node[push].long()
+            if bool((ps + 2 > max_stack).any()):
+                raise StackOverflowError(f"a ray's traversal stack passed {max_stack} entries")
+            stack[pa, ps] = tree.left[pn].long()
+            stack[pa, ps + 1] = tree.right[pn].long()
+            sp_a[push] = ps + 2
+        sp[act] = sp_a
+    if stats is not None:
+        stats.copy_(counts)
+    best = torch.where(torch.isfinite(t_best), best, -1)
+    return t_best, best.to(torch.int32)

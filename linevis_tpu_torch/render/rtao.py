@@ -13,10 +13,11 @@ segment grid (`kernels/ao_grid.py`). AO shading modulation follows
 A frame is four steps, each a function of its own so that a caller can time
 them: `rtao_gbuffer` (frame prep, capsule raster, untile), `rtao_rays` (AO
 ray origins and directions), `trace_ao_batched` (pair expansion, AO kernel
-and scatter per batch of rays) and `rtao_shade`.
+and scatter per batch of rays) and `rtao_shade`; `RtaoSettings.denoiser`
+"Spatial Hashing" or "EAW" filters the AO map between the last two
+(`render/denoiser.py`).
 
-Not ported yet (they raise NotImplementedError): the AO denoisers
-(`denoiser != "None"`, ROADMAP queue A item 5) and the ray-sharded multi-GPU
+Not ported yet (it raises NotImplementedError): the ray-sharded multi-GPU
 accumulation (`psum_axis`, ROADMAP queue A item 10).
 """
 
@@ -37,6 +38,7 @@ from linevis_tpu_torch.kernels.ao_grid import (
 from linevis_tpu_torch.kernels.raster_capsule import rasterize_capsules
 from linevis_tpu_torch.kernels.tiles import unpack_tiles
 from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.denoiser import eaw_denoise, spatial_hash_denoise
 from linevis_tpu_torch.render.lighting import normalize3
 from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.transfer_function import TransferFunction, tf_eval_points
@@ -48,7 +50,7 @@ from linevis_tpu_torch.render.tube_raster import (
 
 __all__ = [
     "RtaoSettings", "RtaoGbuffer", "render_tubes_rtao", "render_tubes_rtao_image",
-    "rtao_gbuffer", "rtao_rays", "ray_batches", "trace_ao_batched", "rtao_shade",
+    "rtao_gbuffer", "rtao_rays", "ray_batches", "trace_ao_batched", "denoise_ao", "rtao_shade",
 ]
 
 
@@ -59,7 +61,8 @@ class RtaoSettings:
     grid_resolution: int = 64
     max_ray_cells: int = 8  # cells sampled along each AO ray
     seed: int = 0
-    # AO denoiser chain of the reference: "None" | "Spatial Hashing" | "EAW".
+    # AO denoiser chain of the reference: "None" | "Spatial Hashing" | "EAW"
+    # (other names filter nothing, as in the JAX package).
     denoiser: str = "None"
     # Rays traced per batch. The (cell, ray) pair expansion holds
     # max_ray_cells records per ray through a sort: 1080p x 4 spp is 8.3 M
@@ -172,6 +175,20 @@ def trace_ao_batched(origins, dirs, t_max, valid, grid: SegmentGrid, rtao: RtaoS
     ])
 
 
+def denoise_ao(ao: torch.Tensor, gbuf: RtaoGbuffer, camera_position, rtao: RtaoSettings):
+    """The AO map [H, W] through `rtao.denoiser` on the foreground: "Spatial
+    Hashing" (world-space hash cells, the reference's AO-specific choice) or
+    "EAW" (a-trous on the AO with position and normal edge-stopping); any
+    other name leaves it as it is."""
+    if rtao.denoiser == "Spatial Hashing":
+        return torch.where(gbuf.fg, spatial_hash_denoise(ao, gbuf.pos, gbuf.normal,
+                                                         camera_position), ao)
+    if rtao.denoiser == "EAW":
+        den = eaw_denoise(ao[None], position=gbuf.pos, normal=gbuf.normal)[0]
+        return torch.where(gbuf.fg, den, ao)
+    return ao
+
+
 def rtao_shade(gbuf: RtaoGbuffer, ao: torch.Tensor, settings: RasterSettings):
     """Headlight Blinn-Phong of the visible surface with AO modulation
     (Lighting.glsl's AO variant) -> [4, H, W] linear RGBA."""
@@ -222,10 +239,6 @@ def render_tubes_rtao(
         raise NotImplementedError(
             "psum_axis (ray-sharded multi-GPU RTAO) is not ported yet: ROADMAP queue A item 10"
         )
-    if rtao.denoiser != "None":
-        raise NotImplementedError(
-            f"denoiser={rtao.denoiser!r} is not ported yet: ROADMAP queue A item 5"
-        )
     W, H, S = settings.width, settings.height, rtao.num_samples
     dev = scene.a.device
     gbuf = rtao_gbuffer(scene, view_proj, camera_position, proj_ab, settings)
@@ -240,7 +253,7 @@ def render_tubes_rtao(
         u1, u2 = uniforms
     rays = rtao_rays(gbuf, scene.radius, rtao, u1, u2)
     occluded = trace_ao_batched(*rays, grid, rtao)
-    ao = 1.0 - occluded.reshape(S, H, W).mean(dim=0)
+    ao = denoise_ao(1.0 - occluded.reshape(S, H, W).mean(dim=0), gbuf, camera_position, rtao)
     img = rtao_shade(gbuf, ao, settings)
     if return_features:
         return img, (gbuf.pos, gbuf.normal, gbuf.fg)

@@ -16,7 +16,9 @@ moment solves amplify an ulp of a moment); the importance gather bit for bit;
 `use_bands` at the bars of its mode. For the prism and the triangle kernel: bit for bit
 (`torch.equal` on every output). For the AO grid kernel: every pair's flag
 and every chunk's walked count equal. For the wavefront kernel: depths,
-features, alpha and the per-block counts bit for bit. Kernels and plain versions are built
+features, alpha and the per-block counts bit for bit. For the per-ray
+traversal kernels (closest hit, MLAT): every output and per-ray count bit for
+bit. Kernels and plain versions are built
 without fast math and FMA contraction, so they normally agree bit for bit.
 """
 
@@ -37,6 +39,8 @@ from linevis_tpu_torch.kernels.raster_capsule_oit import (
 )
 from linevis_tpu_torch.geometry.tubes import build_tube_triangle_mesh
 from linevis_tpu_torch.kernels import ao_grid as tao
+from linevis_tpu_torch.kernels import bvh_closest_hit as tch
+from linevis_tpu_torch.kernels import bvh_mlat as tml
 from linevis_tpu_torch.kernels import bvh_wavefront as twf
 from linevis_tpu_torch.kernels import raster_pallas as trp
 from linevis_tpu_torch.kernels.raster_prism import (
@@ -50,6 +54,7 @@ from linevis_tpu_torch.render import pipeline as tpl
 from linevis_tpu_torch.render import ray_tracer as trt
 from linevis_tpu_torch.render import rtao as trtao
 from linevis_tpu_torch.render import tube_raster as ttr
+from linevis_tpu_torch.ops import lbvh as tlbvh
 from linevis_tpu_torch.render.camera import Camera
 from linevis_tpu_torch.render.pipeline import RasterSettings
 
@@ -1359,3 +1364,124 @@ def test_opacity_optimization_card_matches_cpu(cuda):
     assert (kv - pv).abs().max().item() <= 2e-3
     assert kv.min().item() < 0.9
     assert (ki - pi).abs().mean().item() <= 2e-3
+
+
+# The per-ray traversal kernels of the transparent ray tracer: the closest
+# hit of the re-cast loop (R1) and MLAT (R2).
+
+def _traversal_inputs(device, W, H, builder="linear", scene=(12, 10, 8, 0.03)):
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H)
+    ts = ttr.build_capsule_scene(*_walk(*scene), device=device)
+    vp, cp, ab = ttr.camera_tensors(cam, device)
+    tree = tlbvh.lbvh_on(trt.build_capsule_bvh(ts, builder=builder), device)
+    return ts, tree, trt.tile_rays(vp, cp, S), ab, S
+
+
+@pytest.mark.parametrize("builder", ["linear", "binned_sah"])
+def test_closest_hit_kernel_matches_plain(cuda, builder):
+    """Twelve casts of the enumeration from the camera (W = 90: padded tile
+    rays start done), each cast's (t, prim) and per-ray counts bit for bit;
+    the next cast starts from the kernel's output."""
+    ts, tree, (o, d, _, pad), _, _ = _traversal_inputs(cuda, 90, 64, builder)
+    R = o.shape[0]
+    t_last = torch.zeros(R, device=cuda)
+    p_last = torch.full((R,), 2 ** 31 - 1, dtype=torch.int32, device=cuda)
+    done = pad.clone()
+    hits = 0
+    for _ in range(12):
+        before = tch.capsule_closest_hit.launches
+        stats = torch.zeros((R, 2), dtype=torch.int64, device=cuda)
+        k = tch.capsule_closest_hit(tree, ts, o, d, t_last, p_last, done, stats=stats)
+        assert tch.capsule_closest_hit.launches == before + 1
+        p_stats = torch.zeros_like(stats)
+        p = tch.capsule_closest_hit_reference(tree, ts, o, d, t_last, p_last, done,
+                                              stats=p_stats)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert torch.equal(stats, p_stats)
+        miss = k[1] < 0
+        hits += int((~miss).sum())
+        t_last = torch.where(miss, t_last, k[0])
+        p_last = torch.where(miss, p_last, k[1])
+        done = done | miss
+    assert hits > 1000
+
+
+@pytest.mark.parametrize("opacity", [0.3, 1.0], ids=["no_saturation", "saturation"])
+@pytest.mark.parametrize("K", [4, 8, 16, 32])
+def test_mlat_kernel_matches_plain(cuda, K, opacity):
+    """Nodes and per-ray counts bit for bit; at opacity 1 the buffers
+    saturate and the cull prunes subtrees (fewer visits than without it)."""
+    ts, tree, (o, d, wz, pad), ab, _ = _traversal_inputs(cuda, 90, 64,
+                                                          scene=(12, 16, 10, 0.05))
+    tf_opacity = ((0.0, 0.6), (0.5, 1.0), (1.0, 0.8))
+    R = o.shape[0]
+    stats = torch.zeros((R, 3), dtype=torch.int64, device=cuda)
+    before = tml.mlat_nodes.launches
+    k = tml.mlat_nodes(tree, ts, o, d, wz, pad, ab, K=K, opacity=opacity,
+                       tf_opacity=tf_opacity, stats=stats)
+    assert tml.mlat_nodes.launches == before + 1
+    p_stats = torch.zeros_like(stats)
+    p = tml.mlat_nodes_reference(tree, ts, o, d, wz, pad, ab, K=K, opacity=opacity,
+                                 tf_opacity=tf_opacity, stats=p_stats)
+    torch.cuda.synchronize()
+    assert k[0].shape == (K, R) and k[1].shape == (3, K, R)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(stats, p_stats)
+    assert int(torch.isfinite(k[0]).sum()) > 500
+    if opacity == 1.0 and K <= 8:
+        assert int((k[2][K - 1] > 0.999).sum()) > 50
+
+
+def _chain_tree(depth, device):
+    """A tree whose right spine is `depth` internal nodes deep, every box
+    [-1, 1]^3: a ray through the origin pushes two ids a level and pops one."""
+    n = depth + 1
+    left = np.arange(n - 1) + (n - 1)
+    right = np.arange(1, n)
+    right[-1] = 2 * n - 2
+    box = np.tile(np.array([[-1.0, -1.0, -1.0]], np.float32), (2 * n - 1, 1))
+    return tlbvh.Lbvh(left=torch.as_tensor(left, device=device).int(),
+                      right=torch.as_tensor(right, device=device).int(),
+                      node_min=torch.as_tensor(box, device=device),
+                      node_max=torch.as_tensor(-box, device=device),
+                      leaf_prim=(torch.arange(n, device=device) % 60).int())
+
+
+@pytest.mark.parametrize("kernel", ["closest_hit", "mlat"])
+def test_traversal_stack_overflow_raises(cuda, kernel):
+    ts = ttr.build_capsule_scene(*_walk(12, 10, 8, 0.03), device=cuda)
+    o = torch.tensor([[0.0, 0.0, -5.0]] * 128, device=cuda)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 128, device=cuda)
+    z = torch.zeros(128, device=cuda)
+    done = torch.zeros(128, dtype=torch.bool, device=cuda)
+    for depth, raises in ((40, False), (80, True)):
+        tree = _chain_tree(depth, cuda)
+        if kernel == "closest_hit":
+            call = (lambda: tch.capsule_closest_hit(
+                tree, ts, o, d, z, torch.full((128,), 2 ** 31 - 1, dtype=torch.int32,
+                                              device=cuda), done))
+        else:
+            call = (lambda: tml.mlat_nodes(tree, ts, o, d, z + 1.0, done,
+                                           torch.tensor([1.0001, 0.010001], device=cuda)))
+        if raises:
+            with pytest.raises(tlbvh.StackOverflowError):
+                call()
+        else:
+            call()
+
+
+@pytest.mark.parametrize("renderer", ["render_tubes_raytraced", "render_tubes_mlat"])
+def test_render_raytraced_card_matches_cpu(cuda, renderer):
+    W, H = 160, 120
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H, depth_cue_strength=0.2)
+    imgs = []
+    for dev in (cuda, torch.device("cpu")):
+        scene = ttr.build_capsule_scene(*_walk(12, 10, 8, 0.03), device=dev)
+        imgs.append(getattr(trt, renderer)(scene, *ttr.camera_tensors(cam, dev), S,
+                                           opacity=0.4).cpu())
+    assert bool(torch.isfinite(imgs[0]).all()) and (imgs[0][3] > 0).sum().item() > 100
+    assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3

@@ -386,9 +386,13 @@ def test_rtao_mode_matches_its_render_function():
     moved = cam.orbit(0.3, 0.1, 1.2)
     np.testing.assert_allclose(r.render(moved), np.moveaxis(frame(moved, 0).numpy(), 0, -1),
                                rtol=0, atol=1e-6)
+    # "SVGF (Temporal)" (ported: tests/test_torch_denoise_deferred.py holds
+    # it frame by frame) keeps counting frames across the camera's move.
     r.set_new_settings(SettingsMap({"denoiser": "SVGF (Temporal)"}))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        r.render(cam)
+    frame = r._frame
+    img = r.render(cam)
+    assert r._frame == frame + 1 and np.isfinite(img).all()
+    assert r._svgf_state is not None and r._svgf_state.color.device.type == "cpu"
 
 
 def test_depth_peeling_golden_through_the_registry():

@@ -338,8 +338,11 @@ def test_rtao_image_accumulates_and_unported_options_raise():
     )
     assert pos.shape == normal.shape == (3, 32, 64) and fg.dtype == torch.bool
     cam_t = ttr.camera_tensors(tcam, "cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trtao.render_tubes_rtao(ts, *cam_t, tS, dataclasses.replace(rt, denoiser="EAW"))
+    # The denoisers are ported: EAW filters the AO map, alpha stays.
+    den = trtao.render_tubes_rtao(ts, *cam_t, tS, dataclasses.replace(rt, denoiser="EAW"))
+    raw = trtao.render_tubes_rtao(ts, *cam_t, tS, rt)
+    assert bool(torch.isfinite(den).all()) and not torch.equal(den, raw)
+    assert torch.equal(den[3], raw[3])
     with pytest.raises(NotImplementedError, match="item 10"):
         trtao.render_tubes_rtao(ts, *cam_t, tS, rt, psum_axis="rays")
 
