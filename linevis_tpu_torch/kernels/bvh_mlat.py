@@ -7,7 +7,8 @@ package writes it as the vmapped `lax.while_loop` of
 `linevis_tpu/render/ray_tracer.py:441-533`; it reaches no `pl.pallas_call`.
 
 On a CUDA tensor `mlat_nodes` launches the hand-written kernel
-`csrc/bvh_mlat.cu` (one thread per ray); on a CPU tensor it runs
+`csrc/bvh_mlat.cu` (each warp of 32 rays walks the tree together over
+`ops.lbvh.packed_nodes`, every lane in its own order); on a CPU tensor it runs
 `mlat_nodes_reference`, the same function in plain PyTorch, a lockstep loop
 over all rays. The semantics, in order per ray:
 - pop the stack's top; an internal node pushes its left child, then its
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from linevis_tpu_torch.kernels import _build
+from linevis_tpu_torch.kernels.bvh_closest_hit import traversal_counts, walk_records
 from linevis_tpu_torch.kernels.capsule_common import capsule_features, capsule_surfaces
 from linevis_tpu_torch.kernels.raster_capsule_oit import tf_table
 from linevis_tpu_torch.ops.lbvh import Lbvh, StackOverflowError, lbvh_on, safe_inv
@@ -140,8 +142,8 @@ def _launcher():
     argument types declared so ctypes passes 64-bit pointers."""
     fn = _build.load("bvh_mlat").bvh_mlat_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, i, p, p, p, p, p, p, i, f, f, p, p, p, p, i, i, i, f, f, f,
-                   p, p, p, p, p]
+    fn.argtypes = [p, i, p, p, p, p, p, p, i, f, f, p, p, p, p, i, i, i, i, f, f, f, p, p, p, p,
+                   p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -159,6 +161,7 @@ def mlat_nodes(
     tf_opacity: tuple = ((0.0, 1.0), (1.0, 1.0)),
     max_stack: int = MAX_STACK,
     stats: Optional[torch.Tensor] = None,
+    warp_visits: Optional[torch.Tensor] = None,
 ):
     """Trace R rays into K nodes each -> (depth [K, R] world t, inf where
     empty; feat [3, K, R] premultiplied (attr, cos1, cos2); alpha [K, R]).
@@ -166,13 +169,18 @@ def mlat_nodes(
     A CUDA tensor launches the CUDA kernel (counted in `mlat_nodes.launches`);
     a CPU tensor runs the plain version. `stats`, an optional [R, 3] int64
     tensor, receives each ray's `STATS`: node visits, leaf tests, surfaces
-    inserted. A push past `max_stack` (<= 64) raises StackOverflowError (on
-    the card after a synchronize)."""
+    inserted. `warp_visits`, an optional [ceil(R / 32)] int64 tensor,
+    receives the nodes each warp of 32 rays tested in the kernel's shared
+    walk (the kernel alone has it: a CPU tensor raises). A push past
+    `max_stack` (<= 64) raises StackOverflowError (on the card after a
+    synchronize)."""
     if not 1 <= K <= K_MAX:
         raise ValueError(f"K={K}: need 1 <= K <= {K_MAX}")
     if not 1 <= max_stack <= MAX_STACK:
         raise ValueError(f"max_stack={max_stack}: need 1 <= max_stack <= {MAX_STACK}")
     if origins.device.type == "cpu":
+        if warp_visits is not None:
+            raise ValueError("warp_visits counts the kernel's shared walk: a CUDA reading")
         return mlat_nodes_reference(tree, scene, origins, dirs, wz, done, proj_ab, K, opacity,
                                     tf_opacity, max_stack, stats)
     if origins.device.type != "cuda":
@@ -195,18 +203,17 @@ def mlat_nodes(
     ab = proj_ab.float().cpu().numpy()
     tf = tf_table((), tf_opacity, dev)
     out = torch.empty((5 * K, R), dtype=torch.float32, device=dev)
-    counts = None if stats is None else torch.empty((R, len(STATS)), dtype=torch.int32,
-                                                    device=dev)
+    counts, warps = traversal_counts(stats, warp_visits, R, dev, len(STATS))
+    nodes, cap = walk_records(tree, dev, max_stack)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
     r32 = np.float32(scene.radius)
     with torch.cuda.device(dev):
         rc = _launcher()(
-            tree.left.data_ptr(), tree.right.data_ptr(), tree.node_min.data_ptr(),
-            tree.node_max.data_ptr(), tree.leaf_prim.data_ptr(), tree.leaf_prim.shape[0],
-            *(x.data_ptr() for x in seg), scene.a.shape[1], float(r32 * r32), float(r32),
-            *(x.data_ptr() for x in ins), R, K, max_stack, float(ab[0]), float(ab[1]),
-            float(np.float32(opacity)), tf.data_ptr(), out.data_ptr(),
-            None if counts is None else counts.data_ptr(), overflow.data_ptr(),
+            nodes.data_ptr(), tree.leaf_prim.shape[0], *(x.data_ptr() for x in seg),
+            scene.a.shape[1], float(r32 * r32), float(r32), *(x.data_ptr() for x in ins), R, K,
+            max_stack, cap, float(ab[0]), float(ab[1]), float(np.float32(opacity)), tf.data_ptr(),
+            out.data_ptr(), None if counts is None else counts.data_ptr(),
+            None if warps is None else warps.data_ptr(), overflow.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
@@ -216,6 +223,8 @@ def mlat_nodes(
         raise StackOverflowError(f"a ray's traversal stack passed {max_stack} entries")
     if stats is not None:
         stats.copy_(counts)
+    if warp_visits is not None:
+        warp_visits.copy_(warps)
     out = out.reshape(5, K, R)
     return out[0], out[1:4], out[4]
 

@@ -34,7 +34,9 @@ import torch
 
 __all__ = [
     "Lbvh", "morton_codes", "build_lbvh", "build_bvh_sah", "build_bvh_sweep_sah",
-    "build_bvh_ploc", "lbvh_on", "ray_query", "safe_inv", "StackOverflowError",
+    "build_bvh_ploc", "lbvh_on", "node_records", "walk_stack_depth", "packed_nodes",
+    "wide_node_records", "packed_wide_nodes", "WIDE_EMPTY", "ray_query", "safe_inv",
+    "StackOverflowError",
 ]
 
 
@@ -69,27 +71,174 @@ class Lbvh:
     node_min: object  # [2N-1, 3]
     node_max: object  # [2N-1, 3]
     leaf_prim: object  # [N] sorted-leaf -> original primitive index
+    # The traversal kernels' records of this tree (`packed_nodes`,
+    # `packed_wide_nodes`), made at first use.
+    packed: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def numpy(self) -> "Lbvh":
         """The same tree as numpy arrays on the host."""
         def host(x):
             return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
-        return Lbvh(*(host(getattr(self, f.name)) for f in dataclasses.fields(self)))
+        return Lbvh(host(self.left), host(self.right), host(self.node_min), host(self.node_max),
+                    host(self.leaf_prim))
 
 
 def lbvh_on(bvh: Lbvh, device) -> Lbvh:
     """The tree as contiguous tensors on `device`: int32 child and leaf
-    arrays, float32 [2N-1, 3] boxes (what the traversal kernels read)."""
+    arrays, float32 [2N-1, 3] boxes (what the traversal kernels read);
+    `bvh` itself, with its packed records, where it is in that form."""
     def t(x, dtype):
         if not isinstance(x, torch.Tensor):
             x = torch.tensor(np.asarray(x))
         return x.to(device=device, dtype=dtype).contiguous()
 
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    forms = ((bvh.left, torch.int32), (bvh.right, torch.int32), (bvh.node_min, torch.float32),
+             (bvh.node_max, torch.float32), (bvh.leaf_prim, torch.int32))
+    if all(isinstance(x, torch.Tensor) and x.dtype == dtype and x.is_contiguous()
+           and x.device == dev for x, dtype in forms):
+        return bvh
     return Lbvh(left=t(bvh.left, torch.int32), right=t(bvh.right, torch.int32),
                 node_min=t(bvh.node_min, torch.float32),
                 node_max=t(bvh.node_max, torch.float32),
                 leaf_prim=t(bvh.leaf_prim, torch.int32))
+
+
+def node_records(bvh: Lbvh) -> torch.Tensor:
+    """The tree packed for the traversal kernels -> [N, 16] int32 on the
+    tree's device, one 64-byte record a row: row i < N-1 holds internal node
+    i's two children, (L.min.xyz, L.code, L.max.xyz, R.code, R.min.xyz, 0,
+    R.max.xyz, 0), row N-1 the root, (min.xyz, code, max.xyz, 0, 0 x 8).
+    Boxes are float32 bits; a code >= 0 is an internal node's id, a code < 0
+    the leaf of primitive ~code. One record serves both children's box
+    tests and both pushes."""
+    n = bvh.leaf_prim.shape[0]
+    tree = lbvh_on(bvh, bvh.node_min.device if isinstance(bvh.node_min, torch.Tensor) else "cpu")
+    dev = tree.leaf_prim.device
+    mn, mx = tree.node_min.view(torch.int32), tree.node_max.view(torch.int32)
+
+    def code(ids):
+        leaf = ids >= n - 1
+        prim = tree.leaf_prim[torch.clamp(ids - (n - 1), min=0)]
+        return torch.where(leaf, ~prim, ids.int())[:, None]
+
+    left, right = tree.left.long(), tree.right.long()
+    zero = torch.zeros((n - 1, 1), dtype=torch.int32, device=dev)
+    inner = torch.cat([mn[left], code(left), mx[left], code(right), mn[right], zero, mx[right],
+                       zero], dim=1)
+    root_id = torch.zeros(1, dtype=torch.int64, device=dev)
+    root = torch.cat([mn[:1], code(root_id), mx[:1],
+                      torch.zeros((1, 9), dtype=torch.int32, device=dev)], dim=1)
+    return torch.cat([inner, root]).contiguous()
+
+
+def walk_stack_depth(bvh: Lbvh) -> int:
+    """The most entries the traversal kernels' shared stack holds on this
+    tree: a depth-first walk that takes the right child at once keeps one
+    pushed left child per right turn on its path, so the largest number of
+    right turns on a path from the root to an internal node, plus the push
+    there (1 for a one-leaf tree)."""
+    h = bvh.numpy()
+    n = len(h.leaf_prim)
+    left, right = h.left.astype(np.int64), h.right.astype(np.int64)
+    turns = np.zeros(max(n - 1, 1), np.int64)
+    front = np.zeros(1 if n > 1 else 0, np.int64)
+    most = 0
+    while front.size:
+        most = max(most, int(turns[front].max()))
+        l, r = left[front], right[front]
+        inner_l, inner_r = l < n - 1, r < n - 1
+        turns[l[inner_l]] = turns[front][inner_l]
+        turns[r[inner_r]] = turns[front][inner_r] + 1
+        front = np.concatenate([l[inner_l], r[inner_r]])
+    return most + 1
+
+
+WIDE_EMPTY = 0x7FFFFFFF  # the code of an unused slot of a 4-wide record
+
+
+def wide_node_records(bvh: Lbvh):
+    """The tree collapsed two binary levels at a time for the re-cast loop's
+    walk -> (records [M + 1, 32] int32 on the tree's device, the most
+    entries the walk's stack holds).
+
+    Record w < M holds a 4-wide node X (the root and every internal
+    grandchild reached so) as four slots in the binary walk's visit order:
+    X's right child's children (right, then left) or the right child
+    itself where it is a leaf, then the same of X's left child. Slot k is
+    (min.xyz, code) at columns 8k..8k+3 and (max.xyz, 0) at 8k+4..8k+7: a
+    code >= 0 the wide record of an internal node, < 0 the leaf of
+    primitive ~code, `WIDE_EMPTY` no node. Record M is the root, (min.xyz,
+    code, max.xyz, 0, 0 x 24). The walk takes slot 0 at once and pushes
+    the other valid slots, last first, so its stack holds at most the sum
+    over a path's records of the slots still pending, plus a push."""
+    h = bvh.numpy()
+    n = len(h.leaf_prim)
+    left, right = h.left.astype(np.int64), h.right.astype(np.int64)
+    mn = np.ascontiguousarray(h.node_min, np.float32).view(np.int32)
+    mx = np.ascontiguousarray(h.node_max, np.float32).view(np.int32)
+    prim = h.leaf_prim.astype(np.int64)
+    inner = (lambda ids: ids < n - 1) if n > 1 else (lambda ids: np.zeros(ids.shape, bool))
+    wid = np.full(max(n - 1, 1), -1, np.int64)
+    rows, front, height = [], np.zeros(1 if n > 1 else 0, np.int64), np.zeros(1, np.int64)
+    if n > 1:
+        wid[0] = 0
+    count, most = int(n > 1), 1
+    while front.size:
+        slots = []
+        for c in (right[front], left[front]):
+            ci = inner(c)
+            cc = np.where(ci, c, 0)
+            slots += [np.where(ci, right[cc], c), np.where(ci, left[cc], -1)]
+        sl = np.stack(slots, 1)  # [F, 4] binary node ids in visit order, -1 none
+        valid = sl >= 0
+        # Slots still pending when the walk descends into slot k, and the
+        # stack after this record's pushes.
+        after = np.cumsum(valid[:, ::-1], axis=1)[:, ::-1] - valid
+        most = max(most, int((height + valid.sum(1) - 1).max()))
+        nxt = valid & inner(np.maximum(sl, 0))
+        new_ids = sl[nxt]
+        wid[new_ids] = count + np.arange(new_ids.size)
+        count += new_ids.size
+        code = np.full(sl.shape, WIDE_EMPTY, np.int64)
+        code[nxt] = wid[new_ids]
+        leaf_slot = valid & ~nxt
+        code[leaf_slot] = ~prim[sl[leaf_slot] - (n - 1)]
+        idx = np.maximum(sl, 0)
+        rec = np.zeros((front.size, 4, 8), np.int32)
+        rec[:, :, 0:3] = np.where(valid[:, :, None], mn[idx], 0)
+        rec[:, :, 3] = code
+        rec[:, :, 4:7] = np.where(valid[:, :, None], mx[idx], 0)
+        rows.append(rec.reshape(-1, 32))
+        height = np.broadcast_to(height[:, None], sl.shape)[nxt] + after[nxt]
+        front = new_ids
+    root = np.zeros((1, 32), np.int32)
+    root[0, 0:3], root[0, 4:7] = mn[0], mx[0]
+    root[0, 3] = 0 if n > 1 else ~prim[0]
+    out = np.concatenate(rows + [root]) if rows else root
+    dev = bvh.node_min.device if isinstance(bvh.node_min, torch.Tensor) else "cpu"
+    return torch.from_numpy(out).to(dev), most
+
+
+def packed_nodes(bvh: Lbvh, device) -> tuple:
+    """The tree on `device` as the traversal kernels read it ->
+    (`node_records` [N, 16] int32, `walk_stack_depth`), made once per tree
+    in `lbvh_on` form (kept in its `packed`)."""
+    tree = lbvh_on(bvh, device)
+    if "binary" not in tree.packed:
+        tree.packed["binary"] = (node_records(tree), walk_stack_depth(tree))
+    return tree.packed["binary"]
+
+
+def packed_wide_nodes(bvh: Lbvh, device) -> tuple:
+    """`wide_node_records` of the tree on `device`, kept as `packed_nodes`."""
+    tree = lbvh_on(bvh, device)
+    if "wide" not in tree.packed:
+        tree.packed["wide"] = wide_node_records(tree)
+    return tree.packed["wide"]
 
 
 def _bit_length(x):

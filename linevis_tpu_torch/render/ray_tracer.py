@@ -8,8 +8,9 @@ BLAS/TLAS role is a binary BVH over per-segment capsule AABBs
 - `render_tubes_raytraced`: the iterative re-cast loop
   (`TubeRayTracing.glsl:61-82`). Each of `max_depth_complexity` casts asks
   every ray for its next surface strictly after the last one in (t, prim)
-  order (`kernels/bvh_closest_hit.py`, one launch a cast) and blends
-  coincident surfaces as one group, front to back.
+  order and blends coincident surfaces as one group, front to back
+  (`trace_recast`; `capsule_recast` runs the whole loop in one launch of
+  the kernel of `kernels/bvh_closest_hit.py` on the card).
 - `render_tubes_mlat`: multi-layer alpha tracing, one walk per ray into K
   nodes (`kernels/bvh_mlat.py`), resolved front to back.
 - `render_tubes_raytraced_wavefront`: the tree collapsed into 8-wide groups
@@ -28,7 +29,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from linevis_tpu_torch.kernels.bvh_closest_hit import capsule_closest_hit
+from linevis_tpu_torch.kernels.bvh_closest_hit import (
+    MAX_STACK, capsule_closest_hit, capsule_closest_hit_reference, recast_launch,
+)
 from linevis_tpu_torch.kernels.bvh_mlat import mlat_nodes
 from linevis_tpu_torch.kernels.bvh_wavefront import P, trace_wavefront_kbuffer
 from linevis_tpu_torch.kernels.capsule_common import capsule_features
@@ -45,7 +48,7 @@ from linevis_tpu_torch.render.tube_raster import CapsuleScene, _ray_basis
 __all__ = [
     "build_capsule_bvh", "build_wide_capsule_bvh", "primary_rays",
     "render_tubes_raytraced_wavefront", "resolve_wavefront_nodes",
-    "tile_rays", "trace_recast", "render_tubes_raytraced", "resolve_mlat_nodes",
+    "tile_rays", "trace_recast", "capsule_recast", "render_tubes_raytraced", "resolve_mlat_nodes",
     "render_tubes_mlat", "RT_TILE",
 ]
 
@@ -310,6 +313,62 @@ def trace_recast(tree, scene, origins, dirs, wz, pad, proj_ab, settings: RasterS
     return acc, T
 
 
+def capsule_recast(
+    tree,  # binary BVH over the scene's capsules
+    scene: CapsuleScene,
+    origins: torch.Tensor,  # [R, 3]
+    dirs: torch.Tensor,  # [R, 3] unit
+    wz: torch.Tensor,  # [R] view depth per unit t along the ray
+    pad: torch.Tensor,  # [R] bool: rays that trace nothing
+    proj_ab: torch.Tensor,  # [2] = (zA, zB): z_ndc = zA - zB / view_z
+    settings: RasterSettings,  # the TFs and the depth cue's strength
+    max_depth_complexity: int,  # casts
+    opacity: float,
+    dmin,  # the depth cue's view-depth range (`_depth_cue_range`)
+    dmax,
+    max_stack: int = MAX_STACK,
+    record: Optional[tuple] = None,
+    warp_visits: Optional[torch.Tensor] = None,
+):
+    """`trace_recast`'s function over rays [R] -> (color [3, R]
+    premultiplied, transmittance [R]), the whole loop in one kernel (R1).
+
+    A CUDA tensor launches `csrc/bvh_closest_hit.cu`'s loop kernel once
+    (`kernels/bvh_closest_hit.py:recast_launch`, counted in
+    `capsule_recast.launches`); a CPU tensor runs the plain version,
+    `trace_recast` with `capsule_closest_hit_reference` as its closest hit.
+    `record`, an optional pair of [casts, R] tensors (float32 t, int32
+    prim), receives every cast's (t, prim), (inf, -1) for rays that are
+    done. `warp_visits` ([ceil(R / 32)] int64, the kernel alone) receives
+    the nodes each warp tested. A ray's push past `max_stack` (<= 64)
+    raises StackOverflowError: the plain version where a ray's walk does,
+    the kernel before its launch where a path of the tree would allow it."""
+    if not 1 <= max_stack <= MAX_STACK:
+        raise ValueError(f"max_stack={max_stack}: need 1 <= max_stack <= {MAX_STACK}")
+    casts = int(max_depth_complexity)
+    if origins.device.type != "cpu":
+        acc, T = recast_launch(tree, scene, origins, dirs, wz, pad, proj_ab, settings, casts,
+                               opacity, dmin, dmax, max_stack, record, warp_visits)
+        capsule_recast.launches += 1
+        return acc, T
+    if warp_visits is not None:
+        raise ValueError("warp_visits counts the kernel's shared walk: a CUDA reading")
+    k = [0]
+
+    def hit(*args):
+        t, prim = capsule_closest_hit_reference(*args, max_stack=max_stack)
+        if record is not None:
+            record[0][k[0]], record[1][k[0]] = t, prim
+        k[0] += 1
+        return t, prim
+
+    return trace_recast(tree, scene, origins, dirs, wz, pad, proj_ab, settings, casts, opacity,
+                        dmin, dmax, closest_hit=hit)
+
+
+capsule_recast.launches = 0
+
+
 def render_tubes_raytraced(
     scene: CapsuleScene,
     view_proj: torch.Tensor,
@@ -337,8 +396,8 @@ def render_tubes_raytraced(
     tree = lbvh_on(bvh, scene.a.device)
     origins, dirs, wz, pad = tile_rays(view_proj, camera_position, settings, jitter)
     dmin, dmax = _depth_cue_range(scene, view_proj)
-    acc, T = trace_recast(tree, scene, origins, dirs, wz, pad, proj_ab, settings,
-                          max_depth_complexity, opacity, dmin, dmax)
+    acc, T = capsule_recast(tree, scene, origins, dirs, wz, pad, proj_ab, settings,
+                            max_depth_complexity, opacity, dmin, dmax)
     return _image(acc, T, settings)
 
 

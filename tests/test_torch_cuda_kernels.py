@@ -17,8 +17,10 @@ moment solves amplify an ulp of a moment); the importance gather bit for bit;
 (`torch.equal` on every output). For the AO grid kernel: every pair's flag
 and every chunk's walked count equal. For the wavefront kernel: depths,
 features, alpha and the per-block counts bit for bit. For the per-ray
-traversal kernels (closest hit, MLAT): every output and per-ray count bit for
-bit. Kernels and plain versions are built
+traversal kernels (closest hit, MLAT, the whole re-cast loop): every output
+and per-ray count bit for bit (the re-cast loop: every cast's (t, prim); its
+color and transmittance within 1e-5, its powf against torch.pow). Kernels
+and plain versions are built
 without fast math and FMA contraction, so they normally agree bit for bit.
 """
 
@@ -1471,6 +1473,153 @@ def test_traversal_stack_overflow_raises(cuda, kernel):
                 call()
         else:
             call()
+
+
+def _warp_bounds(warps, stats, walks=1):
+    """A warp tests every node one of its lanes accepts (in each of a
+    lane's walks the root and the internal nodes it accepts, half its
+    visits less one, and its leaf tests) and only nodes one of its lanes
+    visits."""
+    visits, leaves = stats[:, 0], stats[:, 1]
+    accepted = (torch.clamp(visits - walks, min=0) // 2 + leaves).reshape(-1, 32)
+    assert bool((warps >= accepted.max(dim=1).values).all())
+    assert bool((warps <= visits.reshape(-1, 32).sum(dim=1)).all())
+
+
+def _counted_loop(args, casts):
+    """`trace_recast` with the one-cast kernel -> (record, each ray's node
+    visits and leaf tests summed over the casts)."""
+    tree, ts, o = args[:3]
+    R = o.shape[0]
+    rec = (torch.zeros((casts, R), device=o.device),
+           torch.zeros((casts, R), dtype=torch.int32, device=o.device))
+    st = torch.zeros((R, 2), dtype=torch.int64, device=o.device)
+
+    def hit(*a):
+        s = torch.zeros_like(st)
+        t, prim = tch.capsule_closest_hit(*a, stats=s)
+        k = int(hit.casts)
+        rec[0][k], rec[1][k] = t, prim
+        st.add_(s)
+        hit.casts += 1
+        return t, prim
+
+    hit.casts = 0
+    trt.trace_recast(*args, closest_hit=hit)
+    return rec, st
+
+
+@pytest.mark.parametrize("builder", ["linear", "binned_sah"])
+def test_recast_kernel_matches_plain_loop(cuda, builder):
+    """The whole re-cast loop in one launch against `trace_recast` with the
+    plain closest hit (W = 90: padded tile rays start done): every cast's
+    (t, prim) bit for bit (also against the loop of one-cast kernel
+    launches), color and transmittance within 1e-5, rays done early
+    recorded as (inf, -1)."""
+    ts, tree, (o, d, wz, pad), ab, S = _traversal_inputs(cuda, 90, 64, builder)
+    vp = ttr.camera_tensors(Camera(position=(0.0, 0.1, 1.2), width=90, height=64), cuda)[0]
+    dmin, dmax = trt._depth_cue_range(ts, vp)
+    R, casts = o.shape[0], 12
+    args = (tree, ts, o, d, wz, pad, ab, S, casts, 0.4, dmin, dmax)
+    recs = []
+    for on_card in (True, False):
+        rec = (torch.zeros((casts, R), device=cuda),
+               torch.zeros((casts, R), dtype=torch.int32, device=cuda))
+        before = trt.capsule_recast.launches
+        if on_card:
+            out = trt.capsule_recast(*args, record=rec)
+        else:
+            k = [0]
+
+            def hit(*a):
+                t, prim = tch.capsule_closest_hit_reference(*a)
+                rec[0][k[0]], rec[1][k[0]] = t, prim
+                k[0] += 1
+                return t, prim
+
+            out = trt.trace_recast(*args, closest_hit=hit)
+        assert trt.capsule_recast.launches == before + on_card
+        recs.append((rec, out))
+    torch.cuda.synchronize()
+    (k_rec, (k_acc, k_T)), (p_rec, (p_acc, p_T)) = recs
+    assert torch.equal(k_rec[0], p_rec[0]) and torch.equal(k_rec[1], p_rec[1])
+    c_rec, _ = _counted_loop(args, casts)
+    assert torch.equal(c_rec[0], p_rec[0]) and torch.equal(c_rec[1], p_rec[1])
+    assert (k_acc - p_acc).abs().max().item() <= 1e-5
+    assert (k_T - p_T).abs().max().item() <= 1e-5
+    assert bool((k_rec[1][:, pad] == -1).all()) and bool(torch.isinf(k_rec[0][:, pad]).all())
+    assert bool((k_T[pad] == 1.0).all()) and bool((k_acc[:, pad] == 0.0).all())
+    hits = k_rec[1] >= 0
+    assert int(hits[0].sum()) > 300 and int(hits[-1].sum()) < int(hits[0].sum())
+    # A ray that missed stays (inf, -1) on every later cast.
+    missed = torch.cumsum((~hits & ~pad[None]).int(), dim=0) > 0
+    assert not bool((hits & missed).any())
+
+
+def test_recast_kernel_warp_visits_and_overflow(cuda):
+    """The loop's warp tests every leaf one of its lanes tests and at most
+    the root a cast and four slots of each wide node its lanes accept (each
+    an internal node of their binary walks: fewer than half their visits);
+    a tree on which a ray's stack could pass max_stack raises before any
+    launch."""
+    ts, tree, (o, d, wz, pad), ab, S = _traversal_inputs(cuda, 96, 64)
+    R, casts = o.shape[0], 8
+    args = (tree, ts, o, d, wz, pad, ab, S, casts, 0.3, torch.tensor(0.0, device=cuda),
+            torch.tensor(1.0, device=cuda))
+    warps = torch.zeros(R // 32, dtype=torch.int64, device=cuda)
+    trt.capsule_recast(*args, warp_visits=warps)
+    _, st = _counted_loop(args, casts)
+    leaves = st[:, 1].reshape(-1, 32)
+    inner = (st[:, 0] // 2).reshape(-1, 32)
+    assert bool((warps >= leaves.max(dim=1).values).all())
+    assert bool((warps <= casts + 4 * inner.sum(dim=1)).all())
+    assert int(warps.sum()) > 0
+    o1 = torch.tensor([[0.0, 0.0, -5.0]] * 128, device=cuda)
+    d1 = torch.tensor([[0.0, 0.0, 1.0]] * 128, device=cuda)
+    one = torch.ones(128, device=cuda)
+    no = torch.zeros(128, dtype=torch.bool, device=cuda)
+    ab1 = torch.tensor([1.0001, 0.010001], device=cuda)
+    for depth, raises in ((40, False), (80, True)):
+        before = trt.capsule_recast.launches
+        call = (lambda: trt.capsule_recast(_chain_tree(depth, cuda), ts, o1, d1, one, no, ab1,
+                                           S, 4, 0.3, 0.0, 1.0))
+        if raises:
+            with pytest.raises(tlbvh.StackOverflowError):
+                call()
+        else:
+            call()
+        assert trt.capsule_recast.launches == before + (not raises)
+
+
+def test_render_raytraced_one_launch_per_frame(cuda):
+    W, H = 160, 120
+    cam = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+    S = RasterSettings(width=W, height=H)
+    scene = ttr.build_capsule_scene(*_walk(12, 10, 8, 0.03), device=cuda)
+    before = (trt.capsule_recast.launches, tch.capsule_closest_hit.launches)
+    trt.render_tubes_raytraced(scene, *ttr.camera_tensors(cam, cuda), S)
+    assert (trt.capsule_recast.launches, tch.capsule_closest_hit.launches) == (
+        before[0] + 1, before[1])
+
+
+@pytest.mark.parametrize("K", [8, 16, 32])
+def test_mlat_kernel_matches_plain_sah(cuda, K):
+    """R2 on the binned-SAH tree: nodes and per-ray counts bit for bit, the
+    warp's node tests within its lanes' walks."""
+    ts, tree, (o, d, wz, pad), ab, _ = _traversal_inputs(cuda, 90, 64, "binned_sah",
+                                                          scene=(12, 16, 10, 0.05))
+    R = o.shape[0]
+    kw = dict(K=K, opacity=0.5, tf_opacity=((0.0, 0.6), (0.5, 1.0), (1.0, 0.8)))
+    stats = torch.zeros((R, 3), dtype=torch.int64, device=cuda)
+    warps = torch.zeros(-(-R // 32), dtype=torch.int64, device=cuda)
+    k = tml.mlat_nodes(tree, ts, o, d, wz, pad, ab, stats=stats, warp_visits=warps, **kw)
+    p_stats = torch.zeros_like(stats)
+    p = tml.mlat_nodes_reference(tree, ts, o, d, wz, pad, ab, stats=p_stats, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(stats, p_stats)
+    _warp_bounds(warps, stats)
 
 
 @pytest.mark.parametrize("renderer", ["render_tubes_raytraced", "render_tubes_mlat"])

@@ -1,4 +1,4 @@
-"""The port's hand-written kernels (B1-B6) timed across source trees.
+"""The port's hand-written kernels (B1-B6, R1, R2) timed across source trees.
 
 A one-off A/B script beside `chip_smoke.py`, not part of the port's
 package. It compares two or more source trees of this repository on one
@@ -36,9 +36,20 @@ builds the tree's own kernels and times, on the first orbit camera of
   - B1 at 32x16 with AA (the capsule frame) and without (the RTAO
     G-buffer's pass), and at 16x8 with AA;
   - B3 at 32x16 (chunk 128) with 8 attribute planes and depth only;
-each the mean of 40 launches between CUDA events.
+each the mean of 40 launches between CUDA events;
+  - R1 (`r1`): the ray tracer's re-cast loop on the 1080p tornado's
+    tile-ordered rays over the linear tree (32 casts, opacity 0.3): the
+    tree's `render/ray_tracer.py:capsule_recast` where it has one (the
+    whole loop in one launch), else `trace_recast` over its one-cast `capsule_closest_hit`
+    (32 launches and the per-cast PyTorch state update); every cast's
+    (t, prim) is held bit for bit against the first tree's (SHA-256 of each
+    cast's planes) and the color and transmittance within 1e-5; the loop
+    and `render_tubes_raytraced`'s frame, each the mean of 5;
+  - R2 (`r2`): `mlat_nodes` on the same rays at K 8, 16 and 32, the nodes
+    held bit for bit against the first tree's, each the mean of 5.
 
-    python3 tools/kernel_ab.py TREE [TREE ...] [--turns N] [--kernels b2,b5,b4,b6,b1,b3,accum]
+    python3 tools/kernel_ab.py TREE [TREE ...] [--turns N]
+        [--kernels b2,b5,b4,b6,b1,b3,accum,r1,r2]
 
 runs the trees in the order given, then reversed, N times (default 2),
 printing one JSON line per turn and a last line with the card and every
@@ -65,7 +76,8 @@ from linevis_tpu_torch.kernels import _build
 groups_file, kernels = sys.argv[2], sys.argv[3].split(",")
 sources = {"b2": ("raster_capsule_oit",), "b5": ("ao_grid",),
            "b4": ("raster_prism",), "b6": ("bvh_wavefront",), "b1": ("raster_capsule",),
-           "b3": ("raster_triangle",), "accum": ("raster_capsule_accum",)}
+           "b3": ("raster_triangle",), "accum": ("raster_capsule_accum",),
+           "r1": ("bvh_closest_hit",), "r2": ("bvh_mlat",)}
 info = {}
 for name in [n for k in kernels for n in sources[k]]:
     if sys.argv[1] == "rebuild":  # a tree's first turn: time its build
@@ -294,15 +306,98 @@ def b3():
     res["triangle_depth_32x16"] = timed(lambda: raster_pallas.rasterize_depth(csr, 32, 16))
 
 
+def _ray_tracer_inputs():
+    from linevis_tpu_torch.ops.lbvh import lbvh_on
+    from linevis_tpu_torch.render import ray_tracer as rt
+    s_rt = RasterSettings(width=W, height=H)
+    tree = lbvh_on(rt.build_capsule_bvh(scene), dev)
+    o, d, wz, pad = rt.tile_rays(cam[0], cam[1], s_rt)
+    return rt, s_rt, tree, o, d, wz, pad
+
+
+def _against_first_tree(name, digests, tensors=()):
+    """Hold this tree's per-plane SHA-256 digests (and `tensors` within
+    1e-5) against the first tree's, which its first turn saves."""
+    ref_file = os.path.join(os.path.dirname(groups_file), f"{name}_first_tree.pt")
+    cur = {"digests": digests, "tensors": [t.cpu() for t in tensors]}
+    if os.path.exists(ref_file):
+        ref = torch.load(ref_file)
+        res[f"{name}_equal_to_first_tree"] = digests == ref["digests"]
+        res[f"{name}_first_differing_plane"] = next(
+            (i for i, (a, b) in enumerate(zip(digests, ref["digests"])) if a != b), None)
+        res[f"{name}_max_abs_vs_first_tree"] = max(
+            [float((a - b).abs().max()) for a, b in zip(cur["tensors"], ref["tensors"])],
+            default=0.0)
+    else:
+        torch.save(cur, ref_file)
+
+
+def _digest(x):
+    import hashlib
+    return hashlib.sha256(x.contiguous().view(torch.int32).cpu().numpy().tobytes()).hexdigest()
+
+
+def r1():
+    from linevis_tpu_torch.kernels import bvh_closest_hit as ch
+    rt, s_rt, tree, o, d, wz, pad = _ray_tracer_inputs()
+    dmin, dmax = rt._depth_cue_range(scene, cam[0])
+    casts, R = 32, o.shape[0]
+    rec = (torch.empty((casts, R), device=dev), torch.empty((casts, R), dtype=torch.int32,
+                                                           device=dev))
+    args = (tree, scene, o, d, wz, pad, cam[2], s_rt, casts, 0.3, dmin, dmax)
+    if hasattr(rt, "capsule_recast"):
+        acc, T = rt.capsule_recast(*args, record=rec)
+
+        def loop():
+            return rt.capsule_recast(*args)
+    else:  # a tree from before the loop kernel: 32 launches of the one-cast kernel
+        k = [0]
+
+        def hit(*a):
+            t, prim = ch.capsule_closest_hit(*a)
+            rec[0][k[0]], rec[1][k[0]] = t, prim
+            k[0] += 1
+            return t, prim
+
+        acc, T = rt.trace_recast(*args, closest_hit=hit)
+
+        def loop():
+            return rt.trace_recast(*args)
+    digests = [_digest(rec[0][c]) + _digest(rec[1][c]) for c in range(casts)]
+    _against_first_tree("r1", digests, (acc, T))
+    res["r1_hits_first_cast"] = int((rec[1][0] >= 0).sum())
+    del rec
+    res["r1_loop"] = timed(loop, n=5)
+    res["r1_recast_frame"] = timed(lambda: rt.render_tubes_raytraced(
+        scene, *cam, s_rt, max_depth_complexity=casts, opacity=0.3, bvh=tree), n=5)
+
+
+def r2():
+    from linevis_tpu_torch.kernels.bvh_mlat import mlat_nodes
+    rt, s_rt, tree, o, d, wz, pad = _ray_tracer_inputs()
+    digests = []
+    for K in (8, 16, 32):
+        def run(K=K):
+            return mlat_nodes(tree, scene, o, d, wz, pad, cam[2], K=K, opacity=0.3,
+                              tf_opacity=s_rt.tf_opacity)
+
+        digests += [_digest(x) for x in run()]
+        res[f"r2_mlat_k{K}"] = timed(run, n=5)
+    _against_first_tree("r2", digests)
+    res["r2_mlat_frame"] = timed(lambda: rt.render_tubes_mlat(
+        scene, *cam, s_rt, K=8, opacity=0.3, bvh=tree), n=5)
+
+
 for k in kernels:
-    {"b2": b2, "b5": b5, "b4": b4, "b6": b6, "b1": b1, "b3": b3, "accum": accum}[k]()
+    {"b2": b2, "b5": b5, "b4": b4, "b6": b6, "b1": b1, "b3": b3, "accum": accum, "r1": r1,
+     "r2": r2}[k]()
 print("RESULT " + json.dumps(res), flush=True)
 '''
 
 
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
-    turns, kernels = 2, "b2,b5,b4,b6,b1,b3,accum"
+    turns, kernels = 2, "b2,b5,b4,b6,b1,b3,accum,r1,r2"
     if "--turns" in args:
         i = args.index("--turns")
         turns = int(args[i + 1])

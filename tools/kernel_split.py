@@ -1,9 +1,10 @@
-"""Where the time of the port's hand-written kernels (B1-B6) goes, on one card.
+"""Where the time of the port's hand-written kernels (B1-B6, R1, R2) goes, on one card.
 
 A one-off measurement script beside `chip_smoke.py` and `tools/kernel_ab.py`,
 not part of the port's package. Run from the root of a source tree:
 
-    python3 tools/kernel_split.py [--turns N] [--out FILE] [--kernels b5,b2,b4,b6,b1,b3,accum]
+    python3 tools/kernel_split.py [--turns N] [--out FILE]
+        [--kernels b5,b2,b4,b6,b1,b3,accum,r1,r2]
 
 B5 (`csrc/ao_grid.cu`), on the first 1080p batch of rays of `chip_smoke.py`'s
 first RTAO frame: the launch as it is; the same launch with every
@@ -63,7 +64,22 @@ kernel against `ACCUM_VARIANTS` with the share of (warp, candidate) pairs
 in which no lane has a fragment; 'count' also with the 132 longest runs
 alone and with every run but them.
 
-For B4, B6, B1, B3 and the accumulation kernel: registers, local memory,
+R1 (`csrc/bvh_closest_hit.cu`, `r1`) and R2 (`csrc/bvh_mlat.cu`, `r2`), on
+that camera's 1080p tile-ordered rays through the linear tree (R1: the
+re-cast loop of 32 casts in one launch over the collapsed tree, and its
+first cast alone through the one-cast kernel; R2: K=8 and K=32, opacity
+0.3): each ray's node visits (its own binary walk's, from the one-cast
+kernel through the plain loop) against its warp's node tests (the histogram
+of that ratio), and the tree's kernels against
+`R1_VARIANTS` / `R2_VARIANTS` (register budgets, block sizes) with
+`clock64()` phase shares (`phase_clock`: the record's load, the children's
+slab tests and push, the leaf work, the pop and the state-dependent test,
+R1's per-cast state update, R2's insertions within its leaf work; R1's
+phases are those of its collapsed walk in `csrc/bvh_closest_hit.cu`, R2's
+of the binary walk in `csrc/bvh_capsule.cuh`, which the variants' sources
+inline so that their substitutions reach it).
+
+For B4, B6, B1, B3, R1, R2 and the accumulation kernel: registers, local memory,
 shared memory and resident blocks per SM of every instance of every
 variant, read through the library's `kernel_info`, and each variant's
 ptxas lines (registers, stack frame, spills).
@@ -86,7 +102,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["main", "VARIANTS", "B5_VARIANTS", "B4_VARIANTS", "B6_VARIANTS", "B1_VARIANTS",
-           "B3_VARIANTS", "ACCUM_VARIANTS"]
+           "B3_VARIANTS", "ACCUM_VARIANTS", "R1_VARIANTS", "R2_VARIANTS"]
 
 # name -> [(old, new), ...] applied to csrc/raster_capsule_oit.cu (B2: a
 # sorted per-thread list of the nearest hits, the nodes in shared memory):
@@ -471,6 +487,177 @@ ACCUM_VARIANTS = {
 ACCUM_PHASES = ("staging", "pass1", "pass2", "epilogue", "total")
 
 
+# The traversal kernels' walk (csrc/bvh_capsule.cuh, inlined into the
+# variants' sources): per accepted internal node the record's load (waited
+# for by a dummy use), the children's slab tests with their ballots and the
+# push; per leaf the leaf work (the warp reconverged); per node taken the
+# state-dependent test, and per pop the shared stack's read (waited for).
+# Per-lane clocks kept in the walk's counts.
+_WALK_PHASES = [
+    ("struct WalkCounts {\n  int visits, leaves, warp_visits;\n};",
+     "struct WalkCounts {\n  int visits, leaves, warp_visits;\n  long long ph[8];\n};"),
+    ("            const float4 l0 = __ldg(q), l1 = __ldg(q + 1), r0 = __ldg(q + 2), "
+     "r1 = __ldg(q + 3);\n",
+     "            const long long q0 = clock64();\n"
+     "            const float4 l0 = __ldg(q), l1 = __ldg(q + 1), r0 = __ldg(q + 2), "
+     "r1 = __ldg(q + 3);\n            float q_use;\n"
+     '            asm volatile("add.f32 %0, %1, %2;" : "=f"(q_use) : "f"(l0.x), "f"(l1.w));\n'
+     '            asm volatile("add.f32 %0, %1, %2;" : "=f"(q_use) : "f"(r0.x), "f"(r1.z));\n'
+     "            const long long q1 = clock64();\n            cnt.ph[0] += q1 - q0;\n"),
+    ("            my_tn = tnr;\n            ++rd;\n            continue;",
+     "            my_tn = tnr;\n            ++rd;\n            cnt.ph[1] += clock64() - q1;\n"
+     "            continue;"),
+    ("      if (code < 0) {\n        if (acc) {\n          ++cnt.leaves;\n          leaf(~code);\n"
+     "        }\n      }",
+     "      if (code < 0) {\n        const long long q2 = clock64();\n        if (acc) {\n"
+     "          ++cnt.leaves;\n          leaf(~code);\n        }\n        __syncwarp();\n"
+     "        cnt.ph[2] += clock64() - q2;\n      }"),
+    ("      ++cnt.warp_visits;\n      const bool acc = (mask & bit) && walking && dyn(my_tn);\n",
+     "      ++cnt.warp_visits;\n      const long long q3 = clock64();\n"
+     "      const bool acc = (mask & bit) && walking && dyn(my_tn);\n"
+     "      const unsigned q_any = __ballot_sync(BVH_FULL, acc);\n"
+     "      cnt.ph[3] += clock64() - q3 + (q_any & 0);\n"),
+    ("    if (sp == 0) break;\n    __syncwarp();\n    --sp;\n    const int4 e = stk.e[sp];\n"
+     "    code = e.x;\n    mask = (unsigned)e.y;\n    rd = e.z;\n"
+     "    my_tn = stk.tn[sp * 32 + lane];\n  }",
+     "    const long long q4 = clock64();\n    if (sp == 0) break;\n    __syncwarp();\n"
+     "    --sp;\n    const int4 e = stk.e[sp];\n    code = e.x;\n    mask = (unsigned)e.y;\n"
+     "    rd = e.z;\n    my_tn = stk.tn[sp * 32 + lane];\n    float q_pop;\n"
+     '    asm volatile("add.f32 %0, %1, %2;" : "=f"(q_pop) : "f"(my_tn), '
+     '"f"(__int_as_float(code)));\n'
+     "    cnt.ph[3] += clock64() - q4;\n  }"),
+]
+
+
+# The re-cast loop's collapsed walk (csrc/bvh_closest_hit.cu,
+# `wide_warp_walk`), the same phases: the record's load (its 8 float4,
+# waited for), the four slots' slab tests with their ballots and pushes,
+# the leaf work, the state-dependent test and the pop.
+_WIDE_PHASES = [
+    _WALK_PHASES[0],
+    ("        float4 lo[4], hi[4];\n",
+     "        const long long q0 = clock64();\n        float4 lo[4], hi[4];\n"),
+    ("        float tns[4];\n        unsigned ms[4];\n",
+     "        float q_use;\n"
+     '        asm volatile("add.f32 %0, %1, %2;" : "=f"(q_use) : "f"(lo[0].x), "f"(hi[3].z));\n'
+     '        asm volatile("add.f32 %0, %1, %2;" : "=f"(q_use) : "f"(lo[3].x), "f"(hi[0].z));\n'
+     '        asm volatile("add.f32 %0, %1, %2;" : "=f"(q_use) : "f"(lo[1].x), "f"(hi[2].z));\n'
+     '        asm volatile("add.f32 %0, %1, %2;" : "=f"(q_use) : "f"(lo[2].x), "f"(hi[1].z));\n'
+     "        const long long q1 = clock64();\n        cnt.ph[0] += q1 - q0;\n"
+     "        float tns[4];\n        unsigned ms[4];\n"),
+    ("        my_tn = tns[0];\n        continue;",
+     "        my_tn = tns[0];\n        cnt.ph[1] += clock64() - q1;\n        continue;"),
+    ("      if (code < 0) {  // a leaf slot\n        if (acc) {\n          ++cnt.leaves;\n"
+     "          leaf(~code);\n        }\n      }",
+     "      if (code < 0) {  // a leaf slot\n        const long long q2 = clock64();\n"
+     "        if (acc) {\n          ++cnt.leaves;\n          leaf(~code);\n        }\n"
+     "        __syncwarp();\n        cnt.ph[2] += clock64() - q2;\n      }"),
+    ("      const bool acc = walking && (mask & bit) && dyn(my_tn);\n",
+     "      const long long q3 = clock64();\n"
+     "      const bool acc = walking && (mask & bit) && dyn(my_tn);\n"
+     "      const unsigned q_any = __ballot_sync(BVH_FULL, acc);\n"
+     "      cnt.ph[3] += clock64() - q3 + (q_any & 0);\n"),
+    ("    mask = (unsigned)e.y;\n    my_tn = stk.tn[sp * 32 + lane];\n  }",
+     "    mask = (unsigned)e.y;\n    my_tn = stk.tn[sp * 32 + lane];\n    float q_pop;\n"
+     '    asm volatile("add.f32 %0, %1, %2;" : "=f"(q_pop) : "f"(my_tn), '
+     '"f"(__int_as_float(code)));\n'
+     "    cnt.ph[3] += clock64() - q4;\n  }"),
+    ("    if (sp == 0) break;\n    __syncwarp();\n    --sp;\n    const int4 e = stk.e[sp];\n"
+     "    code = e.x;\n    mask = (unsigned)e.y;\n    my_tn",
+     "    const long long q4 = clock64();\n    if (sp == 0) break;\n    __syncwarp();\n"
+     "    --sp;\n    const int4 e = stk.e[sp];\n    code = e.x;\n    mask = (unsigned)e.y;\n"
+     "    my_tn"),
+]
+
+
+def _phase_flush(n):
+    """Each lane's first `n` phase clocks summed over its warp, added to
+    `g_phase` once a warp in warp-cycles (the warp's sum over 32)."""
+    return ("#pragma unroll\n  for (int p = 0; p < %d; ++p) {\n    long long v = cnt.ph[p];\n"
+            "    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(BVH_FULL, v, o);\n"
+            "    if ((threadIdx.x & 31) == 0) atomicAdd(&g_phase[p], (unsigned long long)(v / 32));\n"
+            "  }\n" % n)
+
+
+# The same for csrc/bvh_closest_hit.cu (R1: the re-cast loop in one launch,
+# blocks of 128 rays, a warp-shared walk a cast, the stack in dynamic shared
+# memory sized to the tree). Phases: the walk's four,
+# the per-cast state update (features, clip, join, flush), the whole kernel.
+R1_VARIANTS = {
+    # Register budgets of the loop kernel: 6 resident blocks per SM (at most
+    # 80 registers) or 10 (at most 48); the base has 8 (64).
+    "min_blocks_6": [("__global__ void __launch_bounds__(P, 8)\nrecast_kernel(",
+                      "__global__ void __launch_bounds__(P, 6)\nrecast_kernel(")],
+    "min_blocks_10": [("__global__ void __launch_bounds__(P, 8)\nrecast_kernel(",
+                       "__global__ void __launch_bounds__(P, 10)\nrecast_kernel(")],
+    "block_64": [("constexpr int P = 128;  // rays per block", "constexpr int P = 64;")],
+    "phase_clock": [
+        _PHASE_COUNTERS, *_WIDE_PHASES,
+        ("  WalkCounts cnt{0, 0, 0};\n  int c = 0;",
+         "  WalkCounts cnt{0, 0, 0};\n  int c = 0;\n  const long long ph_start = clock64();"),
+        ("    float attr = 0.0f, c1 = 0.0f, c2 = 0.0f, al = 0.0f;\n",
+         "    float attr = 0.0f, c1 = 0.0f, c2 = 0.0f, al = 0.0f;\n    long long u0 = clock64();\n"),
+        ("                       overflow);\n      if (rec_t && in) {",
+         "                       overflow);\n      u0 = clock64();\n      if (rec_t && in) {"),
+        ("    if (end) break;\n",
+         "    __syncwarp();\n    cnt.ph[4] += clock64() - u0;\n    if (end) break;\n"),
+        ("    if (warp_visits && (threadIdx.x & 31) == 0) warp_visits[r >> 5] = cnt.warp_visits;\n"
+         "  }\n}\n\n}  // namespace",
+         "    if (warp_visits && (threadIdx.x & 31) == 0) warp_visits[r >> 5] = cnt.warp_visits;\n"
+         "  }\n  cnt.ph[5] = clock64() - ph_start;\n" + _phase_flush(6) + "}\n\n}  // namespace")],
+}
+R1_PHASES = ("node_load", "child_tests", "leaf", "pop_test", "update", "total")
+
+# The same for csrc/bvh_mlat.cu (R2: blocks of 128 rays, a warp-shared walk,
+# the K nodes in registers). Phases: the walk's four, the whole kernel, and
+# (in `phase_cycles` only, nested in the leaf work) the mean lane's cycles in
+# its insertions.
+R2_VARIANTS = {
+    # Register budgets of the KMAX 8 instance: 8 resident blocks per SM (at
+    # most 64 registers) or 6 (80); the base takes what its nodes need.
+    "min_blocks_8": [("__launch_bounds__(P)\nmlat_kernel(",
+                      "__launch_bounds__(P, KMAX == 8 ? 8 : 1)\nmlat_kernel(")],
+    "min_blocks_6": [("__launch_bounds__(P)\nmlat_kernel(",
+                      "__launch_bounds__(P, KMAX == 8 ? 6 : 1)\nmlat_kernel(")],
+    # The nodes left-aligned (node j at index j, node K-1 found by a runtime
+    # compare in the merge, its depth and alpha cached for the cull) at 8
+    # blocks an SM: the compiler then keeps the node arrays in local memory.
+    "left_aligned_b8": [
+        ("__launch_bounds__(P)\nmlat_kernel(",
+         "__launch_bounds__(P, KMAX == 8 ? 8 : 1)\nmlat_kernel("),
+        ("  const int k0 = KMAX - K;\n", "  const int k0 = 0;\n"),
+        ("  int inserts = 0;\n", "  float d_last = INFINITY, a_last = 0.0f;\n  int inserts = 0;\n"),
+        ("      [&](float tn) { return (tn <= nd[KMAX - 1]) || !(na[KMAX - 1] > 0.999f); },",
+         "      [&](float tn) { return (tn <= d_last) || !(a_last > 0.999f); },"),
+        ("            if (j >= k0 && cd < nd[j]) {", "            if (j < K && cd < nd[j]) {"),
+        ("          const float w = 1.0f - na[KMAX - 1];\n          if (evict) {\n"
+         "            f0[KMAX - 1] = f0[KMAX - 1] + w * c0;\n"
+         "            f1[KMAX - 1] = f1[KMAX - 1] + w * c1;\n"
+         "            f2[KMAX - 1] = f2[KMAX - 1] + w * c2;\n          }\n"
+         "          na[KMAX - 1] = fminf(na[KMAX - 1] + (evict ? w * ca : 0.0f), 1.0f);\n",
+         "#pragma unroll\n          for (int j = 0; j < KMAX; ++j) {\n            if (j == K - 1) {\n"
+         "              const float w = 1.0f - na[j];\n              if (evict) {\n"
+         "                f0[j] = f0[j] + w * c0;\n                f1[j] = f1[j] + w * c1;\n"
+         "                f2[j] = f2[j] + w * c2;\n              }\n"
+         "              na[j] = fminf(na[j] + (evict ? w * ca : 0.0f), 1.0f);\n"
+         "              d_last = nd[j];\n              a_last = na[j];\n            }\n"
+         "          }\n"),
+        ("    if (j >= k0) {", "    if (j < K) {")],
+    "phase_clock": [
+        _PHASE_COUNTERS, *_WALK_PHASES,
+        ("  int inserts = 0;\n  WalkCounts cnt{0, 0, 0};",
+         "  int inserts = 0;\n  WalkCounts cnt{0, 0, 0};\n  const long long ph_start = clock64();"),
+        ("          ++inserts;\n", "          ++inserts;\n          const long long i0 = clock64();\n"),
+        ("          na[KMAX - 1] = fminf(na[KMAX - 1] + (evict ? w * ca : 0.0f), 1.0f);\n",
+         "          na[KMAX - 1] = fminf(na[KMAX - 1] + (evict ? w * ca : 0.0f), 1.0f);\n"
+         "          cnt.ph[5] += clock64() - i0;\n"),
+        ("      cnt, overflow);\n  if (r >= R) return;",
+         "      cnt, overflow);\n  cnt.ph[4] = clock64() - ph_start;\n" + _phase_flush(6)
+         + "  if (r >= R) return;")],
+}
+R2_PHASES = ("node_load", "child_tests", "leaf", "pop_test", "total")
+
+
 def _events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
@@ -487,13 +674,18 @@ def _timed(fn, n=40):
     return a.elapsed_time(b) / n
 
 
-def _build_variants(out_dir: Path, source: str, variants: dict):
-    """csrc/<source>.cu and each of its `variants`, compiled into a library
-    each, all nvcc started together -> {name: (path, ptxas lines, seconds)}.
-    Stops if the source does not hold a variant's text exactly once."""
+def _build_variants(out_dir: Path, source: str, variants: dict, inline=()):
+    """csrc/<source>.cu (with the headers named in `inline` pasted in
+    place of their #include) and each of its `variants`, compiled into a
+    library each, all nvcc started together -> {name: (path, ptxas lines,
+    seconds)}. Stops if the source does not hold a variant's text exactly
+    once."""
     from linevis_tpu_torch.kernels import _build
 
     src = (_build.CSRC / f"{source}.cu").read_text()
+    for header in inline:
+        text = (_build.CSRC / header).read_text().replace("#pragma once\n", "")
+        src = src.replace(f'#include "{header}"\n', text)
     out_dir.mkdir(parents=True, exist_ok=True)
     stale = sorted({name for name, subs in variants.items()
                     for old, _ in subs if src.count(old) != 1})
@@ -662,11 +854,12 @@ def _b2(dev, scene, W, H, res, turns):
         _build._loaded["raster_capsule_oit"] = lib
         buf = (ctypes.c_ulonglong * 5)()
         lib.read_phase(buf)  # zero the counters
-        fig[name]["phase_share"] = {}
+        fig[name]["phase_share"], fig[name]["phase_cycles"] = {}, {}
         for m, fn in modes.items():
             fn()
             torch.cuda.synchronize()
             lib.read_phase(buf)
+            fig[name]["phase_cycles"][m] = list(buf)
             fill, win, total, bar, epi = (float(x) for x in buf)
             # Warp-cycles: the scans, the windows without their scans, the
             # barrier wait, the epilogue, the rest (set-up, staging, bound).
@@ -735,12 +928,15 @@ def _variant_figures(source, libs, modes, turns, phases):
         lib = use(name)
         buf = (ctypes.c_ulonglong * 8)()
         lib.read_phase(buf)  # zero the counters
-        fig[name]["phase_share"] = {}
+        fig[name]["phase_share"], fig[name]["phase_cycles"] = {}, {}
         for m, fn in modes.items():
             fn()
             torch.cuda.synchronize()
             lib.read_phase(buf)
+            fig[name]["phase_cycles"][m] = list(buf)
             total = float(buf[len(phases) - 1])
+            if total == 0.0:  # a mode whose kernel keeps no phase clocks
+                continue
             share = {ph: float(buf[i]) / total for i, ph in enumerate(phases[:-1])}
             share["other"] = 1.0 - sum(share.values())
             fig[name]["phase_share"][m] = share
@@ -1051,6 +1247,110 @@ def _accum(dev, scene, W, H, res, turns):
     res["accum"] = fig
 
 
+def _ray_tracer_inputs(dev, scene, W, H):
+    from linevis_tpu_torch.ops.lbvh import lbvh_on
+    from linevis_tpu_torch.render import ray_tracer as rt
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.tube_raster import camera_tensors
+
+    s = RasterSettings(width=W, height=H)
+    cam = camera_tensors(Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
+                         .orbit(0.002, 0.1, 1.2), dev)
+    tree = lbvh_on(rt.build_capsule_bvh(scene), dev)
+    return rt, s, cam, tree, rt.tile_rays(cam[0], cam[1], s)
+
+
+def _warp_figures(lane_visits, warp_visits):
+    """A walk's node pops: per ray, per warp, and each warp's against its
+    longest and its mean lane."""
+    lanes = lane_visits.reshape(-1, 32).double()
+    w = warp_visits.double()
+    live = lanes.max(dim=1).values > 0
+    return {"ray_visits": int(lane_visits.sum()), "warp_visits": int(warp_visits.sum()),
+            "warp_over_longest_lane": _histogram(
+                (w[live] / lanes.max(dim=1).values[live] * 10).long(), 5),
+            "warp_over_mean_lane_mean": float((w[live] / lanes.mean(dim=1)[live]).mean()),
+            "sum_warp_over_sum_longest_lane": float(w.sum() / lanes.max(dim=1).values.sum()),
+            "sum_warp_x32_over_sum_lanes": float(w.sum() * 32 / lanes.sum())}
+
+
+def _r1(dev, scene, W, H, res, turns):
+    from linevis_tpu_torch.kernels import _build
+    from linevis_tpu_torch.kernels import bvh_closest_hit as ch
+
+    rt, s, cam, tree, (o, d, wz, pad) = _ray_tracer_inputs(dev, scene, W, H)
+    dmin, dmax = rt._depth_cue_range(scene, cam[0])
+    R, casts = o.shape[0], 32
+    args = (tree, scene, o, d, wz, pad, cam[2], s, casts, 0.3, dmin, dmax)
+    # Each ray's binary-walk visits and leaf tests over the loop's casts,
+    # from the one-cast kernel through the plain loop, and its warps' tests.
+    st = torch.zeros((R, 2), dtype=torch.int64, device=dev)
+    wv = torch.zeros(R // 32, dtype=torch.int64, device=dev)
+
+    def counted(*a):
+        s1, w1 = torch.zeros_like(st), torch.zeros_like(wv)
+        out = ch.capsule_closest_hit(*a, stats=s1, warp_visits=w1)
+        st.add_(s1)
+        wv.add_(w1)
+        return out
+
+    rt.trace_recast(*args, closest_hit=counted)
+    wide_wv = torch.zeros_like(wv)
+    rt.capsule_recast(*args, warp_visits=wide_wv)  # the loop kernel's collapsed walk
+    t0 = torch.zeros(R, device=dev)
+    p0 = torch.full((R,), 2 ** 31 - 1, dtype=torch.int32, device=dev)
+    st1 = torch.zeros_like(st)
+    wv1 = torch.zeros_like(wv)
+    ch.capsule_closest_hit(tree, scene, o, d, t0, p0, pad, stats=st1, warp_visits=wv1)
+    fig = {"rays": R, "casts": casts, "loop": _warp_figures(st[:, 0], wide_wv),
+           "one_cast_kernels_loop": _warp_figures(st[:, 0], wv),
+           "leaf_tests": int(st[:, 1].sum()), "first_cast": _warp_figures(st1[:, 0], wv1),
+           "ray_visits_per_warp_first_cast": _histogram(st1[:, 0].reshape(-1, 32).max(dim=1)
+                                                        .values, 256)}
+    print("r1: " + json.dumps(fig), flush=True)
+
+    def loop():
+        return list(rt.capsule_recast(*args))
+
+    def first_cast():
+        return list(ch.capsule_closest_hit(tree, scene, o, d, t0, p0, pad))
+
+    modes = {"recast_32": loop, "closest_hit_first_cast": first_cast}
+    libs = _build_variants(_build.BUILD_DIR / "split", "bvh_closest_hit", R1_VARIANTS,
+                           inline=("bvh_capsule.cuh",))
+    fig["variants"] = _variant_figures("bvh_closest_hit", libs, modes, turns, R1_PHASES)
+    for name, v in fig["variants"].items():
+        print(f"r1 {name}: " + json.dumps(v), flush=True)
+    res["r1"] = fig
+
+
+def _r2(dev, scene, W, H, res, turns):
+    from linevis_tpu_torch.kernels import _build
+    from linevis_tpu_torch.kernels.bvh_mlat import mlat_nodes
+
+    rt, s, cam, tree, (o, d, wz, pad) = _ray_tracer_inputs(dev, scene, W, H)
+    R = o.shape[0]
+    fig = {"rays": R}
+    modes = {}
+    for K in (8, 32):
+        st = torch.zeros((R, 3), dtype=torch.int64, device=dev)
+        wv = torch.zeros(R // 32, dtype=torch.int64, device=dev)
+        kw = dict(K=K, opacity=0.3, tf_opacity=s.tf_opacity)
+        mlat_nodes(tree, scene, o, d, wz, pad, cam[2], stats=st, warp_visits=wv, **kw)
+        fig[f"k{K}"] = {**_warp_figures(st[:, 0], wv), "leaf_tests": int(st[:, 1].sum()),
+                        "inserts": int(st[:, 2].sum())}
+        modes[f"mlat_k{K}"] = (lambda kw=kw: list(mlat_nodes(tree, scene, o, d, wz, pad, cam[2],
+                                                             **kw)))
+    print("r2: " + json.dumps(fig), flush=True)
+    libs = _build_variants(_build.BUILD_DIR / "split", "bvh_mlat", R2_VARIANTS,
+                           inline=("bvh_capsule.cuh",))
+    fig["variants"] = _variant_figures("bvh_mlat", libs, modes, turns, R2_PHASES)
+    for name, v in fig["variants"].items():
+        print(f"r2 {name}: " + json.dumps(v), flush=True)
+    res["r2"] = fig
+
+
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     turns = int(args[args.index("--turns") + 1]) if "--turns" in args else 2
@@ -1073,8 +1373,8 @@ def main(argv=None) -> int:
         if k in ("b4", "b3"):
             {"b4": _b4, "b3": _b3}[k](dev, traj, W, H, res, turns)
         else:
-            {"b5": _b5, "b2": _b2, "b6": _b6, "b1": _b1, "accum": _accum}[k](
-                dev, scene, W, H, res, turns)
+            {"b5": _b5, "b2": _b2, "b6": _b6, "b1": _b1, "accum": _accum, "r1": _r1,
+             "r2": _r2}[k](dev, scene, W, H, res, turns)
     print(json.dumps(res), flush=True)
     if "--out" in args:
         out = Path(args[args.index("--out") + 1])
