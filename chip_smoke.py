@@ -90,7 +90,28 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   (Temporal)" on a moving camera, 4 frames each, and each denoiser on the
   small scene card vs CPU on identical samples; SSAO and GTAO on the RTAO
   G-buffer (a reading); the AO bake of the whole tornado (`AoBakeSettings`'
-  defaults, 32 launches of ao_grid; seconds, a reading).
+  defaults, 32 launches of ao_grid; seconds, a reading);
+- datasets from files (`datasets_phase`): every file type the JAX package
+  reads, written to a temporary directory by in-repo generators, named in a
+  datasets.json and loaded through `scene/factory.py:load_line_data` (the
+  .obj parser must be the native one): a displaced icosphere of 1,310,720
+  triangles as binary STL (the weld, normals and curvature timed) through
+  the registry's "Opaque (Triangle Mesh)" (tile 16x8, the binning window
+  per camera; kernel triangle_raster once a frame), 8 frames, each frame's
+  span, keys, capacity and overflow (0 required), B3 bit for bit with its
+  plain version on frame 0's CSR, a float64 ray-mesh reading of coverage on
+  every 16th pixel, the frame card vs CPU at scale 0.1; the Femur-like lines
+  with the boundary of a 48x48x96 hexahedral mesh (ASCII VTK) as their hull
+  in a v3 .dat, the hull drawn with the hull TF, 8 frames, B3 bit for bit
+  on frame 0, its overflow printed; the traced tornado as .binlines, .obj
+  and NetCDF-classic, each loaded as written (.binlines and .obj exactly,
+  NetCDF within 1e-6 of its normalized log-pressure mapping restated in
+  numpy), the .binlines through "Opaque" (capsule_raster once a frame), 8
+  frames, its frame 0 equal to the in-memory trajectories'; the grid
+  streamline tracer (RKF45 adaptive, loop termination) on the tornado
+  sampled at 128^3, 512 seeds, 400 steps, card vs CPU: trilinear samples
+  and the first 16 steps gated, the full trace read as the share of lines
+  with the CPU's point count.
 For each path it times the frames and their stages with CUDA events, checks
 that exactly the expected kernels were launched the expected number of
 times, holds the path's kernel against its plain PyTorch version on the same
@@ -206,6 +227,10 @@ PRISM_ROWS = 23  # payload rows the prism kernel reads per candidate (0-10, 24-3
 TRIANGLE_OPS_PER_EVAL = 21
 TRIANGLE_OPS_PER_TAKE = 4 * 9 + 1
 TRIANGLE_PLANES = 8
+# Payload rows the triangle kernel reads per evaluated slot (the edge, depth
+# and id planes and the chunk's depth bound, 0-15); the attribute planes'
+# rows it reads only for each pixel's final winner.
+TRIANGLE_STAGED_ROWS = 16
 RTAO_FRAMES = 8
 # Float operations of one (record slot, ray) test of the AO kernel, each
 # add/mul/neg/min/max/compare/sqrt/div counted once. Every test 62: o - a 3,
@@ -553,6 +578,583 @@ def ao_root_tests(pairs, records, chunk):
     return int(tests), roots.tolist()
 
 
+# 24. Datasets from files (see `datasets_phase`).
+DS_FRAMES = 8  # frames of the surface frame, the hull pass and the flow-file frame
+DS_HEX_CELLS = (48, 48, 96)  # the Femur-like hexahedral mesh, whose boundary is the hull
+DS_GRID_RES = 128  # the tornado grid of the grid tracer
+DS_GRID_SEEDS, DS_GRID_STEPS = 512, 400  # the grid tracer's lines and their steps
+DS_CHECK_SCALE = 0.1  # the surface frame's card-vs-CPU frame
+DS_ORACLE_STRIDE = 4  # the coverage oracle reads every 4th pixel in x and y: one in 16
+DS_GRID_SAMPLES = 65536  # trilinear samples held card vs CPU
+DS_FIRST_STEPS = 16  # the grid tracer's steps held card vs CPU
+
+
+def b3_check(csr, tile_w, tile_h):
+    """B3 against its plain version on one CSR (`equal`: bit for bit on
+    every output; the chunks each tile evaluated after early-z must be
+    equal, or it raises) and the figures of its `kernels` row: its time,
+    the plain version's, and the bound from the (slot, pixel) evaluations
+    of the chunks the kernel evaluated after early-z and the plain
+    version's updates. Its bytes: rows 0-15 of every evaluated slot, the
+    attribute rows of every slot that ends as some pixel's winner, the
+    tiles' chunk base and count, and the outputs. -> (kernel outputs,
+    plain outputs, figures)."""
+    from linevis_tpu_torch.kernels import raster_pallas
+
+    n_tiles = csr.tile_chunk_base.shape[0]
+    P = tile_w * tile_h
+    work = torch.zeros(n_tiles, dtype=torch.int32, device=csr.payload.device)
+    k_out = raster_pallas.rasterize_gbuffer(csr, TRIANGLE_PLANES, tile_w, tile_h, work=work)
+    stats = {}
+    p_out = raster_pallas.rasterize_triangles_reference(csr, tile_w, tile_h, TRIANGLE_PLANES,
+                                                        stats=stats)
+    if not torch.equal(work, stats["work"]):
+        raise RuntimeError("B3's chunks evaluated per tile differ from its plain version's")
+    k_all, p_all = [k_out[0], k_out[1], *k_out[2]], [p_out[0], p_out[1], *p_out[2]]
+    equal = all(torch.equal(a, b) for a, b in zip(k_all, p_all))
+    max_err = max(float((a - b).abs().max()) for a, b in zip([k_out[0], *k_out[2]],
+                                                              [p_out[0], *p_out[2]]))
+    # Real (not padded) slots in the chunks each tile evaluated after early-z.
+    real = (csr.payload[15] < 2.5).sum(dim=1)
+    cum = torch.cat([real.new_zeros(1), torch.cumsum(real, 0)])
+    base = csr.tile_chunk_base.long()
+    evaluated = int((cum[base + work.long()] - cum[base]).sum())
+    per_tile = csr.tile_num_chunks.double()
+    ms = _time_ms(lambda: raster_pallas.rasterize_gbuffer(csr, TRIANGLE_PLANES, tile_w, tile_h), 20)
+    plain_ms = _time_ms(lambda: raster_pallas.rasterize_triangles_reference(
+        csr, tile_w, tile_h, TRIANGLE_PLANES), 1)
+    # A (tile, id) names one slot: the binning pairs each triangle with a tile once.
+    ids = p_out[1].long()
+    tile_of = torch.arange(n_tiles, device=ids.device)[:, None].expand_as(ids)
+    won = ids >= 0
+    winners = int(torch.unique(tile_of[won] * (int(ids.max()) + 1) + ids[won]).numel())
+    out_bytes = (2 + TRIANGLE_PLANES) * n_tiles * P * 4
+    in_bytes = (evaluated * TRIANGLE_STAGED_ROWS * 4 + winners * 3 * TRIANGLE_PLANES * 4
+                + 2 * n_tiles * 4)
+    t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
+    t_ops = (evaluated * P * TRIANGLE_OPS_PER_EVAL
+             + stats["takes"] * TRIANGLE_OPS_PER_TAKE) / H100_FP32_FLOPS * 1e3
+    return k_out, p_out, {
+        "equal": equal, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bytes": in_bytes + out_bytes, "bytes_ms": t_bytes, "operations_ms": t_ops,
+        "library_ms": None, "pairs": int(real.sum()), "chunks": int(csr.tile_num_chunks.sum()),
+        "evaluated": evaluated, "chunks_evaluated": int(work.sum()), "updates": stats["takes"],
+        "winning_slots": winners,
+        "chunks_per_tile_p50": float(per_tile.quantile(0.5)),
+        "chunks_per_tile_p99": float(per_tile.quantile(0.99)),
+        "chunks_per_tile_max": int(csr.tile_num_chunks.max()),
+        "tile": [tile_w, tile_h],
+    }
+
+
+def coverage_oracle(mesh, camera, fg, stride=DS_ORACLE_STRIDE, batch=1 << 22):
+    """float64 reading of a surface frame's coverage: on the pixels (x, y)
+    with x % stride == 0 and y % stride == 0, a float64 Moller-Trumbore ray
+    from the camera through the pixel centre against every triangle whose
+    float64 screen box, dilated by 1 px, holds that centre; against `fg`
+    [H, W] (the frame's foreground). -> {"samples", "oracle_covered",
+    "frame_covered", "lost": covered by the oracle, background in the frame,
+    "extra": the reverse}."""
+    from linevis_tpu_torch.automation.parity import _pixel_rays64
+    from linevis_tpu_torch.render.opaque import _ray_basis_from_view_proj
+
+    dev = fg.device
+    H, W = fg.shape
+    vp = torch.tensor(camera.view_projection_matrix(), dtype=torch.float64, device=dev)
+    origin = torch.tensor(camera.position, dtype=torch.float64, device=dev)
+    basis = _ray_basis_from_view_proj(vp)
+    verts, tris = mesh.vertices.double(), mesh.triangles
+    c = verts @ vp[:, :3].T + vp[:, 3]
+    sx = (c[:, 0] / c[:, 3] * 0.5 + 0.5) * W
+    sy = (0.5 - c[:, 1] / c[:, 3] * 0.5) * H
+    nsx, nsy = (W - 1) // stride + 1, (H - 1) // stride + 1
+    tx, ty = sx[tris], sy[tris]
+    ix0 = torch.ceil((tx.min(dim=1).values - 1.5) / stride).clamp(min=0).long()
+    ix1 = torch.floor((tx.max(dim=1).values + 0.5) / stride).clamp(max=nsx - 1).long()
+    iy0 = torch.ceil((ty.min(dim=1).values - 1.5) / stride).clamp(min=0).long()
+    iy1 = torch.floor((ty.max(dim=1).values + 0.5) / stride).clamp(max=nsy - 1).long()
+    keep = (c[:, 3][tris] > 1e-4).all(dim=1) & (ix1 >= ix0) & (iy1 >= iy0)
+    sel = torch.nonzero(keep).reshape(-1)
+    covered = torch.zeros(nsy * nsx, dtype=torch.bool, device=dev)
+    if sel.numel():
+        mx = int((ix1 - ix0)[sel].max()) + 1
+        my = int((iy1 - iy0)[sel].max()) + 1
+        di = torch.arange(mx, device=dev)
+        dj = torch.arange(my, device=dev)
+        step = max(1, batch // (mx * my))
+        for b0 in range(0, sel.numel(), step):
+            t = sel[b0:b0 + step]
+            gi = (ix0[t][:, None, None] + di[None, None, :]).expand(-1, my, mx)
+            gj = (iy0[t][:, None, None] + dj[None, :, None]).expand(-1, my, mx)
+            ok = (gi <= ix1[t][:, None, None]) & (gj <= iy1[t][:, None, None])
+            tri = t[:, None, None].expand(-1, my, mx)[ok]
+            gi, gj = gi[ok], gj[ok]
+            d = _pixel_rays64(gi * stride, gj * stride, basis, W, H)  # [3, N]
+            corner = [verts[tris[tri, k]].T for k in range(3)]  # [3, N] each
+            e1, e2 = corner[1] - corner[0], corner[2] - corner[0]
+            pvec = torch.linalg.cross(d, e2, dim=0)
+            det = (e1 * pvec).sum(0)
+            nz = det.abs() > 1e-300
+            inv = 1.0 / torch.where(nz, det, torch.ones_like(det))
+            tvec = origin[:, None] - corner[0]
+            uu = (tvec * pvec).sum(0) * inv
+            qvec = torch.linalg.cross(tvec, e1, dim=0)
+            vv = (d * qvec).sum(0) * inv
+            tt = (e2 * qvec).sum(0) * inv
+            hit = nz & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & (tt > 0)
+            covered[(gj * nsx + gi)[hit]] = True
+    frame = fg[::stride, ::stride].reshape(-1)
+    return {"samples": int(covered.numel()), "oracle_covered": int(covered.sum()),
+            "frame_covered": int(frame.sum()), "lost": int((covered & ~frame).sum()),
+            "extra": int((frame & ~covered).sum())}
+
+
+def datasets_phase(dev, gpu, traj, reset_launches, expect_launches, resources):
+    """24. Datasets from files: every file type the JAX package reads,
+    written to a temporary directory from in-repo generators, named in a
+    datasets.json and loaded through `scene/factory.py:load_line_data`:
+    the displaced icosphere (`entry.SPHERE_SUBDIVISIONS`) as binary STL,
+    drawn through the registry's "Opaque (Triangle Mesh)"; the Femur-like
+    lines with the boundary of a hexahedral mesh (ASCII VTK, `DS_HEX_CELLS`
+    cells) as their hull in a v3 .dat, the hull drawn with the hull TF; the
+    traced tornado `traj` as .binlines, .obj and NetCDF-classic, the
+    .binlines through "Opaque"; and the grid streamline tracer (RKF45
+    adaptive, loop termination) on the tornado sampled at `DS_GRID_RES`^3.
+    Each of the three frames is also traced in this run order
+    (`profiling.device_summary`).
+    Returns the phase's `kernels` rows (B3 at tile 16x8 on the surface and
+    the hull)."""
+    import shutil
+    import tempfile
+
+    from scipy.io import netcdf_file
+
+    from linevis_tpu_torch import native
+    from linevis_tpu_torch.core.trajectories import (
+        RaggedTrajectories,
+        normalize_attributes,
+        normalize_trajectories,
+        pad_trajectories,
+    )
+    from linevis_tpu_torch.automation.profiling import device_summary, trace
+    from linevis_tpu_torch.entry import (
+        SPHERE_SUBDIVISIONS,
+        TORNADO_RADIUS,
+        displaced_icosphere,
+        femur_hex_mesh,
+        synth_v3_blocks,
+        write_binary_stl,
+        write_hex_mesh_vtk,
+    )
+    from linevis_tpu_torch.kernels import raster_pallas
+    from linevis_tpu_torch.kernels.tiles import unpack_tiles
+    from linevis_tpu_torch.loaders import mesh_loader
+    from linevis_tpu_torch.loaders.binlines import BinLinesData, save_trajectories_as_binlines
+    from linevis_tpu_torch.loaders.dataset_list import load_dataset_list
+    from linevis_tpu_torch.loaders.hex_mesh import load_hull_from_hex_mesh
+    from linevis_tpu_torch.loaders.stress_dat import (
+        SimulationMeshHull,
+        write_stress_trajectories_dat_v3,
+    )
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.framebuffer import ssim
+    from linevis_tpu_torch.render.pipeline import GBUFFER_PLANES, RasterSettings, build_payload
+    from linevis_tpu_torch.render.renderer import create_renderer
+    from linevis_tpu_torch.render.surface import (
+        render_surface,
+        shade_surface,
+        surface_frame,
+        surface_span,
+        surface_tensors,
+        surface_vertex_stage,
+    )
+    from linevis_tpu_torch.render.tube_raster import camera_tensors
+    from linevis_tpu_torch.scene.factory import load_line_data
+    from linevis_tpu_torch.scene.line_data import LineDataFlow
+    from linevis_tpu_torch.scene.line_data_stress import LineDataStress
+    from linevis_tpu_torch.scene.triangle_mesh_data import TriangleMeshData
+    from linevis_tpu_torch.trace.fields import make_tornado_grid, sample_grid_trilinear
+    from linevis_tpu_torch.trace.streamline import (
+        StreamlineTracingSettings,
+        trace_streamlines_grid,
+    )
+
+    parser = "native" if native.available() else "python"
+    print(f"obj parser: {parser} ({native.library_path().name})", flush=True)
+    if parser != "native":
+        raise RuntimeError("the native loader library did not build on the card's machine")
+    sync = torch.cuda.synchronize
+    width, height, frames = W, H, DS_FRAMES
+    base = Camera(position=(0.0, 0.1, 1.2), width=width, height=height)
+    cams = [base.orbit(0.002 * (i + 1), 0.1, 1.2) for i in range(frames)]
+    seconds = {}
+    tmp = tempfile.mkdtemp(prefix="linevis_datasets_")
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[key] = time.perf_counter() - t0
+        return out
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    def in_order_trace(render_frame, items, host_ms):
+        """The frames once more under the profiler, here in the smoke's run
+        order: the card's busy ms and idle share against the host clock of
+        the same frames timed without it (`host_ms`), the top kernels and
+        host ops."""
+        with trace() as prof:
+            for item in items:
+                render_frame(item)
+                sync()
+        out = device_summary(prof, float(np.sum(host_ms)), top=6)
+        out["per_frame_busy_ms"] = out["device_busy_ms"] / len(items)
+        return out
+
+    try:
+        # Write the files.
+        n_tris = 20 * 4 ** SPHERE_SUBDIVISIONS
+        timed("write_stl", lambda: write_binary_stl(path("sphere.stl"), displaced_icosphere()))
+        points, hexes = femur_hex_mesh(*DS_HEX_CELLS)
+        timed("write_vtk", lambda: write_hex_mesh_vtk(path("femur_hex.vtk"), points, hexes))
+        hull = timed("hex_mesh_boundary", lambda: load_hull_from_hex_mesh(path("femur_hex.vtk")))
+        write_stress_trajectories_dat_v3(
+            path("femur.dat"), synth_v3_blocks(np.random.default_rng(11)),
+            SimulationMeshHull(hull.vertices, hull.triangles, mesh_type="unstructured"))
+        n_pts = traj.mask.sum(axis=1)
+        names = list(traj.attribute_names)
+        ragged = RaggedTrajectories([traj.positions[i, :n] for i, n in enumerate(n_pts)],
+                                    [traj.attributes[i, :, :n] for i, n in enumerate(n_pts)],
+                                    names)
+        save_trajectories_as_binlines(path("tornado.binlines"), BinLinesData(ragged))
+        obj_names = [n.replace(" ", "_") for n in names]
+        with open(path("tornado.obj"), "w") as f:
+            # 9 significant digits: every float32 reads back exactly.
+            np.savetxt(f, np.concatenate(ragged.positions), fmt="v %.9g %.9g %.9g")
+            np.savetxt(f, np.concatenate([a.T for a in ragged.attributes]),
+                       fmt="vt " + " ".join(["%.9g"] * len(names)))
+            f.write("a " + " ".join(obj_names) + "\n")
+            offs = np.concatenate([[0], np.cumsum(n_pts)])
+            for i in range(len(n_pts)):
+                f.write("l " + " ".join(map(str, range(offs[i] + 1, offs[i + 1] + 1))) + "\n")
+        # NetCDF (CF layout, tests/test_loaders.py): lat, lon and pressure
+        # from the tornado's x, z and y (pressure 1000 exp(-(y + 0.5)), NaN
+        # past a line's end), its first attribute as a fourth variable.
+        m = traj.mask
+        nc_vars = {
+            "lat": np.where(m, traj.positions[..., 0], 0.0),
+            "lon": np.where(m, traj.positions[..., 2], 0.0),
+            "pressure": np.where(m, 1000.0 * np.exp(-(traj.positions[..., 1] + 0.5)), np.nan),
+            "velocity_magnitude": np.where(m, traj.attributes[:, 0], 0.0),
+        }
+        nc_vars = {k: v.astype(np.float32)[None] for k, v in nc_vars.items()}
+        f = netcdf_file(path("tornado.nc"), "w")
+        f.createDimension("ensemble", 1)
+        f.createDimension("trajectory", m.shape[0])
+        f.createDimension("time", m.shape[1])
+        for k, v in nc_vars.items():
+            f.createVariable(k, "f", ("ensemble", "trajectory", "time"))[:] = v
+        f.variables["velocity_magnitude"].standard_name = "Velocity Magnitude"
+        f.close()
+        line_width = 2.0 * TORNADO_RADIUS
+        with open(path("datasets.json"), "w") as f:
+            json.dump({"datasets": [
+                {"type": "trimesh", "name": "sphere", "filenames": "sphere.stl"},
+                {"type": "stress", "name": "femur", "filenames": "femur.dat", "version": 3},
+                {"type": "node", "name": "tornado", "children": [
+                    {"type": "flow", "name": name, "filenames": name, "linewidth": line_width}
+                    for name in ("tornado.binlines", "tornado.obj", "tornado.nc")]},
+            ]}, f)
+        leaves = {x.name: x for x in load_dataset_list(path("datasets.json")).flat_leaves()}
+        sizes = {n: os.path.getsize(path(n)) for n in sorted(os.listdir(tmp))}
+        print("dataset files: " + json.dumps({"bytes": sizes, "write_seconds": dict(seconds),
+                                              "parser": parser}), flush=True)
+
+        # The surface frame.
+        sphere = timed("load_sphere", lambda: load_line_data(leaves["sphere"]))
+        if not isinstance(sphere, TriangleMeshData) or sphere.num_triangles != n_tris:
+            raise RuntimeError("the STL did not load as the icosphere's TriangleMeshData")
+        mesh_np = timed("stl_weld", lambda: mesh_loader._load_stl(path("sphere.stl")))
+        nrm = timed("normals", lambda: mesh_loader.compute_vertex_normals(
+            mesh_np.vertices, mesh_np.triangles))
+        timed("curvature", lambda: mesh_loader.compute_curvature_attribute(
+            mesh_np.vertices, mesh_np.triangles, nrm))
+        renderer = create_renderer("Opaque (Triangle Mesh)", device=dev)
+        renderer.set_line_data(sphere)
+        renderer.render(cams[0])  # warm-up: the mesh's upload and the first launch
+        sync()
+        reset_launches()
+        frame_ms, host_ms = [], []
+        for cam in cams:
+            a, b = _events()
+            t0 = time.perf_counter()
+            a.record()
+            img = renderer.render(cam)
+            b.record()
+            sync()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            frame_ms.append(a.elapsed_time(b))
+            if not np.isfinite(img).all():
+                raise RuntimeError("non-finite surface frame")
+        surface_launches = expect_launches({"triangle_raster": frames})["triangle_raster"]
+        surface_trace = in_order_trace(renderer.render, cams, host_ms)
+
+        mesh_t = sphere.get_surface_tensors(dev)
+        stage_ms = {k: [] for k in ("span", "vertex_payload", "csr_binning", "kernel", "shade",
+                                    "to_host")}
+        per_frame = []
+        for cam in cams:
+            vp, cp, _ = camera_tensors(cam, dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+            ev[0].record()
+            S = renderer.raster_settings(cam)
+            ev[1].record()
+            batch = surface_vertex_stage(mesh_t.vertices, mesh_t.normals, mesh_t.attributes,
+                                         mesh_t.triangles, vp, width, height)
+            payload = build_payload(batch)
+            ev[2].record()
+            csr = raster_pallas.build_csr_binning(
+                batch.tri_x, batch.tri_y, payload, batch.tri_valid, width, height, 16, 8,
+                S.chunk, S.span_x, S.span_y, S.pairs_capacity)
+            ev[3].record()
+            raster = raster_pallas.rasterize_gbuffer(csr, GBUFFER_PLANES, 16, 8)
+            ev[4].record()
+            img = shade_surface(csr, raster, batch, vp, cp, S)
+            ev[5].record()
+            img.cpu()
+            ev[6].record()
+            sync()
+            for k, (a, b) in zip(stage_ms, zip(ev[:-1], ev[1:])):
+                stage_ms[k].append(a.elapsed_time(b))
+            keys = S.span_x * S.span_y * n_tris
+            per_frame.append({"span": [S.span_x, S.span_y], "keys": keys,
+                              "pairs_capacity": min(keys, 2 * n_tris + 65536),
+                              "overflow": int(csr.overflow)})
+            del batch, payload, csr, raster, img
+        vp0, cp0, _ = camera_tensors(cams[0], dev)
+        S0 = renderer.raster_settings(cams[0])
+        batch, csr = surface_frame(mesh_t, vp0, S0)
+        k_out, _, fig_s = b3_check(csr, 16, 8)
+        fg = unpack_tiles(k_out[1] >= 0, csr.tiles_x, csr.tiles_y, 16, 8, width, height)
+        oracle = coverage_oracle(mesh_t, cams[0], fg)
+        small = dataclasses.replace(cams[0], width=round(width * DS_CHECK_SCALE),
+                                    height=round(height * DS_CHECK_SCALE))
+        g_img = renderer.render(small)
+        r_cpu = create_renderer("Opaque (Triangle Mesh)", device="cpu")
+        r_cpu.set_line_data(sphere)
+        c_img = r_cpu.render(small)
+        check = [ssim(g_img[..., :3], c_img[..., :3]), float(np.abs(g_img - c_img).mean())]
+        surface_line = {
+            "frame_ms_median": float(np.median(frame_ms)),
+            "host_ms_median": float(np.median(host_ms)),
+            "frame_ms": frame_ms, "host_ms": host_ms, "trace": surface_trace,
+            "stage_ms_median": {k: float(np.median(v)) for k, v in stage_ms.items()},
+            "triangles": n_tris, "vertices": sphere.num_vertices,
+            "valid_triangles": int(batch.tri_valid.sum()), "per_frame": per_frame,
+            "payload_chunks_capacity": int(csr.payload.shape[1]),
+            "foreground": float(fg.float().mean()), "oracle": oracle,
+            "b3_equal": fig_s["equal"],
+            "card_vs_cpu_small (ssim, mean abs)": check,
+            "load_seconds": {k: seconds[k] for k in ("load_sphere", "stl_weld", "normals",
+                                                     "curvature")},
+            "launches": surface_launches, "frames": frames, "width": width,
+            "height": height, "gpu": gpu,
+        }
+        print("surface frame: " + json.dumps(surface_line), flush=True)
+        if any(f["overflow"] for f in per_frame):
+            raise RuntimeError("the surface frame's binning dropped pairs")
+        if not fig_s["equal"]:
+            raise RuntimeError("B3 disagrees with its plain version on the surface frame")
+        if check[0] < 0.999 or check[1] > 2e-3 or not np.isfinite(g_img).all():
+            raise RuntimeError("the card's surface frame disagrees with the CPU's")
+        if surface_line["foreground"] < 0.2:
+            raise RuntimeError("the surface frame is almost empty")
+        del batch, csr, k_out, fg
+
+        # The hull pass.
+        femur = timed("load_femur_dat", lambda: load_line_data(leaves["femur"]))
+        hull_mesh = femur.get_hull_surface()
+        if hull_mesh is None or hull_mesh.triangles.shape != hull.triangles.shape:
+            raise RuntimeError("the v3 .dat did not carry the hex mesh's boundary as its hull")
+        hull_t = surface_tensors(hull_mesh, dev)
+        color = ((0.0,) + LineDataStress.HULL_COLOR_LINEAR, (1.0,) + LineDataStress.HULL_COLOR_LINEAR)
+        opacity = ((0.0, LineDataStress.HULL_OPACITY), (1.0, LineDataStress.HULL_OPACITY))
+
+        def hull_settings(vp):
+            sx, sy = surface_span(hull_t.vertices, hull_t.triangles, vp, width, height, 16, 8)
+            return RasterSettings(width=width, height=height, tile_w=16, tile_h=8, span_x=sx,
+                                  span_y=sy, tf_color=color, tf_opacity=opacity,
+                                  background_color=(1.0, 1.0, 1.0, 0.0))
+
+        hull_cams = [camera_tensors(c, dev) for c in cams]
+        render_surface(hull_t, hull_cams[0][0], hull_cams[0][1], hull_settings(hull_cams[0][0]))
+        sync()
+        reset_launches()
+        hull_ms, hull_host_ms = [], []
+        for vp, cp, _ in hull_cams:
+            a, b = _events()
+            t0 = time.perf_counter()
+            a.record()
+            img = render_surface(hull_t, vp, cp, hull_settings(vp))
+            b.record()
+            sync()
+            hull_host_ms.append((time.perf_counter() - t0) * 1e3)
+            hull_ms.append(a.elapsed_time(b))
+        hull_launches = expect_launches({"triangle_raster": frames})["triangle_raster"]
+        hull_trace = in_order_trace(lambda c: render_surface(hull_t, c[0], c[1],
+                                                             hull_settings(c[0])),
+                                    hull_cams, hull_host_ms)
+        hull_frames = []
+        for vp, _, _ in hull_cams:
+            S = hull_settings(vp)
+            _, csr = surface_frame(hull_t, vp, S)
+            keys = S.span_x * S.span_y * hull_t.num_triangles
+            hull_frames.append({"span": [S.span_x, S.span_y], "keys": keys,
+                                "pairs_capacity": min(keys, 2 * hull_t.num_triangles + 65536),
+                                "overflow": int(csr.overflow)})
+        S0 = hull_settings(hull_cams[0][0])
+        batch, csr = surface_frame(hull_t, hull_cams[0][0], S0)
+        k_out, _, fig_h = b3_check(csr, 16, 8)
+        img = shade_surface(csr, k_out, batch, hull_cams[0][0], hull_cams[0][1], S0)
+        covered = float((img[3] > 0).float().mean())
+        hull_line = {
+            "frame_ms_median": float(np.median(hull_ms)),
+            "host_ms_median": float(np.median(hull_host_ms)),
+            "frame_ms": hull_ms, "host_ms": hull_host_ms, "trace": hull_trace,
+            "hull_triangles": hull_t.num_triangles, "hull_vertices": int(hull_t.vertices.shape[0]),
+            "hex_cells": int(hexes.shape[0]), "per_frame": hull_frames,
+            "covered": covered, "b3_equal": fig_h["equal"],
+            "load_seconds": {k: seconds[k] for k in ("hex_mesh_boundary", "load_femur_dat")},
+            "launches": hull_launches, "frames": frames, "width": width, "height": height,
+            "gpu": gpu,
+        }
+        print("hull pass: " + json.dumps(hull_line), flush=True)
+        if not fig_h["equal"]:
+            raise RuntimeError("B3 disagrees with its plain version on the hull pass")
+        if not bool(torch.isfinite(img).all()) or not 0.05 < covered < 0.95:
+            raise RuntimeError("the hull pass is non-finite or empty")
+        del batch, csr, k_out, img, hull_t
+
+        # The flow files, loaded through the factory and held against what
+        # was written.
+        flows = {n: timed("load_" + n, lambda n=n: load_line_data(leaves[n]))
+                 for n in ("tornado.binlines", "tornado.obj", "tornado.nc")}
+        expected = normalize_attributes(normalize_trajectories(pad_trajectories(ragged)))
+        p = nc_vars["pressure"][0]
+        ok = np.isfinite(p) & (p > 0.0)
+        log_min = np.log(max(p[ok].min(), 1e-30))
+        log_max = np.log(max(np.nanmax(p), 1e-30))
+        y = (np.log(np.maximum(p, 1e-30)) - log_max) / (log_min - log_max)
+        nc_ragged = RaggedTrajectories(
+            [np.stack([nc_vars["lat"][0, i, :n], y[i, :n], nc_vars["lon"][0, i, :n]],
+                      axis=-1).astype(np.float32) for i, n in enumerate(n_pts)],
+            [np.stack([p[i, :n], nc_vars["velocity_magnitude"][0, i, :n]]) for i, n in
+             enumerate(n_pts)], ["pressure", "Velocity Magnitude"])
+        nc_expected = normalize_attributes(normalize_trajectories(pad_trajectories(nc_ragged)))
+        flow_check = {}
+        for name, want, want_names in (("tornado.binlines", expected, names),
+                                       ("tornado.obj", expected, obj_names),
+                                       ("tornado.nc", nc_expected, nc_ragged.attribute_names)):
+            got = flows[name].trajectories
+            same_shape = got.positions.shape == want.positions.shape
+            err = (max(float(np.abs(getattr(got, k) - getattr(want, k)).max())
+                       for k in ("positions", "attributes")) if same_shape else float("inf"))
+            flow_check[name] = {"max_abs_err": err, "load_seconds": seconds["load_" + name],
+                                "mask_equal": same_shape and bool(np.array_equal(got.mask,
+                                                                                 want.mask)),
+                                "names": got.attribute_names == want_names}
+            bar = 1e-6 if name == "tornado.nc" else 0.0
+            if not (flow_check[name]["mask_equal"] and flow_check[name]["names"]) or err > bar:
+                raise RuntimeError(f"{name} did not load as written: {flow_check[name]}")
+        ld_file = flows["tornado.binlines"]
+        r_op = create_renderer("Opaque", device=dev)
+        r_op.set_line_data(ld_file)
+        r_op.render(cams[0])
+        sync()
+        reset_launches()
+        flow_ms, flow_host_ms, first = [], [], None
+        for cam in cams:
+            a, b = _events()
+            t0 = time.perf_counter()
+            a.record()
+            img = r_op.render(cam)
+            b.record()
+            sync()
+            flow_host_ms.append((time.perf_counter() - t0) * 1e3)
+            flow_ms.append(a.elapsed_time(b))
+            first = img if first is None else first
+        flow_launches = expect_launches({"capsule_raster": frames})
+        flow_trace = in_order_trace(r_op.render, cams, flow_host_ms)
+        ld_mem = LineDataFlow(expected, name="memory")
+        ld_mem.set_line_width(line_width)
+        r_mem = create_renderer("Opaque", device=dev)
+        r_mem.set_line_data(ld_mem)
+        from_memory = bool(np.array_equal(first, r_mem.render(cams[0])))
+        flow_line = {"files": flow_check, "frame_ms_median": float(np.median(flow_ms)),
+                     "host_ms_median": float(np.median(flow_host_ms)),
+                     "frame_ms": flow_ms, "host_ms": flow_host_ms, "trace": flow_trace,
+                     "frame0_equals_memory": from_memory,
+                     "foreground": float((first[..., :3] < 0.999).any(-1).mean()),
+                     "launches": flow_launches["capsule_raster"], "frames": frames,
+                     "width": width, "height": height, "gpu": gpu}
+        print("flow files: " + json.dumps(flow_line), flush=True)
+        if not from_memory or flow_line["foreground"] < 0.01:
+            raise RuntimeError("the .binlines frame differs from the in-memory trajectories'")
+
+        # The grid tracer: RKF45 adaptive with loop termination, card vs CPU.
+        grid = timed("tornado_grid", lambda: make_tornado_grid(DS_GRID_RES))
+        gs = StreamlineTracingSettings(num_seeds=DS_GRID_SEEDS, max_steps=DS_GRID_STEPS,
+                                       dt=1.0 / 150.0, integrator="rkf45", adaptive=True,
+                                       termination_distance=0.005, loop_min_gap=10)
+        seeds = np.random.default_rng(42).uniform(size=(DS_GRID_SEEDS, 3)).astype(np.float32)
+        trace_streamlines_grid(grid, dataclasses.replace(gs, max_steps=2), seeds, dev)
+        sync()
+        t0 = time.perf_counter()
+        g_traj = trace_streamlines_grid(grid, gs, seeds, dev)
+        trace_s = time.perf_counter() - t0
+        c_traj = timed("grid_trace_cpu", lambda: trace_streamlines_grid(grid, gs, seeds, "cpu"))
+        pts = np.random.default_rng(7).uniform(-0.1, 1.1, (DS_GRID_SAMPLES, 3)).astype(np.float32)
+        g_grid = torch.as_tensor(grid, device=dev)
+        samples = [sample_grid_trilinear(g, torch.as_tensor(pts, device=g.device)).cpu()
+                   for g in (g_grid, torch.as_tensor(grid))]
+        sample_err = float((samples[0] - samples[1]).abs().max())
+        short = dataclasses.replace(gs, max_steps=DS_FIRST_STEPS)
+        gf, cf = (trace_streamlines_grid(grid, short, seeds, d) for d in (dev, "cpu"))
+        first_same = (gf.mask == cf.mask).all(axis=1)
+        first_err = float(np.abs(gf.positions - cf.positions)[first_same].max())
+        same = g_traj.num_points == c_traj.num_points
+        grid_line = {
+            "seconds": trace_s, "cpu_seconds": seconds["grid_trace_cpu"],
+            "grid_seconds": seconds["tornado_grid"], "grid_res": DS_GRID_RES,
+            "lines": int(g_traj.num_lines), "points": int(g_traj.mask.sum()),
+            "points_per_line": [int(g_traj.num_points.min()), float(np.median(g_traj.num_points)),
+                                int(g_traj.num_points.max())],
+            "samples_max_abs_err": sample_err,
+            f"first_{DS_FIRST_STEPS}_steps": {"lines_mask_equal": float(first_same.mean()),
+                                              "max_abs_err": first_err},
+            "full_trace": {"lines_equal_count": float(same.mean()),
+                           "max_abs_err_those": float(np.abs(
+                               g_traj.positions[same] - c_traj.positions[same]).max())
+                           if same.any() else None},
+            "settings": dataclasses.asdict(gs), "gpu": gpu,
+        }
+        print("grid tracer: " + json.dumps(grid_line), flush=True)
+        if not np.isfinite(g_traj.positions).all() or int(g_traj.mask.sum()) < DS_GRID_SEEDS * 2:
+            raise RuntimeError("the grid trace is non-finite or empty")
+        if sample_err > 1e-6 or first_same.mean() < 0.99 or first_err > 1e-5:
+            raise RuntimeError("the grid tracer's first steps or samples differ card vs CPU")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    row = {"route": "cuda", "source": "linevis_tpu_torch/kernels/csrc/raster_triangle.cu",
+           "replaces": "linevis_tpu/kernels/raster_pallas.py:427",
+           "instances": resources.get("raster_triangle")}
+    return [{"name": "triangle_raster:surface", **row, "launches": surface_launches, **fig_s},
+            {"name": "triangle_raster:hull", **row, "launches": hull_launches, **fig_h}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -583,6 +1185,7 @@ def main() -> int:
         TORNADO_RADIUS,
         convection_line_data,
         femur_line_data,
+        sphere_mesh_data,
     )
     from linevis_tpu_torch.core.settings import SettingsMap
     from linevis_tpu_torch.core.trajectories import Trajectories
@@ -1628,8 +2231,11 @@ def main() -> int:
               ("Vulkan Ray Tracer", {"use_mlat": True}),
               ("Deferred Opaque", {"upscaling_factor": 2})]
     for mode, mode_settings in modes:
-        ld = LineData(small_traj)
-        ld.set_line_width(0.04)
+        if mode == "Opaque (Triangle Mesh)":
+            ld = sphere_mesh_data(4)  # a surface: 5120 triangles from an STL
+        else:
+            ld = LineData(small_traj)
+            ld.set_line_width(0.04)
         out = {}
         for d in (dev, "cpu"):
             r = create_renderer(mode, SettingsMap(mode_settings), device=d)
@@ -1838,8 +2444,6 @@ def main() -> int:
     # 14. The triangle kernel vs its plain version on frame 0's CSR.
     batch = tube_vertex_stage(mesh, cams[0][0], W, H)
     csr = tri_binning(batch, build_payload(batch))
-    n_tiles = csr.tile_chunk_base.shape[0]
-    C = csr.chunk
     tri_overflow = int(csr.overflow)
     tri_chunks = int(csr.tile_num_chunks.sum())
     real = (csr.payload[15] < 2.5).sum(dim=1)  # real (not padded) slots per chunk
@@ -1858,42 +2462,25 @@ def main() -> int:
     if tri_overflow:
         raise RuntimeError(f"the triangle binning dropped {tri_overflow} pairs")
 
-    work = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    k_out = raster_pallas.rasterize_gbuffer(csr, TRIANGLE_PLANES, 32, 16, work=work)
-    stats = {}
-    p_out = raster_pallas.rasterize_triangles_reference(
-        csr, 32, 16, TRIANGLE_PLANES, stats=stats
-    )
-    torch.cuda.synchronize()
-    # Real slots in the chunks each tile evaluated after early-z.
-    cum = torch.cat([real.new_zeros(1), torch.cumsum(real, 0)])
-    base = csr.tile_chunk_base.long()
-    tri_evaluated = int((cum[base + work.long()] - cum[base]).sum())
-    tri_chunks_evaluated = int(work.sum())
-    tri_per_tile = csr.tile_num_chunks.double()
-    tri_tiles = {"chunks_per_tile_p50": float(tri_per_tile.quantile(0.5)),
-                 "chunks_per_tile_p99": float(tri_per_tile.quantile(0.99)),
-                 "chunks_per_tile_max": int(csr.tile_num_chunks.max())}
-    tri_ids_equal = bool(torch.equal(k_out[1], p_out[1]))
-    tri_depth_equal = bool(torch.equal(k_out[0], p_out[0]))
+    k_out, p_out, tri_fig = b3_check(csr, 32, 16)
     tri_id_agree = float((k_out[1] == p_out[1]).float().mean())
-    tri_max = max(float((a - b).abs().max())
-                  for a, b in zip([k_out[0], *k_out[2]], [p_out[0], *p_out[2]]))
     tri_img = tri_shade(csr, k_out, batch, cams[0]).permute(1, 2, 0).cpu().numpy()
     img_p_np = tri_shade(csr, p_out, batch, cams[0]).permute(1, 2, 0).cpu().numpy()
     img_ssim = ssim(tri_img[..., :3], img_p_np[..., :3])
     img_mad = float(np.abs(tri_img - img_p_np).mean())
     fg = float((k_out[1] >= 0).float().mean())
+    tri_ids_equal = bool(torch.equal(k_out[1], p_out[1]))
+    tri_depth_equal = bool(torch.equal(k_out[0], p_out[0]))
     print(f"triangle_raster vs plain: pairs {tri_pairs}, chunks {tri_chunks}, evaluated "
-          f"after early-z {tri_chunks_evaluated} chunks / {tri_evaluated} pairs, updates "
-          f"{stats['takes']}, ids equal {tri_ids_equal} ({tri_id_agree:.6f}), depth equal "
-          f"{tri_depth_equal}, max |dz, dplanes| {tri_max:.3g}, image ssim {img_ssim:.6f}, "
-          f"mean abs {img_mad:.3g}, foreground {fg:.4f}, chunks per tile p50 "
-          f"{tri_tiles['chunks_per_tile_p50']:.1f}, p99 {tri_tiles['chunks_per_tile_p99']:.1f}, "
-          f"max {tri_tiles['chunks_per_tile_max']}", flush=True)
+          f"after early-z {tri_fig['chunks_evaluated']} chunks / {tri_fig['evaluated']} pairs, "
+          f"updates {tri_fig['updates']}, ids equal {tri_ids_equal} ({tri_id_agree:.6f}), depth "
+          f"equal {tri_depth_equal}, every output equal {tri_fig['equal']}, max |dz, dplanes| "
+          f"{tri_fig['max_abs_err']:.3g}, image ssim {img_ssim:.6f}, mean abs {img_mad:.3g}, "
+          f"foreground {fg:.4f}, chunks per tile p50 {tri_fig['chunks_per_tile_p50']:.1f}, p99 "
+          f"{tri_fig['chunks_per_tile_p99']:.1f}, max {tri_fig['chunks_per_tile_max']}", flush=True)
     if not np.isfinite(tri_img).all():
         raise RuntimeError("non-finite pixels in the 1080p triangle frame")
-    if not (tri_ids_equal and tri_depth_equal) or tri_max > 1e-5:
+    if not (tri_ids_equal and tri_depth_equal) or tri_fig["max_abs_err"] > 1e-5:
         raise RuntimeError("triangle kernel disagrees with its plain version")
     if img_ssim < 0.999 or img_mad > 2e-3:
         raise RuntimeError("triangle kernel image disagrees with the plain version's")
@@ -1913,46 +2500,20 @@ def main() -> int:
     if parity_ssim < 0.9:
         raise RuntimeError("the prism frame does not look like the triangle frame")
 
-    tri_ms = _time_ms(
-        lambda: raster_pallas.rasterize_gbuffer(csr, TRIANGLE_PLANES, 32, 16), 20
-    )
-    tri_plain_ms = _time_ms(
-        lambda: raster_pallas.rasterize_triangles_reference(csr, 32, 16, TRIANGLE_PLANES), 1
-    )
-    rows = 16 + 3 * TRIANGLE_PLANES
-    out_bytes = (2 + TRIANGLE_PLANES) * n_tiles * P * 4
-    in_bytes = tri_evaluated * rows * 4 + 2 * n_tiles * 4
-    t_bytes = (in_bytes + out_bytes) / H100_HBM_BYTES * 1e3
-    t_ops = (tri_evaluated * P * TRIANGLE_OPS_PER_EVAL
-             + stats["takes"] * TRIANGLE_OPS_PER_TAKE) / H100_FP32_FLOPS * 1e3
     kernels.append({
         "name": "triangle_raster",
         "route": "cuda",
         "source": "linevis_tpu_torch/kernels/csrc/raster_triangle.cu",
         "replaces": "linevis_tpu/kernels/raster_pallas.py:427",
         "launches": tri_launches,
-        "max_abs_err": tri_max,
-        "ms": tri_ms,
-        "plain_ms": tri_plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "bytes": in_bytes + out_bytes,
-        "bytes_ms": t_bytes,
-        "operations_ms": t_ops,
-        "library_ms": None,
+        **tri_fig,
         "id_agree": tri_id_agree,
-        "pairs": tri_pairs,
-        "chunks": tri_chunks,
-        "evaluated": tri_evaluated,
-        "chunks_evaluated": tri_chunks_evaluated,
-        "updates": stats["takes"],
         "prism_vs_triangle_ssim": parity_ssim,
         "prism_only_pixels": prism_only,
         "triangle_only_pixels": tri_only,
-        **tri_tiles,
         "instances": resources["raster_triangle"],
     })
-    del mesh, batch, csr, k_out, p_out, real, cum, work
+    del mesh, batch, csr, k_out, p_out, real
     torch.cuda.empty_cache()
 
     def stage_sums(marks):
@@ -3062,6 +3623,9 @@ def main() -> int:
     print("ao bake: " + json.dumps(bake_line), flush=True)
     if not np.isfinite(baked).all() or not 0.05 < bake_line["mean_ao_valid"] < 1.0:
         raise RuntimeError("the AO bake is non-finite or has no occlusion")
+    torch.cuda.empty_cache()
+
+    kernels.extend(datasets_phase(dev, gpu, traj, reset_launches, expect_launches, resources))
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)

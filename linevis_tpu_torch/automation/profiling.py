@@ -9,7 +9,8 @@ that take the time.
     python -m linevis_tpu_torch.automation.profiling [OUT_DIR [PATH]]
 
 PATH: opaque|mlab|prism|triangle|rtao|wavefront|recast|mlat|wboit|depth_peeling|mlab_buckets|
-      mboit|depth_complexity|opacity_optimization|rtao_registry|a name of entry.BASELINE_CONFIGS
+      mboit|depth_complexity|opacity_optimization|rtao_registry|surface|
+      a name of entry.BASELINE_CONFIGS
 
 profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
 default) the opaque capsule frame (`render_tubes`, tile 32x16, AA on),
@@ -34,7 +35,11 @@ half-res importance gather, the plain solve and the final MLAB render; every
 frame moves the camera, so every frame solves); `rtao_registry` the RTAO
 frame as the renderer registry draws it (`create_renderer("RTAO")` on a
 `LineData` of the tornado, the image handed back as numpy; the camera moves,
-so no frames accumulate); a name of `entry.BASELINE_CONFIGS` that reference
+so no frames accumulate); `surface` a triangle-mesh dataset from a file
+(`entry.sphere_mesh_data`: the displaced icosphere of 1,310,720 triangles
+written as binary STL and loaded) through the registry's "Opaque (Triangle
+Mesh)" (tile 16x8, the binning window sized per camera, the image handed
+back as numpy); a name of `entry.BASELINE_CONFIGS` that reference
 config through the registry at its own resolution, on its frames (an orbit
 of cameras; config 3 accumulates at one camera, config 5 follows its circle
 path; configs 4 and 4b draw the Femur-like stress lines). It runs 8 frames
@@ -107,6 +112,7 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         tornado_trajectories,
         tornado_tube_mesh,
         tornado_wide_bvh,
+        sphere_mesh_data,
     )
     from linevis_tpu_torch.render import oit
     from linevis_tpu_torch.render.camera import Camera
@@ -139,9 +145,9 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         "depth_complexity": ("render_depth_complexity", {}),
     }
     paths = ("opaque", "prism", "triangle", "rtao", "wavefront", "recast", "mlat", *oit_paths,
-             "opacity_optimization", "rtao_registry", *BASELINE_CONFIGS)
+             "opacity_optimization", "rtao_registry", "surface", *BASELINE_CONFIGS)
     # These take the Camera, the rest its tensors.
-    takes_camera = ("opacity_optimization", "rtao_registry", *BASELINE_CONFIGS)
+    takes_camera = ("opacity_optimization", "rtao_registry", "surface", *BASELINE_CONFIGS)
     if path not in paths:
         raise SystemExit(f"profiling: unknown path {path!r} (one of {', '.join(paths)})")
     if not torch.cuda.is_available():
@@ -177,6 +183,13 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         scene = LineData(tornado_trajectories(dev))
         scene.set_line_width(2.0 * TORNADO_RADIUS)
         registry = create_renderer("RTAO", device=dev)
+        registry.set_line_data(scene)
+
+        def render(_scene, camera):
+            return registry.render(camera)
+    elif path == "surface":
+        scene = sphere_mesh_data()
+        registry = create_renderer("Opaque (Triangle Mesh)", device=dev)
         registry.set_line_data(scene)
 
         def render(_scene, camera):

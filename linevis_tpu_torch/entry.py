@@ -32,6 +32,13 @@ example one traced once and shared by several configs or devices).
 the tornado and the convection rolls (`convection_velocity`) traced on a
 device, the Femur-like stress lines (`synth_v3_blocks`) written to a v3
 `.dat` file of its own and read back.
+
+Datasets from files: `displaced_icosphere` (a closed surface of 20 * 4^k
+triangles) and `write_binary_stl` write the surface that
+`sphere_mesh_data` loads as `TriangleMeshData` through the STL loader;
+`femur_hex_mesh` and `write_hex_mesh_vtk` write a bent hexahedral
+simulation mesh around the Femur-like lines, whose boundary
+(`loaders/hex_mesh.py`) is their hull.
 """
 
 from __future__ import annotations
@@ -52,6 +59,8 @@ __all__ = [
     "tornado_tube_mesh", "tornado_segment_grid", "tornado_wide_bvh",
     "BASELINE_CONFIGS", "BaselineRun", "tornado_line_data", "convection_line_data",
     "femur_line_data", "convection_velocity", "synth_v3_blocks",
+    "displaced_icosphere", "write_binary_stl", "sphere_mesh_data", "femur_hex_mesh",
+    "write_hex_mesh_vtk",
 ]
 
 TORNADO_RADIUS = 0.0015
@@ -516,6 +525,102 @@ def femur_line_data():
         os.remove(path)
     ld.set_line_width(FEMUR_LINE_WIDTH)
     return ld
+
+
+SPHERE_SUBDIVISIONS = 8  # 20 * 4^8 = 1,310,720 triangles
+
+
+def displaced_icosphere(subdivisions: int = SPHERE_SUBDIVISIONS) -> np.ndarray:
+    """[20 * 4^subdivisions, 3, 3] float32 corners of an icosahedron
+    subdivided `subdivisions` times, outward winding, radially displaced by
+    1 + 0.08 sin(5x) sin(4y) sin(3z), so that the curvature varies. A
+    triangle soup: every shared corner has the same bits in each of its
+    triangles (a midpoint is normalize(a + b) in float64 either way)."""
+    g = (1.0 + 5.0 ** 0.5) / 2.0
+    v = np.array([(-1, g, 0), (1, g, 0), (-1, -g, 0), (1, -g, 0), (0, -1, g), (0, 1, g),
+                  (0, -1, -g), (0, 1, -g), (g, 0, -1), (g, 0, 1), (-g, 0, -1), (-g, 0, 1)],
+                 np.float64)
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11), (1, 5, 9),
+             (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
+             (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5), (2, 4, 11), (6, 2, 10),
+             (8, 6, 7), (9, 8, 1)]
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    tri = v[np.array(faces)]
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    for _ in range(subdivisions):
+        a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+        ab, bc, ca = unit(a + b), unit(b + c), unit(c + a)
+        tri = np.stack([np.stack(t, axis=1) for t in
+                        ((a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca))], axis=1)
+        tri = tri.reshape(-1, 3, 3)
+    x, y, z = tri[..., 0], tri[..., 1], tri[..., 2]
+    r = 1.0 + 0.08 * np.sin(5.0 * x) * np.sin(4.0 * y) * np.sin(3.0 * z)
+    return (tri * r[..., None]).astype(np.float32)
+
+
+def write_binary_stl(path: str, tri_pts: np.ndarray) -> None:
+    """[T, 3, 3] corners -> a binary STL file (zero normals)."""
+    rec = np.zeros(tri_pts.shape[0], np.dtype([("n", "<3f4"), ("v", "<9f4"), ("attr", "<u2")]))
+    rec["v"] = tri_pts.reshape(-1, 9)
+    with open(path, "wb") as f:
+        f.write(b"\0" * 80)
+        f.write(np.uint32(tri_pts.shape[0]).tobytes())
+        f.write(rec.tobytes())
+
+
+def sphere_mesh_data(subdivisions: int = SPHERE_SUBDIVISIONS):
+    """`displaced_icosphere` written as a binary STL to a temporary file of
+    its own (removed after reading) and loaded as TriangleMeshData: the STL
+    loader welds the corners and computes normals and curvature."""
+    from linevis_tpu_torch.scene.triangle_mesh_data import TriangleMeshData
+
+    fd, path = tempfile.mkstemp(suffix=".stl", prefix="icosphere_")
+    os.close(fd)
+    try:
+        write_binary_stl(path, displaced_icosphere(subdivisions))
+        return TriangleMeshData.load_from_file(path, name="icosphere")
+    finally:
+        os.remove(path)
+
+
+def femur_hex_mesh(nx: int = 48, ny: int = 48, nz: int = 96):
+    """A hexahedral mesh of nx * ny * nz cells around the Femur-like lines
+    (`synth_v3_blocks`: radius 0.35 + 0.1 cos(3 pi z), z in [-1, 1]): the
+    square cross-section mapped onto a disk of radius 0.47 + 0.1 cos(3 pi
+    z), z over [-1.05, 1.05], the axis bent by 0.04 z^2 in x. -> (points
+    [V, 3] float32, hexes [H, 8] int64 in VTK corner order)."""
+    i, j, k = np.meshgrid(np.arange(nx + 1), np.arange(ny + 1), np.arange(nz + 1),
+                          indexing="ij")
+    u, v = 2.0 * i / nx - 1.0, 2.0 * j / ny - 1.0
+    z = 1.05 * (2.0 * k / nz - 1.0)
+    r = 0.47 + 0.1 * np.cos(3.0 * np.pi * z / 1.05)
+    x = r * u * np.sqrt(1.0 - 0.5 * v * v) + 0.04 * z * z
+    y = r * v * np.sqrt(1.0 - 0.5 * u * u)
+    points = np.stack([x, y, z], axis=-1).reshape(-1, 3).astype(np.float32)
+
+    def pid(a, b, c):
+        return ((a * (ny + 1) + b) * (nz + 1) + c).reshape(-1)
+
+    a, b, c = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
+    hexes = np.stack([pid(a, b, c), pid(a + 1, b, c), pid(a + 1, b + 1, c), pid(a, b + 1, c),
+                      pid(a, b, c + 1), pid(a + 1, b, c + 1), pid(a + 1, b + 1, c + 1),
+                      pid(a, b + 1, c + 1)], axis=1).astype(np.int64)
+    return points, hexes
+
+
+def write_hex_mesh_vtk(path: str, points: np.ndarray, hexes: np.ndarray) -> None:
+    """An ASCII VTK legacy UNSTRUCTURED_GRID of hexahedra (cell type 12)."""
+    with open(path, "w") as f:
+        f.write("# vtk DataFile Version 3.0\nhex mesh\nASCII\nDATASET UNSTRUCTURED_GRID\n")
+        f.write(f"POINTS {len(points)} float\n")
+        np.savetxt(f, points, fmt="%.7g")
+        f.write(f"CELLS {len(hexes)} {9 * len(hexes)}\n")
+        np.savetxt(f, np.concatenate([np.full((len(hexes), 1), 8), hexes], axis=1), fmt="%d")
+        f.write(f"CELL_TYPES {len(hexes)}\n")
+        np.savetxt(f, np.full((len(hexes), 1), 12), fmt="%d")
 
 
 def config1_tornado_opaque(device="cuda", scale=1.0, frames=None, line_data=None):

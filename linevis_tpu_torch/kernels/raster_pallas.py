@@ -23,7 +23,8 @@ one [R, total_chunks, chunk] payload. Padded slots carry rejecting rows.
 plane in screen space, `(a*gx + b*gy) + c` at the pixel centre, evaluated in
 that order, unfused; the rasterizer evaluates planes and selects the
 nearest. Inside a chunk the winner is the lowest id among the slots at the
-chunk's minimum depth; across chunks the earlier chunk keeps a tie. On a
+chunk's minimum depth; across chunks the earlier chunk keeps a tie; with
+early-z a tile stops at the first chunk behind all its pixels. On a
 CUDA payload the wrappers launch `csrc/raster_triangle.cu`; on a CPU payload
 they run `rasterize_triangles_reference`, the same function in plain
 PyTorch.
@@ -374,15 +375,22 @@ def rasterize_triangles_reference(
     num_attr_planes: int = 0,
     batch_elems: int = 1 << 24,
     stats: Optional[dict] = None,
+    use_early_z: bool = True,
 ):
     """Plain PyTorch version of the triangle raster kernel ->
     (depth [n_tiles, P], tri_id int32 [n_tiles, P], [attr planes ...]).
 
     Step c handles the c-th chunk of every tile that has one, in batches of
     tiles of at most `batch_elems` (slot, pixel) evaluations, so the chunks
-    of a tile are walked in order as the kernel walks them. It evaluates
-    every chunk (no early-z, which only skips chunks that cannot win).
-    `stats`, if given, receives "takes": the (chunk, pixel) updates made.
+    of a tile are walked in order as the kernel walks them. With
+    `use_early_z` a tile stops, as the kernel's and the JAX kernel's do, at
+    the first chunk whose conservative minimum depth (row 15 of its first
+    slot) lies behind every pixel of the tile. That exit is part of the
+    function: a float32 depth plane evaluated inside a sub-pixel or sliver
+    triangle can come out nearer than its corners' minimum, so a later chunk
+    could still have won. `stats`, if given, receives "takes": the (chunk,
+    pixel) updates made, and "work": [n_tiles] int32, the chunks each tile
+    evaluated.
     """
     payload = csr.payload
     dev = payload.device
@@ -398,8 +406,16 @@ def rasterize_triangles_reference(
     max_nch = int(nch.max()) if n_tiles else 0
     per_batch = max(1, batch_elems // (C * P))
     takes = 0
+    running = torch.ones(n_tiles, dtype=torch.bool, device=dev)
+    work = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     for c in range(max_nch):
-        active = torch.nonzero(nch > c).reshape(-1)
+        running &= nch > c
+        if use_early_z and c > 0:
+            tiles = torch.nonzero(running).reshape(-1)
+            behind = payload[15, base[tiles] + c, 0] > depth[tiles].max(dim=1).values
+            running[tiles[behind]] = False
+        active = torch.nonzero(running).reshape(-1)
+        work[active] += 1
         for b0 in range(0, active.shape[0], per_batch):
             tiles = active[b0:b0 + per_batch]
             coef = payload[:, base[tiles] + c, :]  # [R, B, C]
@@ -437,6 +453,7 @@ def rasterize_triangles_reference(
                     planes[jdx, tiles] = torch.where(take, val, planes[jdx, tiles])
     if stats is not None:
         stats["takes"] = takes
+        stats["work"] = work
     tri_id = torch.where(fid < 0, -1, fid.to(torch.int32))
     return depth, tri_id, list(planes)
 
@@ -454,9 +471,12 @@ def _launcher():
 def _rasterize(csr, tile_w, tile_h, num_attr_planes, use_early_z, work):
     payload = csr.payload
     if payload.device.type == "cpu":
+        stats = {}
+        out = rasterize_triangles_reference(csr, tile_w, tile_h, num_attr_planes, stats=stats,
+                                            use_early_z=use_early_z)
         if work is not None:
-            work.copy_(csr.tile_num_chunks)
-        return rasterize_triangles_reference(csr, tile_w, tile_h, num_attr_planes)
+            work.copy_(stats["work"])
+        return out
     if payload.device.type != "cuda":
         raise ValueError(f"triangle raster: unsupported device {payload.device}")
 
@@ -545,7 +565,7 @@ def rasterize_gbuffer(
     A CUDA payload launches the CUDA kernel (counted in
     `rasterize_gbuffer.launches`); a CPU payload runs the plain version.
     `work`, an optional [n_tiles] int32 tensor, receives the chunks each
-    tile evaluated (after early-z on the card; every chunk on the CPU).
+    tile evaluated after early-z.
     """
     return _rasterize(csr, tile_w, tile_h, num_attr_planes, use_early_z, work)
 

@@ -10,7 +10,9 @@ import numpy as np
 
 from linevis_tpu_torch.render.transfer_function import linear_to_srgb
 
-__all__ = ["to_srgb_u8", "save_png", "load_png", "ssim", "image_mean_difference"]
+__all__ = [
+    "to_srgb_u8", "save_png", "load_png", "encode_png", "ssim", "image_mean_difference",
+]
 
 
 def to_srgb_u8(image_linear: np.ndarray) -> np.ndarray:
@@ -39,6 +41,17 @@ def load_png(filename: str) -> np.ndarray:
     from PIL import Image
 
     return np.asarray(Image.open(filename))
+
+
+def encode_png(image_u8: np.ndarray) -> bytes:
+    """[H, W, 3|4] uint8 -> in-memory PNG bytes (the viewer's frame path)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image_u8).save(buf, format="PNG")
+    return buf.getvalue()
 
 
 def _gaussian_kernel(size: int = 11, sigma: float = 1.5) -> np.ndarray:

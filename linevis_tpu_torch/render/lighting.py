@@ -3,7 +3,8 @@
 Counterpart of `linevis_tpu/render/lighting.py`, a behavioral port of
 `Data/Shaders/Utils/Lighting.glsl` (`blinnPhongShadingTube`): headlight at
 the camera, tube-aware diffuse term, kA=0.1 kD=0.9 kS=0.3 s=30, exponent
-1.7 (tubes) / 1.0 (bands); depth-cue darkening toward gray 0.5.
+1.7 (tubes) / 1.0 (bands); the general surface Blinn-Phong of triangle-mesh
+datasets and hulls; depth-cue darkening toward gray 0.5.
 
 Vector tensors are channels-first: [3, ...].
 """
@@ -12,7 +13,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dot3", "normalize3", "cross3", "blinn_phong_shade_tube", "apply_depth_cue"]
+__all__ = [
+    "dot3", "normalize3", "cross3", "blinn_phong_shade_tube", "blinn_phong_shade_surface",
+    "apply_depth_cue",
+]
 
 _EPS = 1e-8
 
@@ -64,6 +68,27 @@ def blinn_phong_shade_tube(
 
     i_a = k_a * base_color
     i_d = k_d * cos_combined[None] * base_color
+    i_s = k_s * torch.clamp(torch.abs(dot3(n, h)), 0.0, 1.0)[None] ** s
+    return i_a + i_d + i_s
+
+
+def blinn_phong_shade_surface(
+    base_color: torch.Tensor,  # [3, ...] linear RGB
+    position: torch.Tensor,  # [3, ...] world
+    normal: torch.Tensor,  # [3, ...]
+    camera_position: torch.Tensor,  # [3]
+) -> torch.Tensor:
+    """General (non-tube) Blinn-Phong with the reference's surface
+    constants kA=0.1, kD=1.0, kS=0.3, s=50 (Lighting.glsl:66-72), headlight
+    l = v, used for triangle-mesh datasets and hulls."""
+    k_a, k_d, k_s, s = 0.1, 1.0, 0.3, 50.0
+    extra = (1,) * (position.dim() - 1)
+    cam = camera_position.reshape((3,) + extra)
+    n = normalize3(normal)
+    v = normalize3(cam - position)
+    h = v  # headlight: h = normalize(v + l) = v
+    i_a = k_a * base_color
+    i_d = k_d * torch.clamp(torch.abs(dot3(n, v)), 0.0, 1.0)[None] * base_color
     i_s = k_s * torch.clamp(torch.abs(dot3(n, h)), 0.0, 1.0)[None] ** s
     return i_a + i_d + i_s
 

@@ -15,7 +15,8 @@ package registers but the port cannot draw yet raise NotImplementedError
 naming their ROADMAP queue item; unknown modes fall back to Opaque with a
 warning (`MainApp.cpp:864-874`). "Deferred Opaque" lives in
 `render/deferred.py`, which imports this module, so it is resolved on first
-use, as in the JAX registry.
+use, as in the JAX registry. "Opaque (Triangle Mesh)" draws a
+`scene/triangle_mesh_data.py:TriangleMeshData` (its renderer lives there).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.transfer_function import TransferFunction
 from linevis_tpu_torch.render.tube_raster import camera_tensors
 from linevis_tpu_torch.scene.line_data import LineData
+from linevis_tpu_torch.scene.triangle_mesh_data import TriangleMeshRenderer
 
 __all__ = [
     "LineRenderer",
@@ -499,6 +501,7 @@ register_renderer("Depth Complexity", DepthComplexityRenderer)
 register_renderer("Opacity Optimization", OpacityOptimizationRendererMode)
 register_renderer("Vulkan Ray Tracer", VulkanRayTracerRenderer)
 register_renderer("RTAO", RtaoRenderer)
+register_renderer("Opaque (Triangle Mesh)", TriangleMeshRenderer)
 
 # Modes whose module imports this one: resolved on first use.
 _LAZY_REGISTRY: Dict[str, tuple] = {
@@ -512,7 +515,6 @@ UNPORTED_MODES: Dict[str, str] = {
     "Spherical Heat Map Renderer": "A8 (volume, scattering and multivariate)",
     "Voxel Ray Casting": "A8 (volume, scattering and multivariate)",
     "Volumetric Path Tracer": "A8 (volume, scattering and multivariate)",
-    "Opaque (Triangle Mesh)": "A6 (surface meshes)",
 }
 
 RENDERING_MODE_ALL = tuple(_REGISTRY) + tuple(_LAZY_REGISTRY) + tuple(UNPORTED_MODES)

@@ -9,8 +9,8 @@ getters build the port's capsule scene, prism scene and tube mesh on the
 `device` they are given (the card unless the caller asks for the CPU); the
 device is part of the cache key.
 
-Not ported yet: the line-segment representation (ROADMAP queue A item 8)
-and loading from a file (A7); they raise NotImplementedError.
+Not ported yet: the line-segment representation (ROADMAP queue A item 8);
+it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -241,5 +241,15 @@ class LineDataFlow(LineData):
     @classmethod
     def load_from_file(cls, filename: str, name: str = "", transform=None,
                        attribute_names=None) -> "LineDataFlow":
-        raise NotImplementedError(
-            "flow file loaders (loaders/flow_file.py) are not ported yet: ROADMAP queue A item 7")
+        """A flow-line file (.obj, .binlines, .nc) through
+        `loaders/flow_file.py`; `attribute_names` rename the first
+        attributes."""
+        from linevis_tpu_torch.loaders.flow_file import load_flow_trajectories_from_file
+
+        traj = load_flow_trajectories_from_file(filename, transform=transform)
+        obj = cls(traj, name=name or filename)
+        if attribute_names:
+            obj.attribute_names = list(attribute_names) + obj.attribute_names[
+                len(attribute_names):
+            ]
+        return obj

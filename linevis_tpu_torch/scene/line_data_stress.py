@@ -9,8 +9,8 @@ process animation ordering (`:168-177` appearance order), and degenerate
 points. Multi-PS rendering merges the selected directions into one capsule
 scene; the principal-stress index rides along for per-PS coloring. The
 getters build the port's scenes and meshes on the `device` they are given
-(the card unless the caller asks for the CPU). The hull's surface mesh needs
-`loaders/mesh_loader.py`, not ported yet (ROADMAP queue A item 6).
+(the card unless the caller asks for the CPU); the hull's surface mesh is
+a host `SurfaceMesh` for `render/surface.py`.
 """
 
 from __future__ import annotations
@@ -375,12 +375,28 @@ class LineDataStress(LineData):
         return self._cache[key]
 
     def get_hull_surface(self):
-        """Simulation-mesh hull as a renderable SurfaceMesh (reference hull
+        """Simulation-mesh hull as a renderable SurfaceMesh (constant
+        attribute; render with `render/surface.py` and a constant TF of the
+        hull color, HULL_COLOR_LINEAR and HULL_OPACITY: the reference hull
         pass, LineData.hpp:470-475); None without a hull."""
         if self.hull is None:
             return None
-        raise NotImplementedError(
-            "hull surfaces (loaders/mesh_loader.py) are not ported yet: ROADMAP queue A item 6")
+        key = "hull_surface"
+        if key not in self._cache:
+            from linevis_tpu_torch.loaders.mesh_loader import (
+                SurfaceMesh,
+                compute_vertex_normals,
+            )
+
+            verts = np.asarray(self.hull.vertices, np.float32)
+            tris = np.asarray(self.hull.triangles, np.int32)
+            self._cache[key] = SurfaceMesh(
+                vertices=verts,
+                triangles=tris,
+                normals=compute_vertex_normals(verts, tris),
+                attributes=np.full((verts.shape[0],), 0.5, np.float32),
+            )
+        return self._cache[key]
 
     def get_line_ps_colors(self) -> np.ndarray:
         """[L, 3] per-line base color from the PS direction legend."""

@@ -14,7 +14,9 @@ WBOIT and MBOIT moment sums within 1e-5 of each pixel's scale (its sum of
 weights, or b0) on >= 99.9% of pixels, the MBOIT resolve within 1e-4 (the
 moment solves amplify an ulp of a moment); the importance gather bit for bit;
 `use_bands` at the bars of its mode. For the prism and the triangle kernel: bit for bit
-(`torch.equal` on every output). For the AO grid kernel: every pair's flag
+(`torch.equal` on every output), the triangle kernel also at the surface
+frame's tile 16x8 with sub-pixel and hundred-tile triangles in one CSR; the
+surface frame card against CPU at SSIM >= 0.999, mean abs <= 2e-3. For the AO grid kernel: every pair's flag
 and every chunk's walked count equal. For the wavefront kernel: depths,
 features, alpha and the per-block counts bit for bit. For the per-ray
 traversal kernels (closest hit, MLAT, the whole re-cast loop): every output
@@ -543,6 +545,99 @@ def test_triangle_wrapper_rejects_bad_inputs(cuda):
     for tile in ((24, 4), (16, 3)):  # not whole warps of 2x2-pixel threads
         with pytest.raises(ValueError):
             trp.rasterize_gbuffer(csr, 8, *tile)
+
+
+def _huge_and_subpixel_csr(device, W=320, H=200, seed=7):
+    """Tile 16x8: 4000 triangles of 0.2-1.5 px (most cover no pixel centre)
+    and 6 whose boxes span a hundred tiles and more, in one CSR, its binning
+    window sized from the largest (as `render/surface.py:surface_span`)."""
+    rng = np.random.default_rng(seed)
+
+    def f(lo, hi, shape):
+        return torch.tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=device)
+
+    n_small, n_big = 4000, 6
+    centre = torch.cat([f(0, W, (2, 1, n_small)), f(0.2 * W, 0.8 * W, (2, 1, n_big))], dim=2)
+    size = torch.cat([f(0.2, 1.5, (1, 1, n_small)), f(150, 300, (1, 1, n_big))], dim=2)
+    xy = centre + size * f(-0.5, 0.5, (2, 3, n_small + n_big))
+    T = n_small + n_big
+    batch = tpl.TriangleBatch(
+        tri_x=xy[0], tri_y=xy[1] * (H / W), tri_z=f(0.05, 0.95, (3, T)),
+        tri_valid=torch.ones(T, dtype=torch.bool, device=device),
+        corner_inv_w=f(0.5, 1.5, (3, T)), corner_attr=f(0, 1, (3, T)),
+        corner_normal=tuple(f(-1, 1, (3, T)) for _ in range(3)),
+        corner_tangent=tuple(f(-1, 1, (3, T)) for _ in range(3)),
+        view_z_min=torch.tensor(0.0), view_z_max=torch.tensor(1.0),
+    )
+    ex = (batch.tri_x.max(0).values - batch.tri_x.min(0).values).max() / 16
+    ey = (batch.tri_y.max(0).values - batch.tri_y.min(0).values).max() / 8
+    span_x, span_y = int(torch.ceil(ex)) + 2, int(torch.ceil(ey)) + 2
+    csr = trp.build_csr_binning(batch.tri_x, batch.tri_y, tpl.build_payload(batch),
+                                batch.tri_valid, W, H, 16, 8, 128, span_x, span_y)
+    return csr, span_x, span_y
+
+
+@pytest.mark.parametrize("mode", ["depth", "gbuffer"])
+def test_triangle_kernel_16x8_huge_and_subpixel(cuda, mode):
+    """The surface frame's shape of B3: tile 16x8 (one warp of 2x2-pixel
+    threads a tile), sub-pixel and hundred-tile triangles in one CSR."""
+    csr, span_x, span_y = _huge_and_subpixel_csr(cuda)
+    assert span_x * span_y >= 100 and int(csr.overflow) == 0
+    assert int(csr.tile_num_chunks.max()) >= 1
+    planes = 8 if mode == "gbuffer" else 0
+    if not planes:
+        csr = dataclasses.replace(csr, payload=csr.payload[:16].contiguous())
+    before = trp.rasterize_gbuffer.launches
+    work = torch.zeros(csr.tile_chunk_base.shape[0], dtype=torch.int32, device=cuda)
+    k = trp.rasterize_gbuffer(csr, planes, 16, 8, work=work)
+    assert trp.rasterize_gbuffer.launches == before + 1
+    stats = {}
+    p = trp.rasterize_triangles_reference(csr, 16, 8, planes, stats=stats)
+    torch.cuda.synchronize()
+    assert (k[1] >= 0).float().mean().item() > 0.15
+    _all_equal(k, p)
+    assert torch.equal(work, stats["work"])  # the chunks each tile evaluated
+
+
+def test_surface_frame_card_matches_cpu(cuda):
+    """The registry's "Opaque (Triangle Mesh)" on a displaced icosphere
+    (5120 triangles) at 160x120, card against CPU (SSIM >= 0.999, mean abs
+    <= 2e-3), one B3 launch a frame, B3 bit for bit with its plain version
+    on the frame's CSR, the span equal on both devices."""
+    from linevis_tpu_torch.entry import displaced_icosphere
+    from linevis_tpu_torch.loaders.mesh_loader import (
+        SurfaceMesh,
+        compute_curvature_attribute,
+        compute_vertex_normals,
+    )
+    from linevis_tpu_torch.render import renderer as trenderer
+    from linevis_tpu_torch.render import surface as tsurf
+    from linevis_tpu_torch.render.framebuffer import ssim
+    from linevis_tpu_torch.scene.triangle_mesh_data import TriangleMeshData
+
+    soup = displaced_icosphere(4)
+    verts, inv = np.unique(soup.reshape(-1, 3), axis=0, return_inverse=True)
+    tris = inv.reshape(-1, 3).astype(np.int32)
+    normals = compute_vertex_normals(verts, tris)
+    data = TriangleMeshData(SurfaceMesh(verts * np.float32(0.5), tris, normals,
+                                        compute_curvature_attribute(verts, tris, normals)))
+    cam = Camera(position=(0.3, 0.2, 1.0), look_at_point=(0, 0, 0), width=160, height=120)
+    imgs, spans = [], []
+    for dev in (cuda, torch.device("cpu")):
+        r = trenderer.create_renderer("Opaque (Triangle Mesh)", device=dev)
+        r.set_line_data(data)
+        spans.append(r.raster_settings(cam))
+        before = trp.rasterize_gbuffer.launches
+        imgs.append(r.render(cam))
+        assert trp.rasterize_gbuffer.launches == before + (dev.type == "cuda")
+    assert spans[0] == spans[1]
+    g, c = imgs
+    assert np.isfinite(g).all() and 0.2 < (g[..., :3] < 0.999).any(-1).mean() < 0.95
+    assert ssim(g[..., :3], c[..., :3]) >= 0.999 and np.abs(g - c).mean() <= 2e-3
+    mesh = data.get_surface_tensors(cuda)
+    _, csr = tsurf.surface_frame(mesh, ttr.camera_tensors(cam, cuda)[0], spans[0])
+    k = trp.rasterize_gbuffer(csr, 8, 16, 8)
+    _all_equal(k, trp.rasterize_triangles_reference(csr, 16, 8, 8))
 
 
 @pytest.mark.parametrize("geometry", ["prism", "triangle"])

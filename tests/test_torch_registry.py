@@ -5,7 +5,10 @@
   fallback, the tube-geometry setting) and the transform cases of
   tests/test_core.py.
 - Every mode name the JAX registry knows either renders in the port or
-  raises NotImplementedError naming its ROADMAP queue item.
+  raises NotImplementedError naming its ROADMAP queue item ("Opaque
+  (Triangle Mesh)" on a surface, the others on lines); a flow file loads
+  into `LineDataFlow` as in JAX (tests/test_torch_loaders.py has the
+  loaders).
 - The ported modes drawn by name at golden_scenes.SMALL_SIZE: Opaque
   (capsule and triangle), MLAB and Depth Complexity against the JAX
   registry's image of the same line data (SSIM >= 0.999, mean abs <=
@@ -33,6 +36,7 @@ from linevis_tpu.core.trajectories import RaggedTrajectories, pad_trajectories
 from linevis_tpu.render import renderer as jrenderer
 from linevis_tpu.scene.filters import LineLengthFilter as JLineLengthFilter
 from linevis_tpu.scene.line_data import LineData as JLineData
+from linevis_tpu.scene.line_data import LineDataFlow as JLineDataFlow
 from linevis_tpu_torch.convert import trajectories_from_numpy
 from linevis_tpu_torch.core.settings import SettingsMap
 from linevis_tpu_torch.core.transforms import (
@@ -145,7 +149,7 @@ def test_line_data_settings():
     assert ld.line_width == pytest.approx(0.008) and ld.selected_attribute_index == 0
 
 
-def test_representations_on_the_cpu():
+def test_representations_on_the_cpu(tmp_path):
     ld = LineData(_traj())
     ld.set_line_width(0.02)
     prisms = ld.get_prism_scene(num_subdivisions=6, device="cpu")
@@ -164,8 +168,17 @@ def test_representations_on_the_cpu():
     assert ribbons.num_subdivisions == bands.num_subdivisions == 6
     assert ribbons.positions.device.type == bands.positions.device.type == "cpu"
     assert flow.get_helicity_band_mesh(num_subdivisions=6, device="cpu") is bands
-    with pytest.raises(NotImplementedError, match="item 7"):
-        LineDataFlow.load_from_file("lines.obj")
+    # Loading from a file (once NotImplementedError, queue A7) against JAX.
+    obj = tmp_path / "lines.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 1 2 0\nvt 0.2\nvt 0.5\nvt 0.9\nl 1 2 3\nl 2 3\n")
+    loaded = LineDataFlow.load_from_file(str(obj), attribute_names=["speed"])
+    jloaded = JLineDataFlow.load_from_file(str(obj), attribute_names=["speed"])
+    for f in ("positions", "attributes", "mask", "num_points"):
+        np.testing.assert_array_equal(getattr(loaded.trajectories, f),
+                                      getattr(jloaded.trajectories, f))
+    assert loaded.attribute_names == jloaded.attribute_names == ["speed"]
+    assert loaded.name == str(obj) and loaded.num_lines == 2
+    assert loaded.get_capsule_scene(device="cpu").a.device.type == "cpu"
 
 
 def test_renderer_registry_and_fallback():
@@ -182,8 +195,22 @@ def test_renderer_registry_and_fallback():
 
 @pytest.mark.parametrize("mode", jrenderer.RENDERING_MODE_ALL)
 def test_every_jax_mode_renders_or_names_its_queue_item(mode):
+    """"Opaque (Triangle Mesh)" draws a surface (a tetrahedron), every other
+    mode the golden scene's lines."""
     assert mode in trenderer.RENDERING_MODE_ALL
     jld, ld = _line_data(21)
+    if mode == "Opaque (Triangle Mesh)":
+        from linevis_tpu_torch.loaders.mesh_loader import (
+            SurfaceMesh,
+            compute_curvature_attribute,
+            compute_vertex_normals,
+        )
+        from linevis_tpu_torch.scene.triangle_mesh_data import TriangleMeshData
+
+        v = np.array([[0, 0, 0.3], [0.3, 0, -0.2], [-0.3, 0.1, -0.2], [0, -0.3, 0]], np.float32)
+        t = np.array([[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]], np.int32)
+        n = compute_vertex_normals(v, t)
+        ld = TriangleMeshData(SurfaceMesh(v, t, n, compute_curvature_attribute(v, t, n)))
     w, h = 32, 16
     try:
         r = trenderer.create_renderer(mode, SettingsMap({}), device="cpu")

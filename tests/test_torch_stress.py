@@ -302,8 +302,13 @@ def test_line_data_stress_v3_matches_jax(tmp_path):
         ld.set_seed_animation_step(3)
     _stress_equal(t, j)
     assert 0 < int(t.trajectories.mask.any(axis=1).sum()) < t.num_lines
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t.get_hull_surface()
+    # The hull's surface (once NotImplementedError, queue A6) equals JAX's.
+    th, jh = t.get_hull_surface(), j.get_hull_surface()
+    for f in ("vertices", "triangles", "normals", "attributes"):
+        a, b = getattr(th, f), getattr(jh, f)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert th.triangles.shape[0] > 0 and t.get_hull_surface() is th
 
 
 def test_line_data_stress_v1_v2_match_jax(tmp_path):

@@ -143,6 +143,33 @@ def _term_magnitude(csr, tile, num_planes):
     return zmag.numpy(), [m.numpy() for m in mags]
 
 
+def _early_z_work(csr, tile_w, tile_h):
+    """The chunks each tile evaluates with the early-z exit, counted in
+    numpy from the payload alone: the tile's depth after chunk c is the
+    running minimum of 2.0 and each chunk's nearest covering depth per
+    pixel, and the tile stops at the first chunk c > 0 whose row 15 (slot
+    0) lies behind every pixel of the depth after chunk c - 1."""
+    p = csr.payload.numpy()
+    base, nch = csr.tile_chunk_base.numpy(), csr.tile_num_chunks.numpy()
+    lin = np.arange(tile_w * tile_h)
+    out = np.zeros_like(nch)
+    for t in np.flatnonzero(nch):
+        coef = p[:, base[t]:base[t] + nch[t], :, None]  # [R, n, C, 1]
+        gx = ((t % csr.tiles_x) * tile_w + lin % tile_w).astype(np.float32) + np.float32(0.5)
+        gy = ((t // csr.tiles_x) * tile_h + lin // tile_w).astype(np.float32) + np.float32(0.5)
+
+        def plane(r):
+            return (coef[r] * gx + coef[r + 1] * gy) + coef[r + 2]
+
+        z = plane(9)
+        inside = (plane(0) >= 0) & (plane(3) >= 0) & (plane(6) >= 0) & (z >= 0) & (z <= 1)
+        nearest = np.where(inside, z, np.float32(np.inf)).min(axis=1)  # [n, P]
+        depth = np.minimum.accumulate(np.minimum(nearest, np.float32(2.0)), axis=0)
+        behind = coef[15, 1:, 0, 0] > depth[:-1].max(axis=1)
+        out[t] = 1 + np.argmax(behind) if behind.any() else nch[t]
+    return out
+
+
 @pytest.mark.parametrize("early_z", [True, False], ids=["early_z", "no_early_z"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_triangle_reference_matches_pallas(name, early_z):
@@ -154,7 +181,9 @@ def test_triangle_reference_matches_pallas(name, early_z):
     work = torch.zeros(t.tile_chunk_base.shape[0], dtype=torch.int32)
     tz, tid, tg = trp.rasterize_gbuffer(t, 8, *tile, use_early_z=early_z, work=work)
     assert trp.rasterize_gbuffer.launches == launches  # CPU: plain version
-    assert torch.equal(work, t.tile_num_chunks)
+    # Chunks evaluated: all without early-z; with it, as counted in numpy.
+    want = torch.from_numpy(_early_z_work(t, *tile)) if early_z else t.tile_num_chunks
+    assert torch.equal(work, want)
     jz, jid, tz, tid = np.asarray(jz), np.asarray(jid), tz.numpy(), tid.numpy()
 
     assert tid.dtype == np.int32 and tid.shape == jid.shape and len(tg) == 8
@@ -243,6 +272,37 @@ def test_triangle_selection_rule_across_and_inside_chunks():
     assert float(tz.reshape(8, 16)[0, 8]) == 0.5
     np.testing.assert_array_equal(tid.numpy(), np.asarray(jid))
     np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+
+
+def test_triangle_early_z_exit_matches_pallas():
+    """The early-z exit is part of the function: one 16x8 tile, chunk 0 a
+    flat triangle at depth 0.5 over the whole tile, chunk 1 a triangle whose
+    sort key (row 15) is 0.6 but whose depth plane is 0.3, as a float32
+    plane inside a sub-pixel triangle can be. With early-z the tile stops
+    before chunk 1 (0.6 lies behind its farthest pixel, 0.5) and keeps
+    triangle 2; without, triangle 9 wins. The plain version matches the JAX
+    kernel both ways."""
+    C = 16
+    reject = np.zeros(16, np.float32)
+    reject[[2, 5, 8]] = -1.0
+    reject[15] = 3.0
+    payload = np.tile(reject[:, None, None], (1, 2, C))
+    payload[:, 0, 0] = _flat_triangle(2, (0.0, 0.0, 0.5))
+    payload[:, 1, 0] = _flat_triangle(9, (0.0, 0.0, 0.3))
+    payload[15, 1, 0] = 0.6
+    t = trp.CsrBinning(
+        payload=torch.tensor(payload), tile_chunk_base=torch.tensor([0], dtype=torch.int32),
+        tile_num_chunks=torch.tensor([2], dtype=torch.int32),
+        overflow=torch.tensor(0, dtype=torch.int32), tiles_x=1, tiles_y=1, chunk=C,
+    )
+    for early_z, want in ((True, 2), (False, 9)):
+        work = torch.zeros(1, dtype=torch.int32)
+        tz, tid = trp.rasterize_depth(t, 16, 8, use_early_z=early_z, work=work)
+        assert (tid == want).all() and int(work[0]) == (1 if early_z else 2)
+        jz, jid = jrp.rasterize_depth_pallas(_to_jax(t), 16, 8, interpret=True,
+                                             use_early_z=early_z)
+        np.testing.assert_array_equal(tid.numpy(), np.asarray(jid))
+        np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
 
 
 def test_triangle_reference_batches_do_not_change_result():
