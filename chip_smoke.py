@@ -111,7 +111,28 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   streamline tracer (RKF45 adaptive, loop termination) on the tornado
   sampled at 128^3, 512 seeds, 400 steps, card vs CPU: trilinear samples
   and the first 16 steps gated, the full trace read as the share of lines
-  with the CPU's point count.
+  with the CPU's point count;
+- scattering, VRC and multivariate tubes (`scattering_phase`): a 512^3
+  procedural cloud (300 Gaussian blobs from np.random.default_rng(7),
+  clipped to [0, 1]) traced by `LineDataScattering.trace` (64x64 pixels x 10
+  samples, 128 events, g 0.2, seed 42: 40,960 paths), written and reloaded
+  as .xyz (equal); the registry's "Volumetric Path Tracer" at 1080p with
+  the renderer's defaults (Delta tracking, extinction 1024, 512 events, 2
+  spp; kernel vpt_tracking twice a frame), 4 accumulating frames, R3
+  against its plain version bit for bit on one 1080p row of both samples
+  in each scan mode, the events per ray, the frame card vs CPU at scale 0.1
+  on the same keys (image mean), decomposition and residual ratio tracking
+  at 480x270 (plain, 1 frame of 1 sample each, a reading); "Line Density Map Renderer"
+  (density_march once a frame), 8 frames, R4 bit for bit on the whole
+  frame; "Spherical Heat Map Renderer" at height 1080 (a 1080x2160 map of
+  the 40,960 exit directions; spherical_heatmap once), 4 frames, R5 on a
+  band of 8 rows bit for bit; "Voxel Ray Casting" on the
+  tornado (grid 128, quantization 8; capsule_raster once), 8 frames, card
+  vs CPU at scale 0.1; the tornado's multivariate tubes (its attribute and
+  1 - it, 8 subdivisions) through `render_opaque` (triangle_raster once), 8
+  frames, B3 bit for bit on that CSR. The four modes also join the
+  registry's card-vs-CPU check (the path tracer on identical keys, by image
+  mean).
 For each path it times the frames and their stages with CUDA events, checks
 that exactly the expected kernels were launched the expected number of
 times, holds the path's kernel against its plain PyTorch version on the same
@@ -1155,6 +1176,431 @@ def datasets_phase(dev, gpu, traj, reset_launches, expect_launches, resources):
             {"name": "triangle_raster:hull", **row, "launches": hull_launches, **fig_h}]
 
 
+# The scattering, VRC and multivariate phase (`scattering_phase`).
+SC_CAMERA = (0.0, 0.15, 0.9)  # the cloud frames' camera, looking at its centre
+# The density map's camera: on the side the traced paths enter from (the
+# tracer's camera sits at (-0.5, -0.5, -0.5); 128 events take a path ~0.13 in).
+SC_LDM_CAMERA = (-0.6, -0.45, -0.55)
+SC_VPT_FRAMES = 4
+SC_FRAMES = 8  # the density map, VRC and multivariate frames
+SC_HEAT_FRAMES = 4
+SC_HEAT_BAND = 8  # heat-map rows held against R5's plain version
+SC_CHECK_SCALE = 0.1  # the card-vs-CPU frames
+SC_SMALL = (480, 270)  # decomposition and residual ratio tracking: plain, a reading
+# One frame of one sample each: their lockstep plain loops took 15-18 s
+# (decomposition) and 70-81 s (residual ratio) a 2-sample frame at SC_SMALL
+# on an NVIDIA H100 80GB HBM3 at 700 W, and the smoke keeps to half its time
+# limit.
+SC_SMALL_FRAMES = 1
+SC_SMALL_SPP = 1
+SC_VRC = dict(grid_resolution=128, quantization=8)
+# Work of the bounds, counted from the plain versions' events, steps and pairs:
+# an event of R3 is five threefry2x32 of ~120 integer operations each (key,
+# k1, k2, two uniforms) and ~110 float operations (the free flight, the
+# trilinear sample, the probabilities); a scatter's extra threefry, phase and
+# box test are not counted (a low bound). A step of R4 is ~150 operations
+# (the sample, both transfer functions' segments, the blend); a (pixel,
+# direction) pair of R5 ~10 (the distance test; the in-range exp not
+# counted). Integer operations are charged at the float32 rate.
+VPT_OPS_PER_EVENT = 710
+MARCH_OPS_PER_STEP = 150
+HEAT_OPS_PER_PAIR = 10
+
+
+def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
+    """25. Scattering, VRC and multivariate tubes: a procedural cloud
+    (`entry.procedural_cloud`) traced by `LineDataScattering.trace`
+    (`entry.SCATTERING_TRACE`),
+    written and reloaded as .xyz, drawn through the registry's "Volumetric
+    Path Tracer" (the renderer's defaults: Delta tracking, extinction 1024,
+    512 events, 2 spp; kernel vpt_tracking twice a frame), "Line Density
+    Map Renderer" (density_march once) and "Spherical Heat Map Renderer"
+    (spherical_heatmap once); the tornado `traj` through "Voxel Ray Casting"
+    (capsule_raster once) and as multivariate tubes through `render_opaque`
+    (triangle_raster once). Each kernel against its plain version (R3 on one
+    1080p row in each scan mode, R4 on the whole frame, R5 on a band),
+    card-vs-CPU frames at SC_CHECK_SCALE, decomposition and residual ratio
+    tracking read at SC_SMALL (SC_SMALL_FRAMES frames of SC_SMALL_SPP
+    samples). Returns the phase's
+    `kernels` rows."""
+    import shutil
+    import tempfile
+
+    from linevis_tpu_torch.core.settings import SettingsMap
+    from linevis_tpu_torch import entry
+    from linevis_tpu_torch.entry import TORNADO_LINE_WIDTH, TORNADO_RADIUS
+    from linevis_tpu_torch.kernels import density_march as dm
+    from linevis_tpu_torch.kernels import spherical_heatmap as shm
+    from linevis_tpu_torch.kernels import vpt_tracking as vt
+    from linevis_tpu_torch.loaders.cloud_loader import load_cloud_file, write_cloud_xyz
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.framebuffer import image_mean_difference, ssim
+    from linevis_tpu_torch.render.multivar import (
+        MultiVarTransferFunctions,
+        build_multivar_tube_mesh,
+        combine_transfer_function_table,
+    )
+    from linevis_tpu_torch.render.opaque import render_opaque
+    from linevis_tpu_torch.render.pipeline import RasterSettings, build_payload, tube_vertex_stage
+    from linevis_tpu_torch.render.renderer import create_renderer
+    from linevis_tpu_torch.render.spherical_heatmap import mollweide_points
+    from linevis_tpu_torch.render.tube_raster import (
+        _ray_basis,
+        camera_tensors,
+        prepare_capsule_frame,
+    )
+    from linevis_tpu_torch.render.vpt import VptSettings, primary_rays, sun_constants
+    from linevis_tpu_torch.scene.line_data import LineData
+    from linevis_tpu_torch.scene.line_data_scattering import LineDataScattering
+    from linevis_tpu_torch.trace.scattering import ScatteringTracingSettings
+    from linevis_tpu_torch.kernels import raster_pallas
+
+    sync = torch.cuda.synchronize
+    rows = []
+
+    def host_timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def frames(render, cams, expected, warm=True):
+        """Time `render(cam)` per camera with CUDA events and the host clock,
+        launches counted (after a warm-up frame unless `warm` is False) ->
+        (last image, event ms, host ms, launches)."""
+        if warm:
+            render(cams[0])
+        sync()
+        reset_launches()
+        ev_ms, host_ms, img = [], [], None
+        for cam in cams:
+            a, b = _events()
+            t0 = time.perf_counter()
+            a.record()
+            img = render(cam)
+            b.record()
+            sync()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ev_ms.append(a.elapsed_time(b))
+        return img, ev_ms, host_ms, expect_launches(expected)
+
+    # The scene: the cloud on the card, traced, written and reloaded.
+    # The cloud (`entry.procedural_cloud`: 512^3 float32, 537 MB on the card,
+    # 300 blobs) and its trace (`entry.SCATTERING_TRACE`: 40,960 paths).
+    cloud_t, cloud_ms = host_timed(lambda: entry.procedural_cloud(
+        dev, entry.CLOUD_SIZE, entry.CLOUD_BLOBS))
+    cloud = cloud_t.cpu().numpy()
+    del cloud_t
+    if cloud.max() != 1.0 or cloud.min() != 0.0:
+        raise RuntimeError("the procedural cloud does not span [0, 1]")
+    trace_kw = entry.SCATTERING_TRACE
+    sc_settings = ScatteringTracingSettings(**trace_kw)
+    ld, trace_ms = host_timed(lambda: LineDataScattering.trace(cloud, sc_settings, device=dev))
+    tmp = tempfile.mkdtemp(prefix="linevis_cloud_")
+    try:
+        path = os.path.join(tmp, "cloud.xyz")
+        _, write_ms = host_timed(lambda: write_cloud_xyz(path, cloud))
+        loaded, load_ms = host_timed(lambda: load_cloud_file(path))
+        file_equal = bool(np.array_equal(loaded.density, cloud))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    scene_line = {
+        "cloud_voxels": list(cloud.shape), "cloud_ms": cloud_ms,
+        "occupied_share": float((cloud > 0).mean()), "trace_ms": trace_ms,
+        "paths": trace_kw["res_x"] * trace_kw["res_y"] * trace_kw["samples_per_pixel"],
+        "paths_kept": ld.num_lines, "points": ld.num_line_points,
+        "exit_directions": int(ld.exit_directions.shape[0]),
+        "xyz_write_ms": write_ms, "xyz_load_ms": load_ms, "xyz_equal": file_equal,
+        "trace_settings": trace_kw, "gpu": gpu}
+    print("scattering scene: " + json.dumps(scene_line), flush=True)
+    if not file_equal or ld.num_lines < scene_line["paths"] // 2:
+        raise RuntimeError("the cloud file differs from the cloud, or the trace kept few paths")
+
+    base = Camera(position=SC_CAMERA, look_at_point=(0.0, 0.0, 0.0), width=W, height=H)
+
+    # "Volumetric Path Tracer": SC_VPT_FRAMES accumulating frames.
+    vpt = create_renderer("Volumetric Path Tracer", device=dev)
+    vpt.set_line_data(ld)
+
+    def vpt_frame(cam):
+        return vpt.render(cam)
+
+    vpt.render(base)  # the cloud's upload and the first launch
+    vpt.set_line_data(ld)  # the accumulation restarts; the grid stays cached
+    img, ev_ms, host_ms, launches = frames(vpt_frame, [base] * SC_VPT_FRAMES,
+                                           {"vpt_tracking": 2 * SC_VPT_FRAMES}, warm=False)
+    vpt_launches = launches["vpt_tracking"]
+    if not np.isfinite(img).all() or not (img[..., :3].std() > 1e-3):
+        raise RuntimeError("the path-traced frame is non-finite or flat")
+    vs = VptSettings()
+    grid = ld.get_cloud_grid(device=dev)
+    sun_dir, sun_ic = sun_constants(vs)
+    cam_t = camera_tensors(base, dev)
+    basis = _ray_basis(cam_t[0])
+    key = threefry.prng_key(0, dev)
+    rays = []
+    for _ in range(vs.samples_per_frame):
+        key, kt, origins, dirs = primary_rays(key, cam_t[1], basis, W, H)
+        rays.append((origins, dirs, kt))
+    # The middle row of each sample: ray i of the row takes the frame's key
+    # split(kt, W * H)[r0 + i], as in the renderer.
+    r0 = (H // 2) * W
+    row_rays = [(o[r0:r0 + W].contiguous(), d[r0:r0 + W].contiguous(), kt) for o, d, kt in rays]
+
+    def on_the_row(trace, p, events=None):
+        outs = [trace(grid, o, d, kt, p, events=None if events is None else events[s * W:(s + 1) * W],
+                      first=r0) for s, (o, d, kt) in enumerate(row_rays)]
+        return tuple(torch.cat(x) for x in zip(*outs))
+
+    r3 = {}
+    for mode in vt.SCAN_MODES:
+        p = vt.vpt_params(grid.shape, vs.extinction, vs.scattering_albedo, sun_dir, sun_ic,
+                          vs.phase_g, mode, vs.max_events, vs.interpolation)
+        ev_k = torch.empty(len(rays) * W, dtype=torch.int32, device=dev)
+        ev_p = torch.empty_like(ev_k)
+        k_out = on_the_row(vt.vpt_tracking, p, ev_k)
+        p_out, plain_ms = host_timed(lambda: on_the_row(vt.vpt_tracking_reference, p, ev_p))
+        equal = all(torch.equal(a, b) for a, b in zip(k_out, p_out)) and torch.equal(ev_k, ev_p)
+        r3[mode] = {"equal": equal, "plain_ms": plain_ms,
+                    "ms_on_the_row": _time_ms(lambda: on_the_row(vt.vpt_tracking, p), 3),
+                    "max_abs_err": float((k_out[0] - p_out[0]).abs().max()),
+                    "events_on_the_row": int(ev_p.sum())}
+        if not equal:
+            raise RuntimeError(f"vpt_tracking ({mode}) differs from its plain version on the row")
+    p_delta = vt.vpt_params(grid.shape, vs.extinction, vs.scattering_albedo, sun_dir, sun_ic,
+                            vs.phase_g, vs.mode, vs.max_events, vs.interpolation)
+    ev_full = torch.empty(W * H, dtype=torch.int32, device=dev)
+    vt.vpt_tracking(grid, *rays[0], p_delta, events=ev_full)
+    r3_ms = _time_ms(lambda: vt.vpt_tracking(grid, *rays[0], p_delta), 3)
+    evf = ev_full.double()
+    events_total = int(evf.sum())
+    r3_bytes = grid.numel() * 4 + 8 + W * H * (12 + 12) + W * H * (12 + 12 + 1)
+    t_bytes = r3_bytes / H100_HBM_BYTES * 1e3
+    t_ops = events_total * VPT_OPS_PER_EVENT / H100_FP32_FLOPS * 1e3
+    hit = evf > 0
+    vpt_events = {"p50": float(evf[hit].quantile(0.5)), "p99": float(evf[hit].quantile(0.99)),
+                  "max": int(evf.max()), "rays_in_the_box": float(hit.double().mean()),
+                  "share_at_max_events": float((evf == vs.max_events).double().mean()),
+                  "events": events_total}
+    # The frame on the card against the CPU's at SC_CHECK_SCALE, same keys.
+    sw, sh = int(W * SC_CHECK_SCALE), int(H * SC_CHECK_SCALE)
+    small = dataclasses.replace(base, width=sw, height=sh)
+    chk = {}
+    for d in (dev, "cpu"):
+        r = create_renderer("Volumetric Path Tracer", device=d)
+        r.set_line_data(ld)
+        chk[str(d)] = r.render(small)
+    vpt_mean_diff = image_mean_difference(chk[str(dev)][..., :3], chk["cpu"][..., :3])
+    vpt_ssim = ssim(chk[str(dev)][..., :3], chk["cpu"][..., :3])
+    vpt_mad = float(np.abs(chk[str(dev)] - chk["cpu"]).mean())
+    # Decomposition and residual ratio tracking (plain PyTorch on the card).
+    small_modes = {}
+    for mode in ("Decomposition Tracking", "Residual Ratio Tracking"):
+        r = create_renderer("Volumetric Path Tracer", SettingsMap({"vpt_mode": mode}), device=dev)
+        r.vpt = dataclasses.replace(r.vpt, samples_per_frame=SC_SMALL_SPP)
+        r.set_line_data(ld)
+        cam_s = dataclasses.replace(base, width=SC_SMALL[0], height=SC_SMALL[1])
+        ms = []
+        for _ in range(SC_SMALL_FRAMES):
+            out, t_ms = host_timed(lambda: r.render(cam_s))
+            ms.append(t_ms)
+        small_modes[mode] = {"host_ms": ms, "spp": SC_SMALL_SPP,
+                             "mean_rgb": float(out[..., :3].mean()),
+                             "finite": bool(np.isfinite(out).all())}
+    vpt_line = {
+        "frame_ms": ev_ms, "host_ms": host_ms, "frame_ms_median": float(np.median(ev_ms)),
+        "host_ms_median": float(np.median(host_ms)), "launches": vpt_launches,
+        "kernel_vs_plain_row": r3, "events_per_ray": vpt_events,
+        f"card_vs_cpu_{sw}x{sh}": {"image_mean_difference": vpt_mean_diff, "ssim": vpt_ssim,
+                                   "mean_abs": vpt_mad},
+        f"plain_modes_{SC_SMALL[0]}x{SC_SMALL[1]}": small_modes,
+        "frames": SC_VPT_FRAMES, "spp": vs.samples_per_frame, "max_events": vs.max_events,
+        "width": W, "height": H, "gpu": gpu}
+    print("volumetric path tracer: " + json.dumps(vpt_line), flush=True)
+    if (vpt_mean_diff > 2e-3 or vpt_ssim < 0.999 or vpt_mad > 2e-3
+            or not all(m["finite"] for m in small_modes.values())):
+        raise RuntimeError("the path-traced frame on the card differs from the CPU's, or a plain "
+                           "mode is non-finite")
+    rows.append({
+        "name": "vpt_tracking", "route": "cuda",
+        "source": "linevis_tpu_torch/kernels/csrc/vpt_tracking.cu",
+        "replaces": "linevis_tpu/render/vpt.py:189",
+        "replaces_note": "no pallas_call: trace_one's vmapped lax.scan of Woodcock events "
+                         "(vpt.py:189-278), Delta, Spectral Delta and Ratio tracking",
+        "launches": vpt_launches, "max_abs_err": max(v["max_abs_err"] for v in r3.values()),
+        "ms": r3_ms, "plain_ms": r3["Delta Tracking"]["plain_ms"],
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bytes": r3_bytes, "bytes_ms": t_bytes, "operations_ms": t_ops, "library_ms": None,
+        "per_launch": "one sample of every pixel (2 a frame)",
+        "plain_on": f"row {H // 2} of both samples ({len(rays) * W} rays); ms_on_the_row beside",
+        "events_counted": events_total, "ops_per_event": VPT_OPS_PER_EVENT,
+        "ptxas": ptxas_lines(built, "vpt_tracking")})
+    del vpt, grid, rays, row_rays, ev_full
+    torch.cuda.empty_cache()
+
+    # "Line Density Map Renderer": SC_FRAMES frames on an orbit.
+    cams = [dataclasses.replace(base, position=(SC_LDM_CAMERA[0] + 0.002 * i, *SC_LDM_CAMERA[1:]))
+            for i in range(SC_FRAMES)]
+    field, field_ms = host_timed(lambda: ld.get_line_density_field(device=dev))
+    ldm = create_renderer("Line Density Map Renderer", device=dev)
+    ldm.set_line_data(ld)
+    img, ev_ms, host_ms, launches = frames(ldm.render, cams, {"density_march": SC_FRAMES})
+    if not np.isfinite(img).all() or not (img[..., 3] > 0.05).any():
+        raise RuntimeError("the density map frame is non-finite or empty")
+    ct = camera_tensors(cams[0], dev)
+    c_pts, _ = ldm.transfer_function.as_static_points()
+    o_pts = ((0.0, 0.0), (0.05, 1.0), (1.0, 1.0))  # the renderer's ramp for a flat opacity TF
+    prm, _ = dm.march_params(field.shape, ld.grid_b_min, ld.grid_b_max, ct[1], _ray_basis(ct[0]),
+                             W, H, ldm.attenuation, (1.0, 1.0, 1.0, 0.0))
+    k_out = dm.density_march(field, prm, W, H, 256, c_pts, o_pts)
+    stats = {}
+    p_out, plain_ms = host_timed(lambda: dm.density_march_reference(
+        field, prm, W, H, 256, c_pts, o_pts, stats=stats))
+    r4_equal = bool(torch.equal(k_out, p_out))
+    r4_ms = _time_ms(lambda: dm.density_march(field, prm, W, H, 256, c_pts, o_pts), 10)
+    r4_bytes = field.numel() * 4 + W * H * 16
+    t_bytes = r4_bytes / H100_HBM_BYTES * 1e3
+    t_ops = stats["steps"] * MARCH_OPS_PER_STEP / H100_FP32_FLOPS * 1e3
+    ldm_line = {"frame_ms": ev_ms, "host_ms": host_ms, "frame_ms_median": float(np.median(ev_ms)),
+                "host_ms_median": float(np.median(host_ms)), "field_ms": field_ms,
+                "field_voxels": list(field.shape), "launches": launches["density_march"],
+                "equal": r4_equal,
+                "steps": stats["steps"], "frames": SC_FRAMES, "width": W, "height": H,
+                "gpu": gpu}
+    print("line density map: " + json.dumps(ldm_line), flush=True)
+    if not r4_equal:
+        raise RuntimeError("density_march differs from its plain version on the 1080p frame")
+    rows.append({
+        "name": "density_march", "route": "cuda",
+        "source": "linevis_tpu_torch/kernels/csrc/density_march.cu",
+        "replaces": "linevis_tpu/render/line_density_map.py:51",
+        "replaces_note": "no pallas_call: render_line_density_map's lax.scan of 256 steps "
+                         "(line_density_map.py:76-93)",
+        "launches": launches["density_march"], "max_abs_err": float((k_out - p_out).abs().max()),
+        "ms": r4_ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "bytes": r4_bytes,
+        "bytes_ms": t_bytes, "operations_ms": t_ops, "library_ms": None,
+        "steps_counted": stats["steps"], "ops_per_step": MARCH_OPS_PER_STEP,
+        "ptxas": ptxas_lines(built, "density_march")})
+    del field, k_out, p_out
+
+    # "Spherical Heat Map Renderer": a 1080 x 2160 map of the exit directions.
+    heat_cam = dataclasses.replace(base, width=2 * H, height=H)
+    shm_r = create_renderer("Spherical Heat Map Renderer", device=dev)
+    shm_r.set_line_data(ld)
+    img, ev_ms, host_ms, launches = frames(shm_r.render, [heat_cam] * SC_HEAT_FRAMES,
+                                           {"spherical_heatmap": SC_HEAT_FRAMES})
+    if not np.isfinite(img).all() or not (img[..., 0] > 0.5).any():
+        raise RuntimeError("the heat map is non-finite or has no hot spot")
+    dirs = torch.as_tensor(ld.exit_directions, device=dev)
+    pts, _ = mollweide_points(H, dev)
+    full = shm.heatmap_density(pts, dirs).reshape(H, 2 * H)
+    top = int(torch.clamp(full.amax(dim=1).argmax() - SC_HEAT_BAND // 2, 0, H - SC_HEAT_BAND))
+    band = pts.reshape(H, 2 * H, 3)[top:top + SC_HEAT_BAND].reshape(-1, 3)
+    k_band = shm.heatmap_density(band, dirs)
+    p_band, plain_ms = host_timed(lambda: shm.heatmap_density_reference(band, dirs))
+    r5_err = float((k_band - p_band).abs().max())
+    r5_ok = bool(torch.equal(k_band, p_band))
+    r5_ms = _time_ms(lambda: shm.heatmap_density(pts, dirs), 3)
+    n_pairs = pts.shape[0] * dirs.shape[0]
+    r5_bytes = pts.numel() * 4 + dirs.numel() * 4 + pts.shape[0] * 4
+    t_bytes = r5_bytes / H100_HBM_BYTES * 1e3
+    t_ops = n_pairs * HEAT_OPS_PER_PAIR / H100_FP32_FLOPS * 1e3
+    heat_line = {"frame_ms": ev_ms, "host_ms": host_ms, "frame_ms_median": float(np.median(ev_ms)),
+                 "host_ms_median": float(np.median(host_ms)), "map": [H, 2 * H],
+                 "directions": int(dirs.shape[0]), "band_rows": [top, top + SC_HEAT_BAND],
+                 "band_equal": r5_ok, "band_max": float(p_band.max()),
+                 "launches": launches["spherical_heatmap"],
+                 "frames": SC_HEAT_FRAMES, "gpu": gpu}
+    print("spherical heat map: " + json.dumps(heat_line), flush=True)
+    if not r5_ok:
+        raise RuntimeError("spherical_heatmap differs from its plain version on the band")
+    rows.append({
+        "name": "spherical_heatmap", "route": "cuda",
+        "source": "linevis_tpu_torch/kernels/csrc/spherical_heatmap.cu",
+        "replaces": "linevis_tpu/render/spherical_heatmap.py:57",
+        "replaces_note": "no pallas_call: render_spherical_heatmap's [pixels, directions] "
+                         "RBF sum (spherical_heatmap.py:57-66)",
+        "launches": launches["spherical_heatmap"], "max_abs_err": r5_err, "ms": r5_ms,
+        "plain_ms": plain_ms,
+        "plain_on": f"a band of {SC_HEAT_BAND} rows ({band.shape[0]} pixels)",
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bytes": r5_bytes, "bytes_ms": t_bytes, "operations_ms": t_ops, "library_ms": None,
+        "pairs_counted": n_pairs, "ops_per_pair": HEAT_OPS_PER_PAIR,
+        "ptxas": ptxas_lines(built, "spherical_heatmap")})
+    del dirs, pts, full, ld
+    torch.cuda.empty_cache()
+
+    # "Voxel Ray Casting" on the tornado: SC_FRAMES frames.
+    t_cams = [Camera(position=(0.0, 0.1, 1.2), width=W, height=H).orbit(0.002 * (i + 1), 0.1, 1.2)
+              for i in range(SC_FRAMES)]
+    tld = LineData(traj)
+    tld.set_line_width(TORNADO_LINE_WIDTH)
+    vrc_settings = SettingsMap({"grid_resolution": SC_VRC["grid_resolution"]})
+    vrc = create_renderer("Voxel Ray Casting", vrc_settings, device=dev)
+    vrc.quantization = SC_VRC["quantization"]
+    vrc.set_line_data(tld)
+    q_scene, disc_ms = host_timed(vrc.quantized_scene)
+    img, ev_ms, host_ms, launches = frames(vrc.render, t_cams, {"capsule_raster": SC_FRAMES})
+    csr, _, _ = prepare_capsule_frame(q_scene, *camera_tensors(t_cams[0], dev),
+                                      vrc._base._raster_settings(t_cams[0]))
+    small = dataclasses.replace(t_cams[0], width=int(W * SC_CHECK_SCALE),
+                                height=int(H * SC_CHECK_SCALE))
+    chk = {}
+    for d in (dev, "cpu"):
+        r = create_renderer("Voxel Ray Casting", vrc_settings, device=d)
+        r.quantization = SC_VRC["quantization"]
+        r.set_line_data(tld)
+        chk[str(d)] = r.render(small)
+    vrc_ssim = ssim(chk[str(dev)][..., :3], chk["cpu"][..., :3])
+    vrc_line = {"frame_ms": ev_ms, "host_ms": host_ms, "frame_ms_median": float(np.median(ev_ms)),
+                "host_ms_median": float(np.median(host_ms)), "discretize_ms": disc_ms,
+                "capsules": q_scene.num_segments, "valid": int(q_scene.mask.sum()),
+                "b1_pairs": int(csr.tile_count.sum()), "launches": launches["capsule_raster"],
+                f"card_vs_cpu_ssim_{small.width}x{small.height}": vrc_ssim, **SC_VRC,
+                "frames": SC_FRAMES, "width": W, "height": H, "gpu": gpu}
+    print("voxel ray casting: " + json.dumps(vrc_line), flush=True)
+    if not np.isfinite(img).all() or vrc_ssim < 0.999 or not (img[..., :3] < 0.999).any():
+        raise RuntimeError("the VRC frame is empty or disagrees card vs CPU")
+    del q_scene, csr, vrc
+
+    # Multivariate tubes: the tornado's attribute and 1 - it in alternate
+    # sectors, SC_FRAMES frames through render_opaque (B3 once a frame).
+    attr = traj.attributes[:, 0]
+    mesh, mesh_ms = host_timed(lambda: build_multivar_tube_mesh(
+        traj.positions, traj.mask, [attr, 1.0 - attr], radius=TORNADO_RADIUS,
+        num_subdivisions=8, device=dev))
+    table = torch.as_tensor(combine_transfer_function_table(
+        MultiVarTransferFunctions.default(2)).table, device=dev)
+    mv_settings = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+    mv_cams = [camera_tensors(c, dev) for c in t_cams]
+
+    def mv_frame(cam):
+        return render_opaque(mesh, cam[0], cam[1], table, mv_settings)
+
+    img, ev_ms, host_ms, launches = frames(mv_frame, mv_cams, {"triangle_raster": SC_FRAMES})
+    if not bool(torch.isfinite(img).all()):
+        raise RuntimeError("non-finite multivariate frame")
+    batch = tube_vertex_stage(mesh, mv_cams[0][0], W, H)
+    csr = raster_pallas.build_csr_binning(
+        batch.tri_x, batch.tri_y, build_payload(batch), batch.tri_valid, W, H,
+        mv_settings.tile_w, mv_settings.tile_h, mv_settings.chunk, mv_settings.span_x,
+        mv_settings.span_y, mv_settings.pairs_capacity)
+    _, _, fig = b3_check(csr, mv_settings.tile_w, mv_settings.tile_h)
+    mv_line = {"frame_ms": ev_ms, "host_ms": host_ms, "frame_ms_median": float(np.median(ev_ms)),
+               "host_ms_median": float(np.median(host_ms)), "mesh_ms": mesh_ms,
+               "triangles": mesh.num_triangles, "launches": launches["triangle_raster"],
+               "b3_equal": fig["equal"], "b3_ms": fig["ms"], "b3_plain_ms": fig["plain_ms"],
+               "b3_pairs": fig["pairs"], "frames": SC_FRAMES, "width": W, "height": H, "gpu": gpu}
+    print("multivariate tubes: " + json.dumps(mv_line), flush=True)
+    if not fig["equal"]:
+        raise RuntimeError("B3 differs from its plain version on the multivariate CSR")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1196,6 +1642,9 @@ def main() -> int:
     )
     from linevis_tpu_torch.kernels.bvh_mlat import STATS as MLAT_STATS
     from linevis_tpu_torch.kernels.bvh_mlat import mlat_nodes, mlat_nodes_reference
+    from linevis_tpu_torch.kernels.density_march import density_march
+    from linevis_tpu_torch.kernels.spherical_heatmap import heatmap_density
+    from linevis_tpu_torch.kernels.vpt_tracking import vpt_tracking
     from linevis_tpu_torch.ops.lbvh import lbvh_on, packed_nodes, packed_wide_nodes
     from linevis_tpu_torch.kernels.bvh_wavefront import (
         STATS as WF_STATS,
@@ -1300,7 +1749,8 @@ def main() -> int:
         "prism_raster": rasterize_prisms, "triangle_raster": raster_pallas.rasterize_gbuffer,
         "ao_grid": ao_grid.trace_pairs, "bvh_wavefront": trace_wavefront_kbuffer,
         "bvh_closest_hit": capsule_closest_hit, "bvh_recast": capsule_recast,
-        "bvh_mlat": mlat_nodes,
+        "bvh_mlat": mlat_nodes, "vpt_tracking": vpt_tracking, "density_march": density_march,
+        "spherical_heatmap": heatmap_density,
     }
 
     def reset_launches():
@@ -2230,9 +2680,19 @@ def main() -> int:
     modes += [("Opaque", {"tubeGeometry": "prism"}), ("Opaque", {"tubeGeometry": "triangle"}),
               ("Vulkan Ray Tracer", {"use_mlat": True}),
               ("Deferred Opaque", {"upscaling_factor": 2})]
+    # The scattering modes draw a LineDataScattering: a small cloud traced
+    # once on the CPU, shared by both devices.
+    from linevis_tpu_torch.entry import scattering_line_data
+
+    small_scatter = scattering_line_data("cpu", n=32, blobs=12, trace=dict(
+        res_x=8, res_y=8, samples_per_pixel=4, max_events=64))
+    scattering_modes = ("Line Density Map Renderer", "Spherical Heat Map Renderer",
+                        "Volumetric Path Tracer")
     for mode, mode_settings in modes:
         if mode == "Opaque (Triangle Mesh)":
             ld = sphere_mesh_data(4)  # a surface: 5120 triangles from an STL
+        elif mode in scattering_modes:
+            ld = small_scatter
         else:
             ld = LineData(small_traj)
             ld.set_line_width(0.04)
@@ -2254,6 +2714,13 @@ def main() -> int:
                                   for k, v in mode_settings.items())])
         registry_check[label] = [s_, mad]
         agree = s_ >= 0.999 and mad <= 2e-3
+        if mode == "Volumetric Path Tracer":
+            # Identical keys: the same paths up to the devices' float rounding,
+            # held pixel by pixel as every mode is, and by the reference's
+            # criterion, the image mean.
+            mean_diff = float(abs(g_img[..., :3].mean() - c_img[..., :3].mean()))
+            registry_check[label].append(mean_diff)
+            agree = agree and mean_diff <= 2e-3
         if mode == "RTAO":
             mean_diff = float((g_img[..., :3] - c_img[..., :3]).mean())
             registry_check[label].append(mean_diff)
@@ -2262,7 +2729,8 @@ def main() -> int:
         if not np.isfinite(g_img).all() or not agree:
             raise RuntimeError(f"registry mode {label!r}: the card frame disagrees with the CPU's")
     print("registry modes card vs cpu (ssim, mean abs; RTAO: after "
-          f"{RTAO_FRAMES} accumulated frames, and the mean RGB difference): "
+          f"{RTAO_FRAMES} accumulated frames, and the mean RGB difference; the path tracer: "
+          "and the image mean difference): "
           + json.dumps(registry_check), flush=True)
     kernels.extend(new_kernels)
 
@@ -3626,6 +4094,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels.extend(datasets_phase(dev, gpu, traj, reset_launches, expect_launches, resources))
+    torch.cuda.empty_cache()
+    kernels.extend(scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built))
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)

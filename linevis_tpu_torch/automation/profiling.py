@@ -9,8 +9,8 @@ that take the time.
     python -m linevis_tpu_torch.automation.profiling [OUT_DIR [PATH]]
 
 PATH: opaque|mlab|prism|triangle|rtao|wavefront|recast|mlat|wboit|depth_peeling|mlab_buckets|
-      mboit|depth_complexity|opacity_optimization|rtao_registry|surface|
-      a name of entry.BASELINE_CONFIGS
+      mboit|depth_complexity|opacity_optimization|rtao_registry|surface|vpt|density_map|heatmap|
+      vrc|multivar|a name of entry.BASELINE_CONFIGS
 
 profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
 default) the opaque capsule frame (`render_tubes`, tile 32x16, AA on),
@@ -39,7 +39,15 @@ so no frames accumulate); `surface` a triangle-mesh dataset from a file
 (`entry.sphere_mesh_data`: the displaced icosphere of 1,310,720 triangles
 written as binary STL and loaded) through the registry's "Opaque (Triangle
 Mesh)" (tile 16x8, the binning window sized per camera, the image handed
-back as numpy); a name of `entry.BASELINE_CONFIGS` that reference
+back as numpy); `vpt`, `density_map` and `heatmap` the scattering
+modes through the registry on `entry.scattering_line_data` (the 512^3
+procedural cloud traced at 40,960 paths, ~10 s of set-up first): the
+"Volumetric Path Tracer" at its defaults accumulating at one camera (4
+frames), the "Line Density Map Renderer" from the side the paths enter, the
+"Spherical Heat Map Renderer" as a 1080x2160 map (4 frames); `vrc` the
+tornado through "Voxel Ray Casting" (grid 128, quantization 8) and
+`multivar` its multivariate tubes (the attribute and 1 - it, 8
+subdivisions) through `render_opaque`; a name of `entry.BASELINE_CONFIGS` that reference
 config through the registry at its own resolution, on its frames (an orbit
 of cameras; config 3 accumulates at one camera, config 5 follows its circle
 path; configs 4 and 4b draw the Femur-like stress lines). It runs 8 frames
@@ -105,7 +113,9 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
 
     from linevis_tpu_torch.entry import (
         BASELINE_CONFIGS,
+        TORNADO_LINE_WIDTH,
         TORNADO_RADIUS,
+        scattering_line_data,
         tornado_prism_scene,
         tornado_scene,
         tornado_segment_grid,
@@ -144,10 +154,14 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         "mboit": ("render_tubes_mboit", dict(n_mom=4, opacity=0.3)),
         "depth_complexity": ("render_depth_complexity", {}),
     }
+    scattering = {"vpt": "Volumetric Path Tracer", "density_map": "Line Density Map Renderer",
+                  "heatmap": "Spherical Heat Map Renderer"}
     paths = ("opaque", "prism", "triangle", "rtao", "wavefront", "recast", "mlat", *oit_paths,
-             "opacity_optimization", "rtao_registry", "surface", *BASELINE_CONFIGS)
+             "opacity_optimization", "rtao_registry", "surface", *scattering, "vrc", "multivar",
+             *BASELINE_CONFIGS)
     # These take the Camera, the rest its tensors.
-    takes_camera = ("opacity_optimization", "rtao_registry", "surface", *BASELINE_CONFIGS)
+    takes_camera = ("opacity_optimization", "rtao_registry", "surface", *scattering, "vrc",
+                    *BASELINE_CONFIGS)
     if path not in paths:
         raise SystemExit(f"profiling: unknown path {path!r} (one of {', '.join(paths)})")
     if not torch.cuda.is_available():
@@ -158,7 +172,8 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     W, H = 1920, 1080
-    n = 4 if path in ("rtao", "wavefront", "recast", "mlat", "rtao_registry") else 8
+    n = 4 if path in ("rtao", "wavefront", "recast", "mlat", "rtao_registry", "vpt",
+                      "heatmap") else 8
     base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
     cams = [base.orbit(0.002 * (i + 1), 0.1, 1.2) for i in range(n + 2)]
     wide = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
@@ -194,6 +209,43 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
 
         def render(_scene, camera):
             return registry.render(camera)
+    elif path in scattering:
+        scene = scattering_line_data(dev)
+        registry = create_renderer(scattering[path], device=dev)
+        registry.set_line_data(scene)
+        look = Camera(position=(0.0, 0.15, 0.9), look_at_point=(0.0, 0.0, 0.0), width=W, height=H)
+        if path == "density_map":  # from the side the traced paths enter
+            cams = [Camera(position=(-0.6 + 0.002 * i, -0.45, -0.55), width=W, height=H)
+                    for i in range(n + 2)]
+        else:  # the path tracer accumulates at one camera; the map takes its height
+            cams = [look if path == "vpt" else Camera(width=2 * H, height=H)] * (n + 2)
+
+        def render(_scene, camera):
+            return registry.render(camera)
+    elif path == "vrc":
+        scene = LineData(tornado_trajectories(dev))
+        scene.set_line_width(TORNADO_LINE_WIDTH)
+        registry = create_renderer("Voxel Ray Casting", device=dev)
+        registry.set_line_data(scene)
+
+        def render(_scene, camera):
+            return registry.render(camera)
+    elif path == "multivar":
+        from linevis_tpu_torch.render.multivar import (
+            MultiVarTransferFunctions,
+            build_multivar_tube_mesh,
+            combine_transfer_function_table,
+        )
+
+        traj = tornado_trajectories(dev)
+        attr = traj.attributes[:, 0]
+        scene = build_multivar_tube_mesh(traj.positions, traj.mask, [attr, 1.0 - attr],
+                                         radius=TORNADO_RADIUS, num_subdivisions=8, device=dev)
+        table = torch.as_tensor(combine_transfer_function_table(
+            MultiVarTransferFunctions.default(2)).table, device=dev)
+
+        def render(mesh, view_proj, position, _proj_ab):
+            return render_opaque(mesh, view_proj, position, table, wide)
     elif path in BASELINE_CONFIGS:
         run = BASELINE_CONFIGS[path](device=dev, frames=n + 2)
         if run.renderer.name == "RTAO":

@@ -2,7 +2,8 @@
 
 The system has no weights: its state is the scene. A caller holding a
 `linevis_tpu` `CapsuleScene`, `PrismScene`, `TubeMesh`, `Trajectories`,
-`SegmentGrid`, `Lbvh` or packed wide-BVH groups array passes its fields as
+`SegmentGrid`, `Lbvh`, `SparseGrid`, `SuperVoxelGrid`, `LineDataScattering`
+or packed wide-BVH groups array passes its fields as
 numpy arrays (e.g. `{f.name: np.asarray(getattr(s, f.name)) for f in
 dataclasses.fields(s)}`), and gets the port's counterpart back. The state
 of an `OpacityOptimizationRenderer` carries over into the port's renderer
@@ -20,12 +21,16 @@ from linevis_tpu_torch.geometry.tubes import TubeMesh
 from linevis_tpu_torch.kernels.ao_grid import SegmentGrid
 from linevis_tpu_torch.ops.lbvh import Lbvh
 from linevis_tpu_torch.render.denoiser import SvgfTemporalState
+from linevis_tpu_torch.render.super_voxel import SuperVoxelGrid
 from linevis_tpu_torch.render.tube_raster import CapsuleScene, PrismScene
+from linevis_tpu_torch.scene.line_data_scattering import LineDataScattering
+from linevis_tpu_torch.scene.sparse_grid import SparseGrid
 
 __all__ = [
     "capsule_scene_from_numpy", "prism_scene_from_numpy", "tube_mesh_from_numpy",
     "trajectories_from_numpy", "segment_grid_from_numpy", "lbvh_from_numpy",
     "wide_groups_from_numpy", "opacity_state_from_numpy", "svgf_state_from_numpy",
+    "sparse_grid_from_numpy", "super_voxel_grid_from_numpy", "line_data_scattering_from_numpy",
 ]
 
 
@@ -146,3 +151,29 @@ def svgf_state_from_numpy(d, device="cuda") -> SvgfTemporalState:
         name: torch.tensor(np.asarray(d[name]), dtype=torch.float32, device=device)
         for name in ("color", "moments", "length", "position")
     })
+
+
+def sparse_grid_from_numpy(d, device="cuda") -> SparseGrid:
+    """{bricks [n + 1, b+1, b+1, b+1], table [Zb, Yb, Xb], shape, block} ->
+    SparseGrid on `device`."""
+    return SparseGrid(
+        bricks=torch.tensor(np.asarray(d["bricks"]), dtype=torch.float32, device=device),
+        table=torch.tensor(np.asarray(d["table"]), dtype=torch.int32, device=device),
+        shape=tuple(int(v) for v in d["shape"]), block=int(d["block"]))
+
+
+def super_voxel_grid_from_numpy(d, device="cuda") -> SuperVoxelGrid:
+    """{mu_c, mu_r_bar [Sz, Sy, Sx], size} -> SuperVoxelGrid on `device`."""
+    return SuperVoxelGrid(
+        mu_c=torch.tensor(np.asarray(d["mu_c"]), dtype=torch.float32, device=device),
+        mu_r_bar=torch.tensor(np.asarray(d["mu_r_bar"]), dtype=torch.float32, device=device),
+        size=int(d["size"]))
+
+
+def line_data_scattering_from_numpy(d) -> LineDataScattering:
+    """{trajectories: {Trajectories fields}, cloud_grid [Z, Y, X],
+    exit_directions [N, 3] or None, name} -> LineDataScattering (host
+    arrays, as the JAX scene holds them)."""
+    return LineDataScattering(trajectories_from_numpy(d["trajectories"]),
+                              np.asarray(d["cloud_grid"], np.float32),
+                              exit_directions=d.get("exit_directions"), name=d.get("name", ""))

@@ -33,6 +33,11 @@ the tornado and the convection rolls (`convection_velocity`) traced on a
 device, the Femur-like stress lines (`synth_v3_blocks`) written to a v3
 `.dat` file of its own and read back.
 
+Scattering: `procedural_cloud` builds a cloud density grid on a device (a
+clipped sum of Gaussian blobs from a numpy seed) and `scattering_line_data`
+traces it with `LineDataScattering.trace` (`SCATTERING_TRACE`: the
+reference's tracing settings but the resolution, 40,960 paths).
+
 Datasets from files: `displaced_icosphere` (a closed surface of 20 * 4^k
 triangles) and `write_binary_stl` write the surface that
 `sphere_mesh_data` loads as `TriangleMeshData` through the STL loader;
@@ -684,3 +689,42 @@ BASELINE_CONFIGS = {
     "cfg4b_femur_mboit_1080p": config4b_femur_mboit,
     "cfg5_tornado_opacityopt_1080p": config5_tornado_opacity_opt_replay,
 }
+
+
+# Scattering: the reference's ScatteringTracingSettings but the resolution
+# (trace/scattering.py:40-56): 64 x 64 pixels x 10 samples = 40,960 paths.
+SCATTERING_TRACE = dict(res_x=64, res_y=64, samples_per_pixel=10, max_events=128, g=0.2, seed=42)
+CLOUD_SIZE = 512  # voxels a side: 512^3 float32, 537 MB
+CLOUD_BLOBS = 300
+
+
+def procedural_cloud(device="cuda", n=CLOUD_SIZE, blobs=CLOUD_BLOBS, seed=7):
+    """A [n, n, n] float32 cloud on `device`: the sum of `blobs` Gaussian
+    blobs (centres, radii and amplitudes from np.random.default_rng(seed))
+    over the unit cube, each cut at three radii, clipped to [0, 1]."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(0.2, 0.8, (blobs, 3))
+    radii = rng.uniform(0.02, 0.08, blobs)
+    amps = rng.uniform(0.5, 1.5, blobs)
+    g = torch.linspace(0.0, 1.0, n, device=device)
+    cloud = torch.zeros((n, n, n), device=device)
+    for c, r, a in zip(centres, radii, amps):
+        lo = np.clip(np.floor((c - 3 * r) * (n - 1)).astype(int), 0, n - 1)
+        hi = np.clip(np.ceil((c + 3 * r) * (n - 1)).astype(int) + 1, 0, n)
+        e = [torch.exp(-((g[lo[i]:hi[i]] - float(c[i])) ** 2) / float(r * r)) for i in range(3)]
+        cloud[lo[2]:hi[2], lo[1]:hi[1], lo[0]:hi[0]] += (
+            float(a) * e[2][:, None, None] * e[1][None, :, None] * e[0][None, None, :])
+    return torch.clamp(cloud, 0.0, 1.0)
+
+
+def scattering_line_data(device="cuda", n=CLOUD_SIZE, blobs=CLOUD_BLOBS, trace=None):
+    """`procedural_cloud` traced on `device` by `LineDataScattering.trace`
+    with `SCATTERING_TRACE` (or `trace`, a dict of its settings)."""
+    from linevis_tpu_torch.scene.line_data_scattering import LineDataScattering
+    from linevis_tpu_torch.trace.scattering import ScatteringTracingSettings
+
+    cloud = procedural_cloud(device, n, blobs).cpu().numpy()
+    return LineDataScattering.trace(
+        cloud, ScatteringTracingSettings(**(trace or SCATTERING_TRACE)), device=device)

@@ -33,6 +33,7 @@ BUILD_DIR = _HERE / "build"
 KERNELS = (
     "raster_capsule", "raster_capsule_oit", "raster_capsule_accum", "raster_prism",
     "raster_triangle", "ao_grid", "bvh_wavefront", "bvh_closest_hit", "bvh_mlat",
+    "vpt_tracking", "density_march", "spherical_heatmap",
 )
 
 NVCC_FLAGS = (

@@ -8,9 +8,6 @@ caches every device representation with dirty-flag invalidation
 getters build the port's capsule scene, prism scene and tube mesh on the
 `device` they are given (the card unless the caller asks for the CPU); the
 device is part of the cache key.
-
-Not ported yet: the line-segment representation (ROADMAP queue A item 8);
-it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -165,8 +162,11 @@ class LineData:
             num_subdivisions=num_subdivisions, device=device))
 
     def get_line_segments(self, device="cuda"):
-        raise NotImplementedError(
-            "line segments (geometry/segments.py) are not ported yet: ROADMAP queue A item 8")
+        """Flat per-segment lists on `device` (`geometry/segments.py`)."""
+        from linevis_tpu_torch.geometry.segments import build_line_segments
+
+        key = ("segments", self.selected_attribute_index, str(device))
+        return self._cached(key, lambda: build_line_segments(*self._lines(), device=device))
 
 
 class LineDataFlow(LineData):

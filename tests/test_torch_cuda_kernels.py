@@ -21,7 +21,13 @@ and every chunk's walked count equal. For the wavefront kernel: depths,
 features, alpha and the per-block counts bit for bit. For the per-ray
 traversal kernels (closest hit, MLAT, the whole re-cast loop): every output
 and per-ray count bit for bit (the re-cast loop: every cast's (t, prim); its
-color and transmittance within 1e-5, its powf against torch.pow). Kernels
+color and transmittance within 1e-5, its powf against torch.pow). For the
+volume kernels: the path tracer's tracking (R3) on a 1080p row in each of
+its three modes and each interpolation, and the density march (R4) on a
+whole 1080p frame, bit for bit (every output and per-ray event count); the
+heat map's RBF sum (R5) bit for bit (its plain version adds the directions
+in the kernel's order); the device threefry bit for bit against
+`ops/threefry.py`. Kernels
 and plain versions are built
 without fast math and FMA contraction, so they normally agree bit for bit.
 """
@@ -1729,3 +1735,140 @@ def test_render_raytraced_card_matches_cpu(cuda, renderer):
                                            opacity=0.4).cpu())
     assert bool(torch.isfinite(imgs[0]).all()) and (imgs[0][3] > 0).sum().item() > 100
     assert (imgs[0] - imgs[1]).abs().mean().item() <= 2e-3
+
+
+# -- the volume kernels: R3 (path tracer), R4 (density march), R5 (heat map) ---
+
+
+def _blob_cloud(n=64, blobs=40, seed=7):
+    """A procedural cloud [n, n, n] in [0, 1]: a clipped sum of Gaussian blobs."""
+    rng = np.random.default_rng(seed)
+    g = np.linspace(0.0, 1.0, n, dtype=np.float32)
+    zz, yy, xx = np.meshgrid(g, g, g, indexing="ij")
+    out = np.zeros((n, n, n), np.float32)
+    for c, r, a in zip(rng.uniform(0.2, 0.8, (blobs, 3)), rng.uniform(0.05, 0.15, blobs),
+                       rng.uniform(0.3, 1.0, blobs)):
+        out += a * np.exp(-((xx - c[0]) ** 2 + (yy - c[1]) ** 2 + (zz - c[2]) ** 2) / (r * r))
+    return np.clip(out, 0.0, 1.0).astype(np.float32)
+
+
+def _vpt_row(cuda, width=1920, height=1080, row=540):
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render import vpt as tvpt
+
+    cam = Camera(position=(0.0, 0.15, 0.9), look_at_point=(0, 0, 0), width=width, height=height)
+    basis = ttr._ray_basis(torch.as_tensor(cam.view_projection_matrix(), device=cuda))
+    o = torch.as_tensor(np.asarray(cam.position, np.float32), device=cuda)
+    _, kt, origins, dirs = tvpt.primary_rays(threefry.prng_key(1, cuda), o, basis, width, height)
+    sl = slice(row * width, (row + 1) * width)
+    return origins[sl].contiguous(), dirs[sl].contiguous(), kt, row * width
+
+
+def test_threefry_device_matches_torch(cuda):
+    from linevis_tpu_torch.kernels.vpt_tracking import threefry_device
+    from linevis_tpu_torch.ops import threefry
+
+    keys = threefry.split(threefry.prng_key(42, cuda), 4096)
+    for c in (0, 1, 5, 1000):
+        assert torch.equal(threefry_device(keys, "split", c), threefry.split_at(keys, c))
+        assert torch.equal(threefry_device(keys, "uniform", c), threefry.uniform_at(keys, c))
+
+
+@pytest.mark.parametrize("interpolation", ["Trilinear", "Nearest", "Stochastic"])
+@pytest.mark.parametrize("mode", ["Delta Tracking", "Spectral Delta Tracking", "Ratio Tracking"])
+def test_vpt_tracking_kernel_matches_plain(cuda, mode, interpolation):
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+
+    grid = torch.as_tensor(_blob_cloud(), device=cuda)
+    origins, dirs, kt, first = _vpt_row(cuda)
+    ext = (1024.0, 900.0, 800.0) if mode == "Spectral Delta Tracking" else (1024.0,) * 3
+    p = tvt.vpt_params(grid.shape, ext, (0.95, 0.9, 1.0), (0.58, 0.77, 0.27), (2.6, 2.5, 2.3),
+                       0.2, mode, 512, interpolation)
+    ev_k = torch.empty(origins.shape[0], dtype=torch.int32, device=cuda)
+    ev_p = torch.empty_like(ev_k)
+    n0 = tvt.vpt_tracking.launches
+    got = tvt.vpt_tracking(grid, origins, dirs, kt, p, events=ev_k, first=first)
+    assert tvt.vpt_tracking.launches == n0 + 1
+    ref = tvt.vpt_tracking_reference(grid, origins, dirs, kt, p, events=ev_p, first=first)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(ev_k, ev_p) and int(ev_k.max()) > 10
+
+
+def test_vpt_tracking_env_map_matches_plain(cuda):
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+
+    grid = torch.as_tensor(_blob_cloud(), device=cuda)
+    origins, dirs, kt, first = _vpt_row(cuda)
+    env = torch.as_tensor(np.random.default_rng(3).uniform(0, 2, (16, 32, 3)).astype(np.float32),
+                          device=cuda)
+    p = tvt.vpt_params(grid.shape, (1024.0,) * 3, (1.0,) * 3, (0.58, 0.77, 0.27), (1, 1, 1),
+                       0.0, "Delta Tracking", 512, "Trilinear", env_intensity=1.5)
+    for a, b in zip(tvt.vpt_tracking(grid, origins, dirs, kt, p, env, first=first),
+                    tvt.vpt_tracking_reference(grid, origins, dirs, kt, p, env, first=first)):
+        assert torch.equal(a, b)
+
+
+def test_vpt_launch_failure_raises(cuda):
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+
+    origins, dirs, kt, first = _vpt_row(cuda, width=64, height=8, row=4)
+    flat = torch.zeros((1, 4, 4), device=cuda)  # a grid one voxel deep: invalid
+    p = tvt.vpt_params(flat.shape, (1024.0,) * 3, (1.0,) * 3, (0, 1, 0), (1, 1, 1), 0.0,
+                       "Delta Tracking", 8, "Trilinear")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tvt.vpt_tracking(flat, origins, dirs, kt, p, first=first)
+
+
+def test_render_vpt_launches_once_a_sample(cuda):
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render import vpt as tvpt
+
+    cam = Camera(position=(0.0, 0.15, 0.9), width=64, height=48)
+    grid = torch.as_tensor(_blob_cloud(32), device=cuda)
+    basis = ttr._ray_basis(torch.as_tensor(cam.view_projection_matrix(), device=cuda))
+    o = torch.as_tensor(np.asarray(cam.position, np.float32), device=cuda)
+    n0 = tvt.vpt_tracking.launches
+    args = (grid, o, basis, 64, 48, tvpt.VptSettings(max_events=64))
+    img = tvpt.render_vpt(threefry.prng_key(0, cuda), *args, spp=2)
+    assert tvt.vpt_tracking.launches == n0 + 2
+    cpu = tvpt.render_vpt(threefry.prng_key(0), grid.cpu(), o.cpu(), basis.cpu(), 64, 48,
+                          tvpt.VptSettings(max_events=64), spp=2)
+    assert float((img.cpu() - cpu).abs().mean()) <= 2e-3
+
+
+def test_density_march_kernel_matches_plain(cuda):
+    from linevis_tpu_torch.kernels import density_march as tdm
+    from linevis_tpu_torch.render.transfer_function import TransferFunction
+
+    field = torch.as_tensor(_blob_cloud(64, seed=11), device=cuda)
+    cam = Camera(position=(0.0, 0.1, 0.8), width=1920, height=1080)
+    basis = ttr._ray_basis(torch.as_tensor(cam.view_projection_matrix(), device=cuda))
+    o = torch.as_tensor(np.asarray(cam.position, np.float32), device=cuda)
+    prm, _ = tdm.march_params(field.shape, (-0.25,) * 3, (0.25,) * 3, o, basis, 1920, 1080, 200.0,
+                              (1.0, 1.0, 1.0, 0.0))
+    c_pts, _ = TransferFunction.standard().as_static_points()
+    o_pts = ((0.0, 0.0), (0.05, 1.0), (1.0, 1.0))
+    n0 = tdm.density_march.launches
+    got = tdm.density_march(field, prm, 1920, 1080, 256, c_pts, o_pts)
+    assert tdm.density_march.launches == n0 + 1
+    ref = tdm.density_march_reference(field, prm, 1920, 1080, 256, c_pts, o_pts)
+    assert torch.equal(got, ref) and float(got[..., 3].max()) > 0.5
+
+
+def test_heatmap_kernel_matches_plain(cuda):
+    from linevis_tpu_torch.kernels import spherical_heatmap as tsh
+    from linevis_tpu_torch.render.spherical_heatmap import mollweide_points
+
+    d = torch.as_tensor(np.random.default_rng(9).normal(size=(8192, 3)).astype(np.float32),
+                        device=cuda)
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    d[:2048] = d[:1] + 0.02 * d[:2048]  # a dense lobe
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    pts, _ = mollweide_points(256, cuda)
+    n0 = tsh.heatmap_density.launches
+    got = tsh.heatmap_density(pts, d)
+    assert tsh.heatmap_density.launches == n0 + 1
+    ref = tsh.heatmap_density_reference(pts, d)
+    assert torch.equal(got, ref) and float(ref.max()) > 100.0

@@ -4,10 +4,11 @@
   and cache, filters, SettingsMap, line-data settings, registry and
   fallback, the tube-geometry setting) and the transform cases of
   tests/test_core.py.
-- Every mode name the JAX registry knows either renders in the port or
-  raises NotImplementedError naming its ROADMAP queue item ("Opaque
-  (Triangle Mesh)" on a surface, the others on lines); a flow file loads
-  into `LineDataFlow` as in JAX (tests/test_torch_loaders.py has the
+- Every mode name the JAX registry knows renders in the port ("Opaque
+  (Triangle Mesh)" on a surface, the scattering modes on a
+  `LineDataScattering` of the lines with a small cloud and exit
+  directions, the others on lines); `UNPORTED_MODES` is empty. A flow file
+  loads into `LineDataFlow` as in JAX (tests/test_torch_loaders.py has the
   loaders).
 - The ported modes drawn by name at golden_scenes.SMALL_SIZE: Opaque
   (capsule and triangle), MLAB and Depth Complexity against the JAX
@@ -157,8 +158,12 @@ def test_representations_on_the_cpu(tmp_path):
     assert prisms.n_sides == 6 and prisms.a.device.type == "cpu"
     assert mesh.num_subdivisions == 6 and mesh.positions.device.type == "cpu"
     assert ld.get_tube_mesh(num_subdivisions=6, device="cpu") is mesh
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ld.get_line_segments(device="cpu")
+    # The line segments (once NotImplementedError, queue A8) equal JAX's.
+    segs = ld.get_line_segments(device="cpu")
+    jsegs = JLineData(ld.trajectories).get_line_segments()
+    for name in ("p0", "p1", "attr0", "attr1", "line_id", "seg_id_in_line", "mask"):
+        assert np.array_equal(getattr(segs, name).numpy(), np.asarray(getattr(jsegs, name))), name
+    assert ld.get_line_segments(device="cpu") is segs
     flow = LineDataFlow(_traj())
     with pytest.raises(ValueError, match="no ribbon directions"):
         flow.get_ribbon_mesh(device="cpu")
@@ -195,10 +200,22 @@ def test_renderer_registry_and_fallback():
 
 @pytest.mark.parametrize("mode", jrenderer.RENDERING_MODE_ALL)
 def test_every_jax_mode_renders_or_names_its_queue_item(mode):
-    """"Opaque (Triangle Mesh)" draws a surface (a tetrahedron), every other
-    mode the golden scene's lines."""
+    """"Opaque (Triangle Mesh)" draws a surface (a tetrahedron), the
+    scattering modes the golden scene's lines as a `LineDataScattering`
+    (a 12^3 Gaussian cloud, 64 exit directions), every other mode the
+    golden scene's lines. No mode is left unported."""
     assert mode in trenderer.RENDERING_MODE_ALL
+    assert mode not in trenderer.UNPORTED_MODES
     jld, ld = _line_data(21)
+    if mode in ("Line Density Map Renderer", "Spherical Heat Map Renderer",
+                "Volumetric Path Tracer"):
+        from linevis_tpu_torch.scene.line_data_scattering import LineDataScattering
+
+        g = np.linspace(-1.0, 1.0, 12)
+        zz, yy, xx = np.meshgrid(g, g, g, indexing="ij")
+        dirs = np.random.default_rng(5).normal(size=(64, 3))
+        ld = LineDataScattering(ld.trajectories, np.exp(-4.0 * (xx**2 + yy**2 + zz**2)),
+                                exit_directions=dirs / np.linalg.norm(dirs, axis=1, keepdims=True))
     if mode == "Opaque (Triangle Mesh)":
         from linevis_tpu_torch.loaders.mesh_loader import (
             SurfaceMesh,
@@ -212,11 +229,7 @@ def test_every_jax_mode_renders_or_names_its_queue_item(mode):
         n = compute_vertex_normals(v, t)
         ld = TriangleMeshData(SurfaceMesh(v, t, n, compute_curvature_attribute(v, t, n)))
     w, h = 32, 16
-    try:
-        r = trenderer.create_renderer(mode, SettingsMap({}), device="cpu")
-    except NotImplementedError as e:
-        assert "ROADMAP queue A" in str(e)
-        return
+    r = trenderer.create_renderer(mode, SettingsMap({}), device="cpu")
     r.set_line_data(ld)
     img = r.render(golden_scenes._camera(w, h))
     assert img.shape == (h, w, 4) and np.isfinite(img).all()

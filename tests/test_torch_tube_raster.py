@@ -424,7 +424,13 @@ def test_port_imports_no_jax():
         "        'loaders.stress_dat', 'scene.line_data_stress', 'geometry.bands',\n"
         "        'automation.camera_path', 'automation.replay', 'kernels.bvh_closest_hit',\n"
         "        'kernels.bvh_mlat', 'render.denoiser', 'render.deferred', 'render.ssao',\n"
-        "        'render.ao_bake']\n"
+        "        'render.ao_bake', 'ops.threefry', 'kernels.vpt_tracking',\n"
+        "        'kernels.density_march', 'kernels.spherical_heatmap', 'render.vpt',\n"
+        "        'render.line_density_map', 'render.spherical_heatmap', 'render.vrc',\n"
+        "        'render.multivar', 'render.super_voxel', 'render.env_map',\n"
+        "        'trace.scattering', 'scene.line_data_scattering', 'scene.sparse_grid',\n"
+        "        'geometry.segments', 'geometry.isosurface', 'loaders.cloud_loader',\n"
+        "        'loaders.grid_loader']\n"
         "missing = [m for m in need if 'linevis_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
