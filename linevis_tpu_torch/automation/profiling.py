@@ -1,10 +1,12 @@
-"""Profiling harness: torch.profiler traces and device-time summaries.
+"""Profiling harness: torch.profiler traces, device-time summaries and
+per-pass frame timers.
 
-Counterpart of `trace` in `linevis_tpu/automation/profiling.py`
-(jax.profiler there). `trace` records host ops and CUDA kernels and can
-write a Chrome/Perfetto trace; `device_summary` turns a recording into the
-device's busy time, its idle share of a host-timed window, and the kernels
-that take the time.
+Counterpart of `linevis_tpu/automation/profiling.py` (jax.profiler there).
+`trace` records host ops and CUDA kernels and can write a Chrome/Perfetto
+trace; `device_summary` turns a recording into the device's busy time, its
+idle share of a host-timed window, and the kernels that take the time;
+`FrameProfiler` times named passes, one CSV row per (frame, pass), on the
+host clock and, for a pass on the card, also between CUDA events.
 
     python -m linevis_tpu_torch.automation.profiling [OUT_DIR [PATH]]
 
@@ -62,6 +64,7 @@ OUT_DIR/tube_frames.json.
 from __future__ import annotations
 
 import contextlib
+import csv
 import json
 import os
 import sys
@@ -70,7 +73,7 @@ from collections import defaultdict
 
 import torch
 
-__all__ = ["trace", "device_summary"]
+__all__ = ["trace", "device_summary", "FrameProfiler"]
 
 
 @contextlib.contextmanager
@@ -105,6 +108,70 @@ def device_summary(prof, wall_ms: float, top: int = 12) -> dict:
         "host_ops": [[a.key, a.self_cpu_time_total / 1e3, a.count] for a in sorted(
             prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:top]],
     }
+
+
+class FrameProfiler:
+    """Named pass timers (the reference's per-pass GPU timers feeding its
+    perf CSVs, AutomaticPerformanceMeasurer.hpp:64-65,98).
+
+        with prof.pass_("gather", force=tensor_on_the_card):
+            out = kernel(...)
+
+    `force`, a tensor, names the device the pass runs on. For a CUDA tensor
+    the pass records a CUDA event on the current stream at its start and
+    end, and on exit waits with `torch.cuda.synchronize`, so the host-clock
+    "Time (ms)" includes the device work queued inside (as the JAX
+    profiler's block on `force`); "Device Time (ms)" is the interval
+    between the two events. A pass without a CUDA tensor is timed on the
+    host alone and leaves the device column blank.
+    """
+
+    COLUMNS = ["Frame", "Pass", "Time (ms)", "Device Time (ms)"]
+
+    def __init__(self):
+        self.rows = []
+        self.frame = 0
+
+    @contextlib.contextmanager
+    def pass_(self, name: str, force=None):
+        dev = force.device if isinstance(force, torch.Tensor) and force.is_cuda else None
+        events = None
+        if dev is not None:
+            with torch.cuda.device(dev):
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+        t0 = time.perf_counter()
+        yield
+        if dev is not None:
+            with torch.cuda.device(dev):
+                events[1].record()
+            torch.cuda.synchronize(dev)
+        host_ms = (time.perf_counter() - t0) * 1000.0
+        self.rows.append({
+            "Frame": self.frame,
+            "Pass": name,
+            "Time (ms)": host_ms,
+            "Device Time (ms)": events[0].elapsed_time(events[1]) if events else "",
+        })
+
+    def next_frame(self) -> None:
+        self.frame += 1
+
+    def summary(self, column: str = "Time (ms)") -> dict:
+        """Average ms per pass name of `column` ("Time (ms)" on the host,
+        "Device Time (ms)" between the events; passes without it left out)."""
+        acc = {}
+        for r in self.rows:
+            if r[column] != "":
+                acc.setdefault(r["Pass"], []).append(r[column])
+        return {k: sum(v) / len(v) for k, v in acc.items()}
+
+    def write_csv(self, path: str) -> None:
+        with open(path, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=self.COLUMNS)
+            w.writeheader()
+            w.writerows(self.rows)
 
 
 def main(out_dir: str = None, path: str = "opaque") -> int:

@@ -167,8 +167,6 @@ def entry_rtao(device="cuda"):
     """(fn, args): `fn(*args)` renders one frame of `entry`'s scene shaded
     with ray-traced ambient occlusion (4 rays per pixel, radius 0.1, grid
     32^3, samples drawn from seed 0) -> [4, H, W] linear RGBA on `device`."""
-    import torch
-
     from linevis_tpu_torch.kernels.ao_grid import build_segment_grid
     from linevis_tpu_torch.render.pipeline import RasterSettings
     from linevis_tpu_torch.render.rtao import RtaoSettings, render_tubes_rtao
@@ -178,12 +176,8 @@ def entry_rtao(device="cuda"):
     rtao = RtaoSettings(grid_resolution=32)
     grid = build_segment_grid(scene.a, scene.ba, scene.radius, scene.mask,
                               resolution=rtao.grid_resolution)
-    # The samples are drawn on the CPU so that every device traces the same rays.
-    gen = torch.Generator().manual_seed(0)
-    shape = (rtao.num_samples, settings.height, settings.width)
-    uniforms = tuple(torch.rand(shape, generator=gen).to(device) for _ in range(2))
-    fn = partial(render_tubes_rtao, settings=settings, rtao=rtao, grid=grid,
-                 uniforms=uniforms)
+    # The samples are jax.random's under PRNGKey(seed + frame): the same rays on every device.
+    fn = partial(render_tubes_rtao, settings=settings, rtao=rtao, grid=grid)
     return fn, (scene, *cam)
 
 
@@ -427,7 +421,8 @@ def convection_velocity(p, time=0.0):
 
 def convection_trajectories(device="cuda", seeds=None):
     """Config 3's streamlines: 256 seeds (`seeds`, or the tracer's default
-    draw from np.random.default_rng(42)) x 300 RK4 steps, dt 1/120, traced on
+    draw, jax.random's uniforms under PRNGKey(42) as in the JAX config)
+    x 300 RK4 steps, dt 1/120, traced on
     `device` through `convection_velocity`, positions and attributes
     normalized."""
     from linevis_tpu_torch.core.trajectories import (

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -33,7 +34,7 @@ BUILD_DIR = _HERE / "build"
 KERNELS = (
     "raster_capsule", "raster_capsule_oit", "raster_capsule_accum", "raster_prism",
     "raster_triangle", "ao_grid", "bvh_wavefront", "bvh_closest_hit", "bvh_mlat",
-    "vpt_tracking", "density_march", "spherical_heatmap",
+    "vpt_tracking", "density_march", "spherical_heatmap", "threefry_uniform",
 )
 
 NVCC_FLAGS = (
@@ -42,6 +43,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # renderers may first launch a kernel from worker threads
 
 
 def _nvcc() -> str:
@@ -94,9 +96,10 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
-    return lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _loaded[name] = lib
+        return lib

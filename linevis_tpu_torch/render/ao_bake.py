@@ -30,7 +30,8 @@ from linevis_tpu_torch.kernels.ao_grid import (
     build_segment_grid,
     trace_ao_occlusion,
 )
-from linevis_tpu_torch.render.rtao import _cosine_hemisphere
+from linevis_tpu_torch.ops import threefry
+from linevis_tpu_torch.render.rtao import _cosine_hemisphere, hemisphere_uniforms
 
 __all__ = ["AoBakeSettings", "bake_ambient_occlusion", "segment_average_ao", "bake_grid"]
 
@@ -113,8 +114,9 @@ def bake_ambient_occlusion(
 
     Frame f's hemisphere directions come from `uniforms[f]` = (u1, u2), each
     [samples_per_frame, sub * L * P, 1] in [0, 1), or, when none are given,
-    from one torch.Generator on `device` seeded with `bake.seed` (the JAX
-    function splits a jax.random key per frame: other numbers). The ring
+    from jax.random's stream as the JAX function draws them: `key, sub =
+    split(key)` per frame from `PRNGKey(bake.seed)`, then
+    `render/rtao.py:hemisphere_uniforms(sub, ...)`, all on `device`. The ring
     directions are cos(theta) * tangent + sin(theta) * normal, as the JAX
     function unpacks `parallel_transport_frames`' (tangents, normals,
     binormals) as (normals, binormals, _)."""
@@ -124,15 +126,13 @@ def bake_ambient_occlusion(
     grid = bake_grid(pos, m, radius, bake)
     sub = bake.num_tube_subdivisions
     n_pts = sub * pos.shape[0] * pos.shape[1]
-    gen = None
-    if uniforms is None:
-        gen = torch.Generator(device=device).manual_seed(bake.seed)
+    key = threefry.prng_key(bake.seed, device)
     total = torch.zeros((sub,) + tuple(pos.shape[:2]), dtype=torch.float32, device=device)
     shape = (bake.samples_per_frame, n_pts, 1)
     for f in range(bake.num_frames):
+        key, frame_key = threefry.split(key)
         if uniforms is None:
-            u1 = torch.rand(shape, generator=gen, device=device)
-            u2 = torch.rand(shape, generator=gen, device=device)
+            u1, u2 = hemisphere_uniforms(frame_key, shape)
         else:
             u1, u2 = (torch.as_tensor(u, dtype=torch.float32, device=device)
                       for u in uniforms[f])

@@ -384,9 +384,9 @@ class RtaoRenderer(LineRenderer):
     """Ray-traced ambient occlusion (reference
     VulkanRayTracedAmbientOcclusion.cpp:743) with per-frame sample
     accumulation (<= 32 frames), reset on camera or scene changes. Frame f
-    draws its samples on the renderer's device from a torch.Generator seeded
-    with RtaoSettings.seed + f (`render_tubes_rtao`), as the JAX registry
-    keys jax.random with seed + f.
+    draws the JAX registry's samples, jax.random's stream under
+    PRNGKey(RtaoSettings.seed + f) (`render_tubes_rtao`), on the renderer's
+    device: the same rays on the card, on the CPU and in the JAX package.
 
     The settings key `denoiser` = "SVGF (Temporal)" replaces the
     static-camera accumulator with temporal SVGF (history reprojection by

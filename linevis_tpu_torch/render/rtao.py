@@ -36,7 +36,9 @@ from linevis_tpu_torch.kernels.ao_grid import (
     trace_ao_occlusion,
 )
 from linevis_tpu_torch.kernels.raster_capsule import rasterize_capsules
+from linevis_tpu_torch.kernels.threefry_uniform import threefry_uniform
 from linevis_tpu_torch.kernels.tiles import unpack_tiles
+from linevis_tpu_torch.ops import threefry
 from linevis_tpu_torch.render.camera import Camera
 from linevis_tpu_torch.render.denoiser import eaw_denoise, spatial_hash_denoise
 from linevis_tpu_torch.render.lighting import normalize3
@@ -50,7 +52,8 @@ from linevis_tpu_torch.render.tube_raster import (
 
 __all__ = [
     "RtaoSettings", "RtaoGbuffer", "render_tubes_rtao", "render_tubes_rtao_image",
-    "rtao_gbuffer", "rtao_rays", "ray_batches", "trace_ao_batched", "denoise_ao", "rtao_shade",
+    "hemisphere_uniforms", "rtao_gbuffer", "rtao_rays", "ray_batches", "trace_ao_batched",
+    "denoise_ao", "rtao_shade",
 ]
 
 
@@ -80,6 +83,15 @@ class RtaoGbuffer:
     tangent: torch.Tensor  # unit
     ray: torch.Tensor  # pixel ray with unit forward component
     pos: torch.Tensor  # world position of the hit
+
+
+def hemisphere_uniforms(key: torch.Tensor, shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two draws of the JAX `_cosine_hemisphere(key, ...)`
+    (`linevis_tpu/render/rtao.py:58-64`): (k1, k2) = split(key), then
+    uniform(k1, shape) and uniform(k2, shape), on the key's device (two
+    launches of kernel R6 on the card, each deriving its half of the
+    split)."""
+    return threefry_uniform(key, shape, split=0), threefry_uniform(key, shape, split=1)
 
 
 def _cosine_hemisphere(u1: torch.Tensor, u2: torch.Tensor, normal: torch.Tensor):
@@ -230,8 +242,9 @@ def render_tubes_rtao(
     """RTAO-shaded tubes -> [4, H, W] linear RGBA on the scene's device.
 
     The hemisphere samples come from `uniforms` = (u1, u2), each
-    [num_samples, H, W] in [0, 1), or, when none are given, from a
-    torch.Generator on the scene's device seeded with `rtao.seed + frame`.
+    [num_samples, H, W] in [0, 1), or, when none are given, from
+    jax.random's stream under `PRNGKey(rtao.seed + frame)` as the JAX
+    function draws them (`hemisphere_uniforms`), on the scene's device.
     With `return_features`, also returns (position [3, H, W], normal
     [3, H, W], foreground [H, W]), the G-buffer maps a temporal denoiser
     consumes."""
@@ -246,9 +259,7 @@ def render_tubes_rtao(
         grid = build_segment_grid(scene.a, scene.ba, scene.radius, scene.mask,
                                   resolution=rtao.grid_resolution)
     if uniforms is None:
-        gen = torch.Generator(device=dev).manual_seed(rtao.seed + frame)
-        u1 = torch.rand((S, H, W), generator=gen, device=dev)
-        u2 = torch.rand((S, H, W), generator=gen, device=dev)
+        u1, u2 = hemisphere_uniforms(threefry.prng_key(rtao.seed + frame, dev), (S, H, W))
     else:
         u1, u2 = uniforms
     rays = rtao_rays(gbuf, scene.radius, rtao, u1, u2)

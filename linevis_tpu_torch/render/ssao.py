@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from linevis_tpu_torch.ops import threefry
+
 __all__ = ["ssao", "gtao"]
 
 
@@ -48,14 +50,16 @@ def ssao(
 ) -> torch.Tensor:
     """-> AO [H, W] in [0, 1] (1 = unoccluded). The hemisphere kernel is
     built from `directions` ([num_samples, 3] standard normal draws), or,
-    when none are given, from a torch.Generator on the maps' device seeded
-    with `seed` (the JAX function draws from jax.random: other numbers)."""
+    when none are given, from the JAX function's draw: `normal(k1,
+    (num_samples, 3))` with (k1, k2) = split(PRNGKey(seed)), drawn on the
+    maps' device by `ops/threefry.py:normal` (within 3 ulps of
+    jax.random's)."""
     H, W = view_z.shape
     dev = view_z.device
     pos = _view_positions(view_z, ray_basis)
     if directions is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        directions = torch.randn((num_samples, 3), generator=gen, device=dev)
+        directions = threefry.normal(threefry.split(threefry.prng_key(seed, dev))[0],
+                                     (num_samples, 3))
     d = directions.to(device=dev, dtype=torch.float32).clone()
     # Hemisphere kernel with lerp-scaled radii (SSAO.cpp:307-327).
     d[:, 2] = torch.abs(d[:, 2])

@@ -2,12 +2,13 @@
 
 Counterpart of `linevis_tpu/render/transfer_function.py`. Reference: sgl
 `TransferFunctionWindow`, `Data/TransferFunctions/*.xml` (colorspace sRGB,
-interpolation in linear RGB). XML loading is not ported yet.
+interpolation in linear RGB; `TransferFunction.from_xml` reads them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import xml.etree.ElementTree as ET
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -139,6 +140,23 @@ class TransferFunction:
         )
 
     @classmethod
+    def from_xml(cls, filename: str, value_range=(0.0, 1.0)) -> "TransferFunction":
+        """A reference TF file: <ColorPoints> of (position, r, g, b) in
+        0-255 sRGB and optional <OpacityPoints> of (position, opacity)."""
+        root = ET.parse(filename).getroot()
+        color_points = [
+            (float(p.get("position")), float(p.get("r")), float(p.get("g")), float(p.get("b")))
+            for p in root.find("ColorPoints")
+        ]
+        ops = root.find("OpacityPoints")
+        opacity_points = (
+            [(float(p.get("position")), float(p.get("opacity"))) for p in ops]
+            if ops is not None
+            else [(0.0, 1.0), (1.0, 1.0)]
+        )
+        return cls.from_points(color_points, opacity_points, value_range)
+
+    @classmethod
     def standard(cls) -> "TransferFunction":
         """The reference's Standard.xml (blue-white-red diverging)."""
         return cls.from_points(
@@ -149,6 +167,26 @@ class TransferFunction:
                 (0.75, 245, 156, 125),
                 (1.0, 180, 4, 38),
             ]
+        )
+
+    @classmethod
+    def viridis_like(cls) -> "TransferFunction":
+        """The reference's Viridis.xml points (inverted viridis ramp)."""
+        return cls.from_points(
+            [
+                (0.0, 252, 229, 30),
+                (0.25, 81, 195, 78),
+                (0.5, 31, 129, 121),
+                (0.75, 45, 62, 120),
+                (1.0, 52, 0, 66),
+            ]
+        )
+
+    def points_arrays(self, device="cpu"):
+        """(color [Kc, 4], opacity [Ko, 2]) float32 tensors on `device`."""
+        return (
+            torch.as_tensor(self.color_points_linear, device=device),
+            torch.as_tensor(self.opacity_points_np, device=device),
         )
 
     def lookup(self, values: torch.Tensor) -> torch.Tensor:

@@ -20,10 +20,10 @@ elementwise ops on [N, 3] tensors.
 - Derived attributes (velocity magnitude, vorticity magnitude, helicity),
   the grid tracer and streamribbons.
 
-Seeds given as None are drawn on the host from
-`np.random.default_rng(settings.seed)` (jax.random's bits cannot be
-reproduced); `seed_points_volume` / `seed_points_plane` draw them on a
-`torch.Generator`'s device.
+Seeds given as None are the JAX function's: `seed_points_volume(
+PRNGKey(settings.seed), num_seeds)`, jax.random's uniforms bit for bit
+(`ops/threefry.py`), drawn on the host. `seed_points_volume` /
+`seed_points_plane` draw on the key's device.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from linevis_tpu_torch.core.trajectories import Trajectories
+from linevis_tpu_torch.ops import threefry
 from linevis_tpu_torch.trace.fields import sample_grid_trilinear
 
 __all__ = [
@@ -77,17 +78,18 @@ class StreamlineTracingSettings:
     loop_min_gap: int = 10
 
 
-def seed_points_volume(generator: torch.Generator, n: int) -> torch.Tensor:
-    """Uniform random seeds in [0,1]^3 on the generator's device (reference
-    VolumeSeeder)."""
-    return torch.rand((n, 3), generator=generator, device=generator.device)
+def seed_points_volume(key: torch.Tensor, n: int) -> torch.Tensor:
+    """Uniform random seeds in [0,1]^3 on the key's device (reference
+    VolumeSeeder): `jax.random.uniform(key, (n, 3))`, key an
+    `ops/threefry.py` key (int64 [2])."""
+    return threefry.uniform(key, (n, 3))
 
 
 def seed_points_plane(
-    generator: torch.Generator, n: int, axis: int = 2, offset: float = 0.1
+    key: torch.Tensor, n: int, axis: int = 2, offset: float = 0.1
 ) -> torch.Tensor:
     """Random seeds on an axis-aligned plane (reference PlaneSeeder)."""
-    p = seed_points_volume(generator, n)
+    p = seed_points_volume(key, n)
     p[:, axis] = offset
     return p
 
@@ -242,8 +244,7 @@ def _compact_prefix(positions: np.ndarray, mask: np.ndarray):
 
 def _trace(field, settings, seeds, device) -> Trajectories:
     if seeds is None:
-        rng = np.random.default_rng(settings.seed)
-        seeds = rng.uniform(size=(settings.num_seeds, 3)).astype(np.float32)
+        seeds = seed_points_volume(threefry.prng_key(settings.seed), settings.num_seeds)
     seeds = torch.as_tensor(seeds, dtype=torch.float32, device=device)
     positions, mask = _trace_batch(field, settings, seeds)
     if settings.adaptive and settings.integrator == INTEGRATOR_RKF45:
@@ -272,7 +273,8 @@ def trace_streamlines(
     """Trace streamlines through an analytic velocity field on `device`.
 
     seeds: [N, 3] in [0,1]^3 (tensor or array); None draws
-    `settings.num_seeds` uniform seeds from `np.random.default_rng(settings.seed)`.
+    `settings.num_seeds` uniform seeds under `PRNGKey(settings.seed)`, as
+    the JAX function does (`seed_points_volume`).
     Returns host `Trajectories` with attributes
     [Velocity Magnitude, Vorticity Magnitude, Helicity].
     """

@@ -12,8 +12,9 @@ port's registry, against the JAX package on the CPU.
   tests/test_golden_baseline.py:test_baseline_config_smoke_small), drawing
   the JAX builders' resolutions, cameras and frame counts. The tornado and
   convection scenes are the JAX package's trajectories carried across with
-  `convert.trajectories_from_numpy` (jax.random drew their seeds; the port
-  draws from numpy), so the images do not depend on the trace. Config 1
+  `convert.trajectories_from_numpy`, so the images do not depend on the
+  trace (the port's default seeds are jax.random's too; the tornado's
+  numpy seeds are `entry.tornado_trajectories`'). Config 1
   against the JAX registry's image (SSIM >= 0.999, mean abs <= 2e-3; met at
   SSIM 0.9999999999, mean abs 1.7e-7, with the JAX kernel's bfloat16
   reciprocal routed to the exact one).
@@ -162,9 +163,12 @@ def test_convection_trace_matches_jax(convection):
     np.testing.assert_allclose(t.positions, j.positions, rtol=0, atol=1e-5)
     np.testing.assert_allclose(t.attributes[:, 0], j.attributes[:, 0], rtol=0, atol=3e-5)
     np.testing.assert_allclose(t.attributes[:, 1:], j.attributes[:, 1:], rtol=0, atol=1e-4)
-    # The config's own seeds: the tracer's default draw from default_rng(42).
+    # The config's own seeds: the tracer's default draw, jax.random's uniforms
+    # under PRNGKey(42) as the JAX config's trace draws them.
     ld = entry.convection_line_data("cpu")
-    np.testing.assert_array_equal(ld.trajectories.positions, t.positions)
+    jseeds = np.array(jax.random.uniform(jax.random.PRNGKey(42), (256, 3)))
+    own = entry.convection_trajectories("cpu", seeds=jseeds)
+    np.testing.assert_array_equal(ld.trajectories.positions, own.positions)
     assert ld.line_width == 0.004
 
 

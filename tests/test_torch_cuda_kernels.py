@@ -27,7 +27,8 @@ its three modes and each interpolation, and the density march (R4) on a
 whole 1080p frame, bit for bit (every output and per-ray event count); the
 heat map's RBF sum (R5) bit for bit (its plain version adds the directions
 in the kernel's order); the device threefry bit for bit against
-`ops/threefry.py`. Kernels
+`ops/threefry.py`, and R6 (`kernels/threefry_uniform.py`) bit for bit
+against `ops/threefry.py:uniform`. Kernels
 and plain versions are built
 without fast math and FMA contraction, so they normally agree bit for bit.
 """
@@ -1772,6 +1773,24 @@ def test_threefry_device_matches_torch(cuda):
     for c in (0, 1, 5, 1000):
         assert torch.equal(threefry_device(keys, "split", c), threefry.split_at(keys, c))
         assert torch.equal(threefry_device(keys, "uniform", c), threefry.uniform_at(keys, c))
+
+
+@pytest.mark.parametrize("shape", [(0,), (1,), (1000,), (4, 1080, 1920)])
+def test_threefry_uniform_kernel_matches_plain(cuda, shape):
+    from linevis_tpu_torch.kernels.threefry_uniform import threefry_uniform
+    from linevis_tpu_torch.ops import threefry
+
+    keys = threefry.split(threefry.prng_key(7, cuda), 3)
+    for key in (keys[0], keys[2]):
+        n0 = threefry_uniform.launches
+        got = threefry_uniform(key, shape)
+        assert threefry_uniform.launches == n0 + 1 and got.device == key.device
+        assert got.shape == shape and torch.equal(got, threefry.uniform(key, shape))
+        for j in (0, 1):  # the half split(key)[j], derived in the kernel
+            assert torch.equal(threefry_uniform(key, shape, split=j),
+                               threefry.uniform(threefry.split_at(key, j), shape))
+    with pytest.raises(ValueError, match="one key"):
+        threefry_uniform(keys, (4,))
 
 
 @pytest.mark.parametrize("interpolation", ["Trilinear", "Nearest", "Stochastic"])

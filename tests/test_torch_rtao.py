@@ -253,8 +253,10 @@ def _jax_uniforms(seed, frame, shape):
 @pytest.mark.parametrize("frame", [0, 3])
 def test_render_rtao_matches_jax(frame):
     """Whole frame, the same uniforms in both: SSIM >= 0.999 and mean abs <=
-    2e-3 (measured 0.9999999999 and 2.8e-7). The port's AO map against the
-    JAX trace of the port's own rays: mean abs <= 1e-3."""
+    2e-3 (measured 0.9999999999 and 2.8e-7). The port's default draw equals
+    JAX's uniforms bit for bit, so the frame without `uniforms=` is the
+    same frame. The port's AO map against the JAX trace of the port's own
+    rays: mean abs <= 1e-3."""
     js, ts = _scenes()
     jcam, jS = _frame_args(JCamera, JSettings)
     tcam, tS = _frame_args(Camera, RasterSettings)
@@ -268,9 +270,15 @@ def test_render_rtao_matches_jax(frame):
     u1, u2 = _jax_uniforms(7, frame, (2, H, W))
     cam_t = ttr.camera_tensors(tcam, "cpu")
     uniforms = (torch.as_tensor(u1), torch.as_tensor(u2))
+    # The port's own draw is jax.random's, bit for bit.
+    t1, t2 = trtao.hemisphere_uniforms(trtao.threefry.prng_key(7 + frame), (2, H, W))
+    assert np.array_equal(t1.numpy().view(np.int32), u1.view(np.int32))
+    assert np.array_equal(t2.numpy().view(np.int32), u2.view(np.int32))
     before = tao.trace_pairs.launches
     img_t = trtao.render_tubes_rtao(ts, *cam_t, tS, tr, frame=frame, uniforms=uniforms)
     assert tao.trace_pairs.launches == before  # no kernel launch on the CPU
+    # Without uniforms= the frame draws the same samples itself.
+    assert torch.equal(trtao.render_tubes_rtao(ts, *cam_t, tS, tr, frame=frame), img_t)
     img_t = img_t.numpy()
     assert img_t.shape == img_j.shape == (4, H, W) and np.isfinite(img_t).all()
     s_ = ssim(np.moveaxis(img_t[:3], 0, -1), np.moveaxis(img_j[:3], 0, -1))

@@ -24,6 +24,7 @@ requires it of 95% of the lines and holds those within 1e-5.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from linevis_tpu.trace.streamline import StreamlineTracingSettings as JSettings
 from linevis_tpu.trace.streamline import trace_streamlines as jtrace
 from linevis_tpu_torch.convert import trajectories_from_numpy
 from linevis_tpu_torch.core import trajectories as ttraj
+from linevis_tpu_torch.ops import threefry
 from linevis_tpu_torch.trace import fields as tfields
 from linevis_tpu_torch.trace import streamline as tstream
 from linevis_tpu_torch.trace.fields import tornado_velocity as ttornado
@@ -169,8 +171,11 @@ def _attr_close(t, j, tol=1e-4):
 def test_grid_tracer_matches_jax():
     # tests/test_trace.py test_grid_tracer_and_attributes on both packages.
     grid = jfields.make_tornado_grid(res=32)
-    seeds = tstream.seed_points_plane(torch.Generator().manual_seed(0), 8, axis=2, offset=0.2)
+    seeds = tstream.seed_points_plane(threefry.prng_key(0), 8, axis=2, offset=0.2)
     assert seeds.shape == (8, 3) and bool((seeds[:, 2] == 0.2).all())
+    # The seeders draw jax.random's uniforms: the JAX seeder's points bit for bit.
+    jseeds = np.asarray(jstream.seed_points_plane(jax.random.PRNGKey(0), 8, axis=2, offset=0.2))
+    assert np.array_equal(seeds.numpy().view(np.int32), jseeds.view(np.int32))
     kw = dict(num_seeds=8, max_steps=64, dt=1 / 64)
     j = jstream.trace_streamlines_grid(grid, JSettings(**kw), seeds=jnp.asarray(seeds.numpy()))
     t = tstream.trace_streamlines_grid(grid, TSettings(**kw), seeds=seeds, device="cpu")
@@ -179,8 +184,10 @@ def test_grid_tracer_matches_jax():
     assert t.attribute_names == j.attribute_names and np.isfinite(t.attributes).all()
     _attr_close(t.attributes, j.attributes)
     assert t.mask.any()
-    v = tstream.seed_points_volume(torch.Generator().manual_seed(1), 5)
+    v = tstream.seed_points_volume(threefry.prng_key(1), 5)
     assert v.shape == (5, 3) and bool(((v >= 0) & (v < 1)).all())
+    jv = np.asarray(jstream.seed_points_volume(jax.random.PRNGKey(1), 5))
+    assert np.array_equal(v.numpy().view(np.int32), jv.view(np.int32))
 
 
 @pytest.mark.parametrize("steps", [20, 200])
@@ -199,11 +206,12 @@ def test_adaptive_loop_trace_on_grid_matches_jax(steps):
 
 
 def test_streamribbons_match_jax():
-    # tests/test_trace.py test_streamribbons_orthogonal_right_vectors on both.
-    seeds = np.random.default_rng(42).uniform(size=(4, 3)).astype(np.float32)
+    # tests/test_trace.py test_streamribbons_orthogonal_right_vectors on both,
+    # each on its default seeds: jax.random's uniforms under PRNGKey(42).
     kw = dict(num_seeds=4, max_steps=32, dt=1.0 / 128.0)
-    jt, jr = jstream.trace_streamribbons(jtornado, JSettings(**kw), seeds=jnp.asarray(seeds))
+    jt, jr = jstream.trace_streamribbons(jtornado, JSettings(**kw))
     tt, tr = tstream.trace_streamribbons(ttornado, TSettings(**kw), device="cpu")
+    np.testing.assert_array_equal(tt.positions[:, 0], np.asarray(jt.positions)[:, 0])
     np.testing.assert_array_equal(tt.mask, jt.mask)
     assert tr.shape == tt.positions.shape
     np.testing.assert_allclose(tr, np.asarray(jr), rtol=0, atol=1e-5)

@@ -430,7 +430,10 @@ def test_port_imports_no_jax():
         "        'render.multivar', 'render.super_voxel', 'render.env_map',\n"
         "        'trace.scattering', 'scene.line_data_scattering', 'scene.sparse_grid',\n"
         "        'geometry.segments', 'geometry.isosurface', 'loaders.cloud_loader',\n"
-        "        'loaders.grid_loader']\n"
+        "        'loaders.grid_loader', '__main__', 'app', 'automation.perf',\n"
+        "        'automation.replay_compat', 'automation.tsv_requester',\n"
+        "        'kernels.tiled_address', 'kernels.threefry_uniform', 'render.data_view',\n"
+        "        'scene.requester']\n"
         "missing = [m for m in need if 'linevis_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
