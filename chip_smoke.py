@@ -121,14 +121,21 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   as .xyz (equal); the registry's "Volumetric Path Tracer" at 1080p with
   the renderer's defaults (Delta tracking, extinction 1024, 512 events, 2
   spp; kernel vpt_tracking twice a frame), 4 accumulating frames, R3
-  against its plain version bit for bit on one 1080p row of both samples
-  in each scan mode, the events per ray, the frame card vs CPU at scale 0.1
+  against its plain version bit for bit (events and scatters included) on
+  one 1080p row of both samples in each scan mode, sliced from launches on
+  the whole samples, two launches on the whole first sample equal, the
+  events per ray and the warp efficiency they give a lockstep warp, the
+  frame card vs CPU at scale 0.1
   on the same keys (image mean), decomposition and residual ratio tracking
   at 240x135 (plain, 1 frame of 1 sample each, a reading); "Line Density Map Renderer"
   (density_march once a frame), 8 frames, R4 bit for bit on the whole
   frame; "Spherical Heat Map Renderer" at height 1080 (a 1080x2160 map of
-  the 40,960 exit directions; spherical_heatmap once), 4 frames, R5 on a
-  band of 8 rows bit for bit; "Voxel Ray Casting" on the
+  the 40,960 exit directions; spherical_heatmap once), 4 frames, R5 bit
+  for bit on two bands of 8 rows (one tile row: the hottest, and the top
+  rows) sliced from the whole map's launch, the pairs in range the kernel
+  counts there equal to the plain count, two launches equal, its
+  branch-free term equal to the IEEE one on every float, and at most 5%
+  of the pairs tested exactly; "Voxel Ray Casting" on the
   tornado (grid 128, quantization 8; capsule_raster once), 8 frames, card
   vs CPU at scale 0.1; the tornado's multivariate tubes (its attribute and
   1 - it, 8 subdivisions) through `render_opaque` (triangle_raster once), 8
@@ -1197,7 +1204,6 @@ SC_LDM_CAMERA = (-0.6, -0.45, -0.55)
 SC_VPT_FRAMES = 4
 SC_FRAMES = 8  # the density map, VRC and multivariate frames
 SC_HEAT_FRAMES = 4
-SC_HEAT_BAND = 8  # heat-map rows held against R5's plain version
 SC_CHECK_SCALE = 0.1  # the card-vs-CPU frames
 SC_SMALL = (240, 135)  # decomposition and residual ratio tracking: plain, a reading
 # One frame of one sample each: their lockstep plain loops took 11.8 s
@@ -1207,23 +1213,56 @@ SC_SMALL = (240, 135)  # decomposition and residual ratio tracking: plain, a rea
 SC_SMALL_FRAMES = 1
 SC_SMALL_SPP = 1
 SC_VRC = dict(grid_resolution=128, quantization=8)
-# Work of the bounds, counted from the plain versions' events, steps and pairs:
-# an event of R3 is five threefry2x32 of ~120 integer operations each (key,
-# k1, k2, two uniforms) and ~110 float operations (the free flight, the
-# trilinear sample, the probabilities); a scatter's extra threefry, phase and
-# box test are not counted (a low bound). A step of R4 is ~150 operations
-# (the sample, both transfer functions' segments, the blend); a (pixel,
-# direction) pair of R5 ~10 (the distance test; the in-range exp not
-# counted). Integer operations are charged at the float32 rate.
-VPT_OPS_PER_EVENT = 710
+# Work of the bounds, counted from this run's events, scatters, steps and
+# pairs; a library function (logf, expf, sqrtf, cosf, a division) counts as
+# one operation. Integer operations are (logic and shifts, adds): the INT32
+# lanes run the first, while the compiler issues adds on either pipe (IMAD.IADD
+# or IADD3). One threefry2x32, as the SASS of `csrc/vpt_tracking.cu`'s
+# `threefry_kernel` has it: 20 rotates (funnel shifts) and 21 xors (the
+# rounds, the key's third word), 26 adds (rounds and key injections, IADD3
+# taking three inputs); a uniform adds the bits' xor, shift and or and a
+# float subtract.
+THREEFRY_OPS = (41, 26)
+# R3, (logic, add, float) operations: a ray's key, box test, sky and outputs;
+# an event that collides: five threefry (the event's key, two keys, two
+# uniforms), the trilinear sample's integer work (clamps, brick index: 12
+# logic, 5 adds) and ~82 float (free flight, the move, the grid coordinates,
+# the sample, the probabilities); an event that leaves the volume: three
+# threefry and the free flight; a scatter besides: five threefry (k3, two
+# keys, two uniforms), the phase sample and the box test (~116 float).
+VPT_OPS = {"ray": (THREEFRY_OPS[0], THREEFRY_OPS[1], 155),
+           "collision": (5 * THREEFRY_OPS[0] + 6 + 12, 5 * THREEFRY_OPS[1] + 5, 82),
+           "leave": (3 * THREEFRY_OPS[0] + 3, 3 * THREEFRY_OPS[1], 12),
+           "scatter": (5 * THREEFRY_OPS[0] + 6, 5 * THREEFRY_OPS[1], 116)}
+# A step of R4 is ~150 operations (the sample, both transfer functions'
+# segments, the blend).
 MARCH_OPS_PER_STEP = 150
-HEAT_OPS_PER_PAIR = 10
-# Integer operations of one uniform of R6 (threefry2x32 and the float
-# conversion), a rotation as one funnel shift: 20 rounds of add, rotate and
-# xor 60, five key injections of 3 adds 15, the key's third word and the
-# counter 4, the bits' xor, shift and or and the subtract 4. Charged at the
-# float32 rate.
-R6_OPS_PER_UNIFORM = 83
+# An in-range (pixel, direction) pair of R5: the distance (3 subtracts, 3
+# multiplies, 2 adds, the clamp, sqrt), the compare, 3 dist / 0.1 (a multiply
+# and a division), the square, expf and the add.
+HEAT_OPS_PER_PAIR_IN_RANGE = 16
+# One uniform of R6, (logic, add, float): threefry2x32, the bits' xor, shift
+# and or, the subtract.
+R6_OPS_PER_UNIFORM = (THREEFRY_OPS[0] + 3, THREEFRY_OPS[1], 1)
+
+
+def int32_ops_per_s():
+    """The card's INT32 rate: 64 INT32 lanes an SM (Hopper) x its SMs x the
+    SM clock nvidia-smi reads as clocks.max.sm."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 64 * mhz * 1e6
+
+
+def ops_ms(logic, adds, floats, int_rate):
+    """The least time of the (logic, add, float) operations: logic and shifts
+    on the INT32 lanes; and every operation through the SM's issue, 128
+    lanes an SM (twice the INT32 lanes' rate), where an integer operation is
+    one instruction and the float operations go at H100_FP32_FLOPS (which
+    counts an FMA as two)."""
+    return max(logic / int_rate,
+               (logic + adds) / (2.0 * int_rate) + floats / H100_FP32_FLOPS) * 1e3
 
 
 def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
@@ -1237,7 +1276,8 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
     (spherical_heatmap once); the tornado `traj` through "Voxel Ray Casting"
     (capsule_raster once) and as multivariate tubes through `render_opaque`
     (triangle_raster once). Each kernel against its plain version (R3 on one
-    1080p row in each scan mode, R4 on the whole frame, R5 on a band),
+    1080p row in each scan mode, R4 on the whole frame, R5 on two bands;
+    R3's and R5's sliced from launches on the whole sample or map),
     card-vs-CPU frames at SC_CHECK_SCALE, decomposition and residual ratio
     tracking read at SC_SMALL (SC_SMALL_FRAMES frames of SC_SMALL_SPP
     samples). Returns the phase's
@@ -1277,6 +1317,7 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
 
     sync = torch.cuda.synchronize
     rows = []
+    int_rate = int32_ops_per_s()
 
     def host_timed(fn):
         sync()
@@ -1363,46 +1404,81 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
     for _ in range(vs.samples_per_frame):
         key, kt, origins, dirs = primary_rays(key, cam_t[1], basis, W, H)
         rays.append((origins, dirs, kt))
-    # The middle row of each sample: ray i of the row takes the frame's key
-    # split(kt, W * H)[r0 + i], as in the renderer.
+    # Each scan mode on both samples, every ray in one launch: the middle
+    # row of each sample, sliced from those launches, against the plain
+    # version on that row (ray i of the row takes the frame's key
+    # split(kt, W * H)[r0 + i], as in the renderer), events and scatters
+    # included.
     r0 = (H // 2) * W
     row_rays = [(o[r0:r0 + W].contiguous(), d[r0:r0 + W].contiguous(), kt) for o, d, kt in rays]
-
-    def on_the_row(trace, p, events=None):
-        outs = [trace(grid, o, d, kt, p, events=None if events is None else events[s * W:(s + 1) * W],
-                      first=r0) for s, (o, d, kt) in enumerate(row_rays)]
-        return tuple(torch.cat(x) for x in zip(*outs))
-
     r3 = {}
     for mode in vt.SCAN_MODES:
         p = vt.vpt_params(grid.shape, vs.extinction, vs.scattering_albedo, sun_dir, sun_ic,
                           vs.phase_g, mode, vs.max_events, vs.interpolation)
-        ev_k = torch.empty(len(rays) * W, dtype=torch.int32, device=dev)
-        ev_p = torch.empty_like(ev_k)
-        k_out = on_the_row(vt.vpt_tracking, p, ev_k)
-        p_out, plain_ms = host_timed(lambda: on_the_row(vt.vpt_tracking_reference, p, ev_p))
-        equal = all(torch.equal(a, b) for a, b in zip(k_out, p_out)) and torch.equal(ev_k, ev_p)
+        k_rows = []
+        for o, d, kt in rays:
+            ev_s = torch.empty(W * H, dtype=torch.int32, device=dev)
+            sc_s = torch.empty_like(ev_s)
+            out = vt.vpt_tracking(grid, o, d, kt, p, events=ev_s, scatters=sc_s)
+            k_rows.append([x[r0:r0 + W] for x in (*out, ev_s, sc_s)])
+            del out, ev_s, sc_s
+        k_out = [torch.cat(x) for x in zip(*k_rows)]
+        ev_p = torch.empty(len(rays) * W, dtype=torch.int32, device=dev)
+        sc_p = torch.empty_like(ev_p)
+
+        def plain_rows(p=p, ev_p=ev_p, sc_p=sc_p):
+            outs = [vt.vpt_tracking_reference(grid, o, d, kt, p, events=ev_p[s * W:(s + 1) * W],
+                                              first=r0, scatters=sc_p[s * W:(s + 1) * W])
+                    for s, (o, d, kt) in enumerate(row_rays)]
+            return [torch.cat(x) for x in zip(*outs)] + [ev_p, sc_p]
+
+        p_out, plain_ms = host_timed(plain_rows)
+        equal = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
         r3[mode] = {"equal": equal, "plain_ms": plain_ms,
-                    "ms_on_the_row": _time_ms(lambda: on_the_row(vt.vpt_tracking, p), 3),
+                    "ms_full_sample": _time_ms(lambda: vt.vpt_tracking(grid, *rays[0], p), 3),
                     "max_abs_err": float((k_out[0] - p_out[0]).abs().max()),
-                    "events_on_the_row": int(ev_p.sum())}
+                    "events_on_the_row": int(ev_p.sum()), "scatters_on_the_row": int(sc_p.sum())}
         if not equal:
-            raise RuntimeError(f"vpt_tracking ({mode}) differs from its plain version on the row")
+            raise RuntimeError(f"vpt_tracking ({mode}) differs from its plain version on the row "
+                               "sliced from its full-sample launch")
+    # The renderer's mode on the whole first sample, launched twice.
     p_delta = vt.vpt_params(grid.shape, vs.extinction, vs.scattering_albedo, sun_dir, sun_ic,
                             vs.phase_g, vs.mode, vs.max_events, vs.interpolation)
     ev_full = torch.empty(W * H, dtype=torch.int32, device=dev)
-    vt.vpt_tracking(grid, *rays[0], p_delta, events=ev_full)
-    r3_ms = _time_ms(lambda: vt.vpt_tracking(grid, *rays[0], p_delta), 3)
+    sc_full = torch.empty_like(ev_full)
+    once = vt.vpt_tracking(grid, *rays[0], p_delta, events=ev_full, scatters=sc_full)
+    ev_again = torch.empty_like(ev_full)
+    twice = vt.vpt_tracking(grid, *rays[0], p_delta, events=ev_again)
+    launches_equal = (all(torch.equal(a, b) for a, b in zip(once, twice))
+                      and torch.equal(ev_full, ev_again))
+    del once, twice, ev_again
+    if not launches_equal:
+        raise RuntimeError("two launches of vpt_tracking on the full sample differ")
+    r3_ms = r3[vs.mode]["ms_full_sample"]
     evf = ev_full.double()
     events_total = int(evf.sum())
+    scatters_total = int(sc_full.sum())
+    # Rays that left the volume (ran fewer than max_events; no absorption
+    # under the renderer's albedo of 1) end on an event that does not collide.
+    leaves = int(((ev_full > 0) & (ev_full < vs.max_events)).sum())
+    n_count = {"ray": W * H, "collision": events_total - leaves, "leave": leaves,
+               "scatter": scatters_total}
+    r3_ops = [sum(n_count[k] * VPT_OPS[k][i] for k in VPT_OPS) for i in range(3)]
     r3_bytes = grid.numel() * 4 + 8 + W * H * (12 + 12) + W * H * (12 + 12 + 1)
     t_bytes = r3_bytes / H100_HBM_BYTES * 1e3
-    t_ops = events_total * VPT_OPS_PER_EVENT / H100_FP32_FLOPS * 1e3
+    t_ops = ops_ms(*r3_ops, int_rate)
     hit = evf > 0
+    warps = evf.reshape(-1, 32)
     vpt_events = {"p50": float(evf[hit].quantile(0.5)), "p99": float(evf[hit].quantile(0.99)),
                   "max": int(evf.max()), "rays_in_the_box": float(hit.double().mean()),
                   "share_at_max_events": float((evf == vs.max_events).double().mean()),
-                  "events": events_total}
+                  "events": events_total, "scatters": scatters_total, "leaves": leaves,
+                  # The lanes a warp of 32 neighbouring rays keeps busy when it
+                  # runs until its longest ray dies (the one-thread-a-ray
+                  # design before the persistent warps).
+                  "warp_efficiency_lockstep_32": float(
+                      warps.sum() / (32.0 * warps.max(dim=1).values.sum())),
+                  "two_full_launches_equal": launches_equal}
     # The frame on the card against the CPU's at SC_CHECK_SCALE, same keys.
     sw, sh = int(W * SC_CHECK_SCALE), int(H * SC_CHECK_SCALE)
     small = dataclasses.replace(base, width=sw, height=sh)
@@ -1449,14 +1525,15 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
         "replaces_note": "no pallas_call: trace_one's vmapped lax.scan of Woodcock events "
                          "(vpt.py:189-278), Delta, Spectral Delta and Ratio tracking",
         "launches": vpt_launches, "max_abs_err": max(v["max_abs_err"] for v in r3.values()),
-        "ms": r3_ms, "plain_ms": r3["Delta Tracking"]["plain_ms"],
+        "ms": r3_ms, "plain_ms": r3[vs.mode]["plain_ms"],
         "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bytes": r3_bytes, "bytes_ms": t_bytes, "operations_ms": t_ops, "library_ms": None,
         "per_launch": "one sample of every pixel (2 a frame)",
-        "plain_on": f"row {H // 2} of both samples ({len(rays) * W} rays); ms_on_the_row beside",
-        "events_counted": events_total, "ops_per_event": VPT_OPS_PER_EVENT,
-        "ptxas": ptxas_lines(built, "vpt_tracking")})
-    del vpt, grid, rays, row_rays, ev_full
+        "plain_on": f"row {H // 2} of both samples ({len(rays) * W} rays), sliced from "
+                    "full-sample launches",
+        "counted": n_count, "ops_logic_add_float": VPT_OPS, "operations": r3_ops,
+        "int32_ops_per_s": int_rate, "ptxas": ptxas_lines(built, "vpt_tracking")})
+    del vpt, grid, rays, row_rays, ev_full, sc_full
     torch.cuda.empty_cache()
 
     # "Line Density Map Renderer": SC_FRAMES frames on an orbit.
@@ -1516,27 +1593,64 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
         raise RuntimeError("the heat map is non-finite or has no hot spot")
     dirs = torch.as_tensor(ld.exit_directions, device=dev)
     pts, _ = mollweide_points(H, dev)
-    full = shm.heatmap_density(pts, dirs).reshape(H, 2 * H)
-    top = int(torch.clamp(full.amax(dim=1).argmax() - SC_HEAT_BAND // 2, 0, H - SC_HEAT_BAND))
-    band = pts.reshape(H, 2 * H, 3)[top:top + SC_HEAT_BAND].reshape(-1, 3)
-    k_band = shm.heatmap_density(band, dirs)
-    p_band, plain_ms = host_timed(lambda: shm.heatmap_density_reference(band, dirs))
-    r5_err = float((k_band - p_band).abs().max())
-    r5_ok = bool(torch.equal(k_band, p_band))
-    r5_ms = _time_ms(lambda: shm.heatmap_density(pts, dirs), 3)
+    tw, th = shm.TILE
+    tx, ty = shm.heatmap_tiles(pts.shape[0], 2 * H)
+    counts = torch.empty((tx * ty, 2), dtype=torch.int64, device=dev)
+    full = shm.heatmap_density(pts, dirs, 2 * H, counts)
+    r5_twice = bool(torch.equal(full, shm.heatmap_density(pts, dirs, 2 * H)))
+    full = full.reshape(H, 2 * H)
+    tile_counts = counts.reshape(ty, tx, 2)
+    # Two bands of whole tile rows, sliced from the full map's launch: the
+    # tile row of the hottest pixel, and the top rows (the pole, and pixels
+    # outside the ellipse).
+    hot_row = int(full.amax(dim=1).argmax())
+    bands = {"hot": min(hot_row // th, H // th - 1) * th, "top": 0}
+    band_figs = {}
+    r5_err, r5_ok, plain_ms = 0.0, r5_twice, None
+    for name, top in bands.items():
+        band = pts.reshape(H, 2 * H, 3)[top:top + th].reshape(-1, 3)
+        k_band = full[top:top + th].reshape(-1)
+        p_band, b_ms = host_timed(lambda: shm.heatmap_density_reference(band, dirs))
+        in_plain = int(shm.heatmap_in_range(band, dirs).sum())
+        in_kernel = int(tile_counts[top // th, :, 1].sum())
+        equal = bool(torch.equal(k_band, p_band))
+        band_figs[name] = {"rows": [top, top + th], "equal": equal, "plain_ms": b_ms,
+                           "pairs_in_range_kernel": in_kernel, "pairs_in_range_plain": in_plain,
+                           "candidates": int(tile_counts[top // th, :, 0].sum()),
+                           "max": float(p_band.max())}
+        r5_err = max(r5_err, float((k_band - p_band).abs().max()))
+        r5_ok = r5_ok and equal and in_kernel == in_plain
+        plain_ms = b_ms if name == "hot" else plain_ms
+    # The walk's branch-free term against the IEEE one on every float d^2.
+    term_mismatches = shm.heatmap_term_mismatches(dev)
+    r5_ok = r5_ok and term_mismatches == 0
+    r5_ms = _time_ms(lambda: shm.heatmap_density(pts, dirs, 2 * H), 10)
     n_pairs = pts.shape[0] * dirs.shape[0]
+    in_range = int(counts[:, 1].sum())
+    candidates = int(counts[:, 0].sum())
+    # The exact test runs on each tile's candidates at each of its pixels.
+    tile_px = (torch.clamp(H - th * torch.arange(ty, device=dev), max=th)[:, None]
+               * torch.clamp(2 * H - tw * torch.arange(tx, device=dev), max=tw)[None, :])
+    exact_tests = int((tile_counts[..., 0] * tile_px).sum())
     r5_bytes = pts.numel() * 4 + dirs.numel() * 4 + pts.shape[0] * 4
     t_bytes = r5_bytes / H100_HBM_BYTES * 1e3
-    t_ops = n_pairs * HEAT_OPS_PER_PAIR / H100_FP32_FLOPS * 1e3
+    t_ops = in_range * HEAT_OPS_PER_PAIR_IN_RANGE / H100_FP32_FLOPS * 1e3
     heat_line = {"frame_ms": ev_ms, "host_ms": host_ms, "frame_ms_median": float(np.median(ev_ms)),
                  "host_ms_median": float(np.median(host_ms)), "map": [H, 2 * H],
-                 "directions": int(dirs.shape[0]), "band_rows": [top, top + SC_HEAT_BAND],
-                 "band_equal": r5_ok, "band_max": float(p_band.max()),
+                 "directions": int(dirs.shape[0]), "pairs": n_pairs,
+                 "pairs_in_range": in_range, "candidates": candidates,
+                 "exact_tests": exact_tests, "exact_test_share": exact_tests / n_pairs,
+                 "tiles": tx * ty, "tile": [tw, th],
+                 "bands": band_figs, "two_launches_equal": r5_twice,
+                 "term_mismatches_every_float": term_mismatches,
                  "launches": launches["spherical_heatmap"],
                  "frames": SC_HEAT_FRAMES, "gpu": gpu}
     print("spherical heat map: " + json.dumps(heat_line), flush=True)
     if not r5_ok:
-        raise RuntimeError("spherical_heatmap differs from its plain version on the band")
+        raise RuntimeError("spherical_heatmap differs from its plain version on a band (sum or "
+                           "pairs in range), between two launches, or in its term")
+    if exact_tests > 0.05 * n_pairs:
+        raise RuntimeError(f"spherical_heatmap tested {exact_tests} of {n_pairs} pairs exactly")
     rows.append({
         "name": "spherical_heatmap", "route": "cuda",
         "source": "linevis_tpu_torch/kernels/csrc/spherical_heatmap.cu",
@@ -1545,10 +1659,11 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
                          "RBF sum (spherical_heatmap.py:57-66)",
         "launches": launches["spherical_heatmap"], "max_abs_err": r5_err, "ms": r5_ms,
         "plain_ms": plain_ms,
-        "plain_on": f"a band of {SC_HEAT_BAND} rows ({band.shape[0]} pixels)",
+        "plain_on": f"the hottest band of {th} rows ({th * 2 * H} pixels)",
         "bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bytes": r5_bytes, "bytes_ms": t_bytes, "operations_ms": t_ops, "library_ms": None,
-        "pairs_counted": n_pairs, "ops_per_pair": HEAT_OPS_PER_PAIR,
+        "pairs_in_range_counted": in_range, "ops_per_pair_in_range": HEAT_OPS_PER_PAIR_IN_RANGE,
+        "candidates": candidates, "exact_tests": exact_tests,
         "ptxas": ptxas_lines(built, "spherical_heatmap")})
     del dirs, pts, full, ld
     torch.cuda.empty_cache()
@@ -3554,7 +3669,7 @@ def main() -> int:
     r6_plain_ms = _time_ms(
         lambda: threefry.uniform(threefry.split_at(r6_key, 0), r6_shape), 3)
     r6_bytes_ms = r6_n // 2 * 4 / H100_HBM_BYTES * 1e3
-    r6_ops_ms = r6_n // 2 * R6_OPS_PER_UNIFORM / H100_FP32_FLOPS * 1e3
+    r6_ops_ms = ops_ms(*(r6_n // 2 * n for n in R6_OPS_PER_UNIFORM), int32_ops_per_s())
     print(f"threefry_uniform vs plain (frame 0's draws): {r6_n} uniforms, equal {r6_equal}, "
           f"{r6_ms:.4f} ms a launch of {r6_n // 2}, plain {r6_plain_ms:.3f} ms", flush=True)
     if not r6_equal:

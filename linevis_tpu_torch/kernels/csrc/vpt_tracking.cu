@@ -21,16 +21,45 @@
 // vpt_tracking_reference` (`volume_common.cuh` / `volume_common.py`): logf
 // and expf as torch's CUDA ops take them, IEEE division, no contraction
 // (--fmad=false), so the two agree bit for bit.
+//
+// What bounds it (`tools/kernel_split.py --kernels r3` on the 1080p cloud
+// sample): rays run from 0 events (a miss) to max_events, so a warp of 32
+// neighbouring rays that runs until its longest ray dies keeps a third of
+// its lanes idle; and the threefry draws, integer work on half the lanes'
+// rate, lead the busy lanes' time, the scatter's five beside the event's
+// five in a branch that a few lanes of nearly every warp take. So:
+//  - the grid is persistent (as many warps as the card keeps resident):
+//    each warp claims rays 32 indices at a time from a global counter
+//    (`next`), and a lane whose ray dies takes the next index of its
+//    warp's claim (ballot and popcount), until the counter runs out;
+//  - a lane's step is one of: derive its ray's key, run an event, or turn
+//    its ray after a scattering event (the step after the event). The
+//    three need the same draws (a key split(x, c), then the uniforms of
+//    split(k, 0) and split(k, 1)), so every lane draws in the same code
+//    and only the float work differs between them;
+//  - with the lanes on unrelated rays, the density samples led (30% of the
+//    warp-cycles), so the kernel reads the grid in 8^3 bricks (a copy made
+//    once per grid on the card, `grid_bricks`): a sample's voxels share
+//    cache lines, and a ray's next samples mostly the same ones.
+// Each ray still runs in one thread, keyed and written by its own index,
+// with the plain version's operations in its order, so the result does not
+// depend on the schedule.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 #include "threefry.cuh"
 #include "volume_common.cuh"
 
 #define VPT_THREADS 128
+#define VPT_BRICK 8  // the grid's bricks: VPT_BRICK^3 voxels, 2 KB (brick_at's shifts)
 
 enum { MODE_DELTA = 0, MODE_SPECTRAL = 1, MODE_RATIO = 2 };
 enum { INTERP_TRILINEAR = 0, INTERP_NEAREST = 1, INTERP_STOCHASTIC = 2 };
+// What a lane's next step does: derive its ray's key, run an event, turn
+// the ray of a scattering event, or write a dead ray's outputs.
+enum { ST_KEY = 0, ST_EVENT = 1, ST_SCATTER = 2, ST_DONE = 3 };
 
 // Parameter layout of `prm` (the wrapper's `vpt_params`).
 enum {
@@ -39,10 +68,52 @@ enum {
   P_SUNIC = 28, P_ENVI = 31, P_COUNT = 32
 };
 
+// The parameters passed by value: the kernel reads them from the constant
+// bank, so the persistent loop holds none of them in registers. inv: the
+// reciprocals of the majorant and the extents (the launch's).
+struct VptPrm {
+  float v[P_COUNT];
+  float inv[4];
+};
+
+// Voxel (z, y, x) of the grid in VPT_BRICK^3 bricks (`grid_bricks`:
+// brick-major, each brick z, y, x; nyb, nxb bricks a row and a column).
+__device__ __forceinline__ float brick_at(const float* __restrict__ g, int nyb, int nxb, int z,
+                                          int y, int x) {
+  const long long b = ((long long)(z >> 3) * nyb + (y >> 3)) * nxb + (x >> 3);
+  return __ldg(g + (b << 9) + ((z & 7) << 6) + ((y & 7) << 3) + (x & 7));
+}
+
+// `volume_common.cuh:trilinear` on the bricked grid: the same voxels and
+// arithmetic, so the same value. A sample's eight voxels then lie in two
+// 128-byte lines where the bricks hold them (four in the linear layout).
+__device__ __forceinline__ float trilinear_bricked(const float* __restrict__ g, int nz, int ny,
+                                                   int nx, float px, float py, float pz) {
+  const float fx = fminf(fmaxf(px, 0.0f), 1.0f) * (float)(nx - 1);
+  const float fy = fminf(fmaxf(py, 0.0f), 1.0f) * (float)(ny - 1);
+  const float fz = fminf(fmaxf(pz, 0.0f), 1.0f) * (float)(nz - 1);
+  const int x0 = min(max((int)floorf(fx), 0), nx - 2);
+  const int y0 = min(max((int)floorf(fy), 0), ny - 2);
+  const int z0 = min(max((int)floorf(fz), 0), nz - 2);
+  const float tx = fx - (float)x0, ty = fy - (float)y0, tz = fz - (float)z0;
+  const int nyb = (ny + VPT_BRICK - 1) / VPT_BRICK, nxb = (nx + VPT_BRICK - 1) / VPT_BRICK;
+  const float c00 = brick_at(g, nyb, nxb, z0, y0, x0) * (1.0f - tx) +
+                    brick_at(g, nyb, nxb, z0, y0, x0 + 1) * tx;
+  const float c01 = brick_at(g, nyb, nxb, z0, y0 + 1, x0) * (1.0f - tx) +
+                    brick_at(g, nyb, nxb, z0, y0 + 1, x0 + 1) * tx;
+  const float c10 = brick_at(g, nyb, nxb, z0 + 1, y0, x0) * (1.0f - tx) +
+                    brick_at(g, nyb, nxb, z0 + 1, y0, x0 + 1) * tx;
+  const float c11 = brick_at(g, nyb, nxb, z0 + 1, y0 + 1, x0) * (1.0f - tx) +
+                    brick_at(g, nyb, nxb, z0 + 1, y0 + 1, x0 + 1) * tx;
+  const float c0 = c00 * (1.0f - ty) + c01 * ty;
+  const float c1 = c10 * (1.0f - ty) + c11 * ty;
+  return c0 * (1.0f - tz) + c1 * tz;
+}
+
 template <int INTERP>
 __device__ __forceinline__ float density_at(const float* __restrict__ grid, int nz, int ny, int nx,
                                             const float* tp, uint2 k) {
-  if (INTERP == INTERP_TRILINEAR) return trilinear(grid, nz, ny, nx, tp[0], tp[1], tp[2]);
+  if (INTERP == INTERP_TRILINEAR) return trilinear_bricked(grid, nz, ny, nx, tp[0], tp[1], tp[2]);
   const float res[3] = {(float)(nx - 1), (float)(ny - 1), (float)(nz - 1)};
   float q[3];
 #pragma unroll
@@ -51,171 +122,285 @@ __device__ __forceinline__ float density_at(const float* __restrict__ grid, int 
     if (INTERP == INTERP_STOCHASTIC) f = f + tf_uniform(tf_split(k, 3), (uint32_t)i) - 0.5f;
     q[i] = rintf(fminf(fmaxf(f, 0.0f), res[i])) / fmaxf(res[i], 1.0f);
   }
-  return trilinear(grid, nz, ny, nx, q[0], q[1], q[2]);
+  return trilinear_bricked(grid, nz, ny, nx, q[0], q[1], q[2]);
 }
 
-template <int MODE, int INTERP>
-__global__ void __launch_bounds__(VPT_THREADS)
+// At least 4 resident blocks an SM: at most 128 registers, which the
+// persistent loop's state takes without spilling (`kernel_split.py`).
+// POW2: the majorant and the box's extents are powers of two, so dividing
+// by them is multiplying by their reciprocals, bit for bit (both round the
+// same real once), without the IEEE division's slow-path branch.
+template <int MODE, int INTERP, bool POW2>
+__global__ void __launch_bounds__(VPT_THREADS, 4)
 vpt_kernel(const float* __restrict__ grid, int nz, int ny, int nx,
            const float* __restrict__ origins, const float* __restrict__ dirs,
            const uint2* __restrict__ kt, int first, int N, int max_events,
-           const float* __restrict__ prm,
+           const __grid_constant__ VptPrm P,
            const float* __restrict__ env, int he, int we, float* __restrict__ radiance,
            float* __restrict__ first_x, unsigned char* __restrict__ first_has,
-           int* __restrict__ events) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  float bmin[3], bmax[3], extent[3], ext[3], aext[3], sext[3], sun[3], sun_ic[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    bmin[c] = prm[P_BMIN + c];
-    bmax[c] = prm[P_BMAX + c];
-    extent[c] = prm[P_EXTENT + c];
-    ext[c] = prm[P_EXT + c];
-    aext[c] = prm[P_AEXT + c];
-    sext[c] = prm[P_SEXT + c];
-    sun[c] = prm[P_SUN + c];
-    sun_ic[c] = prm[P_SUNIC + c];
-  }
-  const float maj = prm[P_MAJ];
-  const Phase pc{(int)prm[P_ISO], prm[P_OMG2], prm[P_OMG], prm[P_TWOG], prm[P_HALFG], prm[P_OPG2]};
-
-  const V3 o{origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
-  V3 w{dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2]};
-  float t_min, t_max;
-  const bool hit = box_intersect(bmin, bmax, o, w, t_min, t_max);
-  V3 x{o.x + w.x * t_min, o.y + w.y * t_min, o.z + w.z * t_min};
-  float d = hit ? t_max - t_min : -1.0f;
+           int* __restrict__ events, int* __restrict__ scatters, int* __restrict__ next) {
+  const float *bmin = P.v + P_BMIN, *bmax = P.v + P_BMAX, *extent = P.v + P_EXTENT;
+  const float *ext = P.v + P_EXT, *aext = P.v + P_AEXT, *sext = P.v + P_SEXT;
+  const float maj = P.v[P_MAJ];
+  const Phase pc{(int)P.v[P_ISO], P.v[P_OMG2], P.v[P_OMG], P.v[P_TWOG], P.v[P_HALFG], P.v[P_OPG2]};
+  const uint2 ktv = *kt;
+  const int lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1u;
+  // The warp's claimed indices [pool, pool_end), the same in every lane;
+  // `drained` once the counter has passed N.
+  int pool = 0, pool_end = 0;
+  bool drained = false;
+  // The lane's ray: its index, what its next step does, its state and its
+  // events so far; kev is the key of the event whose scatter is pending.
+  bool active = false;
+  int i = 0, j = 0, ev = 0, nsc = 0, step = ST_DONE;
+  V3 x{0.0f, 0.0f, 0.0f}, w{0.0f, 0.0f, 0.0f}, fx{0.0f, 0.0f, 0.0f};
+  float d = 0.0f;
   float wt[3] = {1.0f, 1.0f, 1.0f};
-  bool alive = hit, absorbed = false, scattered = false;
-  V3 fx{0.0f, 0.0f, 0.0f};
-  const uint2 key = tf_split(*kt, (uint32_t)(first + i));
-  int ev = 0;
-  for (int j = 0; j < max_events && alive; ++j) {
-    ++ev;
-    const uint2 k = tf_split(key, (uint32_t)j);
-    const float u1 = tf_uniform(tf_split(k, 0u));
-    const float t = -logf(fmaxf(1e-10f, 1.0f - u1)) / maj;
-    if (t > d) break;  // the ray leaves the volume: its state stays as it is
-    const V3 xn{x.x + w.x * t, x.y + w.y * t, x.z + w.z * t};
-    const float tp[3] = {(xn.x - bmin[0]) / extent[0], (xn.y - bmin[1]) / extent[1],
-                         (xn.z - bmin[2]) / extent[2]};
-    const float dens = density_at<INTERP>(grid, nz, ny, nx, tp, k);
-    float sa[3], ss[3], sn[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      sa[c] = aext[c] * dens;
-      ss[c] = sext[c] * dens;
-      sn[c] = maj - ext[c] * dens;
+  bool alive = false, absorbed = false, scattered = false;
+  uint2 key = make_uint2(0u, 0u), kev = make_uint2(0u, 0u);
+  for (;;) {
+    // Lanes without a ray take the next indices of the warp's pool, in lane
+    // order; an empty pool claims 32 more.
+    unsigned idle = __ballot_sync(0xffffffffu, !active);
+    while (idle != 0u && !drained) {
+      if (pool == pool_end) {
+        int b = 0;
+        if (lane == 0) b = atomicAdd(next, 32);
+        b = __shfl_sync(0xffffffffu, b, 0);
+        if (b >= N) {
+          drained = true;
+          break;
+        }
+        pool = b;
+        pool_end = min(b + 32, N);
+      }
+      const int take = min(__popc(idle), pool_end - pool);
+      if (!active && __popc(idle & lt) < take) {
+        i = pool + __popc(idle & lt);
+        const V3 o{origins[3 * i], origins[3 * i + 1], origins[3 * i + 2]};
+        w = V3{dirs[3 * i], dirs[3 * i + 1], dirs[3 * i + 2]};
+        float t_min, t_max;
+        const bool hit = box_intersect(bmin, bmax, o, w, t_min, t_max);
+        x = V3{o.x + w.x * t_min, o.y + w.y * t_min, o.z + w.z * t_min};
+        d = hit ? t_max - t_min : -1.0f;
+        wt[0] = wt[1] = wt[2] = 1.0f;
+        alive = hit;
+        absorbed = scattered = false;
+        fx = V3{0.0f, 0.0f, 0.0f};
+        j = ev = nsc = 0;
+        step = hit && max_events > 0 ? ST_KEY : ST_DONE;
+        active = true;
+      }
+      pool += take;
+      idle = __ballot_sync(0xffffffffu, !active);
     }
-    float pa, ps, pn;
-    if (MODE == MODE_SPECTRAL) {
-      pa = (sa[0] * wt[0] + sa[1] * wt[1] + sa[2] * wt[2]) / 3.0f;
-      ps = (ss[0] * wt[0] + ss[1] * wt[1] + ss[2] * wt[2]) / 3.0f;
-      pn = (sn[0] * wt[0] + sn[1] * wt[1] + sn[2] * wt[2]) / 3.0f;
-      const float cs = fmaxf(pa + ps + pn, 1e-20f);
-      pa = pa / cs;
-      ps = ps / cs;
-      pn = pn / cs;
-    } else {
-      pa = sa[0] / maj;
-      ps = ss[0] / maj;
-      pn = sn[0] / maj;
-    }
-    const float xi = tf_uniform(tf_split(k, 1u));
-    bool absorb = xi < pa;
-    bool scatter = !absorb && (xi < 1.0f - pn);
-    if (MODE == MODE_RATIO) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) wt[c] = wt[c] * (1.0f - pa);
-      absorb = false;
-      scatter = xi < 1.0f - pn;
-    } else if (MODE == MODE_SPECTRAL) {
-      const float den = scatter ? fmaxf(maj * ps, 1e-20f) : fmaxf(maj * pn, 1e-20f);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) wt[c] = fminf(wt[c] * (scatter ? ss[c] : sn[c]) / den, 100.0f);
-    }
-    if (scatter) {
-      const uint2 k3 = tf_split(k, 2u);
-      const V3 wn = sample_phase(tf_uniform(tf_split(k3, 0u)), tf_uniform(tf_split(k3, 1u)), pc, w);
+    if (!__any_sync(0xffffffffu, active)) break;
+    // The step's three threefry draws, the same code in every lane: the
+    // ray's key split(kt, .)[first + i]; an event's key k = split(key, j)
+    // and its uniforms u1 and xi; or a scatter's k3 = split(k, 2) and the
+    // phase function's two uniforms.
+    const uint2 kk = tf_split(step == ST_KEY ? ktv : (step == ST_SCATTER ? kev : key),
+                              step == ST_KEY ? (uint32_t)(first + i)
+                                             : (step == ST_SCATTER ? 2u : (uint32_t)j));
+    const float ua = tf_uniform(tf_split(kk, 0u));
+    const float ub = tf_uniform(tf_split(kk, 1u));
+    if (!active) continue;
+    bool done = step == ST_DONE;
+    if (step == ST_KEY) {
+      key = kk;
+      step = ST_EVENT;
+    } else if (step == ST_SCATTER) {  // the direction of event j's scatter
+      const V3 xn = x;
+      const V3 wn = sample_phase(ua, ub, pc, w);
       float t2_min, t2_max;
       const bool hit2 = box_intersect(bmin, bmax, xn, wn, t2_min, t2_max);
       d = hit2 ? t2_max - t2_min : 0.0f;
       x = hit2 ? V3{xn.x + wn.x * t2_min, xn.y + wn.y * t2_min, xn.z + wn.z * t2_min} : xn;
       w = wn;
+      ++nsc;
       if (!scattered) {
         fx = xn;
         scattered = true;
       }
-    } else {
-      d = d - t;
-      x = xn;
+      ++j;
+      step = ST_EVENT;
+      done = !(j < max_events && alive);
+    } else if (step == ST_EVENT) {  // event j, as the plain version's loop takes it
+      ++ev;
+      const float fl = -logf(fmaxf(1e-10f, 1.0f - ua));
+      const float t = POW2 ? fl * P.inv[0] : fl / maj;
+      if (t > d) {
+        done = true;  // the ray leaves the volume: its state stays as it is
+      } else {
+        const V3 xn{x.x + w.x * t, x.y + w.y * t, x.z + w.z * t};
+        const float rel[3] = {xn.x - bmin[0], xn.y - bmin[1], xn.z - bmin[2]};
+        float tp[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) tp[c] = POW2 ? rel[c] * P.inv[1 + c] : rel[c] / extent[c];
+        const float dens = density_at<INTERP>(grid, nz, ny, nx, tp, kk);
+        float sa[3], ss[3], sn[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          sa[c] = aext[c] * dens;
+          ss[c] = sext[c] * dens;
+          sn[c] = maj - ext[c] * dens;
+        }
+        float pa, ps, pn;
+        if (MODE == MODE_SPECTRAL) {
+          pa = (sa[0] * wt[0] + sa[1] * wt[1] + sa[2] * wt[2]) / 3.0f;
+          ps = (ss[0] * wt[0] + ss[1] * wt[1] + ss[2] * wt[2]) / 3.0f;
+          pn = (sn[0] * wt[0] + sn[1] * wt[1] + sn[2] * wt[2]) / 3.0f;
+          const float cs = fmaxf(pa + ps + pn, 1e-20f);
+          pa = pa / cs;
+          ps = ps / cs;
+          pn = pn / cs;
+        } else {
+          pa = POW2 ? sa[0] * P.inv[0] : sa[0] / maj;
+          ps = POW2 ? ss[0] * P.inv[0] : ss[0] / maj;
+          pn = POW2 ? sn[0] * P.inv[0] : sn[0] / maj;
+        }
+        const float xi = ub;
+        bool absorb = xi < pa;
+        bool scatter = !absorb && (xi < 1.0f - pn);
+        if (MODE == MODE_RATIO) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) wt[c] = wt[c] * (1.0f - pa);
+          absorb = false;
+          scatter = xi < 1.0f - pn;
+        } else if (MODE == MODE_SPECTRAL) {
+          const float den = scatter ? fmaxf(maj * ps, 1e-20f) : fmaxf(maj * pn, 1e-20f);
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            wt[c] = fminf(wt[c] * (scatter ? ss[c] : sn[c]) / den, 100.0f);
+        }
+        x = xn;
+        if (scatter) {  // its direction in the next step
+          kev = kk;
+          step = ST_SCATTER;
+        } else {
+          d = d - t;
+          ++j;
+        }
+        if (absorb) {
+          absorbed = true;
+          alive = false;
+        }
+        done = !scatter && !(j < max_events && alive);
+      }
     }
-    if (absorb) {
-      absorbed = true;
-      alive = false;
+    if (done) {  // the ray is dead: its outputs, and the lane is free
+      const V3 bg = env != nullptr ? env_map_sample(env, he, we, w, P.v[P_ENVI])
+                                   : sky_light(w, P.v + P_SUN, P.v + P_SUNIC);
+      radiance[3 * i] = absorbed ? 0.0f : fminf(wt[0], 1e5f) * bg.x;
+      radiance[3 * i + 1] = absorbed ? 0.0f : fminf(wt[1], 1e5f) * bg.y;
+      radiance[3 * i + 2] = absorbed ? 0.0f : fminf(wt[2], 1e5f) * bg.z;
+      first_x[3 * i] = fx.x;
+      first_x[3 * i + 1] = fx.y;
+      first_x[3 * i + 2] = fx.z;
+      first_has[i] = scattered ? 1 : 0;
+      if (events != nullptr) events[i] = ev;
+      if (scatters != nullptr) scatters[i] = nsc;
+      active = false;
     }
   }
-  const V3 bg = env != nullptr ? env_map_sample(env, he, we, w, prm[P_ENVI]) : sky_light(w, sun, sun_ic);
-  radiance[3 * i] = absorbed ? 0.0f : fminf(wt[0], 1e5f) * bg.x;
-  radiance[3 * i + 1] = absorbed ? 0.0f : fminf(wt[1], 1e5f) * bg.y;
-  radiance[3 * i + 2] = absorbed ? 0.0f : fminf(wt[2], 1e5f) * bg.z;
-  first_x[3 * i] = fx.x;
-  first_x[3 * i + 1] = fx.y;
-  first_x[3 * i + 2] = fx.z;
-  first_has[i] = scattered ? 1 : 0;
-  if (events != nullptr) events[i] = ev;
 }
 
-template <int MODE>
-static void launch_mode(int interp, dim3 grid_dim, cudaStream_t s, const float* grid, int nz, int ny,
-                        int nx, const float* o, const float* d, const uint2* kt, int first, int N,
-                        int E,
-                        const float* prm, const float* env, int he, int we, float* rad, float* fx,
-                        unsigned char* fh, int* ev) {
-  if (interp == INTERP_TRILINEAR)
-    vpt_kernel<MODE, INTERP_TRILINEAR><<<grid_dim, VPT_THREADS, 0, s>>>(
-        grid, nz, ny, nx, o, d, kt, first, N, E, prm, env, he, we, rad, fx, fh, ev);
-  else if (interp == INTERP_NEAREST)
-    vpt_kernel<MODE, INTERP_NEAREST><<<grid_dim, VPT_THREADS, 0, s>>>(
-        grid, nz, ny, nx, o, d, kt, first, N, E, prm, env, he, we, rad, fx, fh, ev);
-  else
-    vpt_kernel<MODE, INTERP_STOCHASTIC><<<grid_dim, VPT_THREADS, 0, s>>>(
-        grid, nz, ny, nx, o, d, kt, first, N, E, prm, env, he, we, rad, fx, fh, ev);
+template <int MODE, bool POW2>
+static const void* vpt_instance_of(int interp) {
+  if (interp == INTERP_TRILINEAR) return (const void*)vpt_kernel<MODE, INTERP_TRILINEAR, POW2>;
+  if (interp == INTERP_NEAREST) return (const void*)vpt_kernel<MODE, INTERP_NEAREST, POW2>;
+  return (const void*)vpt_kernel<MODE, INTERP_STOCHASTIC, POW2>;
 }
 
-// Trace N rays on `stream`: grid [nz, ny, nx] float32, origins and dirs
+// The instance of (mode, interp, pow2).
+template <bool POW2>
+static const void* vpt_instance(int mode, int interp) {
+  if (mode == MODE_DELTA) return vpt_instance_of<MODE_DELTA, POW2>(interp);
+  if (mode == MODE_SPECTRAL) return vpt_instance_of<MODE_SPECTRAL, POW2>(interp);
+  return vpt_instance_of<MODE_RATIO, POW2>(interp);
+}
+
+static const void* vpt_instance(int mode, int interp, bool pow2) {
+  return pow2 ? vpt_instance<true>(mode, interp) : vpt_instance<false>(mode, interp);
+}
+
+// x is a power of two whose reciprocal is a normal float.
+static bool power_of_two(float x) {
+  int e = 0;
+  return x > 0.0f && std::isfinite(x) && std::frexp(x, &e) == 0.5f && e > -125 && e < 126;
+}
+
+// Trace N rays on `stream`: grid the [nz, ny, nx] float32 grid in bricks
+// (`kernels/vpt_tracking.py:grid_bricks`), origins and dirs
 // [N, 3], kt the trace's key (k0, k1) as two uint32 words on the device,
-// of which ray i takes split(kt, .)[first + i], prm the P_COUNT parameters, env
+// of which ray i takes split(kt, .)[first + i], prm the P_COUNT parameters
+// (host memory, passed by value), env
 // [he, we, 3] or null (the sky and sun). Writes radiance [N, 3], first_x
 // [N, 3], first_has [N] (0/1) and, if not null, events [N] (the events each
-// ray ran). mode 0/1/2: Delta, Spectral Delta, Ratio tracking; interp
-// 0/1/2: Trilinear, Nearest, Stochastic.
+// ray ran) and scatters [N] (its scattering events). mode 0/1/2: Delta, Spectral Delta, Ratio tracking; interp
+// 0/1/2: Trilinear, Nearest, Stochastic. `next`, one int on the device that
+// the caller zeroes, counts the rays taken. The grid holds as many blocks
+// as the card keeps resident, fewer where N needs fewer.
 extern "C" int vpt_tracking_launch(const float* grid, int nz, int ny, int nx, const float* origins,
                                    const float* dirs, const unsigned int* kt, int first, int N,
                                    int max_events, int mode, int interp, const float* prm,
                                    const float* env, int he, int we, float* radiance,
                                    float* first_x, unsigned char* first_has, int* events,
-                                   void* stream) {
-  if (nz < 2 || ny < 2 || nx < 2 || N < 0 || first < 0 || max_events < 0 || mode < 0 ||
-      mode > 2 || interp < 0 || interp > 2 || (env != nullptr && (he < 1 || we < 1)))
+                                   int* scatters, int* next, void* stream) {
+  if (nz < 2 || ny < 2 || nx < 2 || N < 0 || N > (1 << 30) || first < 0 || max_events < 0 ||
+      mode < 0 || mode > 2 || interp < 0 || interp > 2 || (env != nullptr && (he < 1 || we < 1)) ||
+      next == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (N > 0) {
-    const dim3 g((N + VPT_THREADS - 1) / VPT_THREADS);
-    const cudaStream_t s = (cudaStream_t)stream;
-    const uint2* k = (const uint2*)kt;
-    if (mode == MODE_DELTA)
-      launch_mode<MODE_DELTA>(interp, g, s, grid, nz, ny, nx, origins, dirs, k, first, N,
-                              max_events, prm, env, he, we, radiance, first_x, first_has, events);
-    else if (mode == MODE_SPECTRAL)
-      launch_mode<MODE_SPECTRAL>(interp, g, s, grid, nz, ny, nx, origins, dirs, k, first, N,
-                                 max_events, prm, env, he, we, radiance, first_x, first_has,
-                                 events);
-    else
-      launch_mode<MODE_RATIO>(interp, g, s, grid, nz, ny, nx, origins, dirs, k, first, N,
-                              max_events, prm, env, he, we, radiance, first_x, first_has, events);
-  }
-  return (int)cudaGetLastError();
+  if (N == 0) return (int)cudaGetLastError();
+  const bool pow2 = power_of_two(prm[P_MAJ]) && power_of_two(prm[P_EXTENT]) &&
+                    power_of_two(prm[P_EXTENT + 1]) && power_of_two(prm[P_EXTENT + 2]);
+  const void* f = vpt_instance(mode, interp, pow2);
+  int dev = 0, n_sm = 0, per_sm = 0;
+  int e = (int)cudaGetDevice(&dev);
+  if (!e) e = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, f, VPT_THREADS, 0);
+  if (e) return e;
+  const int blocks = max(1, min(n_sm * per_sm, (N + VPT_THREADS - 1) / VPT_THREADS));
+  const uint2* k = (const uint2*)kt;
+  VptPrm P;
+  memcpy(P.v, prm, sizeof(P.v));
+  P.inv[0] = 1.0f / prm[P_MAJ];
+  for (int c = 0; c < 3; ++c) P.inv[1 + c] = 1.0f / prm[P_EXTENT + c];
+  void* args[] = {(void*)&grid, (void*)&nz, (void*)&ny, (void*)&nx, (void*)&origins,
+                  (void*)&dirs, (void*)&k, (void*)&first, (void*)&N, (void*)&max_events,
+                  (void*)&P, (void*)&env, (void*)&he, (void*)&we, (void*)&radiance,
+                  (void*)&first_x, (void*)&first_has, (void*)&events, (void*)&scatters,
+                  (void*)&next};
+  e = (int)cudaLaunchKernel(f, dim3(blocks), dim3(VPT_THREADS), args, 0, (cudaStream_t)stream);
+  return e ? e : (int)cudaGetLastError();
+}
+
+// The 18 instances' resources (i = 9 pow2 + 3 mode + interp): v =
+// (registers, local bytes, static shared bytes, resident blocks per SM,
+// threads, 0), `label` its name.
+extern "C" int kernel_info(int i, int* v, char* label, int cap) {
+  if (i < 0 || i > 17) return (int)cudaErrorInvalidValue;
+  const void* f = vpt_instance(i % 9 / 3, i % 3, i >= 9);
+  cudaFuncAttributes at;
+  int e = (int)cudaFuncGetAttributes(&at, f);
+  int nb = 0;
+  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, f, VPT_THREADS, 0);
+  if (e) return e;
+  v[0] = at.numRegs;
+  v[1] = (int)at.localSizeBytes;
+  v[2] = (int)at.sharedSizeBytes;
+  v[3] = nb;
+  v[4] = VPT_THREADS;
+  v[5] = 0;
+  const char* modes[3] = {"delta", "spectral", "ratio"};
+  const char* interps[3] = {" trilinear", " nearest", " stochastic"};
+  int n = 0;
+  for (const char* q = modes[i % 9 / 3]; *q && n < cap - 1; ++q) label[n++] = *q;
+  for (const char* q = interps[i % 3]; *q && n < cap - 1; ++q) label[n++] = *q;
+  for (const char* q = i >= 9 ? " pow2" : ""; *q && n < cap - 1; ++q) label[n++] = *q;
+  label[n] = 0;
+  return 0;
 }
 
 __global__ void threefry_kernel(const uint2* __restrict__ keys, int n, int op, unsigned int c,

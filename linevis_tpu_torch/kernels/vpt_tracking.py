@@ -6,12 +6,13 @@ Spectral Delta and Ratio tracking, which JAX writes as a vmapped `lax.scan`
 over `max_events` Woodcock events (no `pl.pallas_call`). At 1080p that loop
 is ~10^5 small PyTorch launches a frame, so the port gives it a kernel of its
 own: on a CUDA tensor `vpt_tracking` launches `csrc/vpt_tracking.cu` (one
-thread a ray, stopping where the ray dies) and counts the launch in
-`vpt_tracking.launches`; on a CPU tensor it runs the plain version,
-`vpt_tracking_reference`, a lockstep loop over the events on the rays still
-alive. Both draw every sample from jax.random's stream
-(`ops/threefry.py`, `csrc/threefry.cuh`) and round every operation alike
-(`volume_common`), so they agree bit for bit on the card.
+thread a ray until the ray dies, in persistent warps whose lanes take the
+next ray as theirs die) and counts the launch in `vpt_tracking.launches`;
+on a CPU tensor it runs the plain version, `vpt_tracking_reference`, a
+lockstep loop over the events on the rays still alive. Both draw every
+sample from jax.random's stream (`ops/threefry.py`, `csrc/threefry.cuh`)
+and round every operation alike (`volume_common`), so they agree bit for
+bit on the card.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from linevis_tpu_torch.kernels.volume_common import (
 )
 from linevis_tpu_torch.ops import threefry
 
-__all__ = ["VptParams", "vpt_params", "vpt_tracking", "vpt_tracking_reference",
+__all__ = ["VptParams", "vpt_params", "vpt_tracking", "vpt_tracking_reference", "grid_bricks",
            "threefry_device", "SCAN_MODES", "INTERPOLATIONS"]
 
 SCAN_MODES = ("Delta Tracking", "Spectral Delta Tracking", "Ratio Tracking")
@@ -102,7 +103,8 @@ def vpt_params(grid_shape, extinction, albedo, sun_dir, sun_ic, phase_g: float, 
 
 def vpt_tracking_reference(grid, origins: torch.Tensor, dirs: torch.Tensor, key: torch.Tensor,
                            p: VptParams, env: Optional[torch.Tensor] = None,
-                           events: Optional[torch.Tensor] = None, first: int = 0):
+                           events: Optional[torch.Tensor] = None, first: int = 0,
+                           scatters: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the kernel (the contract of `vpt_tracking`).
     `grid` may also be a `scene/sparse_grid.py:SparseGrid`. The loop takes
     one event a step on the rays still alive; a dead ray's state stays as
@@ -121,6 +123,7 @@ def vpt_tracking_reference(grid, origins: torch.Tensor, dirs: torch.Tensor, key:
     first_x = torch.zeros((N, 3), dtype=torch.float32, device=dev)
     first_has = torch.zeros(N, dtype=torch.bool, device=dev)
     ev = torch.zeros(N, dtype=torch.int32, device=dev)
+    n_sc = torch.zeros(N, dtype=torch.int32, device=dev)
     spectral = p.mode == "Spectral Delta Tracking"
     ratio = p.mode == "Ratio Tracking"
     stochastic = p.interpolation == "Stochastic"
@@ -170,6 +173,7 @@ def vpt_tracking_reference(grid, origins: torch.Tensor, dirs: torch.Tensor, key:
         sc = torch.nonzero(scatter).reshape(-1)
         if sc.numel():
             isc = idx[sc]
+            n_sc[isc] += 1
             kp = threefry.split(ks[sc, 2], 2)
             up = threefry.uniform_at(kp)
             xs_sc = tuple(c[sc] for c in xn)
@@ -192,7 +196,30 @@ def vpt_tracking_reference(grid, origins: torch.Tensor, dirs: torch.Tensor, key:
     rad = torch.where(absorbed[:, None], torch.zeros_like(rad), rad)
     if events is not None:
         events.copy_(ev)
+    if scatters is not None:
+        scatters.copy_(n_sc)
     return rad, first_x, first_has
+
+
+BRICK = 8  # csrc/vpt_tracking.cu VPT_BRICK
+
+
+def grid_bricks(grid: torch.Tensor) -> torch.Tensor:
+    """The dense grid [Z, Y, X] as the kernel reads it: in BRICK^3 bricks,
+    brick-major, each brick z, y, x (padded with zeros to whole bricks; the
+    kernel reads no padding) -> a new float32 tensor on the grid's device.
+    Kept on the grid tensor itself with the grid's version, so a grid the
+    scene caches (`get_cloud_grid`) is bricked once and an edited one again."""
+    cached = getattr(grid, "_vpt_bricks", None)
+    if cached is not None and cached[0] == grid._version:
+        return cached[1]
+    Z, Y, X = grid.shape
+    pad = [(-n) % BRICK for n in (Z, Y, X)]
+    g = torch.nn.functional.pad(grid.float(), (0, pad[2], 0, pad[1], 0, pad[0]))
+    b = g.reshape((Z + pad[0]) // BRICK, BRICK, (Y + pad[1]) // BRICK, BRICK,
+                  (X + pad[2]) // BRICK, BRICK).permute(0, 2, 4, 1, 3, 5).contiguous()
+    grid._vpt_bricks = (grid._version, b)
+    return b
 
 
 def _launcher(name):
@@ -200,7 +227,7 @@ def _launcher(name):
     lib = _build.load("vpt_tracking")
     if name == "vpt":
         fn = lib.vpt_tracking_launch
-        fn.argtypes = [p, i, i, i, p, p, p, i, i, i, i, i, p, p, i, i, p, p, p, p, p]
+        fn.argtypes = [p, i, i, i, p, p, p, i, i, i, i, i, p, p, i, i, p, p, p, p, p, p, p]
     else:
         fn = lib.threefry_launch
         fn.argtypes = [p, i, i, ctypes.c_uint, p, p]
@@ -210,21 +237,24 @@ def _launcher(name):
 
 def vpt_tracking(grid: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
                  key: torch.Tensor, p: VptParams, env: Optional[torch.Tensor] = None,
-                 events: Optional[torch.Tensor] = None, first: int = 0):
+                 events: Optional[torch.Tensor] = None, first: int = 0,
+                 scatters: Optional[torch.Tensor] = None):
     """Trace rays through the density grid -> (radiance [N, 3], first
     scatter position [N, 3], first scatter flag [N] bool).
 
-    grid [Z, Y, X] float32 (dense), origins and dirs [N, 3] float32 (unit
-    dirs), key [2] int64: the trace's threefry key `kt`, of which ray i
+    grid [Z, Y, X] float32 (dense; the kernel reads `grid_bricks(grid)`,
+    made at its first launch on the grid), origins and dirs [N, 3] float32
+    (unit dirs), key [2] int64: the trace's threefry key `kt`, of which ray i
     takes `split(kt, .)[first + i]` (as `vpt_trace_rays` keys its rays;
     `first` lets a call trace a slice of a larger set), `p` from
     `vpt_params`, env an optional [He, We, 3]
     environment map (else the procedural sky and sun). `events`, an
     optional int32 [N] tensor, receives the events each ray ran (the step
-    at which it died, or max_events). A CUDA tensor launches the kernel; a
-    CPU tensor runs the plain version."""
+    at which it died, or max_events); `scatters`, likewise, the events at
+    which it scattered. A CUDA tensor launches the kernel; a CPU tensor runs
+    the plain version."""
     if origins.device.type == "cpu":
-        return vpt_tracking_reference(grid, origins, dirs, key, p, env, events, first)
+        return vpt_tracking_reference(grid, origins, dirs, key, p, env, events, first, scatters)
     if origins.device.type != "cuda":
         raise ValueError(f"vpt_tracking: unsupported device {origins.device}")
     dev = origins.device
@@ -238,27 +268,32 @@ def vpt_tracking(grid: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
             raise ValueError(f"{name} must be {dt} {shape} on {dev}")
     if env is not None and (env.dim() != 3 or env.shape[2] != 3 or env.device != dev):
         raise ValueError("env must be a [He, We, 3] tensor on the rays' device")
-    g = grid.contiguous()
+    g = grid_bricks(grid)
     ins = [origins.contiguous(), dirs.contiguous(), key.to(torch.int32).contiguous()]
-    prm = torch.as_tensor(p.array(), device=dev)
+    prm = p.array()  # host memory: the launch passes it by value
     envc = None if env is None else env.float().contiguous()
     rad = torch.empty((N, 3), dtype=torch.float32, device=dev)
     fx = torch.empty((N, 3), dtype=torch.float32, device=dev)
     fh = torch.empty(N, dtype=torch.uint8, device=dev)
     ev = None if events is None else torch.empty(N, dtype=torch.int32, device=dev)
+    n_sc = None if scatters is None else torch.empty(N, dtype=torch.int32, device=dev)
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the kernel's ray counter
     with torch.cuda.device(dev):
         rc = _launcher("vpt")(
-            g.data_ptr(), g.shape[0], g.shape[1], g.shape[2], *(x.data_ptr() for x in ins), first,
+            g.data_ptr(), *grid.shape, *(x.data_ptr() for x in ins), first,
             N, p.max_events, SCAN_MODES.index(p.mode), INTERPOLATIONS.index(p.interpolation),
-            prm.data_ptr(), None if envc is None else envc.data_ptr(),
+            prm.ctypes.data, None if envc is None else envc.data_ptr(),
             0 if envc is None else envc.shape[0], 0 if envc is None else envc.shape[1],
             rad.data_ptr(), fx.data_ptr(), fh.data_ptr(), None if ev is None else ev.data_ptr(),
+            None if n_sc is None else n_sc.data_ptr(), nxt.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"vpt_tracking kernel launch failed: CUDA error {rc}")
     vpt_tracking.launches += 1
     if events is not None:
         events.copy_(ev)
+    if scatters is not None:
+        scatters.copy_(n_sc)
     return rad, fx, fh.bool()
 
 

@@ -67,7 +67,7 @@ def render_spherical_heatmap(exit_dirs: torch.Tensor, height: int = 128) -> torc
     """exit_dirs [N, 3] unit vectors -> [H, 2H, 4] RGBA heat map on their
     device (outside the ellipse: transparent)."""
     pts, inside = mollweide_points(height, exit_dirs.device)
-    val = heatmap_density(pts, exit_dirs.float()).reshape(height, 2 * height)
+    val = heatmap_density(pts, exit_dirs.float(), 2 * height).reshape(height, 2 * height)
     return heatmap_ramp(val, inside)
 
 

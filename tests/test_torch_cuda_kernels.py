@@ -1809,8 +1809,9 @@ def test_vpt_tracking_kernel_matches_plain(cuda, mode, interpolation):
     got = tvt.vpt_tracking(grid, origins, dirs, kt, p, events=ev_k, first=first)
     assert tvt.vpt_tracking.launches == n0 + 1
     ref = tvt.vpt_tracking_reference(grid, origins, dirs, kt, p, events=ev_p, first=first)
-    for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+    again = tvt.vpt_tracking(grid, origins, dirs, kt, p, first=first)
+    for a, b, c in zip(got, ref, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
     assert torch.equal(ev_k, ev_p) and int(ev_k.max()) > 10
 
 
@@ -1826,6 +1827,85 @@ def test_vpt_tracking_env_map_matches_plain(cuda):
     for a, b in zip(tvt.vpt_tracking(grid, origins, dirs, kt, p, env, first=first),
                     tvt.vpt_tracking_reference(grid, origins, dirs, kt, p, env, first=first)):
         assert torch.equal(a, b)
+
+
+def _vpt_case(cuda, grid, origins, dirs, kt, p, env=None, first=0):
+    """The kernel (with its events) against the plain version bit for bit,
+    and a second launch equal to the first."""
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+
+    ev_k = torch.full((origins.shape[0],), -1, dtype=torch.int32, device=cuda)
+    ev_p = torch.empty_like(ev_k)
+    got = tvt.vpt_tracking(grid, origins, dirs, kt, p, env, events=ev_k, first=first)
+    again = tvt.vpt_tracking(grid, origins, dirs, kt, p, env, first=first)
+    ref = tvt.vpt_tracking_reference(grid, origins, dirs, kt, p, env, events=ev_p, first=first)
+    for a, b, c in zip(got, again, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(ev_k, ev_p)
+    return ev_k
+
+
+def _vpt_defaults(grid, max_events=512, mode="Delta Tracking", interpolation="Trilinear"):
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+
+    return tvt.vpt_params(grid.shape, (1024.0,) * 3, (0.95, 0.9, 1.0), (0.58, 0.77, 0.27),
+                          (2.6, 2.5, 2.3), 0.2, mode, max_events, interpolation)
+
+
+@pytest.mark.parametrize("n", [0, 1, 33, 100_003])
+def test_vpt_tracking_ray_counts(cuda, n):
+    """Counts below a warp, across a few and past the persistent grid's
+    lanes (132 SMs hold fewer than 100,003 resident threads), not a multiple
+    of 32."""
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render import vpt as tvpt
+
+    grid = torch.as_tensor(_blob_cloud(), device=cuda)
+    cam = Camera(position=(0.0, 0.15, 0.9), look_at_point=(0, 0, 0), width=1920, height=1080)
+    basis = ttr._ray_basis(torch.as_tensor(cam.view_projection_matrix(), device=cuda))
+    o = torch.as_tensor(np.asarray(cam.position, np.float32), device=cuda)
+    _, kt, origins, dirs = tvpt.primary_rays(threefry.prng_key(1, cuda), o, basis, 1920, 1080)
+    first = 540 * 1920 + 960 - n // 2  # around the frame's centre, into the cloud
+    o_n, d_n = origins[first:first + n].contiguous(), dirs[first:first + n].contiguous()
+    ev = _vpt_case(cuda, grid, o_n, d_n, kt, _vpt_defaults(grid), first=first)
+    assert ev.shape == (n,) and (n < 33 or int(ev.max()) > 10)
+
+
+@pytest.mark.parametrize("mode", ["Delta Tracking", "Spectral Delta Tracking"])
+def test_vpt_tracking_divisors_not_powers_of_two(cuda, mode):
+    """A majorant of 1000 and a box of a 40 x 48 x 64 grid (extents not
+    powers of two): the kernel divides as the plain version does."""
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+
+    grid = torch.as_tensor(_blob_cloud()[:40, :48].copy(), device=cuda)
+    origins, dirs, kt, first = _vpt_row(cuda)
+    ext = (1000.0, 900.0, 800.0) if mode == "Spectral Delta Tracking" else (1000.0,) * 3
+    p = tvt.vpt_params(grid.shape, ext, (0.95, 0.9, 1.0), (0.58, 0.77, 0.27), (2.6, 2.5, 2.3),
+                       0.2, mode, 256, "Trilinear")
+    assert p.majorant == 1000.0 and p.extent[1] not in (0.25, 0.5, 1.0)
+    ev = _vpt_case(cuda, grid, origins, dirs, kt, p, first=first)
+    assert int(ev.max()) > 10
+
+
+def test_vpt_tracking_one_event_and_all_missing(cuda):
+    grid = torch.as_tensor(_blob_cloud(), device=cuda)
+    origins, dirs, kt, first = _vpt_row(cuda)
+    ev = _vpt_case(cuda, grid, origins, dirs, kt, _vpt_defaults(grid, max_events=1), first=first)
+    assert int(ev.max()) == 1
+    away = -dirs  # from behind the camera, away from the box: every ray misses
+    ev = _vpt_case(cuda, grid, origins, away, kt, _vpt_defaults(grid), first=first)
+    assert not bool(ev.any())
+
+
+@pytest.mark.parametrize("interpolation", ["Trilinear", "Nearest", "Stochastic"])
+@pytest.mark.parametrize("mode", ["Delta Tracking", "Spectral Delta Tracking", "Ratio Tracking"])
+def test_vpt_tracking_env_map_every_mode(cuda, mode, interpolation):
+    grid = torch.as_tensor(_blob_cloud(), device=cuda)
+    origins, dirs, kt, first = _vpt_row(cuda)
+    env = torch.as_tensor(np.random.default_rng(5).uniform(0, 2, (16, 32, 3)).astype(np.float32),
+                          device=cuda)
+    _vpt_case(cuda, grid, origins, dirs, kt, _vpt_defaults(grid, 128, mode, interpolation), env,
+              first)
 
 
 def test_vpt_launch_failure_raises(cuda):
@@ -1887,7 +1967,76 @@ def test_heatmap_kernel_matches_plain(cuda):
     d = d / torch.linalg.norm(d, dim=1, keepdim=True)
     pts, _ = mollweide_points(256, cuda)
     n0 = tsh.heatmap_density.launches
-    got = tsh.heatmap_density(pts, d)
+    got = tsh.heatmap_density(pts, d, 512)
     assert tsh.heatmap_density.launches == n0 + 1
     ref = tsh.heatmap_density_reference(pts, d)
     assert torch.equal(got, ref) and float(ref.max()) > 100.0
+
+
+def _unit_dirs(cuda, n, seed=9, lobe=0):
+    d = torch.as_tensor(np.random.default_rng(seed).normal(size=(n, 3)).astype(np.float32),
+                        device=cuda)
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    if lobe:  # the first `lobe` directions in one cap around the first
+        d[:lobe] = d[:1] + 0.02 * d[:lobe]
+        d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    return d
+
+
+def _heatmap_case(cuda, pts, width, d):
+    """The kernel with its counts against the plain version: the sum bit for
+    bit, every tile's pairs in range equal to the plain count and no more
+    than its candidates at each of its pixels; two launches equal."""
+    from linevis_tpu_torch.kernels import spherical_heatmap as tsh
+
+    tx, ty = tsh.heatmap_tiles(pts.shape[0], width)
+    counts = torch.full((tx * ty, 2), -1, dtype=torch.int64, device=cuda)
+    got = tsh.heatmap_density(pts, d, width, counts)
+    assert torch.equal(got, tsh.heatmap_density(pts, d, width))
+    assert torch.equal(got, tsh.heatmap_density_reference(pts, d))
+    tile_of, _ = tsh.heatmap_tile_candidates(pts, width, d)
+    in_range = torch.zeros(tx * ty, dtype=torch.int64, device=cuda).index_add_(
+        0, tile_of, tsh.heatmap_in_range(pts, d))
+    assert torch.equal(counts[:, 1], in_range)
+    assert bool((counts[:, 0] * tsh.TILE[0] * tsh.TILE[1] >= counts[:, 1]).all())
+    return got, counts
+
+
+@pytest.mark.parametrize("height", [1, 2, 31])
+def test_heatmap_kernel_ragged_maps(cuda, height):
+    from linevis_tpu_torch.render.spherical_heatmap import mollweide_points
+
+    pts, _ = mollweide_points(height, cuda)
+    _heatmap_case(cuda, pts, 2 * height, _unit_dirs(cuda, 4096, lobe=512))
+    # A layout whose rows are not a multiple of the tile and whose last row
+    # is short.
+    g = _unit_dirs(cuda, 1000, seed=4)
+    _heatmap_case(cuda, g, 37, _unit_dirs(cuda, 4096, lobe=512))
+    g[::7] = float("nan")  # points without a place on the sphere add nothing
+    _heatmap_case(cuda, g, 37, _unit_dirs(cuda, 4096, lobe=512))
+
+
+def test_heatmap_term_equals_ieee_on_every_float(cuda):
+    """The kernel's branch-free term equals the library's IEEE term on all
+    2^32 float bit patterns of the squared distance: the walk adds what
+    the plain version adds whatever the inputs."""
+    from linevis_tpu_torch.kernels import spherical_heatmap as tsh
+
+    assert tsh.heatmap_term_mismatches(cuda) == 0
+
+
+def test_heatmap_kernel_no_directions(cuda):
+    from linevis_tpu_torch.render.spherical_heatmap import mollweide_points
+
+    pts, _ = mollweide_points(64, cuda)
+    got, counts = _heatmap_case(cuda, pts, 128, torch.zeros((0, 3), device=cuda))
+    assert not bool(got.any()) and not bool(counts.any())
+
+
+def test_heatmap_kernel_every_direction_in_one_cap(cuda):
+    from linevis_tpu_torch.render.spherical_heatmap import mollweide_points
+
+    pts, _ = mollweide_points(64, cuda)
+    d = _unit_dirs(cuda, 6000, lobe=6000)  # more than the kernel stages before a walk
+    got, counts = _heatmap_case(cuda, pts, 128, d)
+    assert float(got.max()) > 1000.0 and int(counts[:, 0].max()) == 6000

@@ -171,6 +171,49 @@ def test_r3_slice_takes_the_frames_ray_keys():
     assert not torch.equal(shifted[0], part[0])
 
 
+def test_r3_counts_events_and_scatters():
+    """R3's optional counts (`events=`, `scatters=`) on the plain version: a
+    ray scattered iff it records a first scatter, never more often than it
+    ran events, and a slice traced with its offset counts as the whole
+    trace does."""
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+
+    rng = np.random.default_rng(8)
+    n, a, b = 200, 40, 160
+    o = torch.as_tensor(np.tile(np.float32([0.1, 0.2, 1.0]), (n, 1)))
+    d = -o + torch.as_tensor(rng.normal(0, 0.1, (n, 3)).astype(np.float32))
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    grid = _t(_cloud(20, seed=6))
+    kt = threefry.split(threefry.prng_key(4), 3)[2]
+    for mode in tvt.SCAN_MODES:
+        p = tvt.vpt_params(grid.shape, (200.0,) * 3, (0.9,) * 3, (0.58, 0.77, 0.27),
+                           (2.6, 2.5, 2.3), 0.2, mode, 32, "Trilinear")
+        ev, sc = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32)
+        _, _, has = tvt.vpt_tracking(grid, o, d, kt, p, events=ev, scatters=sc)
+        assert torch.equal(has, sc > 0) and bool((sc <= ev).all()) and int(sc.sum()) > 0
+        ev2, sc2 = torch.empty(b - a, dtype=torch.int32), torch.empty(b - a, dtype=torch.int32)
+        tvt.vpt_tracking(grid, o[a:b], d[a:b], kt, p, events=ev2, first=a, scatters=sc2)
+        assert torch.equal(ev[a:b], ev2) and torch.equal(sc[a:b], sc2)
+
+
+def test_r3_grid_bricks_hold_every_voxel():
+    """R3 reads the grid in 8^3 bricks (`grid_bricks`): every voxel of a
+    grid whose sides are not whole bricks sits where the kernel's
+    `brick_at` looks, and the copy is kept with the grid until the grid
+    changes."""
+    from linevis_tpu_torch.kernels.vpt_tracking import BRICK, grid_bricks
+
+    g = torch.arange(10 * 13 * 17, dtype=torch.float32).reshape(10, 13, 17)
+    b = grid_bricks(g).reshape(-1)
+    nyb, nxb = -(-13 // BRICK), -(-17 // BRICK)
+    z, y, x = torch.meshgrid(torch.arange(10), torch.arange(13), torch.arange(17), indexing="ij")
+    at = ((((z // 8) * nyb + y // 8) * nxb + x // 8) * 512 + (z % 8) * 64 + (y % 8) * 8 + x % 8)
+    assert torch.equal(b[at], g)
+    assert grid_bricks(g) is grid_bricks(g)
+    g[0, 0, 0] = -1.0
+    assert float(grid_bricks(g).reshape(-1)[0]) == -1.0
+
+
 def test_estimators_agree():
     """Delta vs spectral delta vs ratio vs decomposition tracking: equal
     image means (TestVolumetricPathTracing.cpp:123-227), on the port alone."""

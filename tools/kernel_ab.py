@@ -1,4 +1,4 @@
-"""The port's hand-written kernels (B1-B6, R1, R2) timed across source trees.
+"""The port's hand-written kernels (B1-B6, R1-R3, R5) timed across source trees.
 
 A one-off A/B script beside `chip_smoke.py`, not part of the port's
 package. It compares two or more source trees of this repository on one
@@ -46,10 +46,18 @@ each the mean of 40 launches between CUDA events;
     cast's planes) and the color and transmittance within 1e-5; the loop
     and `render_tubes_raytraced`'s frame, each the mean of 5;
   - R2 (`r2`): `mlat_nodes` on the same rays at K 8, 16 and 32, the nodes
-    held bit for bit against the first tree's, each the mean of 5.
+    held bit for bit against the first tree's, each the mean of 5;
+  - R3 (`r3`): `vpt_tracking` on `chip_smoke.py`'s first path-traced
+    sample (the 512^3 cloud of `entry.procedural_cloud`, 1920x1080 rays,
+    Delta tracking, trilinear, 512 events), every output and the events per
+    ray held bit for bit against the first tree's, the mean of 10;
+  - R5 (`r5`): `heatmap_density` on a 1080x2160 map of the exit directions
+    of `entry.scattering_line_data` (traced by the first turn, handed on in
+    a temporary file), held bit for bit against the first tree's, the mean
+    of 5.
 
     python3 tools/kernel_ab.py TREE [TREE ...] [--turns N]
-        [--kernels b2,b5,b4,b6,b1,b3,accum,r1,r2]
+        [--kernels b2,b5,b4,b6,b1,b3,accum,r1,r2,r3,r5]
 
 runs the trees in the order given, then reversed, N times (default 2),
 printing one JSON line per turn and a last line with the card and every
@@ -77,7 +85,8 @@ groups_file, kernels = sys.argv[2], sys.argv[3].split(",")
 sources = {"b2": ("raster_capsule_oit",), "b5": ("ao_grid",),
            "b4": ("raster_prism",), "b6": ("bvh_wavefront",), "b1": ("raster_capsule",),
            "b3": ("raster_triangle",), "accum": ("raster_capsule_accum",),
-           "r1": ("bvh_closest_hit",), "r2": ("bvh_mlat",)}
+           "r1": ("bvh_closest_hit",), "r2": ("bvh_mlat",), "r3": ("vpt_tracking",),
+           "r5": ("spherical_heatmap",)}
 info = {}
 for name in [n for k in kernels for n in sources[k]]:
     if sys.argv[1] == "rebuild":  # a tree's first turn: time its build
@@ -91,8 +100,9 @@ from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.tube_raster import camera_tensors, prepare_capsule_frame
 
 dev = "cuda"
-traj = tornado_trajectories(dev)
-scene = tornado_scene(dev, traj=traj)
+if set(kernels) - {"r3", "r5"}:  # the volume kernels draw the cloud, not the tornado
+    traj = tornado_trajectories(dev)
+    scene = tornado_scene(dev, traj=traj)
 W, H = 1920, 1080
 s = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
 cam = camera_tensors(
@@ -388,9 +398,48 @@ def r2():
         scene, *cam, s_rt, K=8, opacity=0.3, bvh=tree), n=5)
 
 
+def r3():
+    from linevis_tpu_torch import entry
+    from linevis_tpu_torch.kernels import vpt_tracking as vt
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render.tube_raster import _ray_basis
+    from linevis_tpu_torch.render.vpt import VptSettings, primary_rays, sun_constants
+    grid = entry.procedural_cloud(dev)
+    vs = VptSettings()
+    cv = camera_tensors(Camera(position=(0.0, 0.15, 0.9), look_at_point=(0.0, 0.0, 0.0),
+                               width=W, height=H), dev)
+    _, kt, o, d = primary_rays(threefry.prng_key(0, dev), cv[1], _ray_basis(cv[0]), W, H)
+    p = vt.vpt_params(grid.shape, vs.extinction, vs.scattering_albedo, *sun_constants(vs),
+                      vs.phase_g, vs.mode, vs.max_events, vs.interpolation)
+    ev = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
+    out = vt.vpt_tracking(grid, o, d, kt, p, events=ev)
+    _against_first_tree("r3", [_digest(x.float()) for x in (*out, ev)])
+    res["r3_events"] = int(ev.sum())
+    res["r3_delta_sample"] = timed(lambda: vt.vpt_tracking(grid, o, d, kt, p), n=10)
+
+
+def r5():
+    from linevis_tpu_torch import entry
+    from linevis_tpu_torch.kernels import spherical_heatmap as shm
+    from linevis_tpu_torch.render.spherical_heatmap import mollweide_points
+    dirs_file = os.path.join(os.path.dirname(groups_file), "exit_directions.pt")
+    if os.path.exists(dirs_file):
+        dirs = torch.load(dirs_file).to(dev)
+    else:  # the run's first turn traces the cloud for every turn
+        dirs = torch.as_tensor(entry.scattering_line_data(dev).exit_directions, device=dev)
+        torch.save(dirs.cpu(), dirs_file)
+    pts, _ = mollweide_points(H, dev)
+
+    def run():
+        return shm.heatmap_density(pts, dirs, 2 * H)
+    _against_first_tree("r5", [_digest(run())])
+    res["r5_directions"] = int(dirs.shape[0])
+    res["r5_map_1080x2160"] = timed(run, n=5)
+
+
 for k in kernels:
     {"b2": b2, "b5": b5, "b4": b4, "b6": b6, "b1": b1, "b3": b3, "accum": accum, "r1": r1,
-     "r2": r2}[k]()
+     "r2": r2, "r3": r3, "r5": r5}[k]()
 print("RESULT " + json.dumps(res), flush=True)
 '''
 

@@ -1,10 +1,10 @@
-"""Where the time of the port's hand-written kernels (B1-B6, R1, R2) goes, on one card.
+"""Where the time of the port's hand-written kernels (B1-B6, R1-R3, R5) goes, on one card.
 
 A one-off measurement script beside `chip_smoke.py` and `tools/kernel_ab.py`,
 not part of the port's package. Run from the root of a source tree:
 
     python3 tools/kernel_split.py [--turns N] [--out FILE]
-        [--kernels b5,b2,b4,b6,b1,b3,accum,r1,r2]
+        [--kernels b5,b2,b4,b6,b1,b3,accum,r1,r2,r3,r5]
 
 B5 (`csrc/ao_grid.cu`), on the first 1080p batch of rays of `chip_smoke.py`'s
 first RTAO frame: the launch as it is; the same launch with every
@@ -79,7 +79,24 @@ phases are those of its collapsed walk in `csrc/bvh_closest_hit.cu`, R2's
 of the binary walk in `csrc/bvh_capsule.cuh`, which the variants' sources
 inline so that their substitutions reach it).
 
-For B4, B6, B1, B3, R1, R2 and the accumulation kernel: registers, local memory,
+R3 (`csrc/vpt_tracking.cu`, `r3`), on `chip_smoke.py`'s first path-traced
+sample (the 512^3 cloud, 1080p, Delta tracking, 512 events): the events
+and scatters per ray, the share of lane-events a lockstep warp of 32
+neighbouring rays keeps busy (sum of events over 32 x each warp's most),
+and the tree's kernel against `R3_VARIANTS`: `clock64()` phase shares
+(`phase_clock`), the warps' busy steps (`warp_steps`, the persistent
+design's lane use), register budgets, block size, the IEEE divisions where
+the divisors are powers of two, refill thresholds; and
+the persistent design against its grid layouts (`R3_LAYOUT_VARIANTS`: the
+linear grid, bricks of voxel pairs or quads), each handed its layout.
+R5 (`csrc/spherical_heatmap.cu`, `r5`), on the smoke's 1080x2160 heat map
+of the traced cloud's exit directions: the kernel's own counts (pairs in
+range and candidates per tile), its branch-free term against the IEEE term
+on every float (`heatmap_term_mismatches`), and the kernel against
+`R5_VARIANTS` (the scan alone, tiles, unrolls, threads a pixel, the IEEE
+term).
+
+For B4, B6, B1, B3, R1, R2, R3 and the accumulation kernel: registers, local memory,
 shared memory and resident blocks per SM of every instance of every
 variant, read through the library's `kernel_info`, and each variant's
 ptxas lines (registers, stack frame, spills).
@@ -102,7 +119,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["main", "VARIANTS", "B5_VARIANTS", "B4_VARIANTS", "B6_VARIANTS", "B1_VARIANTS",
-           "B3_VARIANTS", "ACCUM_VARIANTS", "R1_VARIANTS", "R2_VARIANTS"]
+           "B3_VARIANTS", "ACCUM_VARIANTS", "R1_VARIANTS", "R2_VARIANTS", "R3_VARIANTS",
+           "R5_VARIANTS"]
 
 # name -> [(old, new), ...] applied to csrc/raster_capsule_oit.cu (B2: a
 # sorted per-thread list of the nearest hits, the nodes in shared memory):
@@ -658,6 +676,169 @@ R2_VARIANTS = {
 R2_PHASES = ("node_load", "child_tests", "leaf", "pop_test", "total")
 
 
+# R3 (csrc/vpt_tracking.cu). The `phase_clock` variants' counters, after
+# the volume header: lane 0 of each warp adds its warp's figures.
+_R3_COUNTERS = (
+    '#include "volume_common.cuh"\n',
+    '#include "volume_common.cuh"\n' + _PHASE_COUNTERS[1].split("\n", 1)[1])
+
+
+def _r3_wait(v):
+    """A use of float `v` that the next clock read waits for."""
+    return ('    { float q_use; asm volatile("add.f32 %%0, %%1, %%1;" : "=f"(q_use) : "f"(%s)); }\n'
+            % v)
+
+
+def _r3_flush(n_sum):
+    """Each lane's first `n_sum` phase clocks summed over its warp (over
+    32: warp-cycles), and the warp's longest lane total (ph[n_sum - 1])
+    as phase n_sum, added to `g_phase` by lane 0."""
+    return ("  __syncwarp();\n  ph[%d] = ph[%d];\n"
+            "#pragma unroll\n  for (int p = 0; p <= %d; ++p) {\n    long long v = ph[p];\n"
+            "    for (int o = 16; o > 0; o >>= 1) {\n"
+            "      const long long u = __shfl_xor_sync(0xffffffffu, v, o);\n"
+            "      v = p == %d ? max(v, u) : v + u;\n    }\n"
+            "    if ((threadIdx.x & 31) == 0) atomicAdd(&g_phase[p], "
+            "(unsigned long long)(p == %d ? v : v / 32));\n  }\n"
+            % (n_sum, n_sum - 1, n_sum, n_sum, n_sum))
+
+
+# The persistent design (warps take rays from a global counter, a lane
+# whose ray dies takes the next; every lane's step draws in the same code).
+# `phase_clock`: per lane, the step's draws (every lane), the event step
+# (of which the density sample), the scatter step, the refill (every lane:
+# the warp's claim and the new rays' set-up), the dead ray's outputs, the
+# key and done steps, and the whole kernel; all over 32 (warp-cycles).
+# `warp_steps`: the warps' steps with a lane busy.
+_R3_LOOP_TOP = "  uint2 key = make_uint2(0u, 0u), kev = make_uint2(0u, 0u);\n  for (;;) {\n"
+_R3_END = "      active = false;\n    }\n  }\n}\n"
+R3_VARIANTS = {
+    "phase_clock": [
+        _R3_COUNTERS,
+        (_R3_LOOP_TOP,
+         _R3_LOOP_TOP.replace("  for (;;) {\n", "  long long ph[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+                              "  const long long ph_start = clock64();\n  for (;;) {\n"
+                              "    const long long r0 = clock64();\n")),
+        ("    if (!__any_sync(0xffffffffu, active)) break;\n",
+         "    ph[4] += clock64() - r0;\n    if (!__any_sync(0xffffffffu, active)) break;\n"
+         "    const long long c0 = clock64();\n"),
+        ("    if (!active) continue;\n    bool done = step == ST_DONE;\n",
+         _r3_wait("ua") + _r3_wait("ub") + "    const long long c1 = clock64();\n"
+         "    ph[0] += c1 - c0;\n    if (!active) continue;\n    bool done = step == ST_DONE;\n"
+         "    const int st0 = step;\n"),
+        ("        const float dens = density_at<INTERP>(grid, nz, ny, nx, tp, kk);\n",
+         _r3_wait("tp[2]") + "        const long long c2 = clock64();\n"
+         "        const float dens = density_at<INTERP>(grid, nz, ny, nx, tp, kk);\n"
+         + _r3_wait("dens") + "        ph[2] += clock64() - c2;\n"),
+        ("    if (done) {  // the ray is dead: its outputs, and the lane is free\n",
+         _r3_wait("x.x") + _r3_wait("d") + _r3_wait("wt[0]") + "    const long long c5 = clock64();\n"
+         "    ph[st0 == ST_EVENT ? 1 : (st0 == ST_SCATTER ? 3 : 6)] += c5 - c1;\n"
+         "    if (done) {\n"),
+        (_R3_END,
+         "      active = false;\n      ph[5] += clock64() - c5;\n    }\n  }\n"
+         "  ph[7] = clock64() - ph_start;\n  __syncwarp();\n"
+         "#pragma unroll\n  for (int p = 0; p < 8; ++p) {\n    long long v = ph[p];\n"
+         "    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);\n"
+         "    if ((threadIdx.x & 31) == 0) atomicAdd(&g_phase[p], (unsigned long long)(v / 32));\n"
+         "  }\n}\n")],
+    "warp_steps": [
+        _R3_COUNTERS,
+        (_R3_LOOP_TOP, _R3_LOOP_TOP.replace("  for (;;) {\n", "  long long steps = 0;\n  for (;;) {\n")),
+        ("    if (!active) continue;\n", "    ++steps;\n    if (!active) continue;\n"),
+        (_R3_END, "      active = false;\n    }\n  }\n"
+         "  if ((threadIdx.x & 31) == 0) atomicAdd(&g_phase[0], (unsigned long long)steps);\n}\n")],
+    # Register budgets: no minimum of resident blocks of 128 per SM, or 5, 6
+    # or 8 (at most 96, 80 or 64 registers; the base asks for 4, 128).
+    **{f"min_blocks_{b or 'none'}": [("__global__ void __launch_bounds__(VPT_THREADS, 4)\nvpt_kernel(",
+                            "__global__ void __launch_bounds__(VPT_THREADS%s)\nvpt_kernel("
+                            % ("" if b is None else f", {b}"))]
+       for b in (None, 5, 6, 8)},
+    "threads_256": [("#define VPT_THREADS 128\n", "#define VPT_THREADS 256\n")],
+    # The IEEE divisions by the majorant and the extents where they are
+    # powers of two (the smoke's 1024 and 1), as for any other divisor.
+    "ieee_divisions": [("  const void* f = vpt_instance(mode, interp, pow2);",
+                        "  const void* f = vpt_instance(mode, interp, false);")],
+    # A warp refills only once 8 or 16 of its lanes are idle (or all), so
+    # that its new rays start together, from neighbouring pixels.
+    **{f"refill_{n}": [("    while (idle != 0u && !drained) {\n",
+                        "    while (idle != 0u && !drained && (__popc(idle) >= %d || idle == ~0u)) {\n"
+                        % n)]
+       for n in (8, 16)},
+}
+# The density sample from the linear grid (`volume_common.cuh:trilinear`),
+# as before the bricks: the same function when the variant is handed the
+# linear grid (`_r3` times it so).
+def _r3_sampler(name):
+    """Substitutions that make density_at sample with `name`."""
+    return [("  if (INTERP == INTERP_TRILINEAR) return trilinear_bricked(grid,",
+             f"  if (INTERP == INTERP_TRILINEAR) return {name}(grid,"),
+            ("  return trilinear_bricked(grid, nz, ny, nx, q[0], q[1], q[2]);",
+             f"  return {name}(grid, nz, ny, nx, q[0], q[1], q[2]);")]
+
+
+# Bricks of voxel pairs (x, x + 1) or quads (x, x + 1) x (y, y + 1), one
+# float2 or float4 a voxel: a sample in four or two vector loads.
+_R3_VEC_SAMPLERS = (
+    "template <int V>\n__device__ __forceinline__ float trilinear_vec(const float* __restrict__ g,"
+    " int nz, int ny,\n    int nx, float px, float py, float pz) {\n"
+    "  const float fx = fminf(fmaxf(px, 0.0f), 1.0f) * (float)(nx - 1);\n"
+    "  const float fy = fminf(fmaxf(py, 0.0f), 1.0f) * (float)(ny - 1);\n"
+    "  const float fz = fminf(fmaxf(pz, 0.0f), 1.0f) * (float)(nz - 1);\n"
+    "  const int x0 = min(max((int)floorf(fx), 0), nx - 2);\n"
+    "  const int y0 = min(max((int)floorf(fy), 0), ny - 2);\n"
+    "  const int z0 = min(max((int)floorf(fz), 0), nz - 2);\n"
+    "  const float tx = fx - (float)x0, ty = fy - (float)y0, tz = fz - (float)z0;\n"
+    "  const int nyb = (ny + 7) / 8, nxb = (nx + 7) / 8;\n"
+    "  auto at = [&](int z, int y, int x) {\n"
+    "    const long long b = ((long long)(z >> 3) * nyb + (y >> 3)) * nxb + (x >> 3);\n"
+    "    return (b << 9) + ((z & 7) << 6) + ((y & 7) << 3) + (x & 7);\n  };\n"
+    "  float c00, c01, c10, c11;\n"
+    "  if (V == 4) {\n    const float4* g4 = reinterpret_cast<const float4*>(g);\n"
+    "    const float4 a = __ldg(g4 + at(z0, y0, x0)), b = __ldg(g4 + at(z0 + 1, y0, x0));\n"
+    "    c00 = a.x * (1.0f - tx) + a.y * tx;\n    c01 = a.z * (1.0f - tx) + a.w * tx;\n"
+    "    c10 = b.x * (1.0f - tx) + b.y * tx;\n    c11 = b.z * (1.0f - tx) + b.w * tx;\n"
+    "  } else {\n    const float2* g2 = reinterpret_cast<const float2*>(g);\n"
+    "    const float2 a = __ldg(g2 + at(z0, y0, x0)), b = __ldg(g2 + at(z0, y0 + 1, x0));\n"
+    "    const float2 c = __ldg(g2 + at(z0 + 1, y0, x0)), e = __ldg(g2 + at(z0 + 1, y0 + 1, x0));\n"
+    "    c00 = a.x * (1.0f - tx) + a.y * tx;\n    c01 = b.x * (1.0f - tx) + b.y * tx;\n"
+    "    c10 = c.x * (1.0f - tx) + c.y * tx;\n    c11 = e.x * (1.0f - tx) + e.y * tx;\n  }\n"
+    "  const float c0 = c00 * (1.0f - ty) + c01 * ty;\n"
+    "  const float c1 = c10 * (1.0f - ty) + c11 * ty;\n"
+    "  return c0 * (1.0f - tz) + c1 * tz;\n}\n"
+    "__device__ __forceinline__ float trilinear_pairs(const float* __restrict__ g, int nz, int ny,"
+    " int nx,\n    float px, float py, float pz) {\n"
+    "  return trilinear_vec<2>(g, nz, ny, nx, px, py, pz);\n}\n"
+    "__device__ __forceinline__ float trilinear_quads(const float* __restrict__ g, int nz, int ny,"
+    " int nx,\n    float px, float py, float pz) {\n"
+    "  return trilinear_vec<4>(g, nz, ny, nx, px, py, pz);\n}\n\n")
+# The density sample from other layouts of the grid: the linear grid
+# (`volume_common.cuh:trilinear`, as before the bricks), bricks of pairs or
+# quads: the same values and arithmetic, so the same function when the
+# variant is handed that layout (`_r3` times them so).
+R3_LAYOUT_VARIANTS = {
+    "linear_grid": _r3_sampler("trilinear"),
+    **{f"{k}_bricks": [("template <int INTERP>\n__device__ __forceinline__ float density_at(",
+                        _R3_VEC_SAMPLERS + "template <int INTERP>\n__device__ __forceinline__ "
+                        "float density_at(")] + _r3_sampler(f"trilinear_{k}")
+       for k in ("pairs", "quads")},
+}
+
+
+def _r3_layouts(grid):
+    """The grid laid out as each of R3_LAYOUT_VARIANTS reads it."""
+    Z, Y, X = grid.shape
+    gp = torch.nn.functional.pad(grid, (0, 1, 0, 1))
+    vec = {"pairs": torch.stack([grid, gp[:, :Y, 1:]], -1),
+           "quads": torch.stack([grid, gp[:, :Y, 1:], gp[:, 1:, :X], gp[:, 1:, 1:]], -1)}
+    out = {"linear_grid": grid}
+    for k, v in vec.items():
+        n = v.shape[-1]
+        out[f"{k}_bricks"] = (v.reshape(Z // 8, 8, Y // 8, 8, X // 8, 8, n)
+                              .permute(0, 2, 4, 1, 3, 5, 6).contiguous())
+    return out
+R3_PHASES = ("draws", "event", "sample", "scatter", "refill", "finish", "key_or_done", "total")
+
+
 def _events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
@@ -911,7 +1092,8 @@ def _variant_figures(source, libs, modes, turns, phases):
     fig = {}
     for name in libs:
         lib = use(name)
-        fig[name] = {"instances": _kernel_info(lib), "nvcc_s": libs[name][2], "ms": {},
+        fig[name] = {"instances": _kernel_info(lib) if hasattr(lib, "kernel_info") else [],
+                     "nvcc_s": libs[name][2], "ms": {},
                      "ptxas": [ln.replace("ptxas info    : ", "") for ln in libs[name][1]
                                if "Used" in ln or "spill" in ln],
                      "equal_to_base": {m: all(torch.equal(a, b) for a, b in zip(fn(), base_out[m]))
@@ -1351,6 +1533,155 @@ def _r2(dev, scene, W, H, res, turns):
     res["r2"] = fig
 
 
+# R5 (csrc/spherical_heatmap.cu): the tile culled sum. The scan alone (the
+# walk skipped: a variant that changes the result), other tiles, unrolls and
+# threads a pixel, two directions a thread a round, the IEEE term (the same
+# function).
+R5_VARIANTS = {
+    "scan_only": [("    if (nb > 0 && (nb > HM_CAP - HM_ROUND || base + HM_ROUND >= n)) {\n",
+                   "    if (nb < 0) {\n"),
+                  ("    nb += total;\n", "    nb = 0;\n")],
+    "tile_16x16": [("#define HM_TW 16\n#define HM_TH 8\n", "#define HM_TW 16\n#define HM_TH 16\n")],
+    "tile_8x8": [("#define HM_TW 16\n#define HM_TH 8\n", "#define HM_TW 8\n#define HM_TH 8\n")],
+    "unroll_4": [("#define HM_UNROLL 8 ", "#define HM_UNROLL 4 ")],
+    "tpp_1": [("#define HM_TPP 2 ", "#define HM_TPP 1 ")],
+    "tpp_4": [("#define HM_TPP 2 ", "#define HM_TPP 4 ")],
+    "tpp_4_unroll_4": [("#define HM_TPP 2 ", "#define HM_TPP 4 "),
+                       ("#define HM_UNROLL 8 ", "#define HM_UNROLL 4 ")],
+    "dpt_2": [("#define HM_DPT 4 ", "#define HM_DPT 2 ")],
+    # The walk's term as the library computes it (IEEE sqrtf and division,
+    # with their slow-path branches): the same function.
+    "ieee_term": [("          t[u] = hm_term(kk < nb", "          t[u] = hm_term_ieee(kk < nb")],
+}
+
+
+def _r5(dev, H, res, turns):
+    """R5 on `chip_smoke.py`'s 1080x2160 heat map of the traced cloud's exit
+    directions: the kernel's counts (candidates and pairs in range per tile)
+    and the tree's kernel against `R5_VARIANTS`."""
+    from linevis_tpu_torch import entry
+    from linevis_tpu_torch.kernels import _build
+    from linevis_tpu_torch.kernels import spherical_heatmap as shm
+    from linevis_tpu_torch.render.spherical_heatmap import mollweide_points
+
+    dirs = torch.as_tensor(entry.scattering_line_data(dev).exit_directions, device=dev)
+    pts, _ = mollweide_points(H, dev)
+    tx, ty = shm.heatmap_tiles(pts.shape[0], 2 * H)
+    counts = torch.zeros((tx * ty, 2), dtype=torch.int64, device=dev)
+    shm.heatmap_density(pts, dirs, 2 * H, counts)
+    n_pairs = pts.shape[0] * dirs.shape[0]
+    fig = {"pixels": pts.shape[0], "directions": dirs.shape[0], "tiles": tx * ty,
+           "pairs_in_range": int(counts[:, 1].sum()), "candidates": int(counts[:, 0].sum()),
+           "candidate_share_of_pairs": float(counts[:, 0].sum()) / n_pairs,
+           "candidates_per_tile": _histogram(counts[:, 0], 2048),
+           "in_range_per_tile": _histogram(counts[:, 1], 1 << 20)}
+    print("r5: " + json.dumps(fig), flush=True)
+    modes = {"map_1080": lambda: [shm.heatmap_density(pts, dirs, 2 * H)]}
+    libs = _build_variants(_build.BUILD_DIR / "split", "spherical_heatmap", R5_VARIANTS)
+    fig["variants"] = _variant_figures("spherical_heatmap", libs, modes, turns, ())
+    fig["term_mismatches_every_float"] = shm.heatmap_term_mismatches(dev)
+    for name, v in fig["variants"].items():
+        print(f"r5 {name}: " + json.dumps({k: v[k] for k in ("ms", "equal_to_base", "ptxas")}),
+              flush=True)
+    print("r5 term mismatches: " + str(fig["term_mismatches_every_float"]), flush=True)
+    res["r5"] = fig
+
+
+def _r3_inputs(dev, W, H):
+    """`chip_smoke.py`'s first path-traced sample: the 512^3 cloud, its
+    camera's 1080p rays and trace key, the renderer's defaults (Delta
+    tracking, trilinear, extinction 1024, 512 events)."""
+    from linevis_tpu_torch import entry
+    from linevis_tpu_torch.kernels import vpt_tracking as vt
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.tube_raster import _ray_basis, camera_tensors
+    from linevis_tpu_torch.render.vpt import VptSettings, primary_rays, sun_constants
+
+    grid = entry.procedural_cloud(dev)
+    vs = VptSettings()
+    cam = camera_tensors(Camera(position=(0.0, 0.15, 0.9), look_at_point=(0.0, 0.0, 0.0),
+                                width=W, height=H), dev)
+    _, kt, o, d = primary_rays(threefry.prng_key(0, dev), cam[1], _ray_basis(cam[0]), W, H)
+    p = vt.vpt_params(grid.shape, vs.extinction, vs.scattering_albedo, *sun_constants(vs),
+                      vs.phase_g, vs.mode, vs.max_events, vs.interpolation)
+    return vt, grid, o, d, kt, p
+
+
+def _warp_efficiency(events):
+    """Lockstep warps of 32 consecutive rays: the events run over the
+    lane-events their warps hold, sum(events) / sum over warps of 32 x the
+    warp's most."""
+    e = events.reshape(-1, 32).double()
+    return float(e.sum() / (32.0 * e.max(dim=1).values.sum()))
+
+
+def _r3(dev, W, H, res, turns):
+    from linevis_tpu_torch.kernels import _build
+
+    vt, grid, o, d, kt, p = _r3_inputs(dev, W, H)
+    ev = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
+    sc = torch.zeros_like(ev)
+    vt.vpt_tracking(grid, o, d, kt, p, events=ev, scatters=sc)
+    evd = ev.double()
+    fig = {"rays": o.shape[0], "events": int(evd.sum()), "scatters": int(sc.sum()),
+           "rays_in_the_box": int((ev > 0).sum()), "events_mean": float(evd.mean()),
+           "events_max": int(ev.max()), "events_p99": float(evd.quantile(0.99)),
+           "warp_efficiency_lockstep_32": _warp_efficiency(ev),
+           "warp_efficiency_sorted_32": _warp_efficiency(torch.sort(ev).values),
+           "events_histogram": _histogram(ev.long(), 32)}
+    print("r3: " + json.dumps(fig), flush=True)
+    modes = {"delta_1080p": lambda: list(vt.vpt_tracking(grid, o, d, kt, p))}
+    libs = _build_variants(_build.BUILD_DIR / "split", "vpt_tracking", R3_VARIANTS)
+    fig["variants"] = _variant_figures("vpt_tracking", libs, modes, turns, R3_PHASES)
+    pc = fig["variants"]["phase_clock"]["phase_cycles"]["delta_1080p"]
+    total = float(pc[len(R3_PHASES) - 1])
+    fig["phase_share_of_warp_cycles"] = {ph: pc[i] / total
+                                         for i, ph in enumerate(R3_PHASES[:-1])}
+    # The lanes' use: events over 32 x the warps' busy steps.
+    lib = ctypes.CDLL(str(libs["warp_steps"][0]))
+    _build._loaded["vpt_tracking"] = lib
+    buf = (ctypes.c_ulonglong * 8)()
+    lib.read_phase(buf)
+    modes["delta_1080p"]()
+    torch.cuda.synchronize()
+    lib.read_phase(buf)
+    _build._loaded.pop("vpt_tracking")
+    fig["warp_steps"] = int(buf[0])
+    fig["warp_efficiency_persistent"] = fig["events"] / (32.0 * buf[0])
+    # Lane-steps with work: events, scatter steps, key steps.
+    fig["lane_use_persistent"] = (fig["events"] + fig["scatters"]
+                                  + fig["rays_in_the_box"]) / (32.0 * buf[0])
+    # The other layouts' variants, in turns with the base on the bricks.
+    grids = {"base": grid}
+    for name, layout in _r3_layouts(grid).items():
+        g = grid.clone()  # a grid whose bricks the wrapper finds made: this layout
+        g._vpt_bricks = (g._version, layout)
+        grids[name] = g
+    llibs = _build_variants(_build.BUILD_DIR / "split_layout", "vpt_tracking",
+                            R3_LAYOUT_VARIANTS)
+    base_out = [t.clone() for t in modes["delta_1080p"]()]
+    fig["layouts"] = {}
+    for k in range(turns):
+        for name in (list(llibs) if k % 2 == 0 else list(llibs)[::-1]):
+            _build._loaded["vpt_tracking"] = ctypes.CDLL(str(llibs[name][0]))
+            run = (lambda g=grids[name]: list(vt.vpt_tracking(g, o, d, kt, p)))
+            f = fig["layouts"].setdefault(name, {"ms": [], "equal_to_base": all(
+                torch.equal(a, b) for a, b in zip(run(), base_out)), "ptxas": [
+                    ln for ln in llibs[name][1] if "Used" in ln][:1]})
+            f["ms"].append(_timed(run, n=10))
+    _build._loaded.pop("vpt_tracking")
+    del grids
+    print("r3 layouts: " + json.dumps(fig["layouts"]), flush=True)
+    for name, v in fig["variants"].items():
+        print(f"r3 {name}: " + json.dumps(v), flush=True)
+    print("r3 phase shares: " + json.dumps(fig["phase_share_of_warp_cycles"]), flush=True)
+    print("r3 lanes: " + json.dumps({k: fig.get(k) for k in (
+        "warp_efficiency_lockstep_32", "warp_steps", "warp_efficiency_persistent",
+        "lane_use_persistent", "events", "scatters")}), flush=True)
+    res["r3"] = fig
+
+
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     turns = int(args[args.index("--turns") + 1]) if "--turns" in args else 2
@@ -1365,12 +1696,17 @@ def main(argv=None) -> int:
     print(f"gpu: {gpu}", flush=True)
     dev = torch.device("cuda", 0)
     W, H = 1920, 1080
-    traj = tornado_trajectories(dev)
-    scene = tornado_scene(dev, traj=traj)
     res = {"gpu": gpu}
     which = (args[args.index("--kernels") + 1] if "--kernels" in args else "b5,b2,b4,b6,b1,b3")
+    if set(which.split(",")) - {"r3", "r5"}:
+        traj = tornado_trajectories(dev)
+        scene = tornado_scene(dev, traj=traj)
     for k in which.split(","):
-        if k in ("b4", "b3"):
+        if k == "r3":
+            _r3(dev, W, H, res, turns)
+        elif k == "r5":
+            _r5(dev, H, res, turns)
+        elif k in ("b4", "b3"):
             {"b4": _b4, "b3": _b3}[k](dev, traj, W, H, res, turns)
         else:
             {"b5": _b5, "b2": _b2, "b6": _b6, "b1": _b1, "accum": _accum, "r1": _r1,
