@@ -129,12 +129,15 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   on the same keys (image mean), decomposition and residual ratio tracking
   at 240x135 (plain, 1 frame of 1 sample each, a reading); "Line Density Map Renderer"
   (density_march once a frame), 8 frames, R4 bit for bit on the whole
-  frame; "Spherical Heat Map Renderer" at height 1080 (a 1080x2160 map of
-  the 40,960 exit directions; spherical_heatmap once), 4 frames, R5 bit
-  for bit on two bands of 8 rows (one tile row: the hottest, and the top
-  rows) sliced from the whole map's launch, the pairs in range the kernel
-  counts there equal to the plain count, two launches equal, its
-  branch-free term equal to the IEEE one on every float, and at most 5%
+  frame and on one more 1080p launch on its IEEE divisions with skipping
+  off (a box of extent 0.375, an opacity of 0.2 at density 0), the skip
+  rule's plain twin bit for bit too; "Spherical Heat Map Renderer" at
+  height 1080 (a 1080x2160 map of the 40,960 exit directions;
+  spherical_heatmap once), 4 frames, R5 bit for bit on two bands of 8 rows
+  (one tile row: the hottest, and the top rows) sliced from the whole
+  map's launch, the pairs in range the kernel counts there equal to the
+  plain count, two launches equal, its branch-free term equal to the IEEE
+  one on every float, and at most 5%
   of the pairs tested exactly; "Voxel Ray Casting" on the
   tornado (grid 128, quantization 8; capsule_raster once), 8 frames, card
   vs CPU at scale 0.1; the tornado's multivariate tubes (its attribute and
@@ -1234,9 +1237,14 @@ VPT_OPS = {"ray": (THREEFRY_OPS[0], THREEFRY_OPS[1], 155),
            "collision": (5 * THREEFRY_OPS[0] + 6 + 12, 5 * THREEFRY_OPS[1] + 5, 82),
            "leave": (3 * THREEFRY_OPS[0] + 3, 3 * THREEFRY_OPS[1], 12),
            "scatter": (5 * THREEFRY_OPS[0] + 6, 5 * THREEFRY_OPS[1], 116)}
-# A step of R4 is ~150 operations (the sample, both transfer functions'
-# segments, the blend).
-MARCH_OPS_PER_STEP = 150
+# R4, (logic, add, float) operations, as the SASS of `csrc/density_march.cu`'s
+# POW2, SKIP instance has them: a pixel's ray, its clip, the estimate's set-up
+# and its output; a step that samples an occupied cell, a quarter of the
+# batch path with its loop head (138, 137, 499 for four steps: the cells, the
+# 32 loads' addresses, the lerps, both TFs' segment compares and divisions,
+# expf and the blend). Steps in empty bricks add nothing: not the function's
+# work (`bound_ms_every_step` charges every step in the box as sampled).
+R4_OPS = {"ray": (55, 63, 124), "sampled_step": (35, 34, 125)}
 # An in-range (pixel, direction) pair of R5: the distance (3 subtracts, 3
 # multiplies, 2 adds, the clamp, sqrt), the compare, 3 dist / 0.1 (a multiply
 # and a division), the square, expf and the add.
@@ -1551,37 +1559,70 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
     prm, _ = dm.march_params(field.shape, ld.grid_b_min, ld.grid_b_max, ct[1], _ray_basis(ct[0]),
                              W, H, ldm.attenuation, (1.0, 1.0, 1.0, 0.0))
     k_out = dm.density_march(field, prm, W, H, 256, c_pts, o_pts)
-    stats = {}
+    stats, skip_stats = {}, {}
     p_out, plain_ms = host_timed(lambda: dm.density_march_reference(
         field, prm, W, H, 256, c_pts, o_pts, stats=stats))
     r4_equal = bool(torch.equal(k_out, p_out))
+    # The skip rule in plain PyTorch: equal too, and its count of the steps
+    # that sample an occupied cell (the work the function needs).
+    skip_equal = bool(torch.equal(dm.density_march_skipping(
+        field, prm, W, H, 256, c_pts, o_pts, stats=skip_stats), p_out))
     r4_ms = _time_ms(lambda: dm.density_march(field, prm, W, H, 256, c_pts, o_pts), 10)
-    r4_bytes = field.numel() * 4 + W * H * 16
+    # One more launch on the kernel's IEEE divisions with skipping off: a box
+    # of extent 0.375 (no power of two) and an opacity of 0.2 at density 0.
+    lo = np.asarray(ld.grid_b_min, np.float32)
+    hi_ieee = lo + np.float32(0.75) * (np.asarray(ld.grid_b_max, np.float32) - lo)
+    o_ieee = ((0.0, 0.2), (1.0, 1.0))
+    prm_i, _ = dm.march_params(field.shape, ld.grid_b_min, hi_ieee, ct[1], _ray_basis(ct[0]), W, H,
+                               ldm.attenuation, (1.0, 1.0, 1.0, 0.0))
+    ki_out = dm.density_march(field, prm_i, W, H, 256, c_pts, o_ieee)
+    pi_out, plain_ieee_ms = host_timed(lambda: dm.density_march_reference(
+        field, prm_i, W, H, 256, c_pts, o_ieee))
+    ieee_equal = bool(torch.equal(ki_out, pi_out)) and not dm.skip_allowed(prm_i, c_pts, o_ieee)
+    r4_ieee_ms = _time_ms(lambda: dm.density_march(field, prm_i, W, H, 256, c_pts, o_ieee), 10)
+    # Bounds from this run's counts: every ray, and the steps that sample an
+    # occupied cell (skipped steps add nothing: not the function's work);
+    # bytes, the distinct voxels those samples read and the image.
+    r4_count = {"ray": W * H, "sampled_step": skip_stats["sampled"]}
+    r4_ops = [sum(r4_count[k] * R4_OPS[k][i] for k in R4_OPS) for i in range(3)]
+    r4_ops_every = [W * H * R4_OPS["ray"][i] + stats["steps"] * R4_OPS["sampled_step"][i]
+                    for i in range(3)]
+    r4_bytes = skip_stats["voxels_read"] * 4 + W * H * 16
     t_bytes = r4_bytes / H100_HBM_BYTES * 1e3
-    t_ops = stats["steps"] * MARCH_OPS_PER_STEP / H100_FP32_FLOPS * 1e3
+    t_ops = ops_ms(*r4_ops, int_rate)
     ldm_line = {"frame_ms": ev_ms, "host_ms": host_ms, "frame_ms_median": float(np.median(ev_ms)),
                 "host_ms_median": float(np.median(host_ms)), "field_ms": field_ms,
                 "field_voxels": list(field.shape), "launches": launches["density_march"],
-                "equal": r4_equal,
-                "steps": stats["steps"], "frames": SC_FRAMES, "width": W, "height": H,
-                "gpu": gpu}
+                "equal": r4_equal, "skip_twin_equal": skip_equal, "ieee_no_skip_equal": ieee_equal,
+                "steps": stats["steps"], "steps_sampled": skip_stats["sampled"],
+                "voxels_read": skip_stats["voxels_read"], "frames": SC_FRAMES, "width": W,
+                "height": H, "gpu": gpu}
     print("line density map: " + json.dumps(ldm_line), flush=True)
-    if not r4_equal:
-        raise RuntimeError("density_march differs from its plain version on the 1080p frame")
+    if not (r4_equal and skip_equal):
+        raise RuntimeError("density_march (or its skip rule's twin) differs from its plain version "
+                           "on the 1080p frame")
+    if not ieee_equal:
+        raise RuntimeError("density_march differs from its plain version on its IEEE divisions "
+                           "with skipping off")
     rows.append({
         "name": "density_march", "route": "cuda",
         "source": "linevis_tpu_torch/kernels/csrc/density_march.cu",
         "replaces": "linevis_tpu/render/line_density_map.py:51",
         "replaces_note": "no pallas_call: render_line_density_map's lax.scan of 256 steps "
                          "(line_density_map.py:76-93)",
-        "launches": launches["density_march"], "max_abs_err": float((k_out - p_out).abs().max()),
+        "launches": launches["density_march"],
+        "max_abs_err": max(float((k_out - p_out).abs().max()),
+                           float((ki_out - pi_out).abs().max())),
         "ms": r4_ms,
         "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes", "bytes": r4_bytes,
         "bytes_ms": t_bytes, "operations_ms": t_ops, "library_ms": None,
-        "steps_counted": stats["steps"], "ops_per_step": MARCH_OPS_PER_STEP,
+        "steps_counted": stats["steps"], "steps_sampled_counted": skip_stats["sampled"],
+        "counted": r4_count, "ops_logic_add_float": R4_OPS, "operations": r4_ops,
+        "bound_ms_every_step": ops_ms(*r4_ops_every, int_rate), "int32_ops_per_s": int_rate,
+        "ieee_no_skip_ms": r4_ieee_ms, "ieee_no_skip_plain_ms": plain_ieee_ms,
         "ptxas": ptxas_lines(built, "density_march")})
-    del field, k_out, p_out
+    del field, k_out, p_out, ki_out, pi_out
 
     # "Spherical Heat Map Renderer": a 1080 x 2160 map of the exit directions.
     heat_cam = dataclasses.replace(base, width=2 * H, height=H)

@@ -9,6 +9,7 @@
 
 #define VOL_TWO_PI 6.283185307179586f
 #define VOL_BIG 1000.0f
+#define VOL_BRICK 8  // the grids' bricks: VOL_BRICK^3 voxels, 2 KB (brick_at's shifts)
 
 struct V3 {
   float x, y, z;
@@ -86,27 +87,80 @@ __device__ __forceinline__ V3 sample_phase(float u1, float u2, const Phase& pc, 
             ss * b.z + sc * t.z + cos_t * d.z};
 }
 
+// Voxel (z, y, x) of the grid in VOL_BRICK^3 bricks (`grid_bricks`:
+// brick-major, each brick z, y, x; nyb, nxb bricks a row and a column).
+__device__ __forceinline__ float brick_at(const float* __restrict__ g, int nyb, int nxb, int z,
+                                          int y, int x) {
+  const long long b = ((long long)(z >> 3) * nyb + (y >> 3)) * nxb + (x >> 3);
+  return __ldg(g + (b << 9) + ((z & 7) << 6) + ((y & 7) << 3) + (x & 7));
+}
+
+// The cell of a trilinear sample at p in [0, 1]^3, clamped, as
+// `trilinear` forms it: its first voxel and the weights along each axis.
+struct VolCell {
+  int x0, y0, z0;
+  float tx, ty, tz;
+};
+
+__device__ __forceinline__ VolCell vol_cell(int nz, int ny, int nx, float px, float py, float pz) {
+  const float fx = fminf(fmaxf(px, 0.0f), 1.0f) * (float)(nx - 1);
+  const float fy = fminf(fmaxf(py, 0.0f), 1.0f) * (float)(ny - 1);
+  const float fz = fminf(fmaxf(pz, 0.0f), 1.0f) * (float)(nz - 1);
+  VolCell c;
+  c.x0 = min(max((int)floorf(fx), 0), nx - 2);
+  c.y0 = min(max((int)floorf(fy), 0), ny - 2);
+  c.z0 = min(max((int)floorf(fz), 0), nz - 2);
+  c.tx = fx - (float)c.x0;
+  c.ty = fy - (float)c.y0;
+  c.tz = fz - (float)c.z0;
+  return c;
+}
+
+// `trilinear`'s loads and arithmetic on cell c of the dense [nz, ny, nx] grid.
+__device__ __forceinline__ float sample_cell(const float* __restrict__ g, int ny, int nx,
+                                             const VolCell& c) {
+  const float* p = g + ((long long)c.z0 * ny + c.y0) * nx + c.x0;
+  const long long sy = nx, sz = (long long)ny * nx;
+  const float c00 = __ldg(p) * (1.0f - c.tx) + __ldg(p + 1) * c.tx;
+  const float c01 = __ldg(p + sy) * (1.0f - c.tx) + __ldg(p + sy + 1) * c.tx;
+  const float c10 = __ldg(p + sz) * (1.0f - c.tx) + __ldg(p + sz + 1) * c.tx;
+  const float c11 = __ldg(p + sz + sy) * (1.0f - c.tx) + __ldg(p + sz + sy + 1) * c.tx;
+  const float c0 = c00 * (1.0f - c.ty) + c01 * c.ty;
+  const float c1 = c10 * (1.0f - c.ty) + c11 * c.ty;
+  return c0 * (1.0f - c.tz) + c1 * c.tz;
+}
+
 // Trilinear sample of a [nz, ny, nx] grid at p in [0, 1]^3, clamped
 // (`volume_common.trilinear`).
 __device__ __forceinline__ float trilinear(const float* __restrict__ g, int nz, int ny, int nx,
                                            float px, float py, float pz) {
-  const float fx = fminf(fmaxf(px, 0.0f), 1.0f) * (float)(nx - 1);
-  const float fy = fminf(fmaxf(py, 0.0f), 1.0f) * (float)(ny - 1);
-  const float fz = fminf(fmaxf(pz, 0.0f), 1.0f) * (float)(nz - 1);
-  const int x0 = min(max((int)floorf(fx), 0), nx - 2);
-  const int y0 = min(max((int)floorf(fy), 0), ny - 2);
-  const int z0 = min(max((int)floorf(fz), 0), nz - 2);
-  const float tx = fx - (float)x0, ty = fy - (float)y0, tz = fz - (float)z0;
-  const long long base = ((long long)z0 * ny + y0) * nx + x0;
-  const long long sy = nx, sz = (long long)ny * nx;
-  const float* p = g + base;
-  const float c00 = __ldg(p) * (1.0f - tx) + __ldg(p + 1) * tx;
-  const float c01 = __ldg(p + sy) * (1.0f - tx) + __ldg(p + sy + 1) * tx;
-  const float c10 = __ldg(p + sz) * (1.0f - tx) + __ldg(p + sz + 1) * tx;
-  const float c11 = __ldg(p + sz + sy) * (1.0f - tx) + __ldg(p + sz + sy + 1) * tx;
-  const float c0 = c00 * (1.0f - ty) + c01 * ty;
-  const float c1 = c10 * (1.0f - ty) + c11 * ty;
-  return c0 * (1.0f - tz) + c1 * tz;
+  return sample_cell(g, ny, nx, vol_cell(nz, ny, nx, px, py, pz));
+}
+
+// `trilinear`'s arithmetic on cell c of the bricked grid (nyb, nxb bricks a
+// row and a column): the same voxels, so the same value. A sample's eight
+// voxels then lie in two 128-byte lines where the bricks hold them (four in
+// the linear layout).
+__device__ __forceinline__ float sample_cell_bricked(const float* __restrict__ g, int nyb, int nxb,
+                                                     const VolCell& c) {
+  const float c00 = brick_at(g, nyb, nxb, c.z0, c.y0, c.x0) * (1.0f - c.tx) +
+                    brick_at(g, nyb, nxb, c.z0, c.y0, c.x0 + 1) * c.tx;
+  const float c01 = brick_at(g, nyb, nxb, c.z0, c.y0 + 1, c.x0) * (1.0f - c.tx) +
+                    brick_at(g, nyb, nxb, c.z0, c.y0 + 1, c.x0 + 1) * c.tx;
+  const float c10 = brick_at(g, nyb, nxb, c.z0 + 1, c.y0, c.x0) * (1.0f - c.tx) +
+                    brick_at(g, nyb, nxb, c.z0 + 1, c.y0, c.x0 + 1) * c.tx;
+  const float c11 = brick_at(g, nyb, nxb, c.z0 + 1, c.y0 + 1, c.x0) * (1.0f - c.tx) +
+                    brick_at(g, nyb, nxb, c.z0 + 1, c.y0 + 1, c.x0 + 1) * c.tx;
+  const float c0 = c00 * (1.0f - c.ty) + c01 * c.ty;
+  const float c1 = c10 * (1.0f - c.ty) + c11 * c.ty;
+  return c0 * (1.0f - c.tz) + c1 * c.tz;
+}
+
+// `volume_common.cuh:trilinear` on the bricked grid.
+__device__ __forceinline__ float trilinear_bricked(const float* __restrict__ g, int nz, int ny,
+                                                   int nx, float px, float py, float pz) {
+  const int nyb = (ny + VOL_BRICK - 1) / VOL_BRICK, nxb = (nx + VOL_BRICK - 1) / VOL_BRICK;
+  return sample_cell_bricked(g, nyb, nxb, vol_cell(nz, ny, nx, px, py, pz));
 }
 
 __device__ __forceinline__ float smoothstep_f(float e0, float e1, float span, float x) {

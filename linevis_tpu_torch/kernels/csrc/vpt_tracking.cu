@@ -53,7 +53,6 @@
 #include "volume_common.cuh"
 
 #define VPT_THREADS 128
-#define VPT_BRICK 8  // the grid's bricks: VPT_BRICK^3 voxels, 2 KB (brick_at's shifts)
 
 enum { MODE_DELTA = 0, MODE_SPECTRAL = 1, MODE_RATIO = 2 };
 enum { INTERP_TRILINEAR = 0, INTERP_NEAREST = 1, INTERP_STOCHASTIC = 2 };
@@ -75,40 +74,6 @@ struct VptPrm {
   float v[P_COUNT];
   float inv[4];
 };
-
-// Voxel (z, y, x) of the grid in VPT_BRICK^3 bricks (`grid_bricks`:
-// brick-major, each brick z, y, x; nyb, nxb bricks a row and a column).
-__device__ __forceinline__ float brick_at(const float* __restrict__ g, int nyb, int nxb, int z,
-                                          int y, int x) {
-  const long long b = ((long long)(z >> 3) * nyb + (y >> 3)) * nxb + (x >> 3);
-  return __ldg(g + (b << 9) + ((z & 7) << 6) + ((y & 7) << 3) + (x & 7));
-}
-
-// `volume_common.cuh:trilinear` on the bricked grid: the same voxels and
-// arithmetic, so the same value. A sample's eight voxels then lie in two
-// 128-byte lines where the bricks hold them (four in the linear layout).
-__device__ __forceinline__ float trilinear_bricked(const float* __restrict__ g, int nz, int ny,
-                                                   int nx, float px, float py, float pz) {
-  const float fx = fminf(fmaxf(px, 0.0f), 1.0f) * (float)(nx - 1);
-  const float fy = fminf(fmaxf(py, 0.0f), 1.0f) * (float)(ny - 1);
-  const float fz = fminf(fmaxf(pz, 0.0f), 1.0f) * (float)(nz - 1);
-  const int x0 = min(max((int)floorf(fx), 0), nx - 2);
-  const int y0 = min(max((int)floorf(fy), 0), ny - 2);
-  const int z0 = min(max((int)floorf(fz), 0), nz - 2);
-  const float tx = fx - (float)x0, ty = fy - (float)y0, tz = fz - (float)z0;
-  const int nyb = (ny + VPT_BRICK - 1) / VPT_BRICK, nxb = (nx + VPT_BRICK - 1) / VPT_BRICK;
-  const float c00 = brick_at(g, nyb, nxb, z0, y0, x0) * (1.0f - tx) +
-                    brick_at(g, nyb, nxb, z0, y0, x0 + 1) * tx;
-  const float c01 = brick_at(g, nyb, nxb, z0, y0 + 1, x0) * (1.0f - tx) +
-                    brick_at(g, nyb, nxb, z0, y0 + 1, x0 + 1) * tx;
-  const float c10 = brick_at(g, nyb, nxb, z0 + 1, y0, x0) * (1.0f - tx) +
-                    brick_at(g, nyb, nxb, z0 + 1, y0, x0 + 1) * tx;
-  const float c11 = brick_at(g, nyb, nxb, z0 + 1, y0 + 1, x0) * (1.0f - tx) +
-                    brick_at(g, nyb, nxb, z0 + 1, y0 + 1, x0 + 1) * tx;
-  const float c0 = c00 * (1.0f - ty) + c01 * ty;
-  const float c1 = c10 * (1.0f - ty) + c11 * ty;
-  return c0 * (1.0f - tz) + c1 * tz;
-}
 
 template <int INTERP>
 __device__ __forceinline__ float density_at(const float* __restrict__ grid, int nz, int ny, int nx,
@@ -332,7 +297,7 @@ static bool power_of_two(float x) {
 }
 
 // Trace N rays on `stream`: grid the [nz, ny, nx] float32 grid in bricks
-// (`kernels/vpt_tracking.py:grid_bricks`), origins and dirs
+// (`kernels/volume_common.py:grid_bricks`), origins and dirs
 // [N, 3], kt the trace's key (k0, k1) as two uint32 words on the device,
 // of which ray i takes split(kt, .)[first + i], prm the P_COUNT parameters
 // (host memory, passed by value), env

@@ -13,6 +13,10 @@ The functions follow the JAX package's `linevis_tpu/trace/scattering.py`
 `linevis_tpu/render/vpt.py` (`_sample_density`, `sample_skybox`,
 `sample_light`) and `linevis_tpu/render/env_map.py` (`sample_env_map`)
 operation for operation.
+
+R3 reads the grid in BRICK^3 bricks (`grid_bricks`); R4 reads the dense
+grid and each brick's occupancy (`brick_occupancy`) to skip the steps whose
+cell can add nothing.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ import torch
 __all__ = [
     "TWO_PI", "vdiv", "box_intersect", "orthonormal_basis", "phase_constants",
     "sample_phase", "trilinear", "sample_density", "sky", "sun_light", "sky_light",
-    "env_map_sample",
-    "SKY_COLORS", "SKY_EDGES", "PHONG_N",
+    "env_map_sample", "grid_bricks", "brick_occupancy", "trilinear_cell",
+    "SKY_COLORS", "SKY_EDGES", "PHONG_N", "BRICK", "EMPTY_FLOOR",
 ]
 
 V3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -38,6 +42,11 @@ SKY_COLORS = ((0.1, 0.05, 0.01), (0.01, 0.05, 0.2), (0.8, 0.9, 1.0), (0.1, 0.3, 
               (0.01, 0.1, 0.7))
 SKY_EDGES = (-1.0, -0.1, 0.0, 0.4, 1.0)
 PHONG_N = 10  # the sun lobe's exponent (VptUtils.glsl:187-191)
+BRICK = 8  # csrc/volume_common.cuh VOL_BRICK: a brick holds BRICK^3 voxels
+# A voxel counts as empty only if 0 >= v >= EMPTY_FLOOR: NaN fails both
+# tests, and -inf (or a value so negative that a lerp overflows to -inf)
+# times a zero trilinear weight would give NaN.
+EMPTY_FLOOR = -1e30
 
 
 def vdiv(x: torch.Tensor, c) -> torch.Tensor:
@@ -219,3 +228,66 @@ def env_map_sample(env: torch.Tensor, w: V3, intensity: float) -> V3:
         bot = at(y1i, x0i) * (1 - tx) + at(y1i, x1i) * tx
         out.append(float(intensity) * (top * (1 - ty) + bot * ty))
     return tuple(out)
+
+
+def grid_bricks(grid: torch.Tensor) -> torch.Tensor:
+    """The dense grid [Z, Y, X] as R3 reads it: in BRICK^3 bricks,
+    brick-major, each brick z, y, x (padded with zeros to whole bricks; the
+    kernel reads no padding) -> a new float32 tensor on the grid's device.
+    Kept on the grid tensor itself with the grid's version, so a grid the
+    scene caches (`get_cloud_grid`) is bricked once and an edited one
+    again."""
+    cached = getattr(grid, "_vpt_bricks", None)
+    if cached is not None and cached[0] == grid._version:
+        return cached[1]
+    Z, Y, X = grid.shape
+    pad = [(-n) % BRICK for n in (Z, Y, X)]
+    g = torch.nn.functional.pad(grid.float(), (0, pad[2], 0, pad[1], 0, pad[0]))
+    b = g.reshape((Z + pad[0]) // BRICK, BRICK, (Y + pad[1]) // BRICK, BRICK,
+                  (X + pad[2]) // BRICK, BRICK).permute(0, 2, 4, 1, 3, 5).contiguous()
+    grid._vpt_bricks = (grid._version, b)
+    return b
+
+
+def _any_with_apron(occ: torch.Tensor, axis: int) -> torch.Tensor:
+    """Along `axis` of a bool tensor: for each brick b, whether any of its
+    voxels BRICK b .. BRICK b + BRICK (the next brick's first voxel
+    included, where there is one) is set."""
+    n = occ.shape[axis]
+    nb = -(-n // BRICK)
+    pad = [0, 0] * occ.dim()
+    pad[2 * (occ.dim() - 1 - axis) + 1] = nb * BRICK + 1 - n
+    p = torch.nn.functional.pad(occ, pad)  # False beyond the grid
+    core = p.narrow(axis, 0, nb * BRICK).unflatten(axis, (nb, BRICK)).any(axis + 1)
+    first_of_next = torch.arange(BRICK, nb * BRICK + 1, BRICK, device=occ.device)
+    return core | p.index_select(axis, first_of_next)
+
+
+def brick_occupancy(grid: torch.Tensor) -> torch.Tensor:
+    """uint8 [Zb, Yb, Xb] on the grid's device: 1 where a brick may add to
+    a trilinear sample, 0 where every cell that starts in it reads only
+    empty voxels (0 >= v >= EMPTY_FLOOR, so NaN and -inf count as
+    occupied). A cell starting at voxel x0 reads x0 and x0 + 1, so a brick
+    covers its voxels and a one-voxel apron on the high side of each axis.
+    Kept on the grid tensor with the grid's version, as `grid_bricks`."""
+    cached = getattr(grid, "_brick_occupancy", None)
+    if cached is not None and cached[0] == grid._version:
+        return cached[1]
+    occ = ~((grid <= 0.0) & (grid >= EMPTY_FLOOR))
+    for axis in range(3):
+        occ = _any_with_apron(occ, axis)
+    out = occ.to(torch.uint8).contiguous()
+    grid._brick_occupancy = (grid._version, out)
+    return out
+
+
+def trilinear_cell(shape, p: V3):
+    """The cell (x0, y0, z0) int32 that `trilinear` reads at p, from the
+    same clamped coordinates."""
+    nz, ny, nx = shape
+    fx = torch.clamp(p[0], 0.0, 1.0) * (nx - 1)
+    fy = torch.clamp(p[1], 0.0, 1.0) * (ny - 1)
+    fz = torch.clamp(p[2], 0.0, 1.0) * (nz - 1)
+    return (torch.clamp(torch.floor(fx).to(torch.int32), 0, nx - 2),
+            torch.clamp(torch.floor(fy).to(torch.int32), 0, ny - 2),
+            torch.clamp(torch.floor(fz).to(torch.int32), 0, nz - 2))

@@ -26,8 +26,10 @@ import torch
 
 from linevis_tpu_torch.kernels import _build
 from linevis_tpu_torch.kernels.volume_common import (
+    BRICK,
     box_intersect,
     env_map_sample,
+    grid_bricks,
     phase_constants,
     sample_density,
     sample_phase,
@@ -37,7 +39,7 @@ from linevis_tpu_torch.kernels.volume_common import (
 from linevis_tpu_torch.ops import threefry
 
 __all__ = ["VptParams", "vpt_params", "vpt_tracking", "vpt_tracking_reference", "grid_bricks",
-           "threefry_device", "SCAN_MODES", "INTERPOLATIONS"]
+           "BRICK", "threefry_device", "SCAN_MODES", "INTERPOLATIONS"]
 
 SCAN_MODES = ("Delta Tracking", "Spectral Delta Tracking", "Ratio Tracking")
 INTERPOLATIONS = ("Trilinear", "Nearest", "Stochastic")
@@ -199,27 +201,6 @@ def vpt_tracking_reference(grid, origins: torch.Tensor, dirs: torch.Tensor, key:
     if scatters is not None:
         scatters.copy_(n_sc)
     return rad, first_x, first_has
-
-
-BRICK = 8  # csrc/vpt_tracking.cu VPT_BRICK
-
-
-def grid_bricks(grid: torch.Tensor) -> torch.Tensor:
-    """The dense grid [Z, Y, X] as the kernel reads it: in BRICK^3 bricks,
-    brick-major, each brick z, y, x (padded with zeros to whole bricks; the
-    kernel reads no padding) -> a new float32 tensor on the grid's device.
-    Kept on the grid tensor itself with the grid's version, so a grid the
-    scene caches (`get_cloud_grid`) is bricked once and an edited one again."""
-    cached = getattr(grid, "_vpt_bricks", None)
-    if cached is not None and cached[0] == grid._version:
-        return cached[1]
-    Z, Y, X = grid.shape
-    pad = [(-n) % BRICK for n in (Z, Y, X)]
-    g = torch.nn.functional.pad(grid.float(), (0, pad[2], 0, pad[1], 0, pad[0]))
-    b = g.reshape((Z + pad[0]) // BRICK, BRICK, (Y + pad[1]) // BRICK, BRICK,
-                  (X + pad[2]) // BRICK, BRICK).permute(0, 2, 4, 1, 3, 5).contiguous()
-    grid._vpt_bricks = (grid._version, b)
-    return b
 
 
 def _launcher(name):

@@ -1956,6 +1956,101 @@ def test_density_march_kernel_matches_plain(cuda):
     assert torch.equal(got, ref) and float(got[..., 3].max()) > 0.5
 
 
+def _sparse_field(shape, seed=5):
+    """A line-density-like field: a few blobs in one part of the grid, zero
+    elsewhere, so that most bricks are empty."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros(shape, np.float32)
+    for _ in range(6):
+        c = [rng.integers(n // 8, n // 2) for n in shape]
+        r = [rng.integers(2, 6) for _ in shape]
+        sl = tuple(slice(ci, ci + ri) for ci, ri in zip(c, r))
+        out[sl] = rng.uniform(0.0, 1.0, out[sl].shape).astype(np.float32)
+    return out
+
+
+def _march_case(cuda, field, b_min, b_max, position, width, height, n_steps=256,
+                o_pts=((0.0, 0.0), (0.05, 1.0), (1.0, 1.0)), basis=None, skip=True, c_pts=None):
+    """R4 against its plain version on one frame: every output bit equal (int32 views,
+    NaN-safe), one launch counted, the skip rule on or off as expected."""
+    from linevis_tpu_torch.kernels import density_march as tdm
+    from linevis_tpu_torch.render.transfer_function import TransferFunction
+
+    f = torch.as_tensor(field, device=cuda)
+    cam = Camera(position=position, look_at_point=(0.0, 0.0, 0.0), width=width, height=height)
+    if basis is None:
+        basis = ttr._ray_basis(torch.as_tensor(cam.view_projection_matrix(), device=cuda))
+    o = torch.as_tensor(np.asarray(position, np.float32), device=cuda)
+    prm, _ = tdm.march_params(f.shape, b_min, b_max, o, basis, width, height, 200.0,
+                              (1.0, 1.0, 1.0, 0.0))
+    if c_pts is None:
+        c_pts, _ = TransferFunction.standard().as_static_points()
+    assert tdm.skip_allowed(prm, c_pts, o_pts) == skip
+    n0 = tdm.density_march.launches
+    got = tdm.density_march(f, prm, width, height, n_steps, c_pts, o_pts)
+    assert tdm.density_march.launches == n0 + 1
+    ref = tdm.density_march_reference(f, prm, width, height, n_steps, c_pts, o_pts)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    return got
+
+
+_BOX = ((-0.25,) * 3, (0.25,) * 3)
+
+
+@pytest.mark.parametrize("case", [
+    "box_not_cubic_nor_pow2", "nan_and_negative_cells", "opacity_at_zero", "camera_inside",
+    "axis_parallel_rays", "grid_not_whole_bricks", "steps_0", "steps_1", "frame_not_whole_tiles",
+    "tf_table_in_global_memory"])
+def test_density_march_kernel_cases(cuda, case):
+    """R4 bit for bit against its plain version: the IEEE divisions (a box that is not
+    cubic, its extents no powers of two), NaN and negative cells in an empty field (NaN
+    counts as occupied), an opacity TF not 0 at density 0 (no skipping), a camera inside
+    the box, rays parallel to two axes (|d| < 1e-9), a grid of no whole bricks, 0 and 1
+    steps, a frame of no whole 16x8 tiles, a colour TF of 600 points (a table of 5,407
+    floats: past the 4,096 that shared memory holds, read from global memory)."""
+    field = _sparse_field((64, 64, 64))
+    pos = (-0.6, -0.45, -0.55)
+    if case == "box_not_cubic_nor_pow2":
+        _march_case(cuda, field, (-0.2, -0.3, -0.17), (0.21, 0.25, 0.2), pos, 480, 270)
+    elif case == "nan_and_negative_cells":
+        f = np.zeros((64, 64, 64), np.float32)
+        f[10, 20, 30] = np.nan
+        f[12, 40, 9] = -0.5
+        f[30, 30, 30] = 0.8
+        got = _march_case(cuda, f, *_BOX, pos, 480, 270)
+        from linevis_tpu_torch.kernels.volume_common import brick_occupancy
+
+        occ = brick_occupancy(torch.as_tensor(f, device=cuda))
+        assert int(occ[1, 2, 3]) == 1 and int(occ[1, 5, 1]) == 0 and int(occ.sum()) == 2
+        assert bool(torch.isfinite(got).all())  # NaN's density takes the TF's first values
+    elif case == "opacity_at_zero":
+        got = _march_case(cuda, field, *_BOX, pos, 480, 270, o_pts=((0.0, 0.2), (1.0, 1.0)),
+                          skip=False)
+        assert float(got[..., 3].max()) > 0.5
+    elif case == "camera_inside":
+        _march_case(cuda, field, *_BOX, (0.05, -0.02, 0.1), 320, 200)
+    elif case == "axis_parallel_rays":
+        # A basis whose first row is 0: every ray has d.x = 0 exactly (and the
+        # middle row's d.y is within 1e-9 of 0), its x slab unbounded.
+        basis = torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.3, 0.0], [0.0, 0.0, 1.0]], device=cuda)
+        _march_case(cuda, field, *_BOX, (0.01, 0.02, -0.6), 161, 91, basis=basis)
+    elif case == "grid_not_whole_bricks":
+        got = _march_case(cuda, _sparse_field((37, 42, 50), seed=6), *_BOX, pos, 480, 270)
+        assert float(got[..., 3].max()) > 0.1
+    elif case in ("steps_0", "steps_1"):
+        _march_case(cuda, field, *_BOX, pos, 240, 135, n_steps=int(case[-1]))
+    elif case == "tf_table_in_global_memory":
+        x = np.linspace(0.0, 1.0, 600)
+        rgb = np.random.default_rng(8).uniform(0.0, 1.0, (600, 3))
+        c_pts = tuple((float(xi), *map(float, c)) for xi, c in zip(x, rgb))
+        dense = np.random.default_rng(9).uniform(0.0, 1.0, (16, 16, 16)).astype(np.float32)
+        # 48 steps of the plain version's 599 segments: a few seconds.
+        got = _march_case(cuda, dense, *_BOX, pos, 120, 68, n_steps=48, c_pts=c_pts)
+        assert float(got[..., 3].max()) > 0.1
+    else:
+        _march_case(cuda, field, *_BOX, pos, 75, 43)
+
+
 def test_heatmap_kernel_matches_plain(cuda):
     from linevis_tpu_torch.kernels import spherical_heatmap as tsh
     from linevis_tpu_torch.render.spherical_heatmap import mollweide_points

@@ -1,4 +1,4 @@
-"""The port's hand-written kernels (B1-B6, R1-R3, R5) timed across source trees.
+"""The port's hand-written kernels (B1-B6, R1-R5) timed across source trees.
 
 A one-off A/B script beside `chip_smoke.py`, not part of the port's
 package. It compares two or more source trees of this repository on one
@@ -51,13 +51,19 @@ each the mean of 40 launches between CUDA events;
     sample (the 512^3 cloud of `entry.procedural_cloud`, 1920x1080 rays,
     Delta tracking, trilinear, 512 events), every output and the events per
     ray held bit for bit against the first tree's, the mean of 10;
+  - R4 (`r4`): `density_march` on `chip_smoke.py`'s 1080p density-map
+    frame (the line density field of `entry.scattering_line_data`, traced
+    by the first turn and handed on in a temporary file), and on the same
+    field in a box of extent 0.375 under an opacity of 0.2 at density 0
+    (the kernel's IEEE divisions, nothing to skip), both held bit for bit
+    against the first tree's, the means of 10 and 5;
   - R5 (`r5`): `heatmap_density` on a 1080x2160 map of the exit directions
     of `entry.scattering_line_data` (traced by the first turn, handed on in
     a temporary file), held bit for bit against the first tree's, the mean
     of 5.
 
     python3 tools/kernel_ab.py TREE [TREE ...] [--turns N]
-        [--kernels b2,b5,b4,b6,b1,b3,accum,r1,r2,r3,r5]
+        [--kernels b2,b5,b4,b6,b1,b3,accum,r1,r2,r3,r4,r5]
 
 runs the trees in the order given, then reversed, N times (default 2),
 printing one JSON line per turn and a last line with the card and every
@@ -80,13 +86,14 @@ __all__ = ["main"]
 
 _CHILD = r'''
 import json, os, sys, torch
+import numpy as np
 from linevis_tpu_torch.kernels import _build
 groups_file, kernels = sys.argv[2], sys.argv[3].split(",")
 sources = {"b2": ("raster_capsule_oit",), "b5": ("ao_grid",),
            "b4": ("raster_prism",), "b6": ("bvh_wavefront",), "b1": ("raster_capsule",),
            "b3": ("raster_triangle",), "accum": ("raster_capsule_accum",),
            "r1": ("bvh_closest_hit",), "r2": ("bvh_mlat",), "r3": ("vpt_tracking",),
-           "r5": ("spherical_heatmap",)}
+           "r4": ("density_march",), "r5": ("spherical_heatmap",)}
 info = {}
 for name in [n for k in kernels for n in sources[k]]:
     if sys.argv[1] == "rebuild":  # a tree's first turn: time its build
@@ -100,7 +107,7 @@ from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.tube_raster import camera_tensors, prepare_capsule_frame
 
 dev = "cuda"
-if set(kernels) - {"r3", "r5"}:  # the volume kernels draw the cloud, not the tornado
+if set(kernels) - {"r3", "r4", "r5"}:  # the volume kernels draw the cloud, not the tornado
     traj = tornado_trajectories(dev)
     scene = tornado_scene(dev, traj=traj)
 W, H = 1920, 1080
@@ -418,6 +425,41 @@ def r3():
     res["r3_delta_sample"] = timed(lambda: vt.vpt_tracking(grid, o, d, kt, p), n=10)
 
 
+def r4():
+    from linevis_tpu_torch import entry
+    from linevis_tpu_torch.kernels import density_march as dm
+    from linevis_tpu_torch.render.transfer_function import TransferFunction
+    from linevis_tpu_torch.render.tube_raster import _ray_basis
+    field_file = os.path.join(os.path.dirname(groups_file), "line_density_field.pt")
+    if os.path.exists(field_file):
+        field, b_min, b_max = torch.load(field_file)
+        field = field.to(dev)
+    else:  # the run's first turn traces the cloud for every turn
+        ld = entry.scattering_line_data(dev)
+        field = ld.get_line_density_field(device=dev)
+        b_min, b_max = [float(v) for v in ld.grid_b_min], [float(v) for v in ld.grid_b_max]
+        torch.save((field.cpu(), b_min, b_max), field_file)
+    cd = camera_tensors(Camera(position=(-0.6, -0.45, -0.55), look_at_point=(0.0, 0.0, 0.0),
+                               width=W, height=H), dev)
+    c_pts, _ = TransferFunction.standard().as_static_points()
+    digests = []
+    # The smoke's frame (a box of extent 0.5, the renderer's ramp: zero
+    # opacity at density 0), and a box of extent 0.375 under an opacity TF
+    # of 0.2 at density 0 (IEEE divisions; nothing to skip).
+    lo = np.asarray(b_min, np.float32)
+    hi_ieee = lo + np.float32(0.75) * (np.asarray(b_max, np.float32) - lo)
+    for case, box, o_pts, n in (("frame", b_max, ((0.0, 0.0), (0.05, 1.0), (1.0, 1.0)), 10),
+                                ("ieee_no_skip", hi_ieee, ((0.0, 0.2), (1.0, 1.0)), 5)):
+        prm, _ = dm.march_params(field.shape, b_min, box, cd[1], _ray_basis(cd[0]), W, H, 200.0,
+                                 (1.0, 1.0, 1.0, 0.0))
+
+        def run(prm=prm, o_pts=o_pts):
+            return dm.density_march(field, prm, W, H, 256, c_pts, o_pts)
+        digests.append(_digest(run()))
+        res[f"r4_{case}"] = timed(run, n=n)
+    _against_first_tree("r4", digests)
+
+
 def r5():
     from linevis_tpu_torch import entry
     from linevis_tpu_torch.kernels import spherical_heatmap as shm
@@ -439,7 +481,7 @@ def r5():
 
 for k in kernels:
     {"b2": b2, "b5": b5, "b4": b4, "b6": b6, "b1": b1, "b3": b3, "accum": accum, "r1": r1,
-     "r2": r2, "r3": r3, "r5": r5}[k]()
+     "r2": r2, "r3": r3, "r4": r4, "r5": r5}[k]()
 print("RESULT " + json.dumps(res), flush=True)
 '''
 

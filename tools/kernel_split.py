@@ -1,10 +1,10 @@
-"""Where the time of the port's hand-written kernels (B1-B6, R1-R3, R5) goes, on one card.
+"""Where the time of the port's hand-written kernels (B1-B6, R1-R5) goes, on one card.
 
 A one-off measurement script beside `chip_smoke.py` and `tools/kernel_ab.py`,
 not part of the port's package. Run from the root of a source tree:
 
     python3 tools/kernel_split.py [--turns N] [--out FILE]
-        [--kernels b5,b2,b4,b6,b1,b3,accum,r1,r2,r3,r5]
+        [--kernels b5,b2,b4,b6,b1,b3,accum,r1,r2,r3,r4,r5]
 
 B5 (`csrc/ao_grid.cu`), on the first 1080p batch of rays of `chip_smoke.py`'s
 first RTAO frame: the launch as it is; the same launch with every
@@ -89,6 +89,17 @@ design's lane use), register budgets, block size, the IEEE divisions where
 the divisors are powers of two, refill thresholds; and
 the persistent design against its grid layouts (`R3_LAYOUT_VARIANTS`: the
 linear grid, bricks of voxel pairs or quads), each handed its layout.
+R4 (`csrc/density_march.cu`, `r4`), on the smoke's 1080p density-map frame
+(the line density field of `entry.scattering_line_data`): the steps per
+pixel, their share whose cell has a non-zero corner and in an occupied 8^3
+brick (`volume_common.brick_occupancy`), the lanes a lockstep warp keeps
+busy on rows of 32 and on 8x4 and 16x2 blocks, and the tree's kernel
+against `R4_VARIANTS` (phase clocks, the kernel's own counts of sampled
+steps, jumps and batches, each block's start and end, the clip alone,
+skipping off, the field's layouts with skipping on and off (on the
+power-of-two and the IEEE instances), the transfer functions' table in
+shared or global memory, batch sizes, block shapes, register budgets and
+probes of a batch).
 R5 (`csrc/spherical_heatmap.cu`, `r5`), on the smoke's 1080x2160 heat map
 of the traced cloud's exit directions: the kernel's own counts (pairs in
 range and candidates per tile), its branch-free term against the IEEE term
@@ -96,7 +107,7 @@ on every float (`heatmap_term_mismatches`), and the kernel against
 `R5_VARIANTS` (the scan alone, tiles, unrolls, threads a pixel, the IEEE
 term).
 
-For B4, B6, B1, B3, R1, R2, R3 and the accumulation kernel: registers, local memory,
+For B4, B6, B1, B3, R1-R4 and the accumulation kernel: registers, local memory,
 shared memory and resident blocks per SM of every instance of every
 variant, read through the library's `kernel_info`, and each variant's
 ptxas lines (registers, stack frame, spills).
@@ -108,6 +119,7 @@ written to FILE with --out).
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -116,11 +128,12 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 __all__ = ["main", "VARIANTS", "B5_VARIANTS", "B4_VARIANTS", "B6_VARIANTS", "B1_VARIANTS",
            "B3_VARIANTS", "ACCUM_VARIANTS", "R1_VARIANTS", "R2_VARIANTS", "R3_VARIANTS",
-           "R5_VARIANTS"]
+           "R4_VARIANTS", "R5_VARIANTS"]
 
 # name -> [(old, new), ...] applied to csrc/raster_capsule_oit.cu (B2: a
 # sorted per-thread list of the nearest hits, the nodes in shared memory):
@@ -1682,6 +1695,301 @@ def _r3(dev, W, H, res, turns):
     res["r3"] = fig
 
 
+# R4 (`csrc/density_march.cu`) on `chip_smoke.py`'s density-map frame: `r4`
+# splits the tree's design with `R4_VARIANTS`. Each variant is
+# (substitutions, layout): the field the wrapper is handed, dense ("dense")
+# or in 8^3 bricks ("bricks", `volume_common.grid_bricks`).
+R4_PHASES = ("clip", "sample", "tf_color", "tf_opacity", "blend", "position", "skip", "total")
+# The tree's design (8x4 pixel blocks a warp, exact reciprocals,
+# each TF's segment first, empty bricks skipped with verified jumps on the
+# dense field, DM_BATCH steps sampled together). Its `phase_clock`: per lane, the ray and its clip, the step's
+# position and cell, the skip (occupancy read, estimate and verification),
+# the batch's cells and samples, both TFs and the blend, and the lane's
+# whole time. `counts`: steps sampled, skips of one step, jumps taken and
+# the steps they pass, batches. `block_times`: each block's start and end
+# (%globaltimer) and SM.
+_R4_CELL = "    const VolCell cell = step_cell<POW2>(P, d, t, nz, ny, nx);\n"
+_R4_NEXT = "        k = next;\n        continue;\n"
+_R4_SAMPLE = "sample_cell(field, ny, nx, cells[j])"
+_R4_TF = ("    tf_eval_last<3, DM_BATCH>(tf_c, nc, dens, rgb);\n"
+          "    tf_eval_last<1, DM_BATCH>(tf_o, no, dens, a_tf);\n")
+_R4_BLEND_END = "    k += m;\n  }\n"
+_R4_BATCH_END = "        m = j + 1;\n    }\n"
+_R4_OUT_END = "                                     acc[2] + (1.0f - acc_a) * P.v[27], acc_a);\n}\n"
+_R4_TOP = "  if (px >= width || py >= height) return;\n"
+_R4_LOOP = "  int k = t_far > t_near ? 0 : n_steps;\n"
+_R4_JUMP_OK = "            next = tc < t_far ? kc + 1 : n_steps;\n"
+_R4_DISPATCH = "  const void* f = dm_instance(pow2, skip != 0);\n"
+_R4_SYNC = "  __syncthreads();\n  const float* tab"
+_R4_BLOCKS = (
+    '#include "volume_common.cuh"\n',
+    '#include "volume_common.cuh"\n__device__ unsigned long long g_blk[3 * 65536];\n'
+    'extern "C" int read_blocks(unsigned long long* h, int n) {\n'
+    '  return (int)cudaMemcpyFromSymbol(h, g_blk, sizeof(unsigned long long) * 3 * n);\n}\n'
+    '__device__ __forceinline__ unsigned long long dm_now() {\n  unsigned long long t;\n'
+    '  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));\n  return t;\n}\n')
+
+
+def _r4_tiles(tw, th):
+    """Warps on tw x th pixel blocks, four a tile of (2 tw) x (2 th)."""
+    return [("#define DM_TW 8   // a warp's pixel block: DM_TW x DM_TH\n#define DM_TH 4\n"
+             "#define DM_BW 16  // a block's tile: DM_BW x DM_BH, four warps\n#define DM_BH 8\n",
+             f"#define DM_TW {tw}\n#define DM_TH {th}\n#define DM_BW {2 * tw}\n"
+             f"#define DM_BH {2 * th}\n")]
+
+
+_R4_NO_SKIP = (_R4_DISPATCH, "  const void* f = dm_instance(pow2, false);\n")
+_R4_IEEE_NO_SKIP = (_R4_DISPATCH, "  const void* f = dm_instance(false, false);\n")
+_R4_BRICKED = (_R4_SAMPLE, "sample_cell_bricked(field, nyb, nxb, cells[j])")
+_R4_TAB = "  const float* tab = tf_shared ? s_tf : tf;\n"
+_R4_NO_TF = ("#pragma unroll\n    for (int j = 0; j < DM_BATCH; ++j) {\n"
+             "      rgb[j][0] = rgb[j][1] = rgb[j][2] = dens[j];\n      a_tf[j][0] = dens[j];\n    }\n")
+_R4_NO_EXPF = ("        const float alpha = 1.0f - expf(-a_tf[j][0] * step * att);\n",
+               "        const float alpha = a_tf[j][0] * step * att;\n")
+R4_VARIANTS = {
+    "phase_clock": ([
+        _R3_COUNTERS,
+        (_R4_TOP, _R4_TOP + "  long long ph[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+         "  const long long ph_start = clock64();\n"),
+        (_R4_LOOP, _r3_wait("t_near") + _r3_wait("d[2]") + _r3_wait("h[2]")
+         + "  long long c_top = clock64();\n  ph[0] += c_top - ph_start;\n" + _R4_LOOP),
+        (_R4_CELL, _R4_CELL + _r3_wait("cell.tx") + _r3_wait("cell.tz")
+         + "    const long long c1 = clock64();\n    ph[5] += c1 - c_top;\n"),
+        (_R4_NEXT, "        k = next;\n        c_top = clock64();\n        ph[6] += c_top - c1;\n"
+         "        continue;\n"),
+        (_R4_TF, _r3_wait("dens[0]") + _r3_wait(f"dens[DM_BATCH - 1]")
+         + "    const long long c2 = clock64();\n    ph[1] += c2 - c1;\n"
+         "    tf_eval_last<3, DM_BATCH>(tf_c, nc, dens, rgb);\n" + _r3_wait("rgb[0][2]")
+         + _r3_wait("rgb[DM_BATCH - 1][2]")
+         + "    const long long c3 = clock64();\n    ph[2] += c3 - c2;\n"
+         "    tf_eval_last<1, DM_BATCH>(tf_o, no, dens, a_tf);\n" + _r3_wait("a_tf[0][0]")
+         + _r3_wait("a_tf[DM_BATCH - 1][0]")
+         + "    const long long c4 = clock64();\n    ph[3] += c4 - c3;\n"),
+        (_R4_BLEND_END, _r3_wait("acc_a") + _r3_wait("acc[2]")
+         + "    c_top = clock64();\n    ph[4] += c_top - c4;\n" + _R4_BLEND_END),
+        (_R4_OUT_END, _R4_OUT_END[:-2] + "  ph[7] = clock64() - ph_start;\n"
+         "#pragma unroll\n  for (int p = 0; p < 8; ++p)\n"
+         "    atomicAdd(&g_phase[p], (unsigned long long)(ph[p] / 32));\n}\n")], "dense"),
+    "counts": ([
+        _R3_COUNTERS,
+        (_R4_BLEND_END, "    atomicAdd(&g_phase[0], (unsigned long long)m);\n"
+         "    atomicAdd(&g_phase[4], 1ull);\n" + _R4_BLEND_END),
+        (_R4_JUMP_OK, _R4_JUMP_OK + "            atomicAdd(&g_phase[2], 1ull);\n"
+         "            atomicAdd(&g_phase[3], (unsigned long long)(kc + 1 - k));\n"),
+        (_R4_NEXT, "        if (next == k + 1) atomicAdd(&g_phase[1], 1ull);\n" + _R4_NEXT)],
+        "dense"),
+    "block_times": ([
+        _R4_BLOCKS,
+        (_R4_SYNC, "  __syncthreads();\n  if (threadIdx.x == 0) {\n"
+         "    unsigned sm;\n    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+         "    g_blk[3 * blockIdx.x] = dm_now();\n    g_blk[3 * blockIdx.x + 1] = 0;\n"
+         "    g_blk[3 * blockIdx.x + 2] = sm;\n  }\n  __syncthreads();\n  const float* tab"),
+        (_R4_OUT_END, _R4_OUT_END[:-2] + "  __syncwarp(__activemask());\n"
+         "  if ((threadIdx.x & 31) == 0) atomicMax(&g_blk[3 * blockIdx.x + 1], dm_now());\n}\n")],
+        "dense"),
+    # The clip and the output alone (no step taken: another function).
+    "clip_only": ([(_R4_LOOP, "  int k = n_steps;\n")], "dense"),
+    # Skipping off (on the power-of-two and the IEEE instances) and on,
+    # on the dense field and in 8^3 bricks.
+    "no_skip": ([_R4_NO_SKIP], "dense"),
+    "no_skip_bricked_field": ([_R4_NO_SKIP, _R4_BRICKED], "bricks"),
+    "ieee_no_skip": ([_R4_IEEE_NO_SKIP], "dense"),
+    "ieee_no_skip_bricked_field": ([_R4_IEEE_NO_SKIP, _R4_BRICKED], "bricks"),
+    "skip_bricked_field": ([_R4_BRICKED], "bricks"),
+    # The TF table as the compiler sees it: always in shared memory (the
+    # kernel's loads of it then LDS, not generic), always in global memory.
+    "tf_shared_known": ([(_R4_TAB, "  const float* tab = s_tf;\n")], "dense"),
+    "tf_global": ([(_R4_TAB, "  const float* tab = tf;\n")], "dense"),
+    "no_jumps": ([("        if (kc > k) {\n", "        if (false && kc > k) {\n")], "dense"),
+    "ieee_divisions": ([(_R4_DISPATCH, "  const void* f = dm_instance(false, skip != 0);\n")],
+                       "dense"),
+    **{f"batch_{n}": ([("#define DM_BATCH 4 ", f"#define DM_BATCH {n} ")], "dense")
+       for n in (1, 2, 8)},
+    # What a batch waits on: its TFs as identities, alpha without expf, both
+    # (loads, lerps and blend alone; each another function), the segment
+    # loop unrolled, and the occupancy read once a brick.
+    "no_tf": ([(_R4_TF, _R4_NO_TF)], "dense"),
+    "no_expf": ([_R4_NO_EXPF], "dense"),
+    "loads_only": ([(_R4_TF, _R4_NO_TF), _R4_NO_EXPF], "dense"),
+    "tf_unroll_4": ([("  for (int k = 0; k + 1 < npts; ++k, seg += 3 + 2 * NCH) {\n",
+                      "#pragma unroll 4\n  for (int k = 0; k + 1 < npts; ++k, seg += 3 + 2 * NCH) {\n")],
+                    "dense"),
+    "occupancy_once_a_brick": ([(_R4_LOOP, "  int last_b = -1;\n  bool last_empty = false;\n"
+                                 + _R4_LOOP),
+                                ("      if (__ldg(occ + b) == 0) {\n",
+                                 "      if (b != last_b) {\n        last_b = b;\n"
+                                 "        last_empty = __ldg(occ + b) == 0;\n      }\n"
+                                 "      if (last_empty) {\n")], "dense"),
+    "rows_32x1": (_r4_tiles(32, 1), "dense"),
+    "tiles_16x2": (_r4_tiles(16, 2), "dense"),
+    **{f"min_blocks_{b}": ([("#define DM_MIN_BLOCKS 4 ", f"#define DM_MIN_BLOCKS {b} ")], "dense")
+       for b in (2, 6, 8)},
+}
+# chip_smoke.py's density map: SC_LDM_CAMERA looking at the cloud's centre,
+# the renderer's standard colour TF, its ramp for a flat opacity TF, the
+# attenuation 200 and a transparent white background.
+R4_CAMERA = (-0.6, -0.45, -0.55)
+R4_OPACITY = ((0.0, 0.0), (0.05, 1.0), (1.0, 1.0))
+
+
+def _r4_inputs(dev, W, H):
+    """-> (density_march module, field, prm, colour points, opacity points)."""
+    from linevis_tpu_torch import entry
+    from linevis_tpu_torch.kernels import density_march as dm
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.transfer_function import TransferFunction
+    from linevis_tpu_torch.render.tube_raster import _ray_basis, camera_tensors
+
+    ld = entry.scattering_line_data(dev)
+    field = ld.get_line_density_field(device=dev)
+    ct = camera_tensors(Camera(position=R4_CAMERA, look_at_point=(0.0, 0.0, 0.0), width=W,
+                               height=H), dev)
+    prm, _ = dm.march_params(field.shape, ld.grid_b_min, ld.grid_b_max, ct[1],
+                             _ray_basis(ct[0]), W, H, 200.0, (1.0, 1.0, 1.0, 0.0))
+    c_pts, _ = TransferFunction.standard().as_static_points()
+    return dm, field, prm, c_pts, R4_OPACITY
+
+
+def _r4_counts(field, prm, W, H, n_steps):
+    """The march's steps as the plain version takes them, per pixel: all
+    steps in the box, those whose trilinear cell has a non-zero corner, and
+    those whose cell lies in an occupied brick (`brick_occupancy`)."""
+    from linevis_tpu_torch.kernels.density_march import march_rays, step_t
+    from linevis_tpu_torch.kernels.volume_common import brick_occupancy, trilinear_cell, vdiv
+
+    p = [float(v) for v in prm]
+    nz, ny, nx = field.shape
+    d, t_near, t_far, hit = march_rays(prm, W, H, field.device)
+    occ = brick_occupancy(field).reshape(-1).bool()
+    nyb, nxb = -(-ny // 8), -(-nx // 8)
+    flat = field.reshape(-1)
+    steps, nonzero, occupied = (torch.zeros(W * H, dtype=torch.int32, device=field.device)
+                                for _ in range(3))
+    for k in range(n_steps):
+        t = step_t(t_near, k, p[21])
+        inside = hit & (t < t_far)
+        if not bool(inside.any()):
+            break
+        tex = tuple(vdiv(p[9 + c] + t * d[c] - p[c], p[6 + c]) for c in range(3))
+        x0, y0, z0 = (c.long() for c in trilinear_cell(field.shape, tex))
+        base = (z0 * ny + y0) * nx + x0
+        corner = torch.zeros_like(inside)
+        for dz, dy, dx in itertools.product((0, 1), repeat=3):
+            corner |= flat[base + (dz * ny + dy) * nx + dx] != 0
+        in_occ = occ[((z0 // 8) * nyb + y0 // 8) * nxb + x0 // 8]
+        steps += inside.int()
+        nonzero += (inside & corner).int()
+        occupied += (inside & in_occ).int()
+    return steps, nonzero, occupied
+
+
+def _lane_use(per_pixel, W, H, tw, th):
+    """Lockstep warps on tw x th pixel blocks: the lanes' work over 32 x
+    each warp's most (whole warps only; the 1080p frame's are)."""
+    x = per_pixel.reshape(H // th, th, W // tw, tw).permute(0, 2, 1, 3).reshape(-1, tw * th)
+    x = x.double()
+    return float(x.sum() / (x.shape[1] * x.max(dim=1).values.sum()))
+
+
+def _r4(dev, W, H, res, turns):
+    from linevis_tpu_torch.kernels import _build
+    from linevis_tpu_torch.kernels.volume_common import brick_occupancy, grid_bricks
+
+    dm, field, prm, c_pts, o_pts = _r4_inputs(dev, W, H)
+    steps, nonzero, occupied = _r4_counts(field, prm, W, H, 256)
+    occ = brick_occupancy(field)
+    fig = {"pixels": W * H, "field": list(field.shape), "steps": int(steps.sum()),
+           "steps_per_pixel": _histogram(steps.long(), 16),
+           "steps_with_a_nonzero_corner": int(nonzero.sum()),
+           "steps_in_occupied_bricks": int(occupied.sum()),
+           "lane_use_lockstep": {f"{tw}x{th}": _lane_use(steps, W, H, tw, th)
+                                 for tw, th in ((32, 1), (8, 4), (16, 2))},
+           "occupied_lane_use_lockstep": {f"{tw}x{th}": _lane_use(occupied, W, H, tw, th)
+                                          for tw, th in ((32, 1), (8, 4), (16, 2))},
+           "bricks": occ.numel(), "occupied_bricks": int(occ.sum())}
+    fig["steps_nonzero_share"] = fig["steps_with_a_nonzero_corner"] / max(fig["steps"], 1)
+    fig["steps_occupied_share"] = fig["steps_in_occupied_bricks"] / max(fig["steps"], 1)
+    print("r4: " + json.dumps(fig), flush=True)
+    libs = _build_variants(_build.BUILD_DIR / "split", "density_march",
+                           {k: v[0] for k, v in R4_VARIANTS.items()})
+    # The frame's TFs let the wrapper skip, so it hands the kernel the
+    # tensor itself: the field, or a copy whose data is in bricks.
+    bricked = grid_bricks(field).reshape(field.shape)
+    bricked._brick_occupancy = (bricked._version, brick_occupancy(field))
+    layouts = {"dense": field, "bricks": bricked}
+    layout_of = {"base": "dense", **{k: v[1] for k, v in R4_VARIANTS.items()}}
+
+    def use(name):
+        _build._loaded["density_march"] = ctypes.CDLL(str(libs[name][0]))
+        return _build._loaded["density_march"]
+
+    def run(name):
+        return dm.density_march(layouts[layout_of[name]], prm, W, H, 256, c_pts, o_pts)
+
+    use("base")
+    base_out = run("base").clone()
+    fig["variants"] = {}
+    for name in libs:
+        lib = use(name)
+        fig["variants"][name] = {
+            "instances": _kernel_info(lib) if hasattr(lib, "kernel_info") else [],
+            "ptxas": [ln.replace("ptxas info    : ", "") for ln in libs[name][1]
+                      if "Used" in ln or "spill" in ln],
+            "equal_to_base": bool(torch.equal(run(name), base_out)), "ms": []}
+    names = list(libs)
+    for k in range(turns):
+        for name in (names if k % 2 == 0 else names[::-1]):
+            use(name)
+            fig["variants"][name]["ms"].append(_timed(lambda: run(name), n=20))
+    buf = (ctypes.c_ulonglong * 8)()
+    for name in ("phase_clock", "counts"):
+        if name not in libs:
+            continue
+        lib = use(name)
+        lib.read_phase(buf)  # zero the counters
+        run(name)
+        torch.cuda.synchronize()
+        lib.read_phase(buf)
+        fig[f"{name}_read"] = list(buf)
+    if "phase_clock_read" in fig:
+        total = float(fig["phase_clock_read"][len(R4_PHASES) - 1])
+        fig["phase_share_of_warp_cycles"] = {ph: fig["phase_clock_read"][i] / total
+                                             for i, ph in enumerate(R4_PHASES[:-1])}
+    if "block_times" in libs:
+        lib = use("block_times")
+        run("block_times")
+        torch.cuda.synchronize()
+        nb = ((W + 15) // 16) * ((H + 7) // 8)
+        buf_b = (ctypes.c_ulonglong * (3 * nb))()
+        lib.read_blocks(buf_b, nb)
+        blk = torch.tensor(list(buf_b), dtype=torch.float64).reshape(nb, 3)
+        dur = (blk[:, 1] - blk[:, 0]) / 1e3  # us
+        t0 = float(blk[:, 0].min())
+        order = torch.argsort(dur, descending=True)[:10]
+        tiles_x = (W + 15) // 16
+        fig["blocks"] = {
+            "span_us": (float(blk[:, 1].max()) - t0) / 1e3,
+            "last_start_us": (float(blk[:, 0].max()) - t0) / 1e3,
+            "duration_us": {q: float(dur.quantile(v)) for q, v in
+                            (("p50", 0.5), ("p90", 0.9), ("p99", 0.99), ("max", 1.0))},
+            "sum_over_132_sms_us": float(dur.sum()) / 132,
+            "longest": [[int(i) % tiles_x, int(i) // tiles_x, float(dur[i])] for i in order],
+            "sms": int(blk[:, 2].unique().numel())}
+        print("r4 blocks: " + json.dumps(fig["blocks"]), flush=True)
+    if "counts_read" in fig:
+        c = fig["counts_read"]
+        fig["kernel_counts"] = {"sampled": c[0], "skips_of_one_step": c[1], "jumps": c[2],
+                                "steps_jumped": c[3], "batches": c[4],
+                                "sampled_equals_steps_in_occupied_bricks":
+                                    c[0] == fig["steps_in_occupied_bricks"]}
+    _build._loaded.pop("density_march")
+    for name, v in fig["variants"].items():
+        print(f"r4 {name}: " + json.dumps(v), flush=True)
+    print("r4 phase shares: " + json.dumps(fig.get("phase_share_of_warp_cycles")), flush=True)
+    print("r4 kernel counts: " + json.dumps(fig.get("kernel_counts")), flush=True)
+    res["r4"] = fig
+
+
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     turns = int(args[args.index("--turns") + 1]) if "--turns" in args else 2
@@ -1698,12 +2006,14 @@ def main(argv=None) -> int:
     W, H = 1920, 1080
     res = {"gpu": gpu}
     which = (args[args.index("--kernels") + 1] if "--kernels" in args else "b5,b2,b4,b6,b1,b3")
-    if set(which.split(",")) - {"r3", "r5"}:
+    if set(which.split(",")) - {"r3", "r4", "r5"}:
         traj = tornado_trajectories(dev)
         scene = tornado_scene(dev, traj=traj)
     for k in which.split(","):
         if k == "r3":
             _r3(dev, W, H, res, turns)
+        elif k == "r4":
+            _r4(dev, W, H, res, turns)
         elif k == "r5":
             _r5(dev, H, res, turns)
         elif k in ("b4", "b3"):
