@@ -154,7 +154,16 @@ card (512 seeds from np.random.default_rng(42), 400 RK4 steps, dt 1/150;
   every CSV cell filled), the HTTP viewer on port 0 (one 1080p frame, byte
   for byte `frame_png`'s), two DataViews, both requesters, a frame drawn
   from a worker thread on a side stream, a 3D-TSV reply's lines and
-  `FrameProfiler` over the capsule frame's passes.
+  `FrameProfiler` over the capsule frame's passes;
+- multi-GPU through torch.distributed (`parallel_phase`) on the one card:
+  `entry.dryrun_multichip(1)`; a world of one (NCCL on an in-memory
+  store, `make_device_mesh(1)`) through the five sharded functions at
+  1080p, each frame timed, its launches those of its unsharded frame and
+  the frame held against the unsharded one bit for bit on the same draws;
+  the band layout at n=3 run band by band (rank by rank for RTAO and VPT)
+  and combined as the collectives would, every kernel of a band against
+  its plain version, each stitched frame against the world of one at
+  constant bars (PAR_*_BARS) that planted faults must fail.
 For each path it times the frames and their stages with CUDA events, checks
 that exactly the expected kernels were launched the expected number of
 times, holds the path's kernel against its plain PyTorch version on the same
@@ -2094,6 +2103,431 @@ def app_phase(dev, gpu, traj, reset_launches, expect_launches):
         shutil.rmtree(tmp, ignore_errors=True)
     line.update(seconds=time.perf_counter() - t_phase, width=W, height=H, gpu=gpu)
     print("app layer: " + json.dumps(line), flush=True)
+
+
+PAR_BANDS = 3  # the band layout on one card: 1080 rows are 3 bands of 45 8-row tiles
+PAR_REF_AO_SAMPLES = 16  # the RTAO reference's rays a pixel (its own key)
+PAR_REF_VPT_SPP = 8  # the VPT reference's samples a pixel (its own key)
+PAR_R3_RAYS = 256  # R3 against its plain version on this many rays of a rank's middle row
+# The stitched band frames against the world of one at n = PAR_BANDS. The
+# JAX package's sharded bars (tests/test_multichip.py) were set on small
+# fat-tube frames and do not hold on the 1080p tornado (ROADMAP C31). So each
+# bar is a constant: 1.25 times the bands' own reading on an H100 (PERF.md,
+# multi-GPU), rounded up; every planted fault of `parallel_phase` reads beyond it.
+PAR_OPAQUE_BARS = {"share_over_001": 0.40, "mean_abs": 0.030}  # read 0.3145, 0.0238
+PAR_MLAB_BARS = {"share_over_002": 0.023, "mean_abs": 2.4e-3}  # read 0.01832, 1.869e-3
+PAR_SOLVE_BARS = {"share_over_1e3": 0.096, "median_abs": 1e-6}  # read 0.07667, 0.0
+
+
+def parallel_phase(dev, gpu, traj, reset_launches, expect_launches):
+    """27. Multi-GPU through torch.distributed (`parallel/mesh.py`) on the
+    one card, at 1920x1080 on the tornado and the 512^3 cloud.
+    `entry.dryrun_multichip(1)` first (its rank a thread with a bare NCCL
+    group). (a) A world of one: an NCCL process group on an in-memory
+    store, `make_device_mesh(1)`, and the five sharded functions once each
+    (opaque triangle tubes of 8 subdivisions at tile 16x8, whose 8-row tiles
+    1080 rows hold, depth cue 0.2; MLAB K=8, opacity 0.3; RTAO at the smoke's settings;
+    the opacity solve's 960x528 gather; VPT at the registry's settings, 2
+    spp), each frame timed with CUDA events and its launches counted
+    (those of its unsharded frame), held against the unsharded function on
+    the same draws bit for bit.
+    (b) The band layout at n = PAR_BANDS on the card, each band's or rank's
+    body run in turn without a group and combined as the collectives would
+    (rows concatenated, torch.minimum / maximum, the float32 mean), every
+    kernel launched in a band against its plain version on that band's
+    inputs (B3, B1, B5, R6, 'gather' bit for bit; B2 composite at its
+    gate's bar; R3 on PAR_R3_RAYS rays). Each stitched frame is held
+    against (a)'s at the constant bars PAR_*_BARS (opaque: colour on the
+    pixels both frames cover, and coverage against the 8-gon prism frame no
+    worse than the world of one's); planted faults (a band shaded as a
+    frame of its own, a band-local depth cue, MLAB bands one row off, one
+    band of the gather dropped) must fail those bars, and the one-ulp
+    floors (every position one ulp up, then down) are printed beside them.
+    The ray-sharded paths: rank 0 equal to (a), and the mean of the ranks
+    nearer a reference of more samples than rank 0 alone. Returns
+    {path: world-of-one frame ms}."""
+    import torch.distributed as dist
+
+    from linevis_tpu_torch import entry
+    from linevis_tpu_torch.kernels import ao_grid
+    from linevis_tpu_torch.kernels import raster_pallas
+    from linevis_tpu_torch.kernels import vpt_tracking as vt
+    from linevis_tpu_torch.kernels.raster_capsule import (
+        rasterize_capsules,
+        rasterize_capsules_reference,
+    )
+    from linevis_tpu_torch.kernels.raster_capsule_oit import (
+        rasterize_capsules_mlab,
+        rasterize_capsules_mlab_reference,
+    )
+    from linevis_tpu_torch.kernels.threefry_uniform import threefry_uniform
+    from linevis_tpu_torch.kernels.volume_common import vdiv
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.parallel import mesh as pm
+    from linevis_tpu_torch.render import opacity_optimization as oo_mod
+    from linevis_tpu_torch.render import rtao as rtao_mod
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.oit import prepare_mlab_frame, render_tubes_mlab
+    from linevis_tpu_torch.render.opaque import (
+        _ray_basis_from_view_proj,
+        render_opaque,
+        untile_gbuffer,
+    )
+    from linevis_tpu_torch.render.pipeline import GBUFFER_PLANES, RasterSettings
+    from linevis_tpu_torch.render.transfer_function import TransferFunction
+    from linevis_tpu_torch.render.tube_raster import (
+        _ray_basis,
+        camera_tensors,
+        prepare_capsule_frame,
+        render_tubes_prism,
+    )
+    from linevis_tpu_torch.render.vpt import VptSettings, primary_rays, render_vpt, sun_constants
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1, device=dev.type)
+    dryrun_s = time.perf_counter() - t0
+
+    n = PAR_BANDS
+    cam = camera_tensors(Camera(position=(0.0, 0.1, 1.2), width=W, height=H).orbit(
+        0.002, 0.1, 1.2), dev)
+    scene = entry.tornado_scene(dev, traj=traj)
+    tmesh = entry.tornado_tube_mesh(dev, num_subdivisions=PRISM_SIDES, traj=traj)
+    table = torch.as_tensor(TransferFunction.standard().table, device=dev)
+    # The depth cue on, so that the bands' MIN / MAX range reaches the image.
+    s_tri = RasterSettings(width=W, height=H, tile_w=16, tile_h=8, depth_cue_strength=0.2)
+    s_oit = RasterSettings(width=W, height=H, tile_w=16, tile_h=8)
+    s_rt = RasterSettings(width=W, height=H, tile_w=32, tile_h=16)
+    rt = rtao_mod.RtaoSettings()
+    grid_ao = entry.tornado_segment_grid(scene, rt.grid_resolution)
+    batches = rtao_mod.ray_batches(rt.num_samples * W * H, rt.rays_per_batch)
+    oo = oo_mod.OpacityOptimizationSettings()
+    L, P = traj.num_lines, traj.max_points
+    prev = torch.ones((L, P), dtype=torch.float32, device=dev)
+    cloud = entry.procedural_cloud(dev)
+    vs = VptSettings()
+    vcam = camera_tensors(Camera(position=SC_CAMERA, look_at_point=(0.0, 0.0, 0.0), width=W,
+                                 height=H), dev)
+    vbasis = _ray_basis(vcam[0])
+    key = threefry.prng_key(0, dev)
+    sync()
+    setup_s = time.perf_counter() - t0 - dryrun_s
+
+    def fold(r):
+        return threefry.fold_in(threefry.prng_key(rt.seed, dev), r)
+
+    failures = []  # every gate is read, the lines printed, then the phase fails
+
+    def gate(ok, what):
+        if not ok:
+            failures.append(what)
+
+    def within(stats, bars):
+        return all(stats[k] < v for k, v in bars.items())
+
+    def nudged(x, toward):  # every element one ulp toward +-inf
+        return torch.nextafter(x, torch.full_like(x, toward))
+
+    paths = {
+        "opaque": (lambda m: pm.render_opaque_sharded(tmesh, cam[0], cam[1], table, s_tri, m),
+                   lambda: render_opaque(tmesh, cam[0], cam[1], table, s_tri),
+                   {"triangle_raster": 1}),
+        "mlab": (lambda m: pm.render_tubes_mlab_sharded(scene, *cam, s_oit, m, K=MLAB_K,
+                                                        opacity=MLAB_OPACITY),
+                 lambda: render_tubes_mlab(scene, *cam, s_oit, K=MLAB_K, opacity=MLAB_OPACITY),
+                 {"capsule_mlab": 1}),
+        "rtao": (lambda m: pm.render_tubes_rtao_sharded(scene, *cam, s_rt, m, rtao=rt,
+                                                        grid=grid_ao),
+                 lambda: rtao_mod.render_tubes_rtao(
+                     scene, *cam, s_rt, rt, grid=grid_ao, uniforms=rtao_mod.hemisphere_uniforms(
+                         fold(0), (rt.num_samples, H, W))),
+                 {"capsule_raster": 1, "ao_grid": len(batches), "threefry_uniform": 2}),
+        "opacity_solve": (lambda m: pm.opacity_solve_sharded(scene, *cam, prev, s_oit, oo, L, P,
+                                                             m),
+                          lambda: oo_mod.opacity_solve(scene, *cam, prev, s_oit, oo, L, P),
+                          {"capsule_mlab": 1}),
+        "vpt": (lambda m: pm.render_vpt_sharded(key, cloud, vcam[1], vbasis, W, H, m, vs,
+                                                spp=vs.samples_per_frame),
+                lambda: render_vpt(threefry.fold_in(key, 0), cloud, vcam[1], vbasis, W, H, vs,
+                                   spp=vs.samples_per_frame),
+                {"vpt_tracking": vs.samples_per_frame}),
+    }
+
+    # (a) A world of one over NCCL.
+    dist.init_process_group(pm.BACKENDS[dev.type], store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    world = {}
+    one = {}
+    try:
+        mesh = pm.make_device_mesh(1, device_type=dev.type)
+        if pm.group_rank_size(mesh, dev)[0].name() != pm.BACKENDS[dev.type]:
+            raise RuntimeError("the world of one does not run NCCL")
+        for name, (sharded, single, launches) in paths.items():
+            sharded(mesh)  # warm-up
+            sync()
+            reset_launches()
+            a, b = _events()
+            a.record()
+            out = sharded(mesh)
+            b.record()
+            sync()
+            got = expect_launches(launches)
+            one[name] = out
+            ref = single()
+            line = {"frame_ms": a.elapsed_time(b), "launches": {k: got[k] for k in launches},
+                    "equal_to_unsharded": bool(torch.equal(out, ref))}
+            gate(line["equal_to_unsharded"], f"{name}: the world of one differs from the "
+                 "unsharded frame")
+            gate(bool(torch.isfinite(out).all()), f"{name}: non-finite world-of-one frame")
+            world[name] = line
+    finally:
+        dist.destroy_process_group()
+    print("parallel world of one: " + json.dumps({**world, "width": W, "height": H,
+                                                  "gpu": gpu}), flush=True)
+
+    # (b) The band layout at n bands (ranks) on the card.
+    bands = {}
+    gates = {}
+
+    def timed_bands(label, body, launches):
+        """body(r) for r < n, each launch-counted and timed -> [outputs]."""
+        outs, ms = [], []
+        for r in range(n):
+            sync()
+            reset_launches()
+            a, b = _events()
+            a.record()
+            outs.append(body(r))
+            b.record()
+            sync()
+            expect_launches(launches)
+            ms.append(a.elapsed_time(b))
+        bands[label] = {"band_ms": ms}
+        return outs
+
+    # Opaque triangle tubes: B3 on each band's CSR.
+    bs_tri = dataclasses.replace(s_tri, height=H // n)
+    parts = timed_bands("opaque", lambda r: pm._render_band(
+        tmesh, cam[0], cam[1], table, bs_tri, r, n), {"triangle_raster": 1})
+    stitched = torch.cat(parts, dim=1)
+    ray_basis = _ray_basis_from_view_proj(cam[0])
+
+    def opaque_gbuf(mesh_, s_, r, m):
+        """Band r of m's G-buffer from B3 -> (gbuf, csr, B3's output, dmin, dmax)."""
+        batch, csr = pm._band_binning(mesh_, cam[0], s_, r, m)
+        k = raster_pallas.rasterize_gbuffer(csr, GBUFFER_PLANES, 16, 8)
+        return untile_gbuffer(csr, k, s_)[0], csr, k, batch.view_z_min, batch.view_z_max
+
+    def shade(gbuf, s_, r, m, dmin, dmax):
+        return pm._shade_band(gbuf, table, cam[1], ray_basis, dmin, dmax, s_, r, m)
+
+    eq, ids = [], []
+    faults = {"band_as_own_frame": [], "band_local_depth_cue": []}
+    for r in range(n):
+        gbuf, csr, k, dmin, dmax = opaque_gbuf(tmesh, bs_tri, r, n)
+        p = raster_pallas.rasterize_triangles_reference(csr, 16, 8, GBUFFER_PLANES)
+        eq.append(all(torch.equal(x, y) for x, y in zip([k[0], k[1], *k[2]],
+                                                         [p[0], p[1], *p[2]])))
+        ids.append(gbuf["id"])
+        view_z = 1.0 / torch.clamp(gbuf["inv_w"], min=1e-12)[gbuf["id"] >= 0]
+        faults["band_as_own_frame"].append(shade(gbuf, bs_tri, 0, 1, dmin, dmax))
+        faults["band_local_depth_cue"].append(shade(gbuf, bs_tri, r, n, view_z.min(),
+                                                    view_z.max()))
+        del gbuf, csr, k, p
+    gates["triangle_raster"] = eq
+    ids = torch.cat(ids, dim=0)
+    gbuf_one = opaque_gbuf(tmesh, s_tri, 0, 1)[0]
+    ids_one = gbuf_one["id"]
+    del gbuf_one
+
+    def cover_stats(img, ids_, ref=one["opaque"], ref_ids=ids_one):
+        """Colour on the pixels both frames cover (max abs over RGB a pixel),
+        split by whether the same triangle won there."""
+        both = (ids_ >= 0) & (ref_ids >= 0)
+        d = (img[:3] - ref[:3]).abs()[:, both]
+        over = d.amax(dim=0) > 1e-2
+        same = (ids_ == ref_ids)[both]
+        return {"covered_both": int(both.sum()), "same_triangle": float(same.float().mean()),
+                "share_over_001": float(over.float().mean()), "mean_abs": float(d.mean()),
+                "share_over_001_same_triangle": float(over[same].float().mean()),
+                "share_over_001_other_triangle": float(over[~same].float().mean())}
+
+    floors = {}
+    for label, toward in (("up", float("inf")), ("down", float("-inf"))):
+        m_ = dataclasses.replace(tmesh, positions=nudged(tmesh.positions, toward))
+        g_, _, _, dmin, dmax = opaque_gbuf(m_, s_tri, 0, 1)
+        floors[label] = cover_stats(shade(g_, s_tri, 0, 1, dmin, dmax), g_["id"])
+        del m_, g_
+    # Coverage: the bands' planes have band-local constants, the whole
+    # frame's lose more of the tubes to float32 (ROADMAP C10), so coverage is
+    # held against the 8-gon prism frame of the same lines (tile 32x16): the
+    # bands may disagree with it on no more pixels than the world of one.
+    pscene = entry.tornado_prism_scene(dev, n_sides=PRISM_SIDES, traj=traj)
+    ref_cov = (render_tubes_prism(pscene, *cam, s_rt)[:3] < 0.999).any(dim=0)
+    del pscene
+    f = bands["opaque"]
+    f.update(cover_stats(stitched, ids), one_ulp_floor=floors, prism_covered=int(ref_cov.sum()),
+             planted_faults={k: cover_stats(torch.cat(v, dim=1), ids) for k, v in faults.items()},
+             **{f"{k}_{what}_prism": int((got & ~want).sum()) for k, cov in (
+                 ("bands", ids >= 0), ("world_of_one", ids_one >= 0))
+                for what, got, want in (("missing", ref_cov, cov), ("beyond", cov, ref_cov))})
+    gate(bool(torch.isfinite(stitched).all()) and within(f, PAR_OPAQUE_BARS)
+         and f["bands_missing_prism"] + f["bands_beyond_prism"]
+         <= f["world_of_one_missing_prism"] + f["world_of_one_beyond_prism"],
+         f"opaque bands: {f}")
+    for k, v in f["planted_faults"].items():
+        gate(not within(v, PAR_OPAQUE_BARS), f"opaque bands: the planted fault {k} passes")
+    del faults, ids, ids_one, ref_cov
+
+    # MLAB: `render_tubes_mlab` (B2 composite) on each band's rows.
+    bs_oit = dataclasses.replace(s_oit, height=H // n)
+
+    def mlab_band(r, shift=0):
+        return render_tubes_mlab(scene, *cam, bs_oit, K=MLAB_K, opacity=MLAB_OPACITY,
+                                 y_offset=r * bs_oit.height + shift, full_height=H)
+
+    parts = timed_bands("mlab", mlab_band, {"capsule_mlab": 1})
+    stitched = torch.cat(parts, dim=1)
+    comp_ok = []
+    for r in range(n):
+        csr, params = prepare_mlab_frame(scene, *cam, bs_oit, MLAB_OPACITY,
+                                         y_offset=r * bs_oit.height, full_height=H)
+        args = (csr, params, W, bs_oit.height, 16, 8, MLAB_K, s_oit.tf_color, s_oit.tf_opacity)
+        err = (rasterize_capsules_mlab(*args, deferred_shade=True, composite=True)
+               - rasterize_capsules_mlab_reference(*args, deferred_shade=True,
+                                                   composite=True)).abs().amax(dim=0)
+        comp_ok.append([float((err <= 1e-4).float().mean()), float(err.max())])
+        gate(comp_ok[-1][0] >= 0.999, f"mlab band {r}: B2 disagrees with its plain version")
+    gates["capsule_mlab (composite: rgba share within 1e-4, max)"] = comp_ok
+
+    def mlab_stats(x, y=one["mlab"]):
+        d = (x - y).abs()
+        return {"mean_abs": float(d.mean()), "share_over_002": float((d > 0.02).float().mean()),
+                "max_abs": float(d.max())}
+
+    f = bands["mlab"]
+    f.update(mlab_stats(stitched), one_ulp_floor={
+        label: mlab_stats(render_tubes_mlab(dataclasses.replace(scene, a=nudged(scene.a, t)),
+                                            *cam, s_oit, K=MLAB_K, opacity=MLAB_OPACITY))
+        for label, t in (("up", float("inf")), ("down", float("-inf")))},
+        planted_faults={"bands_1_on_one_row_off": mlab_stats(torch.cat(
+            [parts[0]] + [mlab_band(r, 1) for r in range(1, n)], dim=1))})
+    gate(within(f, PAR_MLAB_BARS), f"mlab bands disagree with the world of one: {f}")
+    for k, v in f["planted_faults"].items():
+        gate(not within(v, PAR_MLAB_BARS), f"mlab bands: the planted fault {k} passes")
+
+    # RTAO ranks: rank r draws under fold_in(key, r); B1, R6, B5 gated.
+    parts = timed_bands("rtao", lambda r: rtao_mod.rtao_occlusion(
+        scene, *cam, s_rt, rt, grid=grid_ao, rank=r),
+        {"capsule_raster": 1, "ao_grid": len(batches), "threefry_uniform": 2})
+    gbuf = parts[0][0]
+    mean = vdiv(torch.stack([o for _, o in parts]).sum(dim=0), n)
+    stitched = rtao_mod.rtao_image(gbuf, mean, cam[1], s_rt, rt)
+    rank0 = rtao_mod.rtao_image(gbuf, parts[0][1], cam[1], s_rt, rt)
+    csr, params, _ = prepare_capsule_frame(scene, *cam, s_rt)
+    g_args = (csr, params, W, H, 32, 16)
+    k, p = rasterize_capsules(*g_args, use_aa=False), rasterize_capsules_reference(
+        *g_args, use_aa=False)
+    gates["capsule_raster (no AA)"] = all(torch.equal(x, y) for x, y in zip(
+        [k[0], k[1], *k[2]], [p[0], p[1], *p[2]]))
+    r6, b5 = [], []
+    for r in range(n):
+        shape = (rt.num_samples, H, W)
+        u = [threefry_uniform(fold(r), shape, split=j) for j in range(2)]
+        r6.append(all(torch.equal(u[j], threefry.uniform(threefry.split_at(fold(r), j), shape))
+                      for j in range(2)))
+        o, d, t_max, valid = rtao_mod.rtao_rays(gbuf, scene.radius, rt, *u)
+        s0, s1 = batches[0]
+        pairs = ao_grid.expand_ray_pairs(o[:, s0:s1], d[:, s0:s1], t_max[s0:s1], valid[s0:s1],
+                                         grid_ao, rt.max_ray_cells)
+        args = (pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid_ao.records, grid_ao.chunk)
+        b5.append(bool(torch.equal(ao_grid.trace_pairs(*args),
+                                   ao_grid.trace_pairs_reference(*args))))
+    gates["threefry_uniform"], gates["ao_grid (batch 0)"] = r6, b5
+    ref = rtao_mod.render_tubes_rtao(scene, *cam, s_rt, dataclasses.replace(
+        rt, num_samples=PAR_REF_AO_SAMPLES, seed=99), grid=grid_ao)
+    bands["rtao"].update(
+        rank0_equal_world_of_one=bool(torch.equal(rank0, one["rtao"])),
+        mse_ranks_vs_reference=float(((stitched - ref) ** 2).mean()),
+        mse_rank0_vs_reference=float(((rank0 - ref) ** 2).mean()))
+
+    # The opacity solve: each band's gather ('gather'), MIN / MAX, smoothing.
+    parts = timed_bands("opacity_solve", lambda r: oo_mod.segment_reductions(
+        *oo_mod.gather_importance(scene, *cam, s_oit, oo, band=r, n_bands=n), oo,
+        scene.num_segments), {"capsule_mlab": 1})
+    seg_op, seg_vis = parts[0]
+    for o_, v_ in parts[1:]:
+        seg_op, seg_vis = torch.minimum(seg_op, o_), torch.maximum(seg_vis, v_)
+    solved = oo_mod.smooth_vertex_opacity(seg_op, seg_vis, prev, oo, L, P)
+    g_eq = []
+    for r in range(n):
+        csr, params, s2 = oo_mod.prepare_gather_frame(scene, *cam, s_oit, oo, r, n)
+        args = (csr, params, s2.width, s2.height, 16, 8, oo.gather_k, s2.tf_color,
+                s2.tf_opacity)
+        k = rasterize_capsules_mlab(*args, store_mode="gather")
+        p = rasterize_capsules_mlab_reference(*args, store_mode="gather")
+        g_eq.append(all(torch.equal(x, y) for x, y in zip(k, p)))
+    gates["capsule_mlab:gather"] = g_eq
+
+    def solve_stats(x, y=one["opacity_solve"]):
+        d = (x - y).abs()
+        return {"share_over_1e3": float((d > 1e-3).float().mean()),
+                "median_abs": float(d.median()), "max_abs": float(d.max())}
+
+    def band_solve(kept):
+        seg_op, seg_vis = parts[kept[0]]
+        for r in kept[1:]:
+            seg_op = torch.minimum(seg_op, parts[r][0])
+            seg_vis = torch.maximum(seg_vis, parts[r][1])
+        return oo_mod.smooth_vertex_opacity(seg_op, seg_vis, prev, oo, L, P)
+
+    f = bands["opacity_solve"]
+    f.update(solve_stats(band_solve(range(n))), one_ulp_floor={
+        label: solve_stats(oo_mod.opacity_solve(dataclasses.replace(scene, a=nudged(scene.a, t)),
+                                                *cam, prev, s_oit, oo, L, P))
+        for label, t in (("up", float("inf")), ("down", float("-inf")))},
+        planted_faults={"band_1_dropped": solve_stats(band_solve([0] + list(range(2, n))))})
+    gate(within(f, PAR_SOLVE_BARS), f"opacity-solve bands disagree with the world of one: {f}")
+    for k, v in f["planted_faults"].items():
+        gate(not within(v, PAR_SOLVE_BARS), f"opacity-solve bands: the planted fault {k} passes")
+
+    # VPT ranks: rank r traces under fold_in(key, r); R3 on a slice of rank 1.
+    parts = timed_bands("vpt", lambda r: render_vpt(
+        threefry.fold_in(key, r), cloud, vcam[1], vbasis, W, H, vs, spp=vs.samples_per_frame),
+        {"vpt_tracking": vs.samples_per_frame})
+    stitched = vdiv(torch.stack(parts).sum(dim=0), n)
+    sun_dir, sun_ic = sun_constants(vs)
+    _, kt, origins, dirs = primary_rays(threefry.fold_in(key, 1), vcam[1], vbasis, W, H)
+    vp_ = vt.vpt_params(cloud.shape, vs.extinction, vs.scattering_albedo, sun_dir, sun_ic,
+                        vs.phase_g, vs.mode, vs.max_events, vs.interpolation)
+    r0 = (H // 2) * W
+    k_out = vt.vpt_tracking(cloud, origins, dirs, kt, vp_)
+    p_out = vt.vpt_tracking_reference(cloud, origins[r0:r0 + PAR_R3_RAYS],
+                                      dirs[r0:r0 + PAR_R3_RAYS], kt, vp_, first=r0)
+    gates["vpt_tracking (rank 1, sample 0, rays of the middle row)"] = all(
+        torch.equal(x[r0:r0 + PAR_R3_RAYS], y) for x, y in zip(k_out, p_out))
+    vref = render_vpt(threefry.prng_key(99, dev), cloud, vcam[1], vbasis, W, H, vs,
+                      spp=PAR_REF_VPT_SPP)
+    bands["vpt"].update(
+        rank0_equal_world_of_one=bool(torch.equal(parts[0], one["vpt"])),
+        mse_ranks_vs_reference=float(((stitched - vref) ** 2).mean()),
+        mse_rank0_vs_reference=float(((parts[0] - vref) ** 2).mean()))
+    for label in ("rtao", "vpt"):
+        f = bands[label]
+        gate(f["rank0_equal_world_of_one"]
+             and f["mse_ranks_vs_reference"] < f["mse_rank0_vs_reference"],
+             f"{label} ranks: {f}")
+    print("parallel bands: " + json.dumps({
+        "bands": n, **bands, "gates": gates, "dryrun_multichip_s": dryrun_s,
+        "setup_s": setup_s, "phase_s": time.perf_counter() - t_phase, "width": W, "height": H,
+        "gpu": gpu}), flush=True)
+    bad = [k for k, v in gates.items() if v is not True and not (
+        isinstance(v, list) and all(x is True or isinstance(x, list) for x in v))]
+    gate(not bad, f"kernels differ from their plain versions: {bad}")
+    if failures:
+        raise RuntimeError("parallel phase: " + "; ".join(failures))
+    return {name: line["frame_ms"] for name, line in world.items()}
 
 
 def main() -> int:
@@ -4603,6 +5037,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     app_phase(dev, gpu, traj, reset_launches, expect_launches)
     torch.cuda.empty_cache()
+    par_ms = parallel_phase(dev, gpu, traj, reset_launches, expect_launches)
+    torch.cuda.empty_cache()
+    print(f"parallel frame ms ({gpu}): " + json.dumps(par_ms), flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,8 @@ renderer's `prism` and `triangle` tube geometries (8 subdivisions);
 tracer, and `entry_wboit`, `entry_depth_peeling`, `entry_mlab_buckets`,
 `entry_mboit` and `entry_depth_complexity` the rest of the transparent
 (OIT) family on the same scene, `entry_opacity_optimization` one frame of
-the opacity-optimization renderer on it; `tornado_scene`, `tornado_prism_scene` and `tornado_tube_mesh` build
+the opacity-optimization renderer on it; `dryrun_multichip` the five
+multi-GPU paths of `parallel/mesh.py` on n ranks; `tornado_scene`, `tornado_prism_scene` and `tornado_tube_mesh` build
 the scene of the JAX package's primary benchmark (`bench.py`: 512 seeds x 400
 RK4 steps, dt 1/150, tube radius 0.0015) from one traced line set
 (`tornado_trajectories`); `tornado_segment_grid` and `tornado_wide_bvh` build
@@ -60,7 +61,7 @@ __all__ = [
     "entry", "entry_mlab", "entry_prism", "entry_triangle", "entry_rtao",
     "entry_wavefront", "entry_wboit", "entry_depth_peeling", "entry_mlab_buckets",
     "entry_mboit", "entry_depth_complexity", "entry_opacity_optimization",
-    "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
+    "dryrun_multichip", "tornado_trajectories", "tornado_scene", "tornado_prism_scene",
     "tornado_tube_mesh", "tornado_segment_grid", "tornado_wide_bvh",
     "BASELINE_CONFIGS", "BaselineRun", "tornado_line_data", "convection_line_data",
     "femur_line_data", "convection_velocity", "synth_v3_blocks",
@@ -255,6 +256,88 @@ def entry_opacity_optimization(device="cuda"):
     settings = RasterSettings(width=256, height=128, tile_w=16, tile_h=8)
     r = OpacityOptimizationRenderer(scene, pos.shape[0], pos.shape[1], settings)
     return r.render, (Camera(position=(0.0, 0.3, 1.2), width=256, height=128),)
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> dict:
+    """The five sharded paths of `parallel/mesh.py`, one step each, on
+    `n_devices` ranks, the port's counterpart of
+    `__graft_entry__.dryrun_multichip` on the same tiny scenes: the opaque
+    triangle tubes (4 subdivisions) and MLAB (K=4) over bands of 2 tile
+    rows, ray-sharded RTAO (2 samples a rank, grid 16^3), the banded
+    opacity solve and its final MLAB render, and sample-sharded VPT on a
+    16^3 Gaussian density (32x16, 4 events, 1 spp). The ranks are threads
+    of this process (`parallel/mesh.py:run_ranks`): gloo on "cpu", NCCL on
+    "cuda" with one card a rank, so `n_devices` may not exceed the cards.
+    Checks every rank's result (shape, finite, the same on every rank) and
+    returns {path: shape}."""
+    import torch
+
+    from linevis_tpu_torch.geometry.tubes import build_tube_triangle_mesh
+    from linevis_tpu_torch.kernels.ao_grid import build_segment_grid
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.parallel import mesh as pm
+    from linevis_tpu_torch.render.camera import Camera
+    from linevis_tpu_torch.render.opacity_optimization import (
+        OpacityOptimizationSettings,
+        final_render,
+    )
+    from linevis_tpu_torch.render.pipeline import RasterSettings
+    from linevis_tpu_torch.render.rtao import RtaoSettings
+    from linevis_tpu_torch.render.transfer_function import TransferFunction
+    from linevis_tpu_torch.render.tube_raster import build_capsule_scene, camera_tensors
+    from linevis_tpu_torch.render.vpt import VptSettings
+
+    device_type = torch.device(device).type
+    height = 8 * n_devices * 2  # 2 tile rows a band
+    lines = _small_lines()
+    num_lines, num_points = lines[0].shape[:2]
+    z = np.linspace(0.0, 1.0, 16, dtype=np.float32)
+    dens = np.exp(-8.0 * ((z[:, None, None] - 0.5) ** 2 + (z[None, :, None] - 0.5) ** 2
+                          + (z[None, None, :] - 0.5) ** 2)).astype(np.float32)
+    basis = np.stack([[0.6, 0, 0], [0, 0.35, 0], [0, 0, -1.0]], axis=1).astype(np.float32)
+
+    def rank(group, dev):
+        cam = camera_tensors(Camera(position=(0.0, 0.3, 1.2), width=128, height=height), dev)
+        mesh = build_tube_triangle_mesh(*lines, radius=0.02, num_subdivisions=4, device=dev)
+        table = torch.as_tensor(TransferFunction.standard().table, device=dev)
+        out = {"opaque": pm.render_opaque_sharded(
+            mesh, cam[0], cam[1], table, RasterSettings(width=128, height=height, chunk=64),
+            group)}
+        scene = build_capsule_scene(*lines, radius=0.02, device=dev)
+        s_oit = RasterSettings(width=128, height=height, tile_w=16, tile_h=8, chunk=16,
+                               span_x=3, span_y=3)
+        out["mlab"] = pm.render_tubes_mlab_sharded(scene, *cam, s_oit, group, K=4)
+        rtao = RtaoSettings(num_samples=2, grid_resolution=16)
+        grid = build_segment_grid(scene.a, scene.ba, scene.radius, scene.mask, resolution=16)
+        out["rtao"] = pm.render_tubes_rtao_sharded(scene, *cam, s_oit, group, rtao=rtao,
+                                                   grid=grid)
+        oo = OpacityOptimizationSettings(opacity_resolution_scale=1.0, gather_k=4, render_k=4)
+        vo0 = torch.ones((num_lines, num_points), dtype=torch.float32, device=dev)
+        vo = pm.opacity_solve_sharded(scene, *cam, vo0, s_oit, oo, num_lines, num_points, group)
+        out["opacity_solve"] = vo
+        out["opacity_final"] = final_render(scene, *cam, vo, s_oit, oo.render_k)
+        out["vpt"] = pm.render_vpt_sharded(
+            threefry.prng_key(5, dev), torch.as_tensor(dens, device=dev),
+            torch.tensor([0.5, 0.5, 2.2], dtype=torch.float32, device=dev),
+            torch.as_tensor(basis, device=dev), 32, 16, group,
+            settings=VptSettings(max_events=4), spp=1)
+        return {k: v.cpu() for k, v in out.items()}
+
+    results = pm.run_ranks(n_devices, rank, device_type)
+    want = {"opaque": (4, height, 128), "mlab": (4, height, 128), "rtao": (4, height, 128),
+            "opacity_solve": (num_lines, num_points), "opacity_final": (4, height, 128),
+            "vpt": (16, 32, 3)}
+    for name, shape in want.items():
+        for r, res in enumerate(results):
+            x = res[name]
+            if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+                raise RuntimeError(f"dryrun_multichip: rank {r}'s {name} is {tuple(x.shape)} "
+                                   "or non-finite")
+            if not torch.equal(x, results[0][name]):
+                raise RuntimeError(f"dryrun_multichip: rank {r}'s {name} differs from rank 0's")
+    print(f"dryrun_multichip({n_devices}, {device_type}): OK, " + ", ".join(
+        f"{k} {v}" for k, v in want.items()), flush=True)
+    return want
 
 
 def tornado_trajectories(device="cuda", num_seeds=512, max_steps=400, seed=42):

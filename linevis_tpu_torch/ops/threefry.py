@@ -7,6 +7,7 @@ key gives the same samples on the card, on the CPU and in the JAX package:
 
     PRNGKey(s)         = (0, s mod 2^32)
     split(key, n)[i]   = threefry2x32(key, (0, i))         (x0, x1) as the key
+    fold_in(key, d)    = threefry2x32(key, (0, d))         (the sharded paths' key of rank d)
     bits(key, shape)   = x0 ^ x1 of threefry2x32(key, (0, i)), i the flat index
     uniform(key, shape)= bitcast_f32((bits >> 9) | 0x3f800000) - 1
     normal(key, shape) = sqrt(2) erf_inv(max(lo, 2 uniform(key, shape) + lo)),
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 __all__ = [
-    "prng_key", "threefry2x32", "split", "split_at", "bits", "uniform", "uniform_at",
+    "prng_key", "threefry2x32", "fold_in", "split", "split_at", "bits", "uniform", "uniform_at",
     "bits_to_uniform", "erf_inv", "normal",
 ]
 
@@ -85,6 +86,17 @@ def split_at(key: torch.Tensor, i) -> torch.Tensor:
     -> [..., 2]."""
     x0, x1 = threefry2x32(key[..., 0], key[..., 1], 0, i)
     return torch.stack([x0, x1], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)` for data in [0, 2^32): the key
+    threefry2x32(key, (0, data)), as jax.random seeds the counter with
+    `threefry_seed(data)` = (0, data). key [..., 2] -> [..., 2] on the key's
+    device."""
+    data = int(data)
+    if not 0 <= data < 2**32:
+        raise ValueError(f"fold_in: data {data} outside [0, 2^32)")
+    return split_at(key, data)
 
 
 def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:

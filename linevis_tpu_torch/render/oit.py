@@ -114,15 +114,18 @@ def _blend_nodes(acc, T, rgb, alpha):
 
 
 def prepare_mlab_frame(scene, view_proj, camera_position, proj_ab, settings,
-                       opacity=0.3, seg_alpha=None):
+                       opacity=0.3, seg_alpha=None, y_offset=None, full_height=None):
     """Frame prep of the MLAB pass -> (csr, params): the capsule frame prep
     with the kernel's alpha rows (`seg_alpha` premultiplied by the global
     opacity, since the rows replace the TF alpha), depth-cue range,
-    opacity and background color."""
+    opacity and background color. `y_offset` / `full_height`: a band of
+    settings.height rows (`prepare_capsule_frame`); the depth-cue range is
+    taken over the whole masked scene, the same on every band."""
     if seg_alpha is not None:
         seg_alpha = seg_alpha * opacity
     csr, params, _ = prepare_capsule_frame(
         scene, view_proj, camera_position, proj_ab, settings, seg_alpha=seg_alpha,
+        y_offset=y_offset, full_height=full_height,
     )
     params = _mlab_params(scene, view_proj, params, settings, opacity)
     for i, v in enumerate(settings.background_color):
@@ -142,6 +145,8 @@ def render_tubes_mlab(
     sub: int = 32,  # kernel block width
     sat: float = 0.999,  # saturation-culling threshold (see the kernel)
     two_sided: bool = False,  # also blend exit-surface fragments
+    y_offset: int = None,  # a band's first row in the frame of full_height rows
+    full_height: int = None,
 ) -> torch.Tensor:
     """Transparent tube render -> [4, H, W] linear RGBA on the scene's device.
 
@@ -149,9 +154,12 @@ def render_tubes_mlab(
     alpha rows. `two_sided=False` blends front-face fragments only, as the
     reference rasterizes transparent tubes with CULL_BACK
     (LineRasterPass.cpp:86-91). The kernel shades and composites in place
-    (composite mode, deferred shading)."""
+    (composite mode, deferred shading). With `y_offset` and `full_height`,
+    the settings.height rows from y_offset of a frame of full_height rows
+    (the band layout of `parallel/mesh.py`)."""
     csr, params = prepare_mlab_frame(
-        scene, view_proj, camera_position, proj_ab, settings, opacity, seg_alpha
+        scene, view_proj, camera_position, proj_ab, settings, opacity, seg_alpha,
+        y_offset, full_height,
     )
     rgba = _kernel(csr, params, settings, K, alpha_from_rows=seg_alpha is not None,
                    deferred_shade=True, sub=sub, sat=sat, composite=True,

@@ -20,8 +20,10 @@ opacities and the post-move schedule of NUM_SMOOTHING_FRAMES solves.
 
 Defaults mirror the reference (`OpacityOptimizationRenderer.hpp:197-206`):
 q=2000, r=20, s=15, lambda=2, relaxation=0.1, temporal=0.15, half-res
-opacity pass. The band-sharded solve (`band_axis`) belongs to the
-multi-GPU path, which is not ported yet.
+opacity pass. With `band_axis` (a process group, `parallel/mesh.py`), rank
+r gathers band r of the half-res frame and the per-segment minimum and
+visibility are reduced over the ranks (MIN, MAX) before the smoothing,
+which every rank runs on the same values.
 """
 
 from __future__ import annotations
@@ -43,9 +45,10 @@ from linevis_tpu_torch.render.tube_raster import (
 )
 
 __all__ = [
-    "OpacityOptimizationSettings", "gather_settings", "gather_importance",
-    "solve_vertex_opacity", "opacity_solve", "final_render",
-    "OpacityOptimizationRenderer", "render_opacity_optimization",
+    "OpacityOptimizationSettings", "gather_settings", "prepare_gather_frame",
+    "gather_importance", "segment_reductions", "smooth_vertex_opacity", "solve_vertex_opacity",
+    "opacity_solve", "final_render", "OpacityOptimizationRenderer",
+    "render_opacity_optimization",
 ]
 
 
@@ -72,13 +75,32 @@ def gather_settings(settings: RasterSettings, oo: OpacityOptimizationSettings) -
     return dataclasses.replace(settings, width=w2, height=h2)
 
 
-def gather_importance(scene: CapsuleScene, view_proj, camera_position, proj_ab,
-                      settings: RasterSettings, oo: OpacityOptimizationSettings):
-    """Step 1: the half-res frame prep and the importance gather -> (depths,
-    importance, segment ids), each [gather_k, n_tiles, P]; empty nodes have
-    depth 2.0."""
+def prepare_gather_frame(scene: CapsuleScene, view_proj, camera_position, proj_ab,
+                         settings: RasterSettings, oo: OpacityOptimizationSettings,
+                         band: Optional[int] = None, n_bands: int = 1):
+    """The importance gather's frame prep -> (csr, params, raster settings).
+    With `band`, band `band` of `n_bands` of the half-res frame, each of
+    h2 // n_bands rows, as the JAX package cuts them: rows past n_bands
+    bands are gathered by none, and a band need not be whole tiles."""
     s2 = gather_settings(settings, oo)
-    csr, params, _ = prepare_capsule_frame(scene, view_proj, camera_position, proj_ab, s2)
+    if band is None:
+        csr, params, _ = prepare_capsule_frame(scene, view_proj, camera_position, proj_ab, s2)
+        return csr, params, s2
+    band_h = s2.height // n_bands
+    sb = dataclasses.replace(s2, height=band_h)
+    csr, params, _ = prepare_capsule_frame(scene, view_proj, camera_position, proj_ab, sb,
+                                           y_offset=band * band_h, full_height=s2.height)
+    return csr, params, sb
+
+
+def gather_importance(scene: CapsuleScene, view_proj, camera_position, proj_ab,
+                      settings: RasterSettings, oo: OpacityOptimizationSettings,
+                      band: Optional[int] = None, n_bands: int = 1):
+    """Step 1: the half-res frame prep (of one band with `band`) and the
+    importance gather -> (depths, importance, segment ids), each
+    [gather_k, n_tiles, P]; empty nodes have depth 2.0."""
+    csr, params, s2 = prepare_gather_frame(scene, view_proj, camera_position, proj_ab,
+                                           settings, oo, band, n_bands)
     depths, vals, _ = rasterize_capsules_mlab(
         csr, params, s2.width, s2.height, s2.tile_w, s2.tile_h, oo.gather_k,
         s2.tf_color, s2.tf_opacity, store_mode="gather",
@@ -95,10 +117,10 @@ def _shift_right(x):
     return torch.cat([x[:, 1:], x[:, -1:]], dim=1)
 
 
-def solve_vertex_opacity(depths, g, sid, prev_vertex_opacity, oo: OpacityOptimizationSettings,
-                         num_lines: int, pts_per_line: int, num_segments: int):
-    """Steps 2-5 on gathered nodes (each [K, n_tiles, P]) -> the smoothed
-    per-vertex opacities [num_lines, pts_per_line]."""
+def segment_reductions(depths, g, sid, oo: OpacityOptimizationSettings, num_segments: int):
+    """Step 2 and the per-segment reductions on gathered nodes (each [K,
+    n_tiles, P]) -> (segment opacity: the minimum of its nodes' alphas, 1
+    where it has none; visibility: 1 where it has a node), each [S]."""
     K = depths.shape[0]
     valid = depths < 1.5
 
@@ -137,8 +159,13 @@ def solve_vertex_opacity(depths, g, sid, prev_vertex_opacity, oo: OpacityOptimiz
         0, idx, alpha_nodes.reshape(-1), "amin", include_self=True)[:S]
     seg_visible = torch.zeros(S + n, dtype=torch.float32, device=dev).scatter_reduce(
         0, idx, keep.float(), "amax", include_self=True)[:S]
+    return seg_opacity, seg_visible
 
-    # Laplacian smoothing along each line's segment chain.
+
+def smooth_vertex_opacity(seg_opacity, seg_visible, prev_vertex_opacity,
+                          oo: OpacityOptimizationSettings, num_lines: int, pts_per_line: int):
+    """Steps 4-5: Laplacian smoothing along each line's segment chain, the
+    per-vertex opacities and the temporal blend -> [num_lines, pts_per_line]."""
     L, Pm1 = num_lines, pts_per_line - 1
     op = seg_opacity.reshape(L, Pm1)
     vis = seg_visible.reshape(L, Pm1)
@@ -157,19 +184,40 @@ def solve_vertex_opacity(depths, g, sid, prev_vertex_opacity, oo: OpacityOptimiz
     return (1.0 - t) * prev_vertex_opacity + t * vert
 
 
+def solve_vertex_opacity(depths, g, sid, prev_vertex_opacity, oo: OpacityOptimizationSettings,
+                         num_lines: int, pts_per_line: int, num_segments: int):
+    """Steps 2-5 on gathered nodes (each [K, n_tiles, P]) -> the smoothed
+    per-vertex opacities [num_lines, pts_per_line]."""
+    seg_opacity, seg_visible = segment_reductions(depths, g, sid, oo, num_segments)
+    return smooth_vertex_opacity(seg_opacity, seg_visible, prev_vertex_opacity, oo,
+                                 num_lines, pts_per_line)
+
+
 def opacity_solve(scene: CapsuleScene, view_proj, camera_position, proj_ab,
                   prev_vertex_opacity, settings: RasterSettings,
                   oo: OpacityOptimizationSettings, num_lines: int, pts_per_line: int,
-                  band_axis: str = None, n_bands: int = 1):
-    """Steps 1-5: importance gather -> smoothed per-vertex opacities [L, P]."""
-    if band_axis is not None or n_bands != 1:
-        raise NotImplementedError(
-            "band_axis / n_bands (band-sharded multi-GPU solve) is not ported yet: "
-            "ROADMAP queue A item 10")
-    depths, g, sid = gather_importance(scene, view_proj, camera_position, proj_ab,
-                                       settings, oo)
-    return solve_vertex_opacity(depths, g, sid, prev_vertex_opacity, oo, num_lines,
-                                pts_per_line, scene.num_segments)
+                  band_axis=None):
+    """Steps 1-5: importance gather -> smoothed per-vertex opacities [L, P].
+
+    With `band_axis`, a process group of n ranks (or a 1-D DeviceMesh,
+    `parallel/mesh.py`), rank r gathers band r of n of the half-res frame
+    and the per-segment minimum and visibility are reduced over the group
+    (MIN, MAX); every rank returns the same opacities."""
+    if band_axis is None:
+        depths, g, sid = gather_importance(scene, view_proj, camera_position, proj_ab,
+                                           settings, oo)
+        return solve_vertex_opacity(depths, g, sid, prev_vertex_opacity, oo, num_lines,
+                                    pts_per_line, scene.num_segments)
+    from linevis_tpu_torch.parallel.mesh import all_reduce, group_rank_size
+
+    pg, band, n = group_rank_size(band_axis, scene.a.device)
+    depths, g, sid = gather_importance(scene, view_proj, camera_position, proj_ab, settings, oo,
+                                       band=band, n_bands=n)
+    seg_opacity, seg_visible = segment_reductions(depths, g, sid, oo, scene.num_segments)
+    seg_opacity = all_reduce(seg_opacity, "min", pg)
+    seg_visible = all_reduce(seg_visible, "max", pg)
+    return smooth_vertex_opacity(seg_opacity, seg_visible, prev_vertex_opacity, oo, num_lines,
+                                 pts_per_line)
 
 
 def final_render(scene: CapsuleScene, view_proj, camera_position, proj_ab, vertex_opacity,

@@ -16,7 +16,7 @@ reference's `LinePassTriangleTubes.glsl` vertex and fragment shaders):
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -217,15 +217,19 @@ def shade_gbuffer(
     depth_min: torch.Tensor,
     depth_max: torch.Tensor,
     settings: RasterSettings,
+    row0: int = 0,
+    full_height: Optional[int] = None,
 ) -> torch.Tensor:
     """G-buffer -> [4, H, W] linear RGBA: elementwise math and the
     transfer-function table lookup.
 
     gbuf keys: 'id' [H, W] int32 (-1 background); 'inv_w', 'attr_w', 'nx',
     'ny', 'nz', 'tx', 'ty', 'tz' [H, W] float32 (all but inv_w still
-    premultiplied by 1/w).
+    premultiplied by 1/w). A band of a frame (`parallel/mesh.py:_shade_band`)
+    gives the full-frame row of its row 0 and the frame's height.
     """
     H, W = gbuf["id"].shape
+    full_h = H if full_height is None else int(full_height)
     dev = gbuf["id"].device
     fg = gbuf["id"] >= 0
     inv_w = torch.clamp(gbuf["inv_w"], min=1e-12)
@@ -236,7 +240,8 @@ def shade_gbuffer(
 
     # Fragment position from the camera ray: ndc in [-1, 1].
     u = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :] * (2.0 / W) - 1.0
-    v = 1.0 - (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[:, None] * (2.0 / H)
+    rows = torch.arange(H, dtype=torch.float32, device=dev) + float(row0)
+    v = 1.0 - (rows + 0.5)[:, None] * (2.0 / full_h)
     u = u.expand(H, W)
     v = v.expand(H, W)
     dirs = (

@@ -15,10 +15,13 @@ them: `rtao_gbuffer` (frame prep, capsule raster, untile), `rtao_rays` (AO
 ray origins and directions), `trace_ao_batched` (pair expansion, AO kernel
 and scatter per batch of rays) and `rtao_shade`; `RtaoSettings.denoiser`
 "Spatial Hashing" or "EAW" filters the AO map between the last two
-(`render/denoiser.py`).
+(`render/denoiser.py`). `rtao_occlusion` is the first three, `rtao_image`
+the last two.
 
-Not ported yet (it raises NotImplementedError): the ray-sharded multi-GPU
-accumulation (`psum_axis`, ROADMAP queue A item 10).
+Ray-sharded frames (`psum_axis`, a process group, `parallel/mesh.py`): rank
+r draws its samples under `fold_in(PRNGKey(seed + frame), r)`, as the JAX
+package folds the mesh's axis index in, and the per-pixel share of occluded
+rays is averaged over the ranks (a SUM, then one float32 division).
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ from linevis_tpu_torch.render.tube_raster import (
 __all__ = [
     "RtaoSettings", "RtaoGbuffer", "render_tubes_rtao", "render_tubes_rtao_image",
     "hemisphere_uniforms", "rtao_gbuffer", "rtao_rays", "ray_batches", "trace_ao_batched",
-    "denoise_ao", "rtao_shade",
+    "denoise_ao", "rtao_shade", "rtao_occlusion", "rtao_image",
 ]
 
 
@@ -226,6 +229,37 @@ def rtao_shade(gbuf: RtaoGbuffer, ao: torch.Tensor, settings: RasterSettings):
     return torch.cat([out_rgb, out_a[None]])
 
 
+def rtao_occlusion(scene: CapsuleScene, view_proj, camera_position, proj_ab,
+                   settings: RasterSettings, rtao: RtaoSettings = RtaoSettings(), frame: int = 0,
+                   grid: Optional[SegmentGrid] = None, uniforms=None, rank: Optional[int] = None):
+    """A frame's G-buffer and AO trace -> (RtaoGbuffer, occlusion [H, W]: the
+    share of each pixel's rays that hit). The samples are `uniforms`, or
+    jax.random's under PRNGKey(rtao.seed + frame), folded with `rank` when
+    one is given (`threefry.fold_in`), on the scene's device."""
+    W, H, S = settings.width, settings.height, rtao.num_samples
+    dev = scene.a.device
+    gbuf = rtao_gbuffer(scene, view_proj, camera_position, proj_ab, settings)
+    if grid is None:
+        grid = build_segment_grid(scene.a, scene.ba, scene.radius, scene.mask,
+                                  resolution=rtao.grid_resolution)
+    if uniforms is None:
+        key = threefry.prng_key(rtao.seed + frame, dev)
+        if rank is not None:
+            key = threefry.fold_in(key, rank)
+        u1, u2 = hemisphere_uniforms(key, (S, H, W))
+    else:
+        u1, u2 = uniforms
+    rays = rtao_rays(gbuf, scene.radius, rtao, u1, u2)
+    occluded = trace_ao_batched(*rays, grid, rtao)
+    return gbuf, occluded.reshape(S, H, W).mean(dim=0)
+
+
+def rtao_image(gbuf: RtaoGbuffer, occlusion: torch.Tensor, camera_position,
+               settings: RasterSettings, rtao: RtaoSettings) -> torch.Tensor:
+    """AO = 1 - occlusion through the denoiser, then the shading -> [4, H, W]."""
+    return rtao_shade(gbuf, denoise_ao(1.0 - occlusion, gbuf, camera_position, rtao), settings)
+
+
 def render_tubes_rtao(
     scene: CapsuleScene,
     view_proj: torch.Tensor,
@@ -236,7 +270,7 @@ def render_tubes_rtao(
     frame: int = 0,
     grid: Optional[SegmentGrid] = None,  # camera-independent: build once per scene
     return_features: bool = False,
-    psum_axis: str = None,
+    psum_axis=None,
     uniforms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """RTAO-shaded tubes -> [4, H, W] linear RGBA on the scene's device.
@@ -245,27 +279,22 @@ def render_tubes_rtao(
     [num_samples, H, W] in [0, 1), or, when none are given, from
     jax.random's stream under `PRNGKey(rtao.seed + frame)` as the JAX
     function draws them (`hemisphere_uniforms`), on the scene's device.
-    With `return_features`, also returns (position [3, H, W], normal
+    With `psum_axis`, a process group (or a 1-D DeviceMesh) of the ranks
+    that trace a frame together, rank r folds r into that key and the
+    occlusion is averaged over the group: every rank returns the same
+    frame. With `return_features`, also returns (position [3, H, W], normal
     [3, H, W], foreground [H, W]), the G-buffer maps a temporal denoiser
     consumes."""
+    rank = None
     if psum_axis is not None:
-        raise NotImplementedError(
-            "psum_axis (ray-sharded multi-GPU RTAO) is not ported yet: ROADMAP queue A item 10"
-        )
-    W, H, S = settings.width, settings.height, rtao.num_samples
-    dev = scene.a.device
-    gbuf = rtao_gbuffer(scene, view_proj, camera_position, proj_ab, settings)
-    if grid is None:
-        grid = build_segment_grid(scene.a, scene.ba, scene.radius, scene.mask,
-                                  resolution=rtao.grid_resolution)
-    if uniforms is None:
-        u1, u2 = hemisphere_uniforms(threefry.prng_key(rtao.seed + frame, dev), (S, H, W))
-    else:
-        u1, u2 = uniforms
-    rays = rtao_rays(gbuf, scene.radius, rtao, u1, u2)
-    occluded = trace_ao_batched(*rays, grid, rtao)
-    ao = denoise_ao(1.0 - occluded.reshape(S, H, W).mean(dim=0), gbuf, camera_position, rtao)
-    img = rtao_shade(gbuf, ao, settings)
+        from linevis_tpu_torch.parallel.mesh import group_rank_size, pmean
+
+        pg, rank, _ = group_rank_size(psum_axis, scene.a.device)
+    gbuf, occlusion = rtao_occlusion(scene, view_proj, camera_position, proj_ab, settings, rtao,
+                                     frame, grid, uniforms, rank)
+    if psum_axis is not None:
+        occlusion = pmean(occlusion, pg)
+    img = rtao_image(gbuf, occlusion, camera_position, settings, rtao)
     if return_features:
         return img, (gbuf.pos, gbuf.normal, gbuf.fg)
     return img

@@ -22,6 +22,7 @@ from linevis_tpu_torch.kernels.raster_capsule import rasterize_capsules
 from linevis_tpu_torch.kernels.raster_pallas import build_sorted_binning
 from linevis_tpu_torch.kernels.raster_prism import ROW_FRAME0, rasterize_prisms
 from linevis_tpu_torch.kernels.tiles import unpack_tiles
+from linevis_tpu_torch.kernels.volume_common import vdiv
 from linevis_tpu_torch.render.camera import Camera
 from linevis_tpu_torch.render.lighting import (
     apply_depth_cue,
@@ -126,25 +127,33 @@ def prepare_capsule_frame(
 
     Returns (csr, params [32], basis [3, 3]); csr.payload is [24, Np + chunk]
     (16 sorted rows + 8 derived rows). `seg_alpha` [2, S] (alpha0, dalpha)
-    fills payload rows 11-12 (the OIT kernel's per-segment alpha). Band-local
-    rendering (`y_offset`, `full_height`) belongs to the multi-GPU path,
-    which is not ported yet.
+    fills payload rows 11-12 (the OIT kernel's per-segment alpha).
+
+    With `y_offset` (the full-frame row of band row 0) and `full_height`,
+    the segments are projected in full-frame pixels and shifted into the
+    band's rows, and `settings.height` is the band's height: the band layout
+    of `parallel/mesh.py`. The params' ray basis then carries the band window
+    (`up' = up a`, `fwd' = fwd + up c`), so the kernels, which read rows 0-8,
+    reconstruct full-frame rays from band-local pixels.
     """
-    if y_offset is not None or full_height is not None:
-        raise NotImplementedError("band-local rendering is not ported yet")
+    if (y_offset is None) != (full_height is None):
+        raise ValueError("band-local prep takes both y_offset and full_height")
     dev = scene.a.device
     o = camera_position
     a = scene.a
     b = scene.a + scene.ba
     r = scene.radius
     width, height = settings.width, settings.height
+    proj_h = height if full_height is None else int(full_height)
 
     def project(p):  # p [3, S] -> (sx, sy, w)
         clip = view_proj[:3, :3] @ p + view_proj[:3, 3][:, None]
         w = view_proj[3, :3] @ p + view_proj[3, 3]
         iw = 1.0 / torch.where(torch.abs(w) < z_near, torch.full_like(w, z_near), w)
         sx = (clip[0] * iw * 0.5 + 0.5) * width
-        sy = (0.5 - clip[1] * iw * 0.5) * height
+        sy = (0.5 - clip[1] * iw * 0.5) * proj_h
+        if y_offset is not None:
+            sy = sy - float(y_offset)
         return sx, sy, w
 
     sxa, sya, wa = project(a)
@@ -228,6 +237,17 @@ def prepare_capsule_frame(
     csr = dataclasses.replace(csr, payload=torch.cat([p, derived], dim=0))
 
     basis = _ray_basis(view_proj)  # columns right, up, fwd
+    if y_offset is not None:
+        # Band window: the kernel computes v_band = 1 - y_local (2 / band_h);
+        # the full-frame v = a v_band + c with a = band_h / full_h and
+        # c = 1 - a - 2 y_offset / full_h, folded into the basis columns. Both
+        # in float32, the division an IEEE one on every device.
+        f32 = np.float32
+        a_win = float(f32(height / proj_h))
+        c_win = float(f32(1.0 - height / proj_h)) - vdiv(
+            torch.full((), 2.0 * float(f32(y_offset)), dtype=torch.float32, device=dev), proj_h)
+        basis = torch.stack([basis[:, 0], basis[:, 1] * a_win, basis[:, 2] + basis[:, 1] * c_win],
+                            dim=1)
     # params rows 0-8: B row-major where dir_i = B[i,0]*u + B[i,1]*v + B[i,2].
     # 9 zA, 10 zB, 11 dmin, 12 dmax, 13 depth-cue, 14 opacity scale,
     # 15-18 MBOIT uniforms, 19 px scale: world units per pixel at view

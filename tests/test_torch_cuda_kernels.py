@@ -28,7 +28,9 @@ whole 1080p frame, bit for bit (every output and per-ray event count); the
 heat map's RBF sum (R5) bit for bit (its plain version adds the directions
 in the kernel's order); the device threefry bit for bit against
 `ops/threefry.py`, and R6 (`kernels/threefry_uniform.py`) bit for bit
-against `ops/threefry.py:uniform`. Kernels
+against `ops/threefry.py:uniform`, also at the folded keys of the sharded
+paths' ranks. One band of 3 at 1080p (`parallel/mesh.py`'s band layout):
+B3 bit for bit, B2 at its composite and node bars. Kernels
 and plain versions are built
 without fast math and FMA contraction, so they normally agree bit for bit.
 """
@@ -2135,3 +2137,53 @@ def test_heatmap_kernel_every_direction_in_one_cap(cuda):
     d = _unit_dirs(cuda, 6000, lobe=6000)  # more than the kernel stages before a walk
     got, counts = _heatmap_case(cuda, pts, 128, d)
     assert float(got.max()) > 1000.0 and int(counts[:, 0].max()) == 6000
+
+
+def test_threefry_uniform_kernel_at_folded_keys(cuda):
+    """R6 at the keys of a ray-sharded frame's ranks, fold_in(PRNGKey(seed +
+    frame), rank) (`parallel/mesh.py`), bit for bit against
+    `ops/threefry.py:uniform` of each half of the split."""
+    from linevis_tpu_torch.kernels.threefry_uniform import threefry_uniform
+    from linevis_tpu_torch.ops import threefry
+
+    for seed, rank in ((0, 0), (0, 1), (7, 2), (123, 2**31 - 1), (5, 2**32 - 1)):
+        key = threefry.fold_in(threefry.prng_key(seed, cuda), rank)
+        for j in (0, 1):
+            got = threefry_uniform(key, (4, 135, 240), split=j)
+            want = threefry.uniform(threefry.split_at(key, j), (4, 135, 240))
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("band", [0, 1, 2])
+def test_band_of_three_kernels_match_plain(cuda, band):
+    """Band `band` of 3 at 1920x1080 (360 rows: 45 tiles of 8), the band
+    layout of `parallel/mesh.py`: B3 on the band's CSR binning bit for bit,
+    and B2 on the band's MLAB prep (its params carry the band window) in
+    composite and node mode at `test_mlab_kernel_matches_plain`'s bars."""
+    from linevis_tpu_torch.parallel import mesh as pm
+
+    W, H, n = 1920, 1080, 3
+    vp, cp, ab = ttr.camera_tensors(Camera(position=(0.0, 0.1, 1.2), width=W, height=H), cuda)
+    pos, mask, attrs, radius = _walk(11, 10, 8, 0.02)
+    bs = RasterSettings(width=W, height=H // n, tile_w=16, tile_h=8, depth_cue_strength=0.2)
+    mesh = build_tube_triangle_mesh(pos, mask, attrs, radius=radius, device=cuda)
+    _, csr = pm._band_binning(mesh, vp, bs, band, n)
+    k = trp.rasterize_gbuffer(csr, 8, 16, 8)
+    p = trp.rasterize_triangles_reference(csr, 16, 8, 8)
+    torch.cuda.synchronize()
+    assert (k[1] >= 0).sum().item() > 100
+    _all_equal(k, p)
+
+    scene = ttr.build_capsule_scene(pos, mask, attrs, radius, device=cuda)
+    csr, params = toit.prepare_mlab_frame(scene, vp, cp, ab, bs, 0.3, y_offset=band * bs.height,
+                                          full_height=H)
+    args = (csr, params, W, H // n, 16, 8, 8, bs.tf_color, bs.tf_opacity)
+    kc = rasterize_capsules_mlab(*args, deferred_shade=True, composite=True)
+    pc = rasterize_capsules_mlab_reference(*args, deferred_shade=True, composite=True)
+    assert bool(torch.isfinite(kc).all()) and (kc[3] > 0).sum().item() > 100
+    assert ((kc - pc).abs().amax(dim=0) <= 1e-4).float().mean().item() >= 0.999
+    (kd, kf, ka), (pd, pf, pa) = (f(*args, deferred_shade=True) for f in (
+        rasterize_capsules_mlab, rasterize_capsules_mlab_reference))
+    ok = ((kd - pd).abs().amax(dim=0) <= 1e-5) & ((ka - pa).abs().amax(dim=0) <= 1e-5)
+    assert ok.float().mean().item() >= 0.999
+    assert (kf - pf).abs().amax(dim=(0, 1))[ok].max().item() <= 1e-5

@@ -12,6 +12,8 @@
   several settings.
 - `use_bands` (diffuse exponent 1.0) per fragment and in the composite
   against the JAX kernel, at tests/test_torch_oit.py's bars.
+- The band-sharded solve at n=2 (two gloo ranks) against JAX's
+  `opacity_solve_sharded` on the same band nodes, within 1e-6.
 - The behaviour of tests/test_opacity_optimization.py on the port, the
   golden `opacity_optimization.png` through the port's registry, and the
   entry point.
@@ -348,11 +350,73 @@ def test_post_move_smoothing_schedule():
 
 
 def test_band_axis_raises():
-    scene, L, P = _scene_occluder()
-    cam = ttr.camera_tensors(Camera(position=(0.0, 0.0, 1.6), width=OW, height=OH), "cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        too.opacity_solve(scene, *cam, torch.ones(L, P), _occluder_settings(),
-                          too.OpacityOptimizationSettings(), L, P, band_axis="y", n_bands=2)
+    """`band_axis` takes a process group or a 1-D DeviceMesh: a JAX axis
+    name, or anything else, raises; the band count is the group's size, so
+    the solve takes no `n_bands`."""
+    from linevis_tpu_torch.parallel.mesh import run_ranks
+
+    pos, mask, attrs, radius = _walk()
+    L, P = pos.shape[:2]
+    ts = ttr.build_capsule_scene(pos, mask, attrs, radius, device="cpu")
+    oo = too.OpacityOptimizationSettings(opacity_resolution_scale=1.0, gather_k=4)
+    S = _settings(RasterSettings)
+    cam = ttr.camera_tensors(_camera(Camera), "cpu")
+    prev = torch.ones((L, P))
+    for axis in ("y", 2):
+        with pytest.raises(TypeError):
+            too.opacity_solve(ts, *cam, prev, S, oo, L, P, band_axis=axis)
+    with pytest.raises(TypeError):
+        run_ranks(2, lambda g, d: too.opacity_solve(ts, *cam, prev, S, oo, L, P, band_axis=g,
+                                                    n_bands=2))
+
+
+def test_band_solve_on_two_ranks_matches_jax(monkeypatch):
+    """The band-sharded solve (`band_axis`, a process group) on two gloo
+    ranks (threads, `parallel/mesh.py:run_ranks`): each rank gathers its
+    half of the half-res frame and the per-segment minimum and visibility
+    are reduced over both. Held against JAX's `opacity_solve_sharded` at
+    n=2 on the conftest's virtual devices, whose gather hands back each
+    band's port nodes (the gather is held against the JAX kernel above; so
+    the JAX side compiles the band prep and the solve alone), within 1e-6
+    as `test_solve_on_jax_nodes_matches_jax`; and against the port's
+    single-device solve at tests/test_multichip.py:224-227's bars."""
+    import jax
+
+    from linevis_tpu.parallel import mesh as jmesh
+    from linevis_tpu_torch.parallel.mesh import run_ranks
+
+    pos, mask, attrs, radius = _walk()
+    L, P = pos.shape[:2]
+    js = jtr.build_capsule_scene(pos, mask, attrs, radius)
+    ts = ttr.build_capsule_scene(pos, mask, attrs, radius, device="cpu")
+    kw = dict(opacity_resolution_scale=1.0, gather_k=4)  # a 96x64 gather: 2 bands of 32 rows
+    oo = too.OpacityOptimizationSettings(**kw)
+    S, jS = _settings(RasterSettings), _settings(JSettings)
+    cam = ttr.camera_tensors(_camera(Camera), "cpu")
+    jcam = _camera(JCamera)
+    prev = np.random.default_rng(4).uniform(0.2, 1.0, (L, P)).astype(np.float32)
+    solved = run_ranks(2, lambda g, d: too.opacity_solve(
+        ts, *cam, torch.tensor(prev), S, oo, L, P, band_axis=g))
+    assert torch.equal(solved[0], solved[1])
+    nodes = [too.gather_importance(ts, *cam, S, oo, band=b, n_bands=2) for b in range(2)]
+    assert all(int((n_[0] < 1.5).sum()) > 50 for n_ in nodes)  # both bands hold fragments
+    depths, g, sid = (jnp.asarray(np.stack([n_[i].numpy() for n_ in nodes])) for i in range(3))
+
+    def band_nodes(*a, **k):  # the gather of band axis_index
+        b = jax.lax.axis_index("y")
+        return depths[b], jnp.stack([g[b], sid[b], jnp.zeros_like(g[b])]), jnp.ones_like(g[b])
+
+    monkeypatch.setattr(joo, "rasterize_capsules_mlab", band_nodes)
+    j = np.asarray(jmesh.opacity_solve_sharded(
+        js, jnp.asarray(jcam.view_projection_matrix()),
+        jnp.asarray(np.asarray(jcam.position, np.float32)),
+        jnp.asarray(jtr._proj_constants(jcam)), jnp.asarray(prev), jS,
+        joo.OpacityOptimizationSettings(**kw), L, P, jmesh.make_device_mesh(2)))
+    np.testing.assert_allclose(solved[0].numpy(), j, rtol=0, atol=1e-6)
+    single = too.opacity_solve(ts, *cam, torch.tensor(prev), S, oo, L, P).numpy()
+    diff = np.abs(solved[0].numpy() - single)
+    assert (diff > 1e-3).mean() < 0.05 and np.median(diff) < 1e-6
+    assert np.abs(single - prev).max() > 1e-2  # the solve moved the opacities
 
 
 def test_renderer_continues_a_jax_run():

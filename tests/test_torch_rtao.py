@@ -33,6 +33,8 @@ from linevis_tpu.render.pipeline import RasterSettings as JSettings
 from linevis_tpu_torch.convert import capsule_scene_from_numpy, segment_grid_from_numpy
 from linevis_tpu_torch.entry import entry_rtao
 from linevis_tpu_torch.kernels import ao_grid as tao
+from linevis_tpu_torch.kernels.volume_common import vdiv
+from linevis_tpu_torch.parallel.mesh import run_ranks
 from linevis_tpu_torch.render import rtao as trtao
 from linevis_tpu_torch.render import tube_raster as ttr
 from linevis_tpu_torch.render.camera import Camera
@@ -351,8 +353,16 @@ def test_rtao_image_accumulates_and_unported_options_raise():
     raw = trtao.render_tubes_rtao(ts, *cam_t, tS, rt)
     assert bool(torch.isfinite(den).all()) and not torch.equal(den, raw)
     assert torch.equal(den[3], raw[3])
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # psum_axis is a process group (a JAX axis name raises). Two gloo ranks
+    # (threads) draw under fold_in(key, rank) and average their occlusion:
+    # 1-sample occlusions are 0 or 1, so the sum is exact.
+    with pytest.raises(TypeError):
         trtao.render_tubes_rtao(ts, *cam_t, tS, rt, psum_axis="rays")
+    two = run_ranks(2, lambda g, d: trtao.render_tubes_rtao(ts, *cam_t, tS, rt, psum_axis=g))
+    assert torch.equal(two[0], two[1]) and not torch.equal(two[0], raw)
+    occ = [trtao.rtao_occlusion(ts, *cam_t, tS, rt, rank=r) for r in range(2)]
+    mean = vdiv(occ[0][1] + occ[1][1], 2)
+    assert torch.equal(two[0], trtao.rtao_image(occ[0][0], mean, cam_t[1], tS, rt))
 
 
 def test_entry_rtao_runs_on_cpu():

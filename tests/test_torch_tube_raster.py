@@ -433,7 +433,7 @@ def test_port_imports_no_jax():
         "        'loaders.grid_loader', '__main__', 'app', 'automation.perf',\n"
         "        'automation.replay_compat', 'automation.tsv_requester',\n"
         "        'kernels.tiled_address', 'kernels.threefry_uniform', 'render.data_view',\n"
-        "        'scene.requester']\n"
+        "        'scene.requester', 'parallel', 'parallel.mesh']\n"
         "missing = [m for m in need if 'linevis_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
     )
