@@ -1217,13 +1217,6 @@ SC_VPT_FRAMES = 4
 SC_FRAMES = 8  # the density map, VRC and multivariate frames
 SC_HEAT_FRAMES = 4
 SC_CHECK_SCALE = 0.1  # the card-vs-CPU frames
-SC_SMALL = (240, 135)  # decomposition and residual ratio tracking: plain, a reading
-# One frame of one sample each: their lockstep plain loops took 11.8 s
-# (decomposition) and 53.5 s (residual ratio) a 1-sample frame at 480x270 on
-# an NVIDIA H100 80GB HBM3 at 700 W, and the smoke keeps near half its time
-# limit.
-SC_SMALL_FRAMES = 1
-SC_SMALL_SPP = 1
 SC_VRC = dict(grid_resolution=128, quantization=8)
 # Work of the bounds, counted from this run's events, scatters, steps and
 # pairs; a library function (logf, expf, sqrtf, cosf, a division) counts as
@@ -1246,6 +1239,32 @@ VPT_OPS = {"ray": (THREEFRY_OPS[0], THREEFRY_OPS[1], 155),
            "collision": (5 * THREEFRY_OPS[0] + 6 + 12, 5 * THREEFRY_OPS[1] + 5, 82),
            "leave": (3 * THREEFRY_OPS[0] + 3, 3 * THREEFRY_OPS[1], 12),
            "scatter": (5 * THREEFRY_OPS[0] + 6, 5 * THREEFRY_OPS[1], 116)}
+# R7, (logic, add, float) operations: a ray's key, box test, first super
+# voxel, sky and outputs; every event at least what the cheapest one does
+# (an empty super voxel crossed): its key, the super voxel's min and max,
+# the exit face (six IEEE divisions), the move and the next index. Events
+# that draw a flight, sample the grid, collide or scatter do more: the
+# bound charges none of it, as the kernel counts events alone.
+R7_OPS = {"ray": (THREEFRY_OPS[0], THREEFRY_OPS[1], 170),
+          "event": (THREEFRY_OPS[0] + 2, THREEFRY_OPS[1] + 4, 70)}
+# R8, (logic, add, float) operations: a ray's key and outputs; a bounce's
+# four keys and stop uniform, box test, DDA set-up (three divisions, three
+# reciprocals), sky and sun and the accumulation; a bounce that goes on:
+# the phase sample (two keys, two uniforms); a DDA step: the exit distance,
+# the super voxel's two values, the segment's start and control term, the
+# advance; a residual step: five threefry (three keys, two uniforms), the
+# trilinear sample's integer work (12 logic, 5 adds) and ~74 float (free
+# flight, position, grid coordinates, the sample, the ratio, the
+# reservoir's weight and draw).
+R8_OPS = {"ray": (THREEFRY_OPS[0], THREEFRY_OPS[1], 0),
+          "bounce": (5 * THREEFRY_OPS[0] + 3, 5 * THREEFRY_OPS[1], 195),
+          "turn": (4 * THREEFRY_OPS[0] + 6, 4 * THREEFRY_OPS[1], 60),
+          "dda_step": (0, 4, 30),
+          "residual_step": (5 * THREEFRY_OPS[0] + 6 + 12, 5 * THREEFRY_OPS[1] + 5, 74)}
+# R3 on a SparseGrid: a colliding event's sample also finds its brick in the
+# table (three divisions and three remainders by the block, the address).
+R3_SPARSE_OPS = dict(VPT_OPS, collision=(VPT_OPS["collision"][0] + 6,
+                                         VPT_OPS["collision"][1] + 12, VPT_OPS["collision"][2]))
 # R4, (logic, add, float) operations, as the SASS of `csrc/density_march.cu`'s
 # POW2, SKIP instance has them: a pixel's ray, its clip, the estimate's set-up
 # and its output; a step that samples an occupied cell, a quarter of the
@@ -1282,6 +1301,243 @@ def ops_ms(logic, adds, floats, int_rate):
                (logic + adds) / (2.0 * int_rate) + floats / H100_FP32_FLOPS) * 1e3
 
 
+def vpt_extension(dev, gpu, ld, base, grid, rays, p_delta, frames, host_timed, int_rate, built):
+    """Part of phase 25: the registry's "Volumetric Path Tracer" in
+    Decomposition tracking (kernel R7, `vpt_decomposition`) and Residual
+    Ratio tracking (R8, `vpt_residual_ratio`), SC_VPT_FRAMES 1080p frames of
+    2 samples each, one launch a sample; each kernel bit for bit with its
+    plain version (events, or bounces and steps, included) on the middle row
+    of both samples, sliced from whole-sample launches (~10.6 s and ~26.3 s
+    of plain time on an H100 host); both modes card vs CPU at
+    SC_CHECK_SCALE. Then R3 on `SparseGrid.from_dense(cloud, 8)`: that row
+    of sample 0 bit for bit with its plain version on the SparseGrid, the
+    whole sample with R3's dense launch (`p_delta`), and SC_VPT_FRAMES
+    frames of `render_vpt` on the SparseGrid, the first equal to the dense
+    grid's. `rays` are the first frame's two samples (origins, dirs, kt) on
+    `grid`, the cloud; `frames` and `host_timed` the phase's timers. Returns
+    the three `kernels` rows."""
+    from linevis_tpu_torch.core.settings import SettingsMap
+    from linevis_tpu_torch.kernels import vpt_decomposition as vd
+    from linevis_tpu_torch.kernels import vpt_residual_ratio as vr
+    from linevis_tpu_torch.kernels import vpt_tracking as vt
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render.framebuffer import image_mean_difference, ssim
+    from linevis_tpu_torch.render.renderer import create_renderer
+    from linevis_tpu_torch.render.super_voxel import super_voxel_grid_of, super_voxel_minmax_of
+    from linevis_tpu_torch.render.tube_raster import _ray_basis, camera_tensors
+    from linevis_tpu_torch.render.vpt import VptSettings, render_vpt, sun_constants
+    from linevis_tpu_torch.scene.sparse_grid import SparseGrid
+
+    vs = VptSettings()
+    f32 = np.float32
+    ext, alb = np.asarray(vs.extinction, f32), np.asarray(vs.scattering_albedo, f32)
+    sun_dir, sun_ic = sun_constants(vs)
+    n_rays = W * H
+    r0 = (H // 2) * W
+    n_row = W
+    row_rays = [(o[r0:r0 + n_row].contiguous(), d[r0:r0 + n_row].contiguous(), kt)
+                for o, d, kt in rays]
+    sw, sh = int(W * SC_CHECK_SCALE), int(H * SC_CHECK_SCALE)
+    small = dataclasses.replace(base, width=sw, height=sh)
+    out, rows = {}, []
+
+    def registry_frames(mode, kernel):
+        """The registry's frames in `mode` -> (event ms, host ms, launches,
+        card-vs-CPU figures at SC_CHECK_SCALE)."""
+        r = create_renderer("Volumetric Path Tracer", SettingsMap({"vpt_mode": mode}), device=dev)
+        r.set_line_data(ld)
+        (_, build_ms) = host_timed(lambda: r.render(base))  # super voxels, first launches
+        r.set_line_data(ld)  # the accumulation restarts; the grid and its super voxels stay
+        img, ev_ms, host_ms, launches = frames(r.render, [base] * SC_VPT_FRAMES,
+                                               {kernel: 2 * SC_VPT_FRAMES}, warm=False)
+        if not np.isfinite(img).all() or not (img[..., :3].std() > 1e-3):
+            raise RuntimeError(f"the {mode} frame is non-finite or flat")
+        chk = {}
+        for d_ in (dev, "cpu"):
+            rc = create_renderer("Volumetric Path Tracer", SettingsMap({"vpt_mode": mode}),
+                                 device=d_)
+            rc.set_line_data(ld)
+            chk[str(d_)], chk[f"{d_}_ms"] = host_timed(lambda: rc.render(small))
+        a, b = chk[str(dev)][..., :3], chk["cpu"][..., :3]
+        fig = {"image_mean_difference": image_mean_difference(a, b), "ssim": ssim(a, b),
+               "mean_abs": float(np.abs(chk[str(dev)] - chk["cpu"]).mean()),
+               "card_ms": chk[f"{dev}_ms"], "cpu_ms": chk["cpu_ms"]}
+        if fig["image_mean_difference"] > 2e-3 or fig["ssim"] < 0.999 or fig["mean_abs"] > 2e-3:
+            raise RuntimeError(f"the {mode} frame on the card differs from the CPU's: {fig}")
+        return {"frame_ms": ev_ms, "host_ms": host_ms, "frame_ms_median": float(np.median(ev_ms)),
+                "host_ms_median": float(np.median(host_ms)), "first_frame_ms": build_ms,
+                "launches": launches[kernel], "mean_rgb": float(img[..., :3].mean()),
+                f"card_vs_cpu_{sw}x{sh}": fig}
+
+    def against_plain(name, launch, plain, counts_shape):
+        """`launch(o, d, kt, counts)` on both whole samples, the slice of
+        the middle row against `plain(o, d, kt, counts, first)` on it (every
+        output and the counts bit for bit), and two whole launches equal."""
+        k_rows, counts_full = [], None
+        for o, d, kt in rays:
+            c = torch.empty((n_rays,) + counts_shape, dtype=torch.int32, device=dev)
+            res = launch(o, d, kt, c)
+            k_rows.append([x[r0:r0 + n_row] for x in (*res, c)])
+            if counts_full is None:
+                counts_full = c
+                again = launch(o, d, kt, torch.empty_like(c))
+                twice_equal = all(torch.equal(x, y) for x, y in zip(res, again))
+            del res
+        k_out = [torch.cat(x) for x in zip(*k_rows)]
+        c_p = torch.empty((len(rays) * n_row,) + counts_shape, dtype=torch.int32, device=dev)
+
+        def plain_rows():
+            outs = [plain(o, d, kt, c_p[s * n_row:(s + 1) * n_row], r0)
+                    for s, (o, d, kt) in enumerate(row_rays)]
+            return [torch.cat(x) for x in zip(*outs)] + [c_p]
+
+        p_out, plain_ms = host_timed(plain_rows)
+        equal = all(torch.equal(a, b) for a, b in zip(k_out, p_out))
+        fig = {"equal": equal, "plain_ms": plain_ms, "two_full_launches_equal": twice_equal,
+               "max_abs_err": float((k_out[0] - p_out[0]).abs().max()),
+               "counted_on_the_rows": [int(v) for v in c_p.reshape(len(rays) * n_row, -1)
+                                       .sum(0)]}
+        if not (equal and twice_equal):
+            raise RuntimeError(f"{name} differs from its plain version on the rows sliced from "
+                               f"its whole-sample launches, or two launches differ: {fig}")
+        return fig, counts_full
+
+    # R7.
+    dmin_g, dmax_g = super_voxel_minmax_of(grid, vs.super_voxel_size)
+    p7 = vd.decomposition_params(grid.shape, dmin_g.shape, ext, alb, sun_dir, sun_ic, vs.phase_g,
+                                 vs.max_events)
+    frames7 = registry_frames("Decomposition Tracking", "vpt_decomposition")
+    fig7, ev7 = against_plain(
+        "vpt_decomposition",
+        lambda o, d, kt, c: vd.vpt_decomposition(grid, dmin_g, dmax_g, o, d, kt, p7, events=c),
+        lambda o, d, kt, c, first: vd.vpt_decomposition_reference(
+            grid, dmin_g, dmax_g, o, d, kt, p7, events=c, first=first), ())
+    ms7 = _time_ms(lambda: vd.vpt_decomposition(grid, dmin_g, dmax_g, *rays[0], p7), 3)
+    events7 = int(ev7.double().sum())
+    count7 = {"ray": n_rays, "event": events7}
+    ops7 = [sum(count7[k] * R7_OPS[k][i] for k in R7_OPS) for i in range(3)]
+    bytes7 = grid.numel() * 4 + 2 * dmin_g.numel() * 4 + 8 + n_rays * (24 + 12)
+    evf = ev7.double()
+    hit = evf > 0
+    out["decomposition"] = {
+        **frames7, "kernel_vs_plain_rows": fig7, "ms_full_sample": ms7,
+        "events_per_ray": {"p50": float(evf[hit].quantile(0.5)),
+                           "p99": float(evf[hit].quantile(0.99)), "max": int(evf.max()),
+                           "events": events7,
+                           "share_at_max_events": float((evf == vs.max_events).double().mean())}}
+    del ev7, evf, hit
+
+    # R8.
+    sv = super_voxel_grid_of(grid, float(ext[0]), vs.super_voxel_size)
+    p8 = vr.rr_params(grid.shape, sv.mu_c.shape, ext, alb, sun_dir, sun_ic, vs.phase_g)
+    frames8 = registry_frames("Residual Ratio Tracking", "vpt_residual_ratio")
+    fig8, st8 = against_plain(
+        "vpt_residual_ratio",
+        lambda o, d, kt, c: vr.vpt_residual_ratio(grid, sv, o, d, kt, p8, steps=c),
+        lambda o, d, kt, c, first: vr.vpt_residual_ratio_reference(
+            grid, sv, o, d, kt, p8, steps=c, first=first), (3,))
+    ms8 = _time_ms(lambda: vr.vpt_residual_ratio(grid, sv, *rays[0], p8), 3)
+    tot8 = [int(v) for v in st8.double().sum(0)]
+    count8 = {"ray": n_rays, "bounce": tot8[0], "turn": tot8[0] - n_rays, "dda_step": tot8[1],
+              "residual_step": tot8[2]}
+    ops8 = [sum(count8[k] * R8_OPS[k][i] for k in R8_OPS) for i in range(3)]
+    bytes8 = grid.numel() * 4 + 2 * sv.mu_c.numel() * 4 + 8 + n_rays * (24 + 12 + 12 + 1)
+    out["residual_ratio"] = {
+        **frames8, "kernel_vs_plain_rows": fig8, "ms_full_sample": ms8, "counted": count8,
+        "bounces_max": int(st8[:, 0].max()), "dda_steps_max": int(st8[:, 1].max()),
+        "residual_steps_max": int(st8[:, 2].max())}
+    del st8
+
+    # R3 on a SparseGrid of the cloud.
+    cloud = grid.cpu().numpy()
+    sg, sparse_ms = host_timed(lambda: SparseGrid.from_dense(cloud, 8, device=dev))
+    del cloud
+    o_row, d_row, kt0 = row_rays[0]
+    ev_k = torch.empty(n_rays, dtype=torch.int32, device=dev)
+    sc_k = torch.empty_like(ev_k)
+    sp = vt.vpt_tracking(sg, *rays[0], p_delta, events=ev_k, scatters=sc_k)
+    dense = vt.vpt_tracking(grid, *rays[0], p_delta)
+    dense_equal = all(torch.equal(a, b) for a, b in zip(sp, dense))
+    ev_p = torch.empty(n_row, dtype=torch.int32, device=dev)
+    sc_p = torch.empty_like(ev_p)
+    ref, plain3_ms = host_timed(lambda: vt.vpt_tracking_reference(
+        sg, o_row, d_row, kt0, p_delta, events=ev_p, first=r0, scatters=sc_p))
+    row_equal = (all(torch.equal(a[r0:r0 + n_row], b) for a, b in zip(sp, ref))
+                 and torch.equal(ev_k[r0:r0 + n_row], ev_p)
+                 and torch.equal(sc_k[r0:r0 + n_row], sc_p))
+    err3 = float((sp[0][r0:r0 + n_row] - ref[0]).abs().max())
+    ms3 = _time_ms(lambda: vt.vpt_tracking(sg, *rays[0], p_delta), 3)
+    cam_t = camera_tensors(base, dev)
+    basis = _ray_basis(cam_t[0])
+
+    def sparse_frame(cam, grid_=sg):
+        return render_vpt(threefry.prng_key(0, dev), grid_, cam_t[1], basis, W, H, settings=vs,
+                          spp=vs.samples_per_frame)
+
+    img_s, ev_ms3, host_ms3, launches3 = frames(sparse_frame, [base] * SC_VPT_FRAMES,
+                                                {"vpt_tracking": 2 * SC_VPT_FRAMES})
+    frame_equal = torch.equal(img_s, sparse_frame(base, grid))
+    leaves = int(((ev_k > 0) & (ev_k < vs.max_events)).sum())
+    events3 = int(ev_k.double().sum())
+    count3 = {"ray": n_rays, "collision": events3 - leaves, "leave": leaves,
+              "scatter": int(sc_k.double().sum())}
+    ops3 = [sum(count3[k] * R3_SPARSE_OPS[k][i] for k in R3_SPARSE_OPS) for i in range(3)]
+    bytes3 = (sg.bricks.numel() + sg.table.numel()) * 4 + 8 + n_rays * (24 + 12 + 12 + 1)
+    out["sparse_grid"] = {
+        "block": sg.block, "active_bricks": sg.n_active, "memory_ratio": sg.memory_ratio(),
+        "from_dense_ms": sparse_ms, "row_equal": row_equal, "plain_ms": plain3_ms,
+        "whole_sample_equal_to_dense": dense_equal, "first_frame_equal_to_dense": frame_equal,
+        "ms_full_sample": ms3, "frame_ms": ev_ms3, "host_ms": host_ms3,
+        "frame_ms_median": float(np.median(ev_ms3)), "launches": launches3["vpt_tracking"],
+        "counted": count3}
+    out.update({"frames": SC_VPT_FRAMES, "spp": vs.samples_per_frame, "width": W, "height": H,
+                "plain_on": f"row {H // 2}", "gpu": gpu})
+    print("vpt decomposition, residual ratio, sparse grid: " + json.dumps(out), flush=True)
+    if not (row_equal and dense_equal and frame_equal):
+        raise RuntimeError("R3 on the SparseGrid differs from its plain version or from the dense "
+                           "grid's launch")
+    del sp, dense, ref, img_s, ev_k, sc_k, sg
+
+    def row(name, source, replaces, note, launches, ms, plain_ms, err, ops, nbytes, counted,
+            opsdef, per_launch, plain_on, ptx):
+        t_bytes = nbytes / H100_HBM_BYTES * 1e3
+        t_ops = ops_ms(*ops, int_rate)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "replaces_note": note, "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "bytes": nbytes,
+                "bytes_ms": t_bytes, "operations_ms": t_ops, "library_ms": None,
+                "per_launch": per_launch, "plain_on": plain_on, "counted": counted,
+                "ops_logic_add_float": opsdef, "operations": ops, "int32_ops_per_s": int_rate,
+                "ptxas": ptx}
+
+    rows_on = f"row {H // 2} of both samples ({2 * n_row} rays), sliced from whole-sample launches"
+    rows.append(row(
+        "vpt_decomposition", "linevis_tpu_torch/kernels/csrc/vpt_decomposition.cu",
+        "linevis_tpu/render/vpt.py:342",
+        "no pallas_call: _decomposition_trace's vmapped lax.scan of events (vpt.py:342-473)",
+        out["decomposition"]["launches"], ms7, fig7["plain_ms"], fig7["max_abs_err"], ops7, bytes7,
+        count7, R7_OPS, "one sample of every pixel (2 a frame)", rows_on,
+        ptxas_lines(built, "vpt_decomposition")))
+    rows.append(row(
+        "vpt_residual_ratio", "linevis_tpu_torch/kernels/csrc/vpt_residual_ratio.cu",
+        "linevis_tpu/render/vpt.py:281",
+        "no pallas_call: _residual_ratio_trace's vmapped lax.while_loop of bounces (vpt.py:"
+        "281-339), each the lax.scan DDA and lax.while_loop segments of super_voxel.py:114-236",
+        out["residual_ratio"]["launches"], ms8, fig8["plain_ms"], fig8["max_abs_err"], ops8, bytes8,
+        count8, R8_OPS, "one sample of every pixel (2 a frame)", rows_on,
+        ptxas_lines(built, "vpt_residual_ratio")))
+    rows.append(row(
+        "vpt_tracking:sparse", "linevis_tpu_torch/kernels/csrc/vpt_tracking.cu",
+        "linevis_tpu/render/vpt.py:189",
+        "no pallas_call: trace_one's lax.scan (vpt.py:189-278) on a SparseGrid "
+        "(scene/sparse_grid.py:71-99 sample)", out["sparse_grid"]["launches"], ms3, plain3_ms,
+        err3, ops3, bytes3, count3, R3_SPARSE_OPS,
+        "one Delta-tracking sample of every pixel on SparseGrid.from_dense(cloud, 8)",
+        f"row {H // 2} of sample 0, sliced from a whole-sample launch", []))
+    return rows
+
+
 def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
     """25. Scattering, VRC and multivariate tubes: a procedural cloud
     (`entry.procedural_cloud`) traced by `LineDataScattering.trace`
@@ -1295,10 +1551,9 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
     (triangle_raster once). Each kernel against its plain version (R3 on one
     1080p row in each scan mode, R4 on the whole frame, R5 on two bands;
     R3's and R5's sliced from launches on the whole sample or map),
-    card-vs-CPU frames at SC_CHECK_SCALE, decomposition and residual ratio
-    tracking read at SC_SMALL (SC_SMALL_FRAMES frames of SC_SMALL_SPP
-    samples). Returns the phase's
-    `kernels` rows."""
+    card-vs-CPU frames at SC_CHECK_SCALE, and `vpt_extension`'s
+    decomposition and residual ratio frames and R3 on a SparseGrid. Returns
+    the phase's `kernels` rows."""
     import shutil
     import tempfile
 
@@ -1507,34 +1762,17 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
     vpt_mean_diff = image_mean_difference(chk[str(dev)][..., :3], chk["cpu"][..., :3])
     vpt_ssim = ssim(chk[str(dev)][..., :3], chk["cpu"][..., :3])
     vpt_mad = float(np.abs(chk[str(dev)] - chk["cpu"]).mean())
-    # Decomposition and residual ratio tracking (plain PyTorch on the card).
-    small_modes = {}
-    for mode in ("Decomposition Tracking", "Residual Ratio Tracking"):
-        r = create_renderer("Volumetric Path Tracer", SettingsMap({"vpt_mode": mode}), device=dev)
-        r.vpt = dataclasses.replace(r.vpt, samples_per_frame=SC_SMALL_SPP)
-        r.set_line_data(ld)
-        cam_s = dataclasses.replace(base, width=SC_SMALL[0], height=SC_SMALL[1])
-        ms = []
-        for _ in range(SC_SMALL_FRAMES):
-            out, t_ms = host_timed(lambda: r.render(cam_s))
-            ms.append(t_ms)
-        small_modes[mode] = {"host_ms": ms, "spp": SC_SMALL_SPP,
-                             "mean_rgb": float(out[..., :3].mean()),
-                             "finite": bool(np.isfinite(out).all())}
     vpt_line = {
         "frame_ms": ev_ms, "host_ms": host_ms, "frame_ms_median": float(np.median(ev_ms)),
         "host_ms_median": float(np.median(host_ms)), "launches": vpt_launches,
         "kernel_vs_plain_row": r3, "events_per_ray": vpt_events,
         f"card_vs_cpu_{sw}x{sh}": {"image_mean_difference": vpt_mean_diff, "ssim": vpt_ssim,
                                    "mean_abs": vpt_mad},
-        f"plain_modes_{SC_SMALL[0]}x{SC_SMALL[1]}": small_modes,
         "frames": SC_VPT_FRAMES, "spp": vs.samples_per_frame, "max_events": vs.max_events,
         "width": W, "height": H, "gpu": gpu}
     print("volumetric path tracer: " + json.dumps(vpt_line), flush=True)
-    if (vpt_mean_diff > 2e-3 or vpt_ssim < 0.999 or vpt_mad > 2e-3
-            or not all(m["finite"] for m in small_modes.values())):
-        raise RuntimeError("the path-traced frame on the card differs from the CPU's, or a plain "
-                           "mode is non-finite")
+    if vpt_mean_diff > 2e-3 or vpt_ssim < 0.999 or vpt_mad > 2e-3:
+        raise RuntimeError("the path-traced frame on the card differs from the CPU's")
     rows.append({
         "name": "vpt_tracking", "route": "cuda",
         "source": "linevis_tpu_torch/kernels/csrc/vpt_tracking.cu",
@@ -1550,6 +1788,8 @@ def scattering_phase(dev, gpu, traj, reset_launches, expect_launches, built):
                     "full-sample launches",
         "counted": n_count, "ops_logic_add_float": VPT_OPS, "operations": r3_ops,
         "int32_ops_per_s": int_rate, "ptxas": ptxas_lines(built, "vpt_tracking")})
+    rows.extend(vpt_extension(dev, gpu, ld, base, grid, rays, p_delta, frames, host_timed, int_rate,
+                              built))
     del vpt, grid, rays, row_rays, ev_full, sc_full
     torch.cuda.empty_cache()
 
@@ -2576,6 +2816,8 @@ def main() -> int:
     from linevis_tpu_torch.kernels.spherical_heatmap import heatmap_density
     from linevis_tpu_torch.kernels.threefry_uniform import threefry_uniform
     from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.kernels.vpt_decomposition import vpt_decomposition
+    from linevis_tpu_torch.kernels.vpt_residual_ratio import vpt_residual_ratio
     from linevis_tpu_torch.kernels.vpt_tracking import vpt_tracking
     from linevis_tpu_torch.ops.lbvh import lbvh_on, packed_nodes, packed_wide_nodes
     from linevis_tpu_torch.kernels.bvh_wavefront import (
@@ -2684,6 +2926,7 @@ def main() -> int:
         "bvh_closest_hit": capsule_closest_hit, "bvh_recast": capsule_recast,
         "bvh_mlat": mlat_nodes, "vpt_tracking": vpt_tracking, "density_march": density_march,
         "spherical_heatmap": heatmap_density, "threefry_uniform": threefry_uniform,
+        "vpt_decomposition": vpt_decomposition, "vpt_residual_ratio": vpt_residual_ratio,
     }
 
     def reset_launches():
@@ -2740,7 +2983,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     resources = {name: kernel_resources(_build.load(name))
                  for name in ("raster_capsule", "raster_triangle", "raster_prism", "bvh_wavefront",
-                              "bvh_closest_hit", "bvh_mlat")}
+                              "bvh_closest_hit", "bvh_mlat", "vpt_decomposition",
+                              "vpt_residual_ratio")}
     for name, inst in resources.items():
         print(f"{name} instances: " + json.dumps(inst), flush=True)
 

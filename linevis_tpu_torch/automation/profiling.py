@@ -11,8 +11,8 @@ host clock and, for a pass on the card, also between CUDA events.
     python -m linevis_tpu_torch.automation.profiling [OUT_DIR [PATH]]
 
 PATH: opaque|mlab|prism|triangle|rtao|wavefront|recast|mlat|wboit|depth_peeling|mlab_buckets|
-      mboit|depth_complexity|opacity_optimization|rtao_registry|surface|vpt|density_map|heatmap|
-      vrc|multivar|a name of entry.BASELINE_CONFIGS
+      mboit|depth_complexity|opacity_optimization|rtao_registry|surface|vpt|vpt_decomposition|
+      vpt_residual_ratio|density_map|heatmap|vrc|multivar|a name of entry.BASELINE_CONFIGS
 
 profiles a tornado tube frame on the card at 1920x1080: `opaque` (the
 default) the opaque capsule frame (`render_tubes`, tile 32x16, AA on),
@@ -45,7 +45,8 @@ back as numpy); `vpt`, `density_map` and `heatmap` the scattering
 modes through the registry on `entry.scattering_line_data` (the 512^3
 procedural cloud traced at 40,960 paths, ~10 s of set-up first): the
 "Volumetric Path Tracer" at its defaults accumulating at one camera (4
-frames), the "Line Density Map Renderer" from the side the paths enter, the
+frames; `vpt_decomposition` and `vpt_residual_ratio` likewise in the
+Decomposition and Residual Ratio tracking modes), the "Line Density Map Renderer" from the side the paths enter, the
 "Spherical Heat Map Renderer" as a 1080x2160 map (4 frames); `vrc` the
 tornado through "Voxel Ray Casting" (grid 128, quantization 8) and
 `multivar` its multivariate tubes (the attribute and 1 - it, 8
@@ -191,6 +192,7 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         tornado_wide_bvh,
         sphere_mesh_data,
     )
+    from linevis_tpu_torch.core.settings import SettingsMap
     from linevis_tpu_torch.render import oit
     from linevis_tpu_torch.render.camera import Camera
     from linevis_tpu_torch.render.opacity_optimization import OpacityOptimizationRenderer
@@ -221,8 +223,11 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
         "mboit": ("render_tubes_mboit", dict(n_mom=4, opacity=0.3)),
         "depth_complexity": ("render_depth_complexity", {}),
     }
-    scattering = {"vpt": "Volumetric Path Tracer", "density_map": "Line Density Map Renderer",
-                  "heatmap": "Spherical Heat Map Renderer"}
+    vpt_paths = {"vpt": {}, "vpt_decomposition": {"vpt_mode": "Decomposition Tracking"},
+                 "vpt_residual_ratio": {"vpt_mode": "Residual Ratio Tracking"}}
+    scattering = {**{k: ("Volumetric Path Tracer", v) for k, v in vpt_paths.items()},
+                  "density_map": ("Line Density Map Renderer", {}),
+                  "heatmap": ("Spherical Heat Map Renderer", {})}
     paths = ("opaque", "prism", "triangle", "rtao", "wavefront", "recast", "mlat", *oit_paths,
              "opacity_optimization", "rtao_registry", "surface", *scattering, "vrc", "multivar",
              *BASELINE_CONFIGS)
@@ -239,7 +244,7 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     W, H = 1920, 1080
-    n = 4 if path in ("rtao", "wavefront", "recast", "mlat", "rtao_registry", "vpt",
+    n = 4 if path in ("rtao", "wavefront", "recast", "mlat", "rtao_registry", *vpt_paths,
                       "heatmap") else 8
     base = Camera(position=(0.0, 0.1, 1.2), width=W, height=H)
     cams = [base.orbit(0.002 * (i + 1), 0.1, 1.2) for i in range(n + 2)]
@@ -278,14 +283,15 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
             return registry.render(camera)
     elif path in scattering:
         scene = scattering_line_data(dev)
-        registry = create_renderer(scattering[path], device=dev)
+        name, settings = scattering[path]
+        registry = create_renderer(name, SettingsMap(settings) if settings else None, device=dev)
         registry.set_line_data(scene)
         look = Camera(position=(0.0, 0.15, 0.9), look_at_point=(0.0, 0.0, 0.0), width=W, height=H)
         if path == "density_map":  # from the side the traced paths enter
             cams = [Camera(position=(-0.6 + 0.002 * i, -0.45, -0.55), width=W, height=H)
                     for i in range(n + 2)]
         else:  # the path tracer accumulates at one camera; the map takes its height
-            cams = [look if path == "vpt" else Camera(width=2 * H, height=H)] * (n + 2)
+            cams = [look if path in vpt_paths else Camera(width=2 * H, height=H)] * (n + 2)
 
         def render(_scene, camera):
             return registry.render(camera)

@@ -35,6 +35,7 @@ KERNELS = (
     "raster_capsule", "raster_capsule_oit", "raster_capsule_accum", "raster_prism",
     "raster_triangle", "ao_grid", "bvh_wavefront", "bvh_closest_hit", "bvh_mlat",
     "vpt_tracking", "density_march", "spherical_heatmap", "threefry_uniform",
+    "vpt_decomposition", "vpt_residual_ratio",
 )
 
 NVCC_FLAGS = (

@@ -163,6 +163,38 @@ __device__ __forceinline__ float trilinear_bricked(const float* __restrict__ g, 
   return sample_cell_bricked(g, nyb, nxb, vol_cell(nz, ny, nx, px, py, pz));
 }
 
+// A block-sparse grid (`scene/sparse_grid.py:SparseGrid`): `bricks` [n + 1,
+// b + 1, b + 1, b + 1] with a one-voxel apron on the high side, `table`
+// [Zb, Yb, Xb] int32 the brick of each block (0: the all-zero brick).
+struct SparseBricks {
+  const float* bricks;
+  const int* table;
+  int block, nyb, nxb;
+};
+
+// `SparseGrid.sample`'s loads and arithmetic on cell c: the brick of the
+// cell's first voxel holds the whole stencil (its apron), and the lerps are
+// `sample_cell`'s, so the value is the dense grid's.
+__device__ __forceinline__ float sample_cell_sparse(const SparseBricks& g, const VolCell& c) {
+  const int b = g.block, b1 = g.block + 1;
+  const int bi = __ldg(g.table + ((long long)(c.z0 / b) * g.nyb + c.y0 / b) * g.nxb + c.x0 / b);
+  const long long sy = b1, sz = (long long)b1 * b1;
+  const float* p = g.bricks + (long long)bi * sz * b1 + (c.z0 % b) * sz + (c.y0 % b) * sy + c.x0 % b;
+  const float c00 = __ldg(p) * (1.0f - c.tx) + __ldg(p + 1) * c.tx;
+  const float c01 = __ldg(p + sy) * (1.0f - c.tx) + __ldg(p + sy + 1) * c.tx;
+  const float c10 = __ldg(p + sz) * (1.0f - c.tx) + __ldg(p + sz + 1) * c.tx;
+  const float c11 = __ldg(p + sz + sy) * (1.0f - c.tx) + __ldg(p + sz + sy + 1) * c.tx;
+  const float c0 = c00 * (1.0f - c.ty) + c01 * c.ty;
+  const float c1 = c10 * (1.0f - c.ty) + c11 * c.ty;
+  return c0 * (1.0f - c.tz) + c1 * c.tz;
+}
+
+// `SparseGrid.sample` at p in [0, 1]^3 of a grid of [nz, ny, nx] voxels.
+__device__ __forceinline__ float trilinear_sparse(const SparseBricks& g, int nz, int ny, int nx,
+                                                  float px, float py, float pz) {
+  return sample_cell_sparse(g, vol_cell(nz, ny, nx, px, py, pz));
+}
+
 __device__ __forceinline__ float smoothstep_f(float e0, float e1, float span, float x) {
   const float t = fminf(fmaxf((x - e0) / span, 0.0f), 1.0f);
   return t * t * (3.0f - 2.0f * t);

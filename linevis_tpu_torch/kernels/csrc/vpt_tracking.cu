@@ -43,7 +43,9 @@
 //    cache lines, and a ray's next samples mostly the same ones.
 // Each ray still runs in one thread, keyed and written by its own index,
 // with the plain version's operations in its order, so the result does not
-// depend on the schedule.
+// depend on the schedule. A `scene/sparse_grid.py:SparseGrid` (template
+// SPARSE) is read as `SparseGrid.sample` reads it: the block's brick from
+// the table, then the sample's eight voxels from that brick and its apron.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,29 +77,50 @@ struct VptPrm {
   float inv[4];
 };
 
+// Nearest and Stochastic interpolation's point q: tp snapped to the nearest
+// voxel centre, after Stochastic's jitter (uniform(k4, (3,)) - 0.5 voxels).
 template <int INTERP>
-__device__ __forceinline__ float density_at(const float* __restrict__ grid, int nz, int ny, int nx,
-                                            const float* tp, uint2 k) {
-  if (INTERP == INTERP_TRILINEAR) return trilinear_bricked(grid, nz, ny, nx, tp[0], tp[1], tp[2]);
+__device__ __forceinline__ void snap_point(int nz, int ny, int nx, const float* tp, uint2 k,
+                                           float* q) {
   const float res[3] = {(float)(nx - 1), (float)(ny - 1), (float)(nz - 1)};
-  float q[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     float f = fminf(fmaxf(tp[i], 0.0f), 1.0f) * res[i];
     if (INTERP == INTERP_STOCHASTIC) f = f + tf_uniform(tf_split(k, 3), (uint32_t)i) - 0.5f;
     q[i] = rintf(fminf(fmaxf(f, 0.0f), res[i])) / fmaxf(res[i], 1.0f);
   }
+}
+
+template <int INTERP>
+__device__ __forceinline__ float density_at(const float* __restrict__ grid, int nz, int ny, int nx,
+                                            const float* tp, uint2 k) {
+  if (INTERP == INTERP_TRILINEAR) return trilinear_bricked(grid, nz, ny, nx, tp[0], tp[1], tp[2]);
+  float q[3];
+  snap_point<INTERP>(nz, ny, nx, tp, k, q);
   return trilinear_bricked(grid, nz, ny, nx, q[0], q[1], q[2]);
+}
+
+// `density_at` on a block-sparse grid (`SparseGrid.sample`).
+template <int INTERP>
+__device__ __forceinline__ float density_at_sparse(const SparseBricks& grid, int nz, int ny,
+                                                   int nx, const float* tp, uint2 k) {
+  if (INTERP == INTERP_TRILINEAR) return trilinear_sparse(grid, nz, ny, nx, tp[0], tp[1], tp[2]);
+  float q[3];
+  snap_point<INTERP>(nz, ny, nx, tp, k, q);
+  return trilinear_sparse(grid, nz, ny, nx, q[0], q[1], q[2]);
 }
 
 // At least 4 resident blocks an SM: at most 128 registers, which the
 // persistent loop's state takes without spilling (`kernel_split.py`).
 // POW2: the majorant and the box's extents are powers of two, so dividing
 // by them is multiplying by their reciprocals, bit for bit (both round the
-// same real once), without the IEEE division's slow-path branch.
-template <int MODE, int INTERP, bool POW2>
+// same real once), without the IEEE division's slow-path branch. SPARSE:
+// the grid is a `SparseGrid`'s bricks and `table` (block `block`); else
+// `grid_bricks` of the dense grid.
+template <int MODE, int INTERP, bool POW2, bool SPARSE>
 __global__ void __launch_bounds__(VPT_THREADS, 4)
-vpt_kernel(const float* __restrict__ grid, int nz, int ny, int nx,
+vpt_kernel(const float* __restrict__ grid, const int* __restrict__ table, int block, int nz,
+           int ny, int nx,
            const float* __restrict__ origins, const float* __restrict__ dirs,
            const uint2* __restrict__ kt, int first, int N, int max_events,
            const __grid_constant__ VptPrm P,
@@ -109,6 +132,8 @@ vpt_kernel(const float* __restrict__ grid, int nz, int ny, int nx,
   const float maj = P.v[P_MAJ];
   const Phase pc{(int)P.v[P_ISO], P.v[P_OMG2], P.v[P_OMG], P.v[P_TWOG], P.v[P_HALFG], P.v[P_OPG2]};
   const uint2 ktv = *kt;
+  const SparseBricks sgrid{grid, table, block, (ny + block - 1) / max(block, 1),
+                           (nx + block - 1) / max(block, 1)};
   const int lane = threadIdx.x & 31;
   const unsigned lt = (1u << lane) - 1u;
   // The warp's claimed indices [pool, pool_end), the same in every lane;
@@ -203,7 +228,8 @@ vpt_kernel(const float* __restrict__ grid, int nz, int ny, int nx,
         float tp[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) tp[c] = POW2 ? rel[c] * P.inv[1 + c] : rel[c] / extent[c];
-        const float dens = density_at<INTERP>(grid, nz, ny, nx, tp, kk);
+        const float dens = SPARSE ? density_at_sparse<INTERP>(sgrid, nz, ny, nx, tp, kk)
+                                  : density_at<INTERP>(grid, nz, ny, nx, tp, kk);
         float sa[3], ss[3], sn[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
@@ -271,23 +297,31 @@ vpt_kernel(const float* __restrict__ grid, int nz, int ny, int nx,
   }
 }
 
-template <int MODE, bool POW2>
+template <int MODE, bool POW2, bool SPARSE>
 static const void* vpt_instance_of(int interp) {
-  if (interp == INTERP_TRILINEAR) return (const void*)vpt_kernel<MODE, INTERP_TRILINEAR, POW2>;
-  if (interp == INTERP_NEAREST) return (const void*)vpt_kernel<MODE, INTERP_NEAREST, POW2>;
-  return (const void*)vpt_kernel<MODE, INTERP_STOCHASTIC, POW2>;
+  if (interp == INTERP_TRILINEAR)
+    return (const void*)vpt_kernel<MODE, INTERP_TRILINEAR, POW2, SPARSE>;
+  if (interp == INTERP_NEAREST) return (const void*)vpt_kernel<MODE, INTERP_NEAREST, POW2, SPARSE>;
+  return (const void*)vpt_kernel<MODE, INTERP_STOCHASTIC, POW2, SPARSE>;
 }
 
-// The instance of (mode, interp, pow2).
-template <bool POW2>
+// The instance of (mode, interp, pow2, sparse).
+template <bool POW2, bool SPARSE>
 static const void* vpt_instance(int mode, int interp) {
-  if (mode == MODE_DELTA) return vpt_instance_of<MODE_DELTA, POW2>(interp);
-  if (mode == MODE_SPECTRAL) return vpt_instance_of<MODE_SPECTRAL, POW2>(interp);
-  return vpt_instance_of<MODE_RATIO, POW2>(interp);
+  if (mode == MODE_DELTA) return vpt_instance_of<MODE_DELTA, POW2, SPARSE>(interp);
+  if (mode == MODE_SPECTRAL) return vpt_instance_of<MODE_SPECTRAL, POW2, SPARSE>(interp);
+  return vpt_instance_of<MODE_RATIO, POW2, SPARSE>(interp);
 }
 
+// The dense grid's instances.
 static const void* vpt_instance(int mode, int interp, bool pow2) {
-  return pow2 ? vpt_instance<true>(mode, interp) : vpt_instance<false>(mode, interp);
+  return pow2 ? vpt_instance<true, false>(mode, interp) : vpt_instance<false, false>(mode, interp);
+}
+
+// A SparseGrid's instances divide (no POW2 instances: a power of two's
+// reciprocal rounds as the division does, so these give the same result).
+static const void* vpt_sparse_instance(int mode, int interp) {
+  return vpt_instance<false, true>(mode, interp);
 }
 
 // x is a power of two whose reciprocal is a normal float.
@@ -297,7 +331,9 @@ static bool power_of_two(float x) {
 }
 
 // Trace N rays on `stream`: grid the [nz, ny, nx] float32 grid in bricks
-// (`kernels/volume_common.py:grid_bricks`), origins and dirs
+// (`kernels/volume_common.py:grid_bricks`) where `table` is null, else a
+// `SparseGrid`'s bricks of `block`^3 voxels (and their apron) and its table
+// of [ceil(nz / block), ceil(ny / block), ceil(nx / block)] brick indices; origins and dirs
 // [N, 3], kt the trace's key (k0, k1) as two uint32 words on the device,
 // of which ray i takes split(kt, .)[first + i], prm the P_COUNT parameters
 // (host memory, passed by value), env
@@ -307,7 +343,8 @@ static bool power_of_two(float x) {
 // 0/1/2: Trilinear, Nearest, Stochastic. `next`, one int on the device that
 // the caller zeroes, counts the rays taken. The grid holds as many blocks
 // as the card keeps resident, fewer where N needs fewer.
-extern "C" int vpt_tracking_launch(const float* grid, int nz, int ny, int nx, const float* origins,
+extern "C" int vpt_tracking_launch(const float* grid, const int* table, int block, int nz, int ny,
+                                   int nx, const float* origins,
                                    const float* dirs, const unsigned int* kt, int first, int N,
                                    int max_events, int mode, int interp, const float* prm,
                                    const float* env, int he, int we, float* radiance,
@@ -315,12 +352,13 @@ extern "C" int vpt_tracking_launch(const float* grid, int nz, int ny, int nx, co
                                    int* scatters, int* next, void* stream) {
   if (nz < 2 || ny < 2 || nx < 2 || N < 0 || N > (1 << 30) || first < 0 || max_events < 0 ||
       mode < 0 || mode > 2 || interp < 0 || interp > 2 || (env != nullptr && (he < 1 || we < 1)) ||
-      next == nullptr)
+      next == nullptr || (table != nullptr && block < 1))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaGetLastError();
   const bool pow2 = power_of_two(prm[P_MAJ]) && power_of_two(prm[P_EXTENT]) &&
                     power_of_two(prm[P_EXTENT + 1]) && power_of_two(prm[P_EXTENT + 2]);
   const void* f = vpt_instance(mode, interp, pow2);
+  if (table != nullptr) f = vpt_sparse_instance(mode, interp);
   int dev = 0, n_sm = 0, per_sm = 0;
   int e = (int)cudaGetDevice(&dev);
   if (!e) e = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
@@ -332,7 +370,7 @@ extern "C" int vpt_tracking_launch(const float* grid, int nz, int ny, int nx, co
   memcpy(P.v, prm, sizeof(P.v));
   P.inv[0] = 1.0f / prm[P_MAJ];
   for (int c = 0; c < 3; ++c) P.inv[1 + c] = 1.0f / prm[P_EXTENT + c];
-  void* args[] = {(void*)&grid, (void*)&nz, (void*)&ny, (void*)&nx, (void*)&origins,
+  void* args[] = {(void*)&grid, (void*)&table, (void*)&block, (void*)&nz, (void*)&ny, (void*)&nx, (void*)&origins,
                   (void*)&dirs, (void*)&k, (void*)&first, (void*)&N, (void*)&max_events,
                   (void*)&P, (void*)&env, (void*)&he, (void*)&we, (void*)&radiance,
                   (void*)&first_x, (void*)&first_has, (void*)&events, (void*)&scatters,
@@ -341,12 +379,13 @@ extern "C" int vpt_tracking_launch(const float* grid, int nz, int ny, int nx, co
   return e ? e : (int)cudaGetLastError();
 }
 
-// The 18 instances' resources (i = 9 pow2 + 3 mode + interp): v =
-// (registers, local bytes, static shared bytes, resident blocks per SM,
-// threads, 0), `label` its name.
+// The 27 instances' resources (i = 9 pow2 + 3 mode + interp, then the 9
+// sparse ones at 18 + 3 mode + interp): v = (registers, local bytes, static
+// shared bytes, resident blocks per SM, threads, 0), `label` its name.
 extern "C" int kernel_info(int i, int* v, char* label, int cap) {
-  if (i < 0 || i > 17) return (int)cudaErrorInvalidValue;
-  const void* f = vpt_instance(i % 9 / 3, i % 3, i >= 9);
+  if (i < 0 || i > 26) return (int)cudaErrorInvalidValue;
+  const void* f = i >= 18 ? vpt_sparse_instance(i % 9 / 3, i % 3)
+                          : vpt_instance(i % 9 / 3, i % 3, i >= 9);
   cudaFuncAttributes at;
   int e = (int)cudaFuncGetAttributes(&at, f);
   int nb = 0;
@@ -363,7 +402,8 @@ extern "C" int kernel_info(int i, int* v, char* label, int cap) {
   int n = 0;
   for (const char* q = modes[i % 9 / 3]; *q && n < cap - 1; ++q) label[n++] = *q;
   for (const char* q = interps[i % 3]; *q && n < cap - 1; ++q) label[n++] = *q;
-  for (const char* q = i >= 9 ? " pow2" : ""; *q && n < cap - 1; ++q) label[n++] = *q;
+  for (const char* q = i >= 18 ? " sparse" : (i >= 9 ? " pow2" : ""); *q && n < cap - 1; ++q)
+    label[n++] = *q;
   label[n] = 0;
   return 0;
 }

@@ -12,7 +12,8 @@ on a CPU tensor it runs the plain version, `vpt_tracking_reference`, a
 lockstep loop over the events on the rays still alive. Both draw every
 sample from jax.random's stream (`ops/threefry.py`, `csrc/threefry.cuh`)
 and round every operation alike (`volume_common`), so they agree bit for
-bit on the card.
+bit on the card. The grid may be dense or a block-sparse `SparseGrid`,
+which the kernel reads through its table as `SparseGrid.sample` does.
 """
 
 from __future__ import annotations
@@ -208,7 +209,7 @@ def _launcher(name):
     lib = _build.load("vpt_tracking")
     if name == "vpt":
         fn = lib.vpt_tracking_launch
-        fn.argtypes = [p, i, i, i, p, p, p, i, i, i, i, i, p, p, i, i, p, p, p, p, p, p, p]
+        fn.argtypes = [p, p, i, i, i, i, p, p, p, i, i, i, i, i, p, p, i, i, p, p, p, p, p, p, p]
     else:
         fn = lib.threefry_launch
         fn.argtypes = [p, i, i, ctypes.c_uint, p, p]
@@ -216,7 +217,7 @@ def _launcher(name):
     return fn
 
 
-def vpt_tracking(grid: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
+def vpt_tracking(grid, origins: torch.Tensor, dirs: torch.Tensor,
                  key: torch.Tensor, p: VptParams, env: Optional[torch.Tensor] = None,
                  events: Optional[torch.Tensor] = None, first: int = 0,
                  scatters: Optional[torch.Tensor] = None):
@@ -224,7 +225,9 @@ def vpt_tracking(grid: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
     scatter position [N, 3], first scatter flag [N] bool).
 
     grid [Z, Y, X] float32 (dense; the kernel reads `grid_bricks(grid)`,
-    made at its first launch on the grid), origins and dirs [N, 3] float32
+    made at its first launch on the grid) or a `scene/sparse_grid.py:
+    SparseGrid` (the kernel reads its bricks through its table, as
+    `SparseGrid.sample` does), origins and dirs [N, 3] float32
     (unit dirs), key [2] int64: the trace's threefry key `kt`, of which ray i
     takes `split(kt, .)[first + i]` (as `vpt_trace_rays` keys its rays;
     `first` lets a call trace a slice of a larger set), `p` from
@@ -240,8 +243,17 @@ def vpt_tracking(grid: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
         raise ValueError(f"vpt_tracking: unsupported device {origins.device}")
     dev = origins.device
     N = origins.shape[0]
-    if grid.dim() != 3 or grid.dtype != torch.float32 or grid.device != dev:
+    sparse = hasattr(grid, "table")
+    if sparse:
+        if (grid.bricks.dtype != torch.float32 or grid.bricks.device != dev
+                or grid.table.dtype != torch.int32 or grid.table.device != dev):
+            raise ValueError("a SparseGrid's float32 bricks and int32 table must be on the rays' "
+                             "device")
+        g, table, block = grid.bricks.contiguous(), grid.table.contiguous(), int(grid.block)
+    elif grid.dim() != 3 or grid.dtype != torch.float32 or grid.device != dev:
         raise ValueError("grid must be a dense float32 [Z, Y, X] tensor on the rays' device")
+    else:
+        g, table, block = grid_bricks(grid), None, 0
     for name, x, dt, shape in (("origins", origins, torch.float32, (N, 3)),
                                ("dirs", dirs, torch.float32, (N, 3)),
                                ("key", key, torch.int64, (2,))):
@@ -249,7 +261,6 @@ def vpt_tracking(grid: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
             raise ValueError(f"{name} must be {dt} {shape} on {dev}")
     if env is not None and (env.dim() != 3 or env.shape[2] != 3 or env.device != dev):
         raise ValueError("env must be a [He, We, 3] tensor on the rays' device")
-    g = grid_bricks(grid)
     ins = [origins.contiguous(), dirs.contiguous(), key.to(torch.int32).contiguous()]
     prm = p.array()  # host memory: the launch passes it by value
     envc = None if env is None else env.float().contiguous()
@@ -261,7 +272,8 @@ def vpt_tracking(grid: torch.Tensor, origins: torch.Tensor, dirs: torch.Tensor,
     nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the kernel's ray counter
     with torch.cuda.device(dev):
         rc = _launcher("vpt")(
-            g.data_ptr(), *grid.shape, *(x.data_ptr() for x in ins), first,
+            g.data_ptr(), None if table is None else table.data_ptr(), block,
+            *(int(n) for n in grid.shape), *(x.data_ptr() for x in ins), first,
             N, p.max_events, SCAN_MODES.index(p.mode), INTERPOLATIONS.index(p.interpolation),
             prm.ctypes.data, None if envc is None else envc.data_ptr(),
             0 if envc is None else envc.shape[0], 0 if envc is None else envc.shape[1],

@@ -11,11 +11,18 @@ voxels with an Amanatides-Woo DDA and in each estimates T = T_c T_r: the
 control part analytic, exp(-mu_c d), only the residual tracked.
 
 The JAX package runs the DDA as a `lax.scan` and each segment's estimator as
-a `lax.while_loop`, vmapped over the rays. Here both are lockstep loops in
-plain PyTorch over the rays still inside (the DDA) and those still short of
-their segment's end (the estimator), on the rays' device; a ray outside
-keeps its state, which is all the JAX loops do with it too. Every sample
-comes from jax.random's stream (`ops/threefry.py`), keyed as there.
+a `lax.while_loop`, vmapped over the rays. Here `make_residual_ratio_tracer`
+and `_rr_segments` are the plain versions of kernel R8
+(`kernels/vpt_residual_ratio.py`): lockstep loops in plain PyTorch over the
+rays still inside (the DDA) and those still short of their segment's end
+(the estimator); a ray outside keeps its state, which is all the JAX loops
+do with it too. `residual_ratio_transmittance` launches R8 on a CUDA tensor
+and runs them on a CPU tensor. Every sample comes from jax.random's stream
+(`ops/threefry.py`), keyed as there.
+
+The path tracer builds a grid's super voxels once (`super_voxel_minmax_of`,
+`super_voxel_grid_of`) and keeps them on the grid tensor with its version,
+as `grid_bricks` keeps the bricks.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ __all__ = [
     "build_super_voxel_minmax",
     "make_residual_ratio_tracer",
     "residual_ratio_transmittance",
+    "super_voxel_grid_of",
+    "super_voxel_minmax_of",
 ]
 
 
@@ -102,13 +111,39 @@ def build_super_voxel_grid(grid: torch.Tensor, extinction: float, size: int = 8)
                           size=int(size))
 
 
+def _kept_on(grid: torch.Tensor, key, build):
+    """`build()`, kept on the grid tensor under `key` with the grid's
+    version (built again once the grid changes)."""
+    kept = getattr(grid, "_super_voxels", None)
+    if kept is None or kept[0] != grid._version:
+        kept = (grid._version, {})
+        grid._super_voxels = kept
+    if key not in kept[1]:
+        kept[1][key] = build()
+    return kept[1][key]
+
+
+def super_voxel_minmax_of(grid: torch.Tensor, size: int = 8):
+    """`build_super_voxel_minmax(grid, size)`, built once per grid."""
+    return _kept_on(grid, ("minmax", int(size)), lambda: build_super_voxel_minmax(grid, size))
+
+
+def super_voxel_grid_of(grid: torch.Tensor, extinction: float, size: int = 8) -> SuperVoxelGrid:
+    """`build_super_voxel_grid(grid, extinction, size)`, built once per grid
+    and extinction."""
+    ext = float(np.float32(extinction))
+    return _kept_on(grid, ("grid", ext, int(size)),
+                    lambda: build_super_voxel_grid(grid, ext, size))
+
+
 def _rr_segments(keys, grid, b_min, extent, extinction, x0, w, d_seg, mu_c, mu_r_bar, max_steps,
-                 T_in, t_base, scat_albedo, res):
+                 T_in, t_base, scat_albedo, res, steps=None):
     """The residual ratio estimator over one super-voxel segment of length
     d_seg for a batch of rays (ResidualRatioTracking.glsl:34-83), with the
     reservoir of candidate scatter locations (weight T_local Ps, RTG2 ch.
     22) carried as (weight sum, T at the sample, distance). Returns (keys,
-    T_c T_r, reservoir)."""
+    T_c T_r, reservoir); `steps`, an int32 [n] tensor, gains each ray's
+    steps."""
     r_wsum, r_T, r_dist = (r.clone() for r in res)
     keys = keys.clone()
     n = keys.shape[0]
@@ -120,6 +155,8 @@ def _rr_segments(keys, grid, b_min, extent, extinction, x0, w, d_seg, mu_c, mu_r
     for _ in range(max_steps):
         if live.numel() == 0:
             break
+        if steps is not None:
+            steps[live] += 1
         ks = threefry.split(keys[live], 3)
         keys[live] = ks[:, 0]
         u = threefry.uniform_at(ks[:, 1:])
@@ -147,11 +184,13 @@ def _rr_segments(keys, grid, b_min, extent, extinction, x0, w, d_seg, mu_c, mu_r
 
 def make_residual_ratio_tracer(grid: torch.Tensor, sv: SuperVoxelGrid, extinction, scat_albedo,
                                max_sv_steps: int = 64, max_steps_per_sv: int = 256):
-    """Build `trace(keys [n, 2], x0, w) -> (T [n], reservoir, x_entry)` (x0,
-    w (x, y, z) tuples of [n] tensors): the super-voxel DDA
+    """Build `trace(keys [n, 2], x0, w, counts=None) -> (T [n], reservoir,
+    x_entry)` (x0, w (x, y, z) tuples of [n] tensors): the super-voxel DDA
     (ResidualRatioTracking.glsl:124-210) estimating the whole-segment
     transmittance while reservoir-sampling a scatter location; `reservoir`
-    = (weight sum, T at the sample, distance from x_entry)."""
+    = (weight sum, T at the sample, distance from x_entry). `counts`, an
+    int32 [n, 2] tensor, gains each ray's DDA steps inside the grid and its
+    residual steps. The plain version of kernel R8's DDA."""
     f = np.float32
     b_min_np, b_max_np = grid_box(grid.shape)
     extent_np = b_max_np - b_min_np
@@ -166,7 +205,7 @@ def make_residual_ratio_tracer(grid: torch.Tensor, sv: SuperVoxelGrid, extinctio
     alb = float(f(scat_albedo))
     grid = grid.float()
 
-    def trace(keys, x0, w):
+    def trace(keys, x0, w, counts=None):
         n = keys.shape[0]
         dev = keys.device
         t_min, t_max, hit = box_intersect(b_min, b_max, x0, w)
@@ -197,6 +236,8 @@ def make_residual_ratio_tracer(grid: torch.Tensor, sv: SuperVoxelGrid, extinctio
                 inside = inside & (idx[i] >= 0) & (idx[i] < sv_n[i])
             if not bool(inside.any()):
                 break
+            if counts is not None:
+                counts[:, 0] += inside.to(torch.int32)
             t_next = torch.minimum(torch.minimum(torch.minimum(t_max3[0], t_max3[1]), t_max3[2]),
                                    d_total)
             d_seg = torch.clamp(t_next - t_cur, min=0.0)
@@ -207,9 +248,13 @@ def make_residual_ratio_tracer(grid: torch.Tensor, sv: SuperVoxelGrid, extinctio
                 mu_r = sv.mu_r_bar[ix[2], ix[1], ix[0]]
                 tc = t_cur[ok]
                 xs = tuple(x_entry[i][ok] + w[i][ok] * tc for i in range(3))
+                seg_steps = None if counts is None else torch.zeros_like(ok, dtype=torch.int32)
                 k_new, T_seg, r_new = _rr_segments(
                     keys[ok], grid, b_min, extent, ext, xs, tuple(c[ok] for c in w), d_seg[ok],
-                    mu_c, mu_r, max_steps_per_sv, T[ok], tc, alb, tuple(r[ok] for r in res))
+                    mu_c, mu_r, max_steps_per_sv, T[ok], tc, alb, tuple(r[ok] for r in res),
+                    seg_steps)
+                if counts is not None:
+                    counts[ok, 1] += seg_steps
                 keys[ok] = k_new
                 T[ok] = T[ok] * T_seg
                 for r, rn in zip(res, r_new):
@@ -241,7 +286,11 @@ def residual_ratio_transmittance(
     max_steps_per_sv: int = 256,
 ) -> torch.Tensor:
     """Unbiased whole-volume transmittance per ray -> [N]
-    (ResidualRatioTracking.glsl:34-83 over a DDA of super voxels)."""
-    trace = make_residual_ratio_tracer(grid, sv, extinction, 0.0, max_sv_steps, max_steps_per_sv)
-    keys = threefry.split(key.to(origins.device), origins.shape[0])
-    return trace(keys, origins.unbind(1), directions.unbind(1))[0]
+    (ResidualRatioTracking.glsl:34-83 over a DDA of super voxels): kernel
+    R8's transmittance on a CUDA tensor, its plain version on a CPU one."""
+    from linevis_tpu_torch.kernels.vpt_residual_ratio import rr_params, rr_transmittance
+
+    p = rr_params(grid.shape, sv.mu_c.shape, extinction, 0.0, max_sv_steps=max_sv_steps,
+                  max_steps_per_sv=max_steps_per_sv)
+    return rr_transmittance(grid.float(), sv, origins.float(), directions.float(),
+                            key.to(origins.device), p)

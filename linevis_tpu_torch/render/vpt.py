@@ -10,14 +10,15 @@ and Residual Ratio tracking, the procedural sky and Phong sun
 (`VptUtils.glsl:156-191`) or an environment map, frame accumulation and
 the reference's sun defaults (`VolumetricPathTracingPass.hpp:159-161`).
 
-The three scan modes (Delta, Spectral Delta, Ratio tracking) go through
-kernel R3 (`kernels/vpt_tracking.py`): on the card one launch traces all
-rays of a sample, on the CPU its plain version runs. Decomposition and
-Residual Ratio tracking, and a block-sparse `SparseGrid` input, run their
-plain PyTorch versions on the rays' device. Every sample comes from
-jax.random's stream (`ops/threefry.py`): frame f of the renderer is keyed
-`PRNGKey(f)`, as in the JAX renderer, so the port traces the JAX package's
-paths up to float rounding.
+Each mode is one kernel: the three scan modes (Delta, Spectral Delta, Ratio
+tracking) R3 (`kernels/vpt_tracking.py`), on a dense grid or a block-sparse
+`SparseGrid`; Decomposition tracking R7 (`kernels/vpt_decomposition.py`);
+Residual Ratio tracking R8 (`kernels/vpt_residual_ratio.py`). On the card
+one launch traces all rays of a sample; on the CPU each kernel's plain
+version runs. Every sample comes from jax.random's stream
+(`ops/threefry.py`): frame f of the renderer is keyed `PRNGKey(f)`, as in
+the JAX renderer, so the port traces the JAX package's paths up to float
+rounding.
 """
 
 from __future__ import annotations
@@ -28,22 +29,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from linevis_tpu_torch.kernels.volume_common import (
-    box_intersect,
-    env_map_sample,
-    phase_constants,
-    sample_phase,
-    sky,
-    sky_light,
-    sun_light,
-    trilinear,
-    vdiv,
-)
+from linevis_tpu_torch.kernels.volume_common import sky, sun_light, vdiv
+from linevis_tpu_torch.kernels.vpt_decomposition import decomposition_params, vpt_decomposition
+from linevis_tpu_torch.kernels.vpt_residual_ratio import rr_params, vpt_residual_ratio
 from linevis_tpu_torch.kernels.vpt_tracking import SCAN_MODES, vpt_params, vpt_tracking
-from linevis_tpu_torch.kernels.vpt_tracking import vpt_tracking_reference
 from linevis_tpu_torch.ops import threefry
+from linevis_tpu_torch.render.super_voxel import super_voxel_grid_of, super_voxel_minmax_of
 from linevis_tpu_torch.scene.sparse_grid import SparseGrid
-from linevis_tpu_torch.trace.scattering import grid_box
 
 __all__ = ["VptSettings", "vpt_trace_rays", "render_vpt", "VPT_MODES", "sample_skybox",
            "sample_light", "sun_constants", "primary_rays", "VolumetricPathTracerRenderer"]
@@ -82,13 +74,6 @@ def sample_light(w: torch.Tensor, sun_dir, sun_intensity_color) -> torch.Tensor:
     return torch.stack(sun_light(w.unbind(-1), _f3(sun_dir), _f3(sun_intensity_color)), dim=-1)
 
 
-def _background(env_map, env_intensity, sun_dir, sun_ic):
-    """Radiance of escaping directions (an (x, y, z) tuple)."""
-    if env_map is None:
-        return lambda w: sky_light(w, sun_dir, sun_ic)
-    return lambda w: env_map_sample(env_map, w, env_intensity)
-
-
 def _f3(v) -> Tuple[float, float, float]:
     return tuple(float(x) for x in np.asarray(v, np.float32).reshape(3))
 
@@ -115,8 +100,10 @@ def vpt_trace_rays(
     rays' device. Ray i takes the key `split(key, N)[i]`. With `env_map`,
     escaping rays sample the environment map scaled by `env_intensity`
     (VolumetricPathTracingPass.hpp:169-174) instead of the procedural sky
-    and sun. `events` (int32 [N], scan modes only) receives each ray's
-    events."""
+    and sun. `events` (int32 [N]; not for Residual Ratio tracking) receives
+    each ray's events. Decomposition and Residual Ratio tracking build the
+    grid's super voxels once (`super_voxel_minmax_of`,
+    `super_voxel_grid_of`)."""
     if mode not in VPT_MODES:
         raise ValueError(f"unknown VPT mode {mode!r}")
     dev = origins.device
@@ -126,191 +113,24 @@ def vpt_trace_rays(
         raise NotImplementedError(f"{mode} needs the dense grid (min/max reductions)")
     ext = np.asarray(extinction, np.float32)
     alb = np.asarray(albedo, np.float32)
+    env = None if env_map is None else env_map.float()
+    o, d = origins.float(), directions.float()
     if mode in SCAN_MODES:
         p = vpt_params(grid.shape, ext, alb, sun_dir, sun_ic, phase_g, mode, max_events,
                        interpolation, env_intensity)
-        env = None if env_map is None else env_map.float()
-        trace = vpt_tracking_reference if sparse else vpt_tracking
-        return trace(grid if sparse else grid.float(), origins.float(), directions.float(),
-                     key, p, env, events)
-    keys = threefry.split(key, origins.shape[0])
-    bg = _background(env_map, float(np.float32(env_intensity)), _f3(sun_dir), _f3(sun_ic))
+        return vpt_tracking(grid if sparse else grid.float(), o, d, key, p, env, events)
+    grid = grid.float()
     if mode == "Decomposition Tracking":
-        return _decomposition_trace(keys, grid.float(), origins, directions, ext, alb, bg,
-                                    phase_g, max_events, super_voxel_size)
-    return _residual_ratio_trace(keys, grid.float(), origins, directions, ext, alb, bg, phase_g,
-                                 super_voxel_size)
-
-
-def _residual_ratio_trace(keys, grid, origins, directions, extinction, albedo, bg_fn, phase_g,
-                          super_voxel_size):
-    """Residual ratio tracking (ResidualRatioTracking.glsl:85-239; Novák et
-    al. 2014): per bounce, a super-voxel DDA multiplies analytic-control x
-    tracked-residual transmittance along the whole ray while
-    reservoir-sampling one scatter location weighted by T sigma_s; the sky
-    seen through the whole ray is added with its transmittance at every
-    bounce, then the walk restarts from the reservoir sample, at most 10
-    bounces (glsl:216). A lockstep loop over the bounces of the rays not yet
-    done."""
-    from linevis_tpu_torch.render.super_voxel import (
-        build_super_voxel_grid,
-        make_residual_ratio_tracer,
-    )
-
-    sv = build_super_voxel_grid(grid, extinction[0], super_voxel_size)
-    tracer = make_residual_ratio_tracer(grid, sv, extinction[0], albedo[0])
-    pc = phase_constants(float(phase_g))
-    max_iterations = 10
-    N = origins.shape[0]
-    dev = origins.device
-    x = origins.float().clone()
-    w = directions.float().clone()
-    T = torch.ones(N, dtype=torch.float32, device=dev)
-    acc = torch.zeros((N, 3), dtype=torch.float32, device=dev)
-    first_x = torch.zeros((N, 3), dtype=torch.float32, device=dev)
-    first_has = torch.zeros(N, dtype=torch.bool, device=dev)
-    keys = keys.clone()
-    live = torch.arange(N, device=dev)
-    for it in range(max_iterations + 1):
-        if live.numel() == 0:
-            break
-        ks = threefry.split(keys[live], 4)
-        keys[live] = ks[:, 0]
-        xs, ws = x[live].unbind(1), w[live].unbind(1)
-        T_seg, (r_wsum, r_T, r_dist), x_entry = tracer(ks[:, 1], xs, ws)
-        T_new = T[live] * T_seg
-        xi = threefry.uniform_at(ks[:, 2])
-        stop = (xi > r_wsum) | (it >= max_iterations)
-        bg = bg_fn(ws)
-        acc[live] = torch.stack([acc[live, c] + T_new * bg[c] for c in range(3)], 1)
-        x_scat = torch.stack([x_entry[i] + ws[i] * r_dist for i in range(3)], 1)
-        record = (~stop) & (~first_has[live])
-        first_x[live[record]] = x_scat[record]
-        first_has[live[record]] = True
-        T[live] = torch.where(stop, T_new, r_T)
-        go = torch.nonzero(~stop).reshape(-1)
-        if go.numel():
-            up = threefry.uniform_at(threefry.split(ks[go, 3], 2))
-            wn = sample_phase(up[:, 0], up[:, 1], pc, tuple(c[go] for c in ws))
-            x[live[go]] = x_scat[go]
-            w[live[go]] = torch.stack(wn, 1)
-        live = live[~stop]
-    return acc, first_x, first_has
-
-
-def _decomposition_trace(keys, grid, origins, directions, extinction, albedo, bg_fn, phase_g,
-                         max_events, super_voxel_size=8):
-    """Analog decomposition tracking (Kutz et al. 2017;
-    DecompositionTracking.glsl:35-130): per super voxel, a homogeneous
-    control component mu_c = extinction x min density is tracked
-    analytically; only the residual is sampled, with the local reduced
-    majorant mu_r = extinction x max density - mu_c, and empty super voxels
-    (max < 1e-5) are skipped. Each event either enters a super voxel (draws
-    the control flight, or skips it if empty) or takes one residual
-    collision candidate; a scatter re-enters the same super voxel with the
-    new direction. A lockstep loop over the events of the rays alive."""
-    from linevis_tpu_torch.render.super_voxel import build_super_voxel_minmax
-
-    f = np.float32
-    majorant = float(f(extinction[0]))
-    abs_albedo = float(f(1.0) - f(albedo[0]))
-    pc = phase_constants(float(phase_g))
-    dmin_g, dmax_g = build_super_voxel_minmax(grid, super_voxel_size)
-    Sz, Sy, Sx = dmin_g.shape
-    sv_n = (float(Sx), float(Sy), float(Sz))
-    b_min_np, b_max_np = grid_box(grid.shape)
-    extent_np = b_max_np - b_min_np
-    cell_np = extent_np / np.asarray(sv_n, f)
-    b_min = tuple(float(v) for v in b_min_np)
-    b_max = tuple(float(v) for v in b_max_np)
-    extent = tuple(float(v) for v in extent_np)
-    cell = tuple(float(v) for v in cell_np)
-    N = origins.shape[0]
-    dev = origins.device
-    o, w0 = origins.float().unbind(1), directions.float().unbind(1)
-    t_min, _, hit = box_intersect(b_min, b_max, o, w0)
-    t_in = t_min + 1e-6
-    x = torch.stack([o[i] + w0[i] * t_in for i in range(3)], 1)
-    idx = torch.stack([torch.clamp(torch.floor(vdiv(x[:, i] - b_min[i], cell[i])), 0.0,
-                                   sv_n[i] - 1.0) for i in range(3)], 1)
-    w = directions.float().clone()
-    t_c = torch.zeros(N, dtype=torch.float32, device=dev)
-    t_r = torch.zeros(N, dtype=torch.float32, device=dev)
-    in_sv = torch.zeros(N, dtype=torch.bool, device=dev)
-    absorbed = torch.zeros(N, dtype=torch.bool, device=dev)
-    live = torch.nonzero(hit).reshape(-1)
-    for j in range(max_events):
-        if live.numel() == 0:
-            break
-        ks = threefry.split(threefry.split_at(keys[live], j), 5)
-        u = threefry.uniform_at(ks[:, :4])
-        xs, ws, ids = x[live].unbind(1), w[live].unbind(1), idx[live].unbind(1)
-        tc, tr, isv = t_c[live], t_r[live], in_sv[live]
-        ix = [torch.clamp(ids[i], 0.0, sv_n[i] - 1.0).to(torch.int32).long() for i in range(3)]
-        d_min = dmin_g[ix[2], ix[1], ix[0]]
-        d_max = dmax_g[ix[2], ix[1], ix[0]]
-        mu_c = torch.clamp(majorant * d_min, min=1e-10)
-        mu_r = torch.clamp(majorant * d_max - mu_c, min=1e-10)
-        # The distance to the super voxel's exit face and that face's axis.
-        t_far = []
-        for i in range(3):
-            lo = b_min[i] + ids[i] * cell[i]
-            hi = lo + cell[i]
-            small = torch.abs(ws[i]) < 1e-9
-            safe_w = torch.where(small, torch.full_like(ws[i], 1e-9), ws[i])
-            tf = torch.maximum((lo - xs[i]) / safe_w, (hi - xs[i]) / safe_w)
-            t_far.append(torch.where(small, torch.full_like(tf, 1e30), tf))
-        a0 = (t_far[0] <= t_far[1]) & (t_far[0] <= t_far[2])
-        a1 = (~a0) & (t_far[1] <= t_far[2])
-        axis = [a0, a1, (~a0) & (~a1)]
-        d_seg = torch.clamp(torch.minimum(torch.minimum(t_far[0], t_far[1]), t_far[2]), min=0.0)
-        empty = d_max < 1e-5
-        enter = ~isv
-        t_c0 = -torch.log(torch.clamp(1.0 - u[:, 0], min=1e-10)) / mu_c
-        t_r_new = tr - torch.log(torch.clamp(1.0 - u[:, 1], min=1e-10)) / mu_r
-        seg_done = (tc >= d_seg) & (t_r_new >= d_seg)
-        t_hit = torch.minimum(tc, t_r_new)
-        xh = tuple(xs[i] + ws[i] * t_hit for i in range(3))
-        dens = trilinear(grid, tuple(vdiv(xh[i] - b_min[i], extent[i]) for i in range(3)))
-        control_hit = tc <= t_r_new
-        residual_hit = u[:, 2] * mu_r < majorant * dens - mu_c
-        collision = (~enter) & (~seg_done) & (control_hit | residual_hit)
-        absorb = collision & (u[:, 3] < abs_albedo)
-        scatter = collision & ~absorb
-        advance = (enter & empty) | ((~enter) & seg_done)
-        step = d_seg + 1e-6
-        x_adv = tuple(xs[i] + ws[i] * step for i in range(3))
-        idx_adv = [ids[i] + torch.sign(ws[i]) * axis[i].float() for i in range(3)]
-        out = torch.zeros_like(advance)
-        for i in range(3):
-            out = out | (idx_adv[i] < 0.0) | (idx_adv[i] >= sv_n[i])
-        exited = advance & out
-        x_new = [torch.where(scatter, xh[i], torch.where(advance, x_adv[i], xs[i]))
-                 for i in range(3)]
-        idx_new = [torch.where(advance, idx_adv[i], ids[i]) for i in range(3)]
-        w_new = list(ws)
-        sc = torch.nonzero(scatter).reshape(-1)
-        if sc.numel():
-            up = threefry.uniform_at(threefry.split(ks[sc, 4], 2))
-            wn = sample_phase(up[:, 0], up[:, 1], pc, tuple(c[sc] for c in ws))
-            for i in range(3):
-                w_new[i] = w_new[i].index_put((sc,), wn[i])
-                cell_i = torch.clamp(torch.floor(vdiv(xh[i][sc] - b_min[i], cell[i])), 0.0,
-                                     sv_n[i] - 1.0)
-                idx_new[i] = idx_new[i].index_put((sc,), cell_i)
-        x[live] = torch.stack(x_new, 1)
-        w[live] = torch.stack(w_new, 1)
-        idx[live] = torch.stack(idx_new, 1)
-        in_sv[live] = torch.where(enter, ~empty, ~(seg_done | scatter))
-        t_c[live] = torch.where(enter, t_c0, tc)
-        t_r[live] = torch.where(enter | collision, torch.zeros_like(t_r_new), t_r_new)
-        absorbed[live[absorb]] = True
-        live = live[~absorb & ~exited]
-    bg = bg_fn(w.unbind(1))
-    rad = torch.stack(bg, 1)
-    rad = torch.where(absorbed[:, None], torch.zeros_like(rad), rad)
-    return (rad, torch.zeros((N, 3), dtype=torch.float32, device=dev),
-            torch.zeros(N, dtype=torch.bool, device=dev))
+        dmin_g, dmax_g = super_voxel_minmax_of(grid, super_voxel_size)
+        p = decomposition_params(grid.shape, dmin_g.shape, ext, alb, _f3(sun_dir), _f3(sun_ic),
+                                 phase_g, max_events, env_intensity)
+        return vpt_decomposition(grid, dmin_g, dmax_g, o, d, key, p, env, events)
+    if events is not None:
+        raise ValueError("Residual Ratio tracking counts steps, not events (`vpt_residual_ratio`)")
+    sv = super_voxel_grid_of(grid, ext[0], super_voxel_size)
+    p = rr_params(grid.shape, sv.mu_c.shape, ext, alb, _f3(sun_dir), _f3(sun_ic), phase_g,
+                  env_intensity)
+    return vpt_residual_ratio(grid, sv, o, d, key, p, env)
 
 
 def primary_rays(key: torch.Tensor, ray_origin: torch.Tensor, ray_basis: torch.Tensor,

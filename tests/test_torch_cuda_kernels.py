@@ -26,7 +26,10 @@ volume kernels: the path tracer's tracking (R3) on a 1080p row in each of
 its three modes and each interpolation, and the density march (R4) on a
 whole 1080p frame, bit for bit (every output and per-ray event count); the
 heat map's RBF sum (R5) bit for bit (its plain version adds the directions
-in the kernel's order); the device threefry bit for bit against
+in the kernel's order); R3 on a SparseGrid, decomposition tracking (R7) and
+residual ratio tracking (R8, also its transmittance) bit for bit with their
+plain versions, counts included, and `vpt_trace_rays` on the card with every
+plain version patched to raise; the device threefry bit for bit against
 `ops/threefry.py`, and R6 (`kernels/threefry_uniform.py`) bit for bit
 against `ops/threefry.py:uniform`, also at the folded keys of the sharded
 paths' ranks. One band of 3 at 1080p (`parallel/mesh.py`'s band layout):
@@ -1937,6 +1940,215 @@ def test_render_vpt_launches_once_a_sample(cuda):
     cpu = tvpt.render_vpt(threefry.prng_key(0), grid.cpu(), o.cpu(), basis.cpu(), 64, 48,
                           tvpt.VptSettings(max_events=64), spp=2)
     assert float((img.cpu() - cpu).abs().mean()) <= 2e-3
+
+
+# R3 on a SparseGrid, R7 (decomposition tracking), R8 (residual ratio tracking).
+
+
+def _mixed_rays(cuda, width=480, height=270, row=135):
+    """A row of the blob cloud's frame with every fourth ray turned away
+    from the box (misses)."""
+    origins, dirs, kt, first = _vpt_row(cuda, width, height, row)
+    dirs = dirs.clone()
+    dirs[::4] = -dirs[::4]
+    return origins, dirs.contiguous(), kt, first
+
+
+@pytest.mark.parametrize("interpolation", ["Trilinear", "Nearest", "Stochastic"])
+@pytest.mark.parametrize("mode", ["Delta Tracking", "Spectral Delta Tracking", "Ratio Tracking"])
+def test_vpt_sparse_grid_kernel_matches_plain(cuda, mode, interpolation):
+    """R3 on a SparseGrid (a grid whose sides are not whole blocks, most
+    blocks empty): bit for bit with its plain version on the same SparseGrid
+    and with R3's launch on the dense grid; an environment map for Delta
+    tracking."""
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+    from linevis_tpu_torch.scene.sparse_grid import SparseGrid
+
+    cloud = _blob_cloud()[:37, :45].copy()
+    cloud[cloud < 0.3] = 0.0
+    dense = torch.as_tensor(cloud, device=cuda)
+    origins, dirs, kt, first = _mixed_rays(cuda)
+    ext = (1024.0, 900.0, 800.0) if mode == "Spectral Delta Tracking" else (1024.0,) * 3
+    p = tvt.vpt_params(dense.shape, ext, (0.95, 0.9, 1.0), (0.58, 0.77, 0.27), (2.6, 2.5, 2.3),
+                       0.2, mode, 512, interpolation)
+    env = None
+    if mode == "Delta Tracking":
+        env = torch.as_tensor(np.random.default_rng(3).uniform(0, 2, (16, 32, 3)).astype(
+            np.float32), device=cuda)
+    for block in (8, 5):
+        sg = SparseGrid.from_dense(cloud, block, device=cuda)
+        assert 0 < sg.n_active < int(np.prod(sg.table.shape))
+        ev_k = torch.empty(origins.shape[0], dtype=torch.int32, device=cuda)
+        ev_p = torch.empty_like(ev_k)
+        n0 = tvt.vpt_tracking.launches
+        got = tvt.vpt_tracking(sg, origins, dirs, kt, p, env, events=ev_k, first=first)
+        assert tvt.vpt_tracking.launches == n0 + 1
+        ref = tvt.vpt_tracking_reference(sg, origins, dirs, kt, p, env, events=ev_p, first=first)
+        on_dense = tvt.vpt_tracking(dense, origins, dirs, kt, p, env, first=first)
+        for a, b, c in zip(got, ref, on_dense):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        assert torch.equal(ev_k, ev_p) and int(ev_k.max()) > 10 and not bool(ev_k[::4].any())
+
+
+_DECOMPOSITION_CASES = {
+    "size8": dict(size=8, crop=False, albedo=0.9, g=0.2, env=False, max_events=512),
+    "size4_ragged_env": dict(size=4, crop=True, albedo=0.8, g=0.3, env=True, max_events=512),
+    "size8_ragged_isotropic": dict(size=8, crop=True, albedo=0.95, g=0.0, env=False,
+                                   max_events=512),
+    "event_cap": dict(size=8, crop=False, albedo=0.9, g=0.2, env=False, max_events=6),
+}
+
+
+def _vpt_scene(cuda, case):
+    cloud = _blob_cloud()
+    if case["crop"]:
+        cloud = cloud[:37, :45].copy()  # sides that are not multiples of 4 or 8
+    grid = torch.as_tensor(cloud, device=cuda)
+    env = None
+    if case["env"]:
+        env = torch.as_tensor(np.random.default_rng(3).uniform(0, 2, (16, 32, 3)).astype(
+            np.float32), device=cuda)
+    return grid, env
+
+
+@pytest.mark.parametrize("case", list(_DECOMPOSITION_CASES))
+def test_vpt_decomposition_kernel_matches_plain(cuda, case):
+    """R7 against its plain version on a row with misses, bit for bit, events
+    included: absorption (albedo < 1), Henyey-Greenstein and isotropic
+    phases, an environment map, super voxels of 4 and 8 on a grid whose sides
+    are not multiples of them, and rays stopped at the event cap."""
+    from linevis_tpu_torch.kernels import vpt_decomposition as tvd
+    from linevis_tpu_torch.render.super_voxel import build_super_voxel_minmax
+
+    c = _DECOMPOSITION_CASES[case]
+    grid, env = _vpt_scene(cuda, c)
+    dmin, dmax = build_super_voxel_minmax(grid, c["size"])
+    origins, dirs, kt, first = _mixed_rays(cuda)
+    p = tvd.decomposition_params(grid.shape, dmin.shape, (1024.0,) * 3, (c["albedo"],) * 3,
+                                 (0.58, 0.77, 0.27), (2.6, 2.5, 2.3), c["g"], c["max_events"])
+    ev_k = torch.full((origins.shape[0],), -1, dtype=torch.int32, device=cuda)
+    ev_p = torch.empty_like(ev_k)
+    n0 = tvd.vpt_decomposition.launches
+    got = tvd.vpt_decomposition(grid, dmin, dmax, origins, dirs, kt, p, env, ev_k, first)
+    assert tvd.vpt_decomposition.launches == n0 + 1
+    again = tvd.vpt_decomposition(grid, dmin, dmax, origins, dirs, kt, p, env, first=first)
+    ref = tvd.vpt_decomposition_reference(grid, dmin, dmax, origins, dirs, kt, p, env, ev_p,
+                                          first)
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b) and torch.equal(a, r)
+    assert torch.equal(ev_k, ev_p) and not bool(ev_k[::4].any())
+    absorbed = (got[0] == 0).all(1) & (ev_k > 0)
+    if c["max_events"] < 512:
+        assert int((ev_k == c["max_events"]).sum()) > 10
+    else:
+        assert int(ev_k.max()) > 20 and bool(absorbed.any()) and bool((~absorbed).any())
+
+
+_RR_CASES = {
+    "size8": dict(size=8, crop=False, albedo=0.9, g=0.2, env=False, caps=(10, 64, 256)),
+    "size4_ragged_env": dict(size=4, crop=True, albedo=0.8, g=0.3, env=True,
+                             caps=(10, 64, 256)),
+    "size8_ragged_isotropic": dict(size=8, crop=True, albedo=1.0, g=0.0, env=False,
+                                   caps=(10, 64, 256)),
+    "caps": dict(size=4, crop=False, albedo=0.9, g=0.2, env=False, caps=(1, 5, 3)),
+}
+
+
+@pytest.mark.parametrize("case", list(_RR_CASES))
+def test_vpt_residual_ratio_kernel_matches_plain(cuda, case):
+    """R8 against its plain version on a row with misses, bit for bit, its
+    DDA and residual steps included: albedo < 1, both phases, an environment
+    map, super voxels of 4 and 8 on a ragged grid, and rays cut at the
+    bounce, DDA and segment caps (which change the result); the steps count
+    each ray's bounces, DDA steps and residual steps."""
+    from linevis_tpu_torch.kernels import vpt_residual_ratio as tvr
+    from linevis_tpu_torch.render.super_voxel import build_super_voxel_grid
+
+    c = _RR_CASES[case]
+    grid, env = _vpt_scene(cuda, c)
+    sv = build_super_voxel_grid(grid, 1024.0, c["size"])
+    origins, dirs, kt, first = _mixed_rays(cuda, 240, 135, 67)
+    it, sv_steps, seg_steps = c["caps"]
+
+    def params(*caps):
+        return tvr.rr_params(grid.shape, sv.mu_c.shape, (1024.0,) * 3, (c["albedo"],) * 3,
+                             (0.58, 0.77, 0.27), (2.6, 2.5, 2.3), c["g"], 1.0, *caps)
+
+    p = params(it, sv_steps, seg_steps)
+    st_k = torch.full((origins.shape[0], 3), -1, dtype=torch.int32, device=cuda)
+    st_p = torch.empty_like(st_k)
+    n0 = tvr.vpt_residual_ratio.launches
+    got = tvr.vpt_residual_ratio(grid, sv, origins, dirs, kt, p, env, st_k, first)
+    assert tvr.vpt_residual_ratio.launches == n0 + 1
+    again = tvr.vpt_residual_ratio(grid, sv, origins, dirs, kt, p, env, first=first)
+    ref = tvr.vpt_residual_ratio_reference(grid, sv, origins, dirs, kt, p, env, st_p, first)
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b) and torch.equal(a, r)
+    assert torch.equal(st_k, st_p) and bool(got[2].any()) and int(st_k[:, 2].max()) > 0
+    assert int(st_k[:, 0].min()) >= 1 and int(st_k[:, 0].max()) <= it + 1
+    if it < 10:
+        assert int(st_k[:, 0].max()) == it + 1
+        assert int(st_k[:, 1].max()) <= (it + 1) * sv_steps
+        free = tvr.vpt_residual_ratio(grid, sv, origins, dirs, kt, params(), env, first=first)
+        assert not torch.equal(free[0], got[0])
+
+
+def test_vpt_rr_transmittance_kernel_matches_plain(cuda):
+    """`residual_ratio_transmittance` on the card launches R8 (one DDA,
+    albedo 0), bit for bit with the plain tracer, also at small caps."""
+    from linevis_tpu_torch.kernels import vpt_residual_ratio as tvr
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render.super_voxel import (
+        build_super_voxel_grid,
+        residual_ratio_transmittance,
+    )
+
+    grid = torch.as_tensor(_blob_cloud(), device=cuda)
+    sv = build_super_voxel_grid(grid, 300.0, 4)
+    origins, dirs, _, _ = _mixed_rays(cuda)
+    key = threefry.prng_key(2, cuda)
+    for caps in ((64, 256), (4, 2)):
+        n0 = tvr.vpt_residual_ratio.launches
+        T = residual_ratio_transmittance(key, grid, sv, origins, dirs, 300.0, *caps)
+        assert tvr.vpt_residual_ratio.launches == n0 + 1
+        p = tvr.rr_params(grid.shape, sv.mu_c.shape, 300.0, 0.0, max_sv_steps=caps[0],
+                          max_steps_per_sv=caps[1])
+        assert torch.equal(T, tvr.rr_transmittance_reference(grid, sv, origins, dirs, key, p))
+        assert bool((T[::4] == 1.0).all()) and float(T.min()) < 0.5
+
+
+def test_vpt_trace_rays_reaches_no_plain_version(cuda, monkeypatch):
+    """With every plain version of R3, R7 and R8 patched to raise,
+    `vpt_trace_rays` on CUDA tensors still traces all five modes and a
+    SparseGrid, and `residual_ratio_transmittance` its rays."""
+    from linevis_tpu_torch.kernels import vpt_decomposition as tvd
+    from linevis_tpu_torch.kernels import vpt_residual_ratio as tvr
+    from linevis_tpu_torch.kernels import vpt_tracking as tvt
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render import super_voxel as tsv
+    from linevis_tpu_torch.render import vpt as tvpt
+    from linevis_tpu_torch.scene.sparse_grid import SparseGrid
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card path")
+
+    for mod, name in ((tvt, "vpt_tracking_reference"), (tvd, "vpt_decomposition_reference"),
+                      (tvr, "vpt_residual_ratio_reference"), (tvr, "rr_transmittance_reference"),
+                      (tsv, "_rr_segments"), (tsv, "make_residual_ratio_tracer")):
+        monkeypatch.setattr(mod, name, refuse)
+    cloud = _blob_cloud(32)
+    grid = torch.as_tensor(cloud, device=cuda)
+    origins, dirs, kt, _ = _mixed_rays(cuda, 64, 48, 24)
+    args = ((1024.0,) * 3, (0.9,) * 3, (0.58, 0.77, 0.27), (2.6, 2.5, 2.3))
+    for g, mode in [(grid, m) for m in tvpt.VPT_MODES] + [
+            (SparseGrid.from_dense(cloud, 8, device=cuda), "Delta Tracking")]:
+        rad, fx, fh = tvpt.vpt_trace_rays(kt, g, origins, dirs, *args, phase_g=0.2, mode=mode,
+                                          super_voxel_size=4)
+        assert rad.device == origins.device and bool(torch.isfinite(rad).all())
+    sv = tsv.build_super_voxel_grid(grid, 300.0, 4)
+    T = tsv.residual_ratio_transmittance(threefry.prng_key(1, cuda), grid, sv, origins, dirs,
+                                         300.0)
+    assert T.shape == (origins.shape[0],)
 
 
 def test_density_march_kernel_matches_plain(cuda):

@@ -725,6 +725,8 @@ def _r3_flush(n_sum):
 # `warp_steps`: the warps' steps with a lane busy.
 _R3_LOOP_TOP = "  uint2 key = make_uint2(0u, 0u), kev = make_uint2(0u, 0u);\n  for (;;) {\n"
 _R3_END = "      active = false;\n    }\n  }\n}\n"
+_R3_SAMPLE = ("        const float dens = SPARSE ? density_at_sparse<INTERP>(sgrid, nz, ny, nx, tp, kk)\n"
+              "                                  : density_at<INTERP>(grid, nz, ny, nx, tp, kk);\n")
 R3_VARIANTS = {
     "phase_clock": [
         _R3_COUNTERS,
@@ -739,9 +741,7 @@ R3_VARIANTS = {
          _r3_wait("ua") + _r3_wait("ub") + "    const long long c1 = clock64();\n"
          "    ph[0] += c1 - c0;\n    if (!active) continue;\n    bool done = step == ST_DONE;\n"
          "    const int st0 = step;\n"),
-        ("        const float dens = density_at<INTERP>(grid, nz, ny, nx, tp, kk);\n",
-         _r3_wait("tp[2]") + "        const long long c2 = clock64();\n"
-         "        const float dens = density_at<INTERP>(grid, nz, ny, nx, tp, kk);\n"
+        (_R3_SAMPLE, _r3_wait("tp[2]") + "        const long long c2 = clock64();\n" + _R3_SAMPLE
          + _r3_wait("dens") + "        ph[2] += clock64() - c2;\n"),
         ("    if (done) {  // the ray is dead: its outputs, and the lane is free\n",
          _r3_wait("x.x") + _r3_wait("d") + _r3_wait("wt[0]") + "    const long long c5 = clock64();\n"
