@@ -1239,14 +1239,45 @@ VPT_OPS = {"ray": (THREEFRY_OPS[0], THREEFRY_OPS[1], 155),
            "collision": (5 * THREEFRY_OPS[0] + 6 + 12, 5 * THREEFRY_OPS[1] + 5, 82),
            "leave": (3 * THREEFRY_OPS[0] + 3, 3 * THREEFRY_OPS[1], 12),
            "scatter": (5 * THREEFRY_OPS[0] + 6, 5 * THREEFRY_OPS[1], 116)}
-# R7, (logic, add, float) operations: a ray's key, box test, first super
-# voxel, sky and outputs; every event at least what the cheapest one does
-# (an empty super voxel crossed): its key, the super voxel's min and max,
-# the exit face (six IEEE divisions), the move and the next index. Events
-# that draw a flight, sample the grid, collide or scatter do more: the
-# bound charges none of it, as the kernel counts events alone.
-R7_OPS = {"ray": (THREEFRY_OPS[0], THREEFRY_OPS[1], 170),
-          "event": (THREEFRY_OPS[0] + 2, THREEFRY_OPS[1] + 4, 70)}
+# R7, (logic, add, float) operations by event kind (`vpt_decomposition`'s
+# `kinds`): the draws each kind's branch reads (THREEFRY_OPS each, a
+# uniform's bits 3 logic and a float subtract) and its float work counted
+# from the source (a library function or division one operation). A ray:
+# its key, box test, sky and outputs; one in the box also its first super
+# voxel (three divisions) and that super voxel's state. A super voxel's
+# state, wherever it is entered (after a skip, a crossing or a scatter):
+# its min and max (address: 6 logic, 6 adds), mu_c and mu_r, the exit face
+# (a division an axis: the face ahead) and its axis, ~64 float. A skip: the
+# move and the next super voxel. An entry: k_j, a key, a uniform; logf and
+# a division. A residual candidate without a density test: the same draws
+# and the crossing into the next super voxel. With a test (a null
+# collision): two more threefry and a uniform, the point, the grid
+# coordinates (three divisions) and the trilinear sample (12 logic, 5 adds,
+# ~40 float). A collision, as a control hit: k_j, u1, and u3 =
+# uniform(split(k_j, 3)) where rays can be absorbed (`absorb_test`, charged
+# per collision when the albedo is below 1); a scatter besides: k_5, two
+# keys, two uniforms, the phase sample (~60 float), the point and the next
+# super voxel. A tested collision adds the density test's draws and sample.
+_TF, _U = THREEFRY_OPS, (3, 0, 1)
+
+
+def _r7_ops(hashes, uniforms, logic, adds, floats):
+    return (hashes * _TF[0] + uniforms * _U[0] + logic, hashes * _TF[1] + adds,
+            uniforms * _U[2] + floats)
+
+
+R7_KIND_OPS = {"ray": _r7_ops(1, 0, 0, 0, 150), "ray_in_box": _r7_ops(0, 0, 8, 10, 76),
+               "skip": _r7_ops(0, 0, 8, 10, 70),
+               "enter": _r7_ops(3, 1, 0, 0, 6), "residual": _r7_ops(3, 1, 8, 10, 78),
+               "residual_tested": _r7_ops(5, 2, 12, 5, 65),
+               "absorb": _r7_ops(3, 1, 0, 0, 12), "scatter": _r7_ops(8, 3, 8, 10, 152),
+               "absorb_test": _r7_ops(2, 1, 0, 0, 1),
+               "tested_collision": _r7_ops(2, 1, 12, 5, 50)}
+# The count of the first design's bound (printed beside): every event
+# charged as the cheapest (its key, an empty super voxel crossed), nothing
+# for flights, samples, collisions or scatters.
+R7_OPS_EVERY_EVENT = {"ray": (THREEFRY_OPS[0], THREEFRY_OPS[1], 170),
+                      "event": (THREEFRY_OPS[0] + 2, THREEFRY_OPS[1] + 4, 70)}
 # R8, (logic, add, float) operations: a ray's key and outputs; a bounce's
 # four keys and stop uniform, box test, DDA set-up (three divisions, three
 # reciprocals), sky and sun and the accumulation; a bounce that goes on:
@@ -1308,7 +1339,8 @@ def vpt_extension(dev, gpu, ld, base, grid, rays, p_delta, frames, host_timed, i
     2 samples each, one launch a sample; each kernel bit for bit with its
     plain version (events, or bounces and steps, included) on the middle row
     of both samples, sliced from whole-sample launches (~10.6 s and ~26.3 s
-    of plain time on an H100 host); both modes card vs CPU at
+    of plain time on an H100 host; R7's events by kind too, which charge its
+    bound); both modes card vs CPU at
     SC_CHECK_SCALE. Then R3 on `SparseGrid.from_dense(cloud, 8)`: that row
     of sample 0 bit for bit with its plain version on the SparseGrid, the
     whole sample with R3's dense launch (`p_delta`), and SC_VPT_FRAMES
@@ -1407,15 +1439,27 @@ def vpt_extension(dev, gpu, ld, base, grid, rays, p_delta, frames, host_timed, i
     p7 = vd.decomposition_params(grid.shape, dmin_g.shape, ext, alb, sun_dir, sun_ic, vs.phase_g,
                                  vs.max_events)
     frames7 = registry_frames("Decomposition Tracking", "vpt_decomposition")
-    fig7, ev7 = against_plain(
+    # counts: each ray's events, then its events by kind (`EVENT_KINDS`).
+    fig7, c7 = against_plain(
         "vpt_decomposition",
-        lambda o, d, kt, c: vd.vpt_decomposition(grid, dmin_g, dmax_g, o, d, kt, p7, events=c),
+        lambda o, d, kt, c: vd.vpt_decomposition(grid, dmin_g, dmax_g, o, d, kt, p7,
+                                                 events=c[:, 0], kinds=c[:, 1:]),
         lambda o, d, kt, c, first: vd.vpt_decomposition_reference(
-            grid, dmin_g, dmax_g, o, d, kt, p7, events=c, first=first), ())
+            grid, dmin_g, dmax_g, o, d, kt, p7, events=c[:, 0], first=first, kinds=c[:, 1:]),
+        (1 + len(vd.EVENT_KINDS),))
     ms7 = _time_ms(lambda: vd.vpt_decomposition(grid, dmin_g, dmax_g, *rays[0], p7), 3)
+    ev7 = c7[:, 0]
     events7 = int(ev7.double().sum())
-    count7 = {"ray": n_rays, "event": events7}
-    ops7 = [sum(count7[k] * R7_OPS[k][i] for k in R7_OPS) for i in range(3)]
+    kinds7 = dict(zip(vd.EVENT_KINDS, (int(v) for v in c7[:, 1:].double().sum(0))))
+    if sum(kinds7[k] for k in vd.EVENT_KINDS[:6]) != events7:
+        raise RuntimeError(f"R7's event kinds do not sum to its events: {kinds7}, {events7}")
+    collisions7 = kinds7["absorb"] + kinds7["scatter"]
+    count7 = {"ray": n_rays, "ray_in_box": int((ev7 > 0).sum()), **kinds7,
+              "absorb_test": collisions7 if p7.abs_albedo > 0 else 0}
+    ops7 = [sum(count7[k] * R7_KIND_OPS[k][i] for k in R7_KIND_OPS) for i in range(3)]
+    every_event = {"ray": n_rays, "event": events7}
+    ops7_every_event = [sum(every_event[k] * R7_OPS_EVERY_EVENT[k][i] for k in every_event)
+                        for i in range(3)]
     bytes7 = grid.numel() * 4 + 2 * dmin_g.numel() * 4 + 8 + n_rays * (24 + 12)
     evf = ev7.double()
     hit = evf > 0
@@ -1424,8 +1468,9 @@ def vpt_extension(dev, gpu, ld, base, grid, rays, p_delta, frames, host_timed, i
         "events_per_ray": {"p50": float(evf[hit].quantile(0.5)),
                            "p99": float(evf[hit].quantile(0.99)), "max": int(evf.max()),
                            "events": events7,
-                           "share_at_max_events": float((evf == vs.max_events).double().mean())}}
-    del ev7, evf, hit
+                           "share_at_max_events": float((evf == vs.max_events).double().mean())},
+        "events_by_kind": kinds7}
+    del ev7, evf, hit, c7
 
     # R8.
     sv = super_voxel_grid_of(grid, float(ext[0]), vs.super_voxel_size)
@@ -1517,8 +1562,10 @@ def vpt_extension(dev, gpu, ld, base, grid, rays, p_delta, frames, host_timed, i
         "linevis_tpu/render/vpt.py:342",
         "no pallas_call: _decomposition_trace's vmapped lax.scan of events (vpt.py:342-473)",
         out["decomposition"]["launches"], ms7, fig7["plain_ms"], fig7["max_abs_err"], ops7, bytes7,
-        count7, R7_OPS, "one sample of every pixel (2 a frame)", rows_on,
+        count7, R7_KIND_OPS, "one sample of every pixel (2 a frame)", rows_on,
         ptxas_lines(built, "vpt_decomposition")))
+    rows[-1]["bound_ms_charging_every_event_as_the_cheapest"] = max(
+        bytes7 / H100_HBM_BYTES * 1e3, ops_ms(*ops7_every_event, int_rate))
     rows.append(row(
         "vpt_residual_ratio", "linevis_tpu_torch/kernels/csrc/vpt_residual_ratio.cu",
         "linevis_tpu/render/vpt.py:281",

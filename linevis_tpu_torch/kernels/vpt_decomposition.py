@@ -7,8 +7,9 @@
 mu_c = extinction x min density is tracked analytically and only the
 residual is sampled, against mu_r = extinction x max density - mu_c; empty
 super voxels are skipped. On a CUDA tensor `vpt_decomposition` launches
-`csrc/vpt_decomposition.cu` (one thread a ray until the ray dies) and counts
-the launch in `vpt_decomposition.launches`; on a CPU tensor it runs the
+`csrc/vpt_decomposition.cu` (persistent warps that refill their lanes from a
+counter, one thread a ray until the ray dies) and counts the launch in
+`vpt_decomposition.launches`; on a CPU tensor it runs the
 plain version, `vpt_decomposition_reference`, a lockstep loop over the
 events on the rays still alive. Both draw every sample from jax.random's
 stream (`ops/threefry.py`, `csrc/threefry.cuh`) and round every operation
@@ -38,7 +39,13 @@ from linevis_tpu_torch.kernels.volume_common import (
 from linevis_tpu_torch.ops import threefry
 
 __all__ = ["DecompositionParams", "decomposition_params", "vpt_decomposition",
-           "vpt_decomposition_reference"]
+           "vpt_decomposition_reference", "EVENT_KINDS"]
+
+# The columns of `kinds`: columns 0-5 partition the events (they sum to
+# `events`); column 6 counts the collisions (absorbs and scatters) whose
+# residual candidate was tested against the density first.
+EVENT_KINDS = ("skip", "enter", "residual", "residual_tested", "absorb", "scatter",
+               "tested_collision")
 
 F3 = Tuple[float, float, float]
 
@@ -99,7 +106,8 @@ def decomposition_params(grid_shape, sv_shape, extinction, albedo, sun_dir, sun_
 def vpt_decomposition_reference(grid: torch.Tensor, dmin_g: torch.Tensor, dmax_g: torch.Tensor,
                                 origins: torch.Tensor, dirs: torch.Tensor, key: torch.Tensor,
                                 p: DecompositionParams, env: Optional[torch.Tensor] = None,
-                                events: Optional[torch.Tensor] = None, first: int = 0):
+                                events: Optional[torch.Tensor] = None, first: int = 0,
+                                kinds: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the kernel (the contract of
     `vpt_decomposition`). Each event either enters a super voxel (draws
     the control flight, or skips it if empty) or takes one residual
@@ -126,6 +134,7 @@ def vpt_decomposition_reference(grid: torch.Tensor, dmin_g: torch.Tensor, dmax_g
     in_sv = torch.zeros(N, dtype=torch.bool, device=dev)
     absorbed = torch.zeros(N, dtype=torch.bool, device=dev)
     ev = torch.zeros(N, dtype=torch.int32, device=dev)
+    kind = torch.zeros((N, len(EVENT_KINDS)), dtype=torch.int32, device=dev)
     live = torch.nonzero(hit).reshape(-1)
     for j in range(p.max_events):
         if live.numel() == 0:
@@ -167,6 +176,11 @@ def vpt_decomposition_reference(grid: torch.Tensor, dmin_g: torch.Tensor, dmax_g
         absorb = collision & (u[:, 3] < abs_albedo)
         scatter = collision & ~absorb
         advance = (enter & empty) | ((~enter) & seg_done)
+        if kinds is not None:
+            kind[live] += torch.stack(
+                [enter & empty, enter & ~empty, ~enter & seg_done,
+                 ~enter & ~seg_done & ~collision, absorb, scatter, collision & ~control_hit],
+                1).to(torch.int32)
         step = d_seg + 1e-6
         x_adv = tuple(xs[i] + ws[i] * step for i in range(3))
         idx_adv = [ids[i] + torch.sign(ws[i]) * axis[i].float() for i in range(3)]
@@ -202,6 +216,8 @@ def vpt_decomposition_reference(grid: torch.Tensor, dmin_g: torch.Tensor, dmax_g
     rad = torch.where(absorbed[:, None], torch.zeros_like(rad), rad)
     if events is not None:
         events.copy_(ev)
+    if kinds is not None:
+        kinds.copy_(kind)
     return (rad, torch.zeros((N, 3), dtype=torch.float32, device=dev),
             torch.zeros(N, dtype=torch.bool, device=dev))
 
@@ -209,7 +225,7 @@ def vpt_decomposition_reference(grid: torch.Tensor, dmin_g: torch.Tensor, dmax_g
 def _launcher():
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.load("vpt_decomposition").vpt_decomposition_launch
-    fn.argtypes = [p, i, i, i, p, p, i, i, i, p, p, p, i, i, i, p, p, i, i, p, p, p]
+    fn.argtypes = [p, i, i, i, p, p, i, i, i, p, p, p, i, i, i, p, p, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -217,7 +233,8 @@ def _launcher():
 def vpt_decomposition(grid: torch.Tensor, dmin_g: torch.Tensor, dmax_g: torch.Tensor,
                       origins: torch.Tensor, dirs: torch.Tensor, key: torch.Tensor,
                       p: DecompositionParams, env: Optional[torch.Tensor] = None,
-                      events: Optional[torch.Tensor] = None, first: int = 0):
+                      events: Optional[torch.Tensor] = None, first: int = 0,
+                      kinds: Optional[torch.Tensor] = None):
     """Trace rays by decomposition tracking -> (radiance [N, 3], first
     scatter position [N, 3] (zeros), first scatter flag [N] (False), as the
     JAX function returns them).
@@ -229,11 +246,12 @@ def vpt_decomposition(grid: torch.Tensor, dmin_g: torch.Tensor, dmax_g: torch.Te
     `kt`, of which ray i takes `split(kt, .)[first + i]`, `p` from
     `decomposition_params`, env an optional [He, We, 3] environment map
     (else the procedural sky and sun). `events`, an optional int32 [N]
-    tensor, receives the events each ray ran. A CUDA tensor launches the
-    kernel; a CPU tensor runs the plain version."""
+    tensor, receives the events each ray ran, and `kinds`, an optional int32
+    [N, 7] tensor, its events by kind (`EVENT_KINDS`). A CUDA tensor
+    launches the kernel; a CPU tensor runs the plain version."""
     if origins.device.type == "cpu":
         return vpt_decomposition_reference(grid, dmin_g, dmax_g, origins, dirs, key, p, env,
-                                           events, first)
+                                           events, first, kinds)
     if origins.device.type != "cuda":
         raise ValueError(f"vpt_decomposition: unsupported device {origins.device}")
     dev = origins.device
@@ -258,18 +276,24 @@ def vpt_decomposition(grid: torch.Tensor, dmin_g: torch.Tensor, dmax_g: torch.Te
     envc = None if env is None else env.float().contiguous()
     rad = torch.empty((N, 3), dtype=torch.float32, device=dev)
     ev = None if events is None else torch.empty(N, dtype=torch.int32, device=dev)
+    kd = None if kinds is None else torch.zeros((N, len(EVENT_KINDS)), dtype=torch.int32,
+                                                device=dev)
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the rays taken
     with torch.cuda.device(dev):
         rc = _launcher()(
             g.data_ptr(), *grid.shape, dmn.data_ptr(), dmx.data_ptr(), *dmn.shape,
             *(x.data_ptr() for x in ins), first, N, p.max_events, prm.ctypes.data,
             None if envc is None else envc.data_ptr(), 0 if envc is None else envc.shape[0],
             0 if envc is None else envc.shape[1], rad.data_ptr(),
-            None if ev is None else ev.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            None if ev is None else ev.data_ptr(), None if kd is None else kd.data_ptr(),
+            nxt.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"vpt_decomposition kernel launch failed: CUDA error {rc}")
     vpt_decomposition.launches += 1
     if events is not None:
         events.copy_(ev)
+    if kinds is not None:
+        kinds.copy_(kd)
     return (rad, torch.zeros((N, 3), dtype=torch.float32, device=dev),
             torch.zeros(N, dtype=torch.bool, device=dev))
 

@@ -7,8 +7,9 @@
 is the residual estimator `_rr_segment` (`:114-159`, a `lax.while_loop`),
 vmapped over the rays; no `pl.pallas_call`. `rr_transmittance` is one DDA
 of it, albedo 0 (`residual_ratio_transmittance`). On a CUDA tensor both
-launch `csrc/vpt_residual_ratio.cu` (one thread a ray, the whole estimator
-in registers) and count the launch in `vpt_residual_ratio.launches`; on a
+launch `csrc/vpt_residual_ratio.cu` (persistent warps that refill their lanes
+from a counter, one thread a ray, the whole estimator in registers) and
+count the launch in `vpt_residual_ratio.launches`; on a
 CPU tensor they run the plain version, `vpt_residual_ratio_reference` (and
 `rr_transmittance_reference`) over `render/super_voxel.py:
 make_residual_ratio_tracer` and `_rr_segments`: lockstep loops over the
@@ -190,7 +191,8 @@ def rr_transmittance_reference(grid: torch.Tensor, sv, origins: torch.Tensor,
 def _launcher():
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.load("vpt_residual_ratio").vpt_residual_ratio_launch
-    fn.argtypes = [p, i, i, i, p, p, i, i, i, p, p, p, i, i, i, i, i, i, p, p, i, i, p, p, p, p, p]
+    fn.argtypes = [p, i, i, i, p, p, i, i, i, p, p, p, i, i, i, i, i, i, p, p, i, i, p, p, p, p, p,
+                   p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -221,6 +223,7 @@ def _launch(grid, sv, origins, dirs, key, p: RrParams, env, steps, first, transm
     fx = None if transmittance else torch.empty((N, 3), dtype=torch.float32, device=dev)
     fh = None if transmittance else torch.empty(N, dtype=torch.uint8, device=dev)
     st = None if steps is None else torch.empty((N, 3), dtype=torch.int32, device=dev)
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)  # the rays taken
     with torch.cuda.device(dev):
         rc = _launcher()(
             g.data_ptr(), *grid.shape, mc.data_ptr(), mr.data_ptr(), *mc.shape,
@@ -229,7 +232,8 @@ def _launch(grid, sv, origins, dirs, key, p: RrParams, env, steps, first, transm
             None if envc is None else envc.data_ptr(), 0 if envc is None else envc.shape[0],
             0 if envc is None else envc.shape[1], rad.data_ptr(),
             None if fx is None else fx.data_ptr(), None if fh is None else fh.data_ptr(),
-            None if st is None else st.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            None if st is None else st.data_ptr(), nxt.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"vpt_residual_ratio kernel launch failed: CUDA error {rc}")
     vpt_residual_ratio.launches += 1

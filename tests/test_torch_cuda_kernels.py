@@ -28,7 +28,9 @@ whole 1080p frame, bit for bit (every output and per-ray event count); the
 heat map's RBF sum (R5) bit for bit (its plain version adds the directions
 in the kernel's order); R3 on a SparseGrid, decomposition tracking (R7) and
 residual ratio tracking (R8, also its transmittance) bit for bit with their
-plain versions, counts included, and `vpt_trace_rays` on the card with every
+plain versions, counts included (R7's events by kind too), also at ray
+counts and offsets that stress their persistent warps' refills, and
+`vpt_trace_rays` on the card with every
 plain version patched to raise; the device threefry bit for bit against
 `ops/threefry.py`, and R6 (`kernels/threefry_uniform.py`) bit for bit
 against `ops/threefry.py:uniform`, also at the folded keys of the sharded
@@ -2014,7 +2016,7 @@ def _vpt_scene(cuda, case):
 @pytest.mark.parametrize("case", list(_DECOMPOSITION_CASES))
 def test_vpt_decomposition_kernel_matches_plain(cuda, case):
     """R7 against its plain version on a row with misses, bit for bit, events
-    included: absorption (albedo < 1), Henyey-Greenstein and isotropic
+    and their kinds included: absorption (albedo < 1), Henyey-Greenstein and isotropic
     phases, an environment map, super voxels of 4 and 8 on a grid whose sides
     are not multiples of them, and rays stopped at the event cap."""
     from linevis_tpu_torch.kernels import vpt_decomposition as tvd
@@ -2028,15 +2030,20 @@ def test_vpt_decomposition_kernel_matches_plain(cuda, case):
                                  (0.58, 0.77, 0.27), (2.6, 2.5, 2.3), c["g"], c["max_events"])
     ev_k = torch.full((origins.shape[0],), -1, dtype=torch.int32, device=cuda)
     ev_p = torch.empty_like(ev_k)
+    kinds_k = torch.full((origins.shape[0], len(tvd.EVENT_KINDS)), -1, dtype=torch.int32,
+                         device=cuda)
+    kinds_p = torch.empty_like(kinds_k)
     n0 = tvd.vpt_decomposition.launches
-    got = tvd.vpt_decomposition(grid, dmin, dmax, origins, dirs, kt, p, env, ev_k, first)
+    got = tvd.vpt_decomposition(grid, dmin, dmax, origins, dirs, kt, p, env, ev_k, first,
+                                kinds_k)
     assert tvd.vpt_decomposition.launches == n0 + 1
     again = tvd.vpt_decomposition(grid, dmin, dmax, origins, dirs, kt, p, env, first=first)
     ref = tvd.vpt_decomposition_reference(grid, dmin, dmax, origins, dirs, kt, p, env, ev_p,
-                                          first)
+                                          first, kinds_p)
     for a, b, r in zip(got, again, ref):
         assert torch.equal(a, b) and torch.equal(a, r)
     assert torch.equal(ev_k, ev_p) and not bool(ev_k[::4].any())
+    assert torch.equal(kinds_k, kinds_p) and torch.equal(kinds_k[:, :6].sum(1), ev_k)
     absorbed = (got[0] == 0).all(1) & (ev_k > 0)
     if c["max_events"] < 512:
         assert int((ev_k == c["max_events"]).sum()) > 10
@@ -2091,6 +2098,104 @@ def test_vpt_residual_ratio_kernel_matches_plain(cuda, case):
         assert int(st_k[:, 1].max()) <= (it + 1) * sv_steps
         free = tvr.vpt_residual_ratio(grid, sv, origins, dirs, kt, params(), env, first=first)
         assert not torch.equal(free[0], got[0])
+
+
+def _schedule_rays(cuda, case):
+    """Rays for the persistent warps' schedule cases, from rows 100-169 of
+    the blob cloud's 480x270 frame (every fourth turned away: misses), ray i
+    keyed split(kt, .)[first + i]: `n` rays of row 100 from pixel `start`
+    on, or ("interleaved") the 70 rows with rays from across them in each
+    warp, so that one warp holds misses, grazing rays and rays through the
+    densest blobs."""
+    from linevis_tpu_torch.ops import threefry
+    from linevis_tpu_torch.render import vpt as tvpt
+
+    cam = Camera(position=(0.0, 0.15, 0.9), look_at_point=(0, 0, 0), width=480, height=270)
+    basis = ttr._ray_basis(torch.as_tensor(cam.view_projection_matrix(), device=cuda))
+    o = torch.as_tensor(np.asarray(cam.position, np.float32), device=cuda)
+    _, kt, origins, dirs = tvpt.primary_rays(threefry.prng_key(1, cuda), o, basis, 480, 270)
+    dirs = dirs.clone()
+    dirs[::4] = -dirs[::4]
+    first = 100 * 480
+    if case == "interleaved":
+        n = 70 * 480
+        perm = first + torch.arange(n, device=cuda).reshape(32, -1).t().reshape(-1)
+        return origins[perm].contiguous(), dirs[perm].contiguous(), kt, first
+    n, start = {"n0": (0, 0), "n1": (1, 240), "n31": (31, 230), "n33": (33, 223),
+                "n1000_first": (1000, 97)}[case]
+    sl = slice(first + start, first + start + n)
+    return origins[sl].contiguous(), dirs[sl].contiguous(), kt, first + start
+
+
+_SCHEDULE_CASES = ["n0", "n1", "n31", "n33", "n1000_first", "interleaved"]
+
+
+@pytest.mark.parametrize("case", _SCHEDULE_CASES)
+def test_vpt_decomposition_schedule(cuda, case):
+    """R7's persistent warps refilling lanes: counts below a warp, not a
+    multiple of 32 and none, a slice keyed from an offset (`first`), and
+    warps whose rays differ wildly in cost; each bit for bit with the plain
+    version (events and their kinds included), two launches equal."""
+    from linevis_tpu_torch.kernels import vpt_decomposition as tvd
+    from linevis_tpu_torch.render.super_voxel import build_super_voxel_minmax
+
+    grid = torch.as_tensor(_blob_cloud(), device=cuda)
+    dmin, dmax = build_super_voxel_minmax(grid, 8)
+    origins, dirs, kt, first = _schedule_rays(cuda, case)
+    p = tvd.decomposition_params(grid.shape, dmin.shape, (1024.0,) * 3, (0.9,) * 3,
+                                 (0.58, 0.77, 0.27), (2.6, 2.5, 2.3), 0.2, 512)
+    n = origins.shape[0]
+    ev_k, ev_p = (torch.full((n,), -1, dtype=torch.int32, device=cuda) for _ in range(2))
+    kinds_k, kinds_p = (torch.full((n, len(tvd.EVENT_KINDS)), -1, dtype=torch.int32, device=cuda)
+                        for _ in range(2))
+    got = tvd.vpt_decomposition(grid, dmin, dmax, origins, dirs, kt, p, events=ev_k,
+                                first=first, kinds=kinds_k)
+    again = tvd.vpt_decomposition(grid, dmin, dmax, origins, dirs, kt, p, first=first)
+    ref = tvd.vpt_decomposition_reference(grid, dmin, dmax, origins, dirs, kt, p, events=ev_p,
+                                          first=first, kinds=kinds_p)
+    for a, b, r in zip(got, again, ref):
+        assert a.shape[0] == n and torch.equal(a, b) and torch.equal(a, r)
+    assert torch.equal(ev_k, ev_p) and torch.equal(kinds_k, kinds_p)
+    if case == "interleaved":
+        warp_max = ev_k.reshape(-1, 32).max(1).values.double()
+        assert float(ev_k.double().sum() / (32 * warp_max.sum())) < 0.5  # uneven warps
+        assert int(ev_k.max()) == 512 and not bool(ev_k.reshape(-1, 32).min(1).values.any())
+
+
+@pytest.mark.parametrize("case", _SCHEDULE_CASES)
+def test_vpt_residual_ratio_schedule(cuda, case):
+    """R8's persistent warps refilling lanes, in the cases of
+    `test_vpt_decomposition_schedule`: bit for bit with the plain version
+    (bounces, DDA and residual steps included), two launches equal; the
+    transmittance too."""
+    from linevis_tpu_torch.kernels import vpt_residual_ratio as tvr
+    from linevis_tpu_torch.render.super_voxel import build_super_voxel_grid
+
+    grid = torch.as_tensor(_blob_cloud(), device=cuda)
+    sv = build_super_voxel_grid(grid, 1024.0, 8)
+    origins, dirs, kt, first = _schedule_rays(cuda, case)
+    if case == "interleaved":  # the plain version's time: a quarter of the frame
+        origins, dirs = origins[:8192].contiguous(), dirs[:8192].contiguous()
+    p = tvr.rr_params(grid.shape, sv.mu_c.shape, (1024.0,) * 3, (0.9,) * 3, (0.58, 0.77, 0.27),
+                      (2.6, 2.5, 2.3), 0.2)
+    n = origins.shape[0]
+    st_k, st_p = (torch.full((n, 3), -1, dtype=torch.int32, device=cuda) for _ in range(2))
+    got = tvr.vpt_residual_ratio(grid, sv, origins, dirs, kt, p, steps=st_k, first=first)
+    again = tvr.vpt_residual_ratio(grid, sv, origins, dirs, kt, p, first=first)
+    ref = tvr.vpt_residual_ratio_reference(grid, sv, origins, dirs, kt, p, steps=st_p,
+                                           first=first)
+    for a, b, r in zip(got, again, ref):
+        assert a.shape[0] == n and torch.equal(a, b) and torch.equal(a, r)
+    assert torch.equal(st_k, st_p)
+    p0 = tvr.rr_params(grid.shape, sv.mu_c.shape, 1024.0, 0.0)
+    T = tvr.rr_transmittance(grid, sv, origins, dirs, kt, p0, first=first)
+    assert torch.equal(T, tvr.rr_transmittance(grid, sv, origins, dirs, kt, p0, first=first))
+    assert torch.equal(T, tvr.rr_transmittance_reference(grid, sv, origins, dirs, kt, p0,
+                                                         first=first))
+    if case == "interleaved":
+        res = st_k[:, 2].reshape(-1, 32)
+        assert float(res.double().sum() / (32 * res.max(1).values.double().sum())) < 0.5
+        assert not bool(res.min(1).values.any())
 
 
 def test_vpt_rr_transmittance_kernel_matches_plain(cuda):

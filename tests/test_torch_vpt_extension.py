@@ -12,7 +12,9 @@ key it traces the JAX package's paths. Bars:
   XLA sums in another order).
 - A slice of the rays traced with its offset (`first`) equals that slice of
   the whole trace bit for bit; without the offset it differs.
-- R7's events equal a direct count of the event keys its loop draws; R8's
+- R7's events equal a direct count of the event keys its loop draws, and
+  its events by kind partition them, the scatters equal to the scatter
+  draws ray by ray; R8's
   residual steps equal the draws of `_rr_segments`, its DDA steps with a
   segment the calls of `_rr_segments` on each ray; its bounces lie in
   [1, 11].
@@ -75,13 +77,13 @@ def _agree(j, t, share=0.95):
 
 
 def _decomposition(cloud, o, d, key, max_events=48, size=8, ext=80.0, alb=0.9, g=0.3,
-                   events=None, first=0):
+                   events=None, first=0, kinds=None):
     grid = _t(cloud)
     dmin, dmax = tsv.build_super_voxel_minmax(grid, size)
     p = tvd.decomposition_params(grid.shape, dmin.shape, (ext,) * 3, (alb,) * 3, SUN, SUN_IC, g,
                                  max_events)
     return tvd.vpt_decomposition(grid, dmin, dmax, _t(o), _t(d), key, p, events=events,
-                                 first=first)
+                                 first=first, kinds=kinds)
 
 
 def test_r7_equals_trace_rays_and_jax():
@@ -173,6 +175,43 @@ def test_r7_events_equal_a_direct_count(monkeypatch):
     ev = torch.full((n,), -1, dtype=torch.int32)
     _decomposition(cloud, o, d, kt, events=ev)
     assert torch.equal(ev.long(), drawn) and int(ev.max()) > 10 and not bool(ev[::7].any())
+
+
+def test_r7_event_kinds_equal_a_direct_count(monkeypatch):
+    """`kinds` partitions each ray's events; its scatters equal the scatter
+    draws of the plain loop (split(split(split(key, j), 5)[4], 2), ray by
+    ray), its absorbs the rays whose radiance is zero; on an empty cloud
+    every event is a skip and makes no collision."""
+    cloud = _cloud()
+    o, d = _rays(100)
+    n, cap = o.shape[0], 48
+    kt = threefry.prng_key(3)
+    ray_keys = threefry.split(kt, n)
+    scatter_keys = torch.stack([threefry.split(threefry.split_at(ray_keys, j), 5)[:, 4]
+                                for j in range(cap)], 1)  # [n, cap, 2]
+    drawn = torch.zeros(n, dtype=torch.int64)
+    split = threefry.split
+
+    def counting(key, n_=2):
+        if n_ == 2:
+            hits = (key[:, None, None, :] == scatter_keys[None]).all(-1).any(-1)
+            drawn.add_(hits.sum(0))
+        return split(key, n_)
+
+    monkeypatch.setattr(tvd.threefry, "split", counting)
+    ev = torch.empty(n, dtype=torch.int32)
+    kinds = torch.full((n, len(tvd.EVENT_KINDS)), -1, dtype=torch.int32)
+    rad = _decomposition(cloud, o, d, kt, max_events=cap, events=ev, kinds=kinds)[0]
+    k = dict(zip(tvd.EVENT_KINDS, kinds.long().unbind(1)))
+    assert torch.equal(kinds[:, :6].sum(1), ev)
+    assert torch.equal(k["scatter"], drawn) and int(drawn.sum()) > 0
+    assert torch.equal(k["absorb"] == 1, (rad == 0).all(1)) and int(k["absorb"].max()) == 1
+    assert bool((k["tested_collision"] <= k["absorb"] + k["scatter"]).all())
+    for name in ("enter", "residual", "residual_tested", "tested_collision"):
+        assert int(k[name].sum()) > 0, name
+    monkeypatch.setattr(tvd.threefry, "split", split)
+    _decomposition(np.zeros_like(cloud), o, d, kt, max_events=cap, events=ev, kinds=kinds)
+    assert torch.equal(kinds[:, 0], ev) and not bool(kinds[:, 1:].any()) and int(ev.max()) > 1
 
 
 def test_r8_steps_equal_a_direct_count(monkeypatch):

@@ -1,4 +1,4 @@
-"""The port's hand-written kernels (B1-B6, R1-R5) timed across source trees.
+"""The port's hand-written kernels (B1-B6, R1-R5, R7, R8) timed across source trees.
 
 A one-off A/B script beside `chip_smoke.py`, not part of the port's
 package. It compares two or more source trees of this repository on one
@@ -60,10 +60,15 @@ each the mean of 40 launches between CUDA events;
   - R5 (`r5`): `heatmap_density` on a 1080x2160 map of the exit directions
     of `entry.scattering_line_data` (traced by the first turn, handed on in
     a temporary file), held bit for bit against the first tree's, the mean
-    of 5.
+    of 5;
+  - R7 (`r7`) and R8 (`r8`): `vpt_decomposition` and `vpt_residual_ratio`
+    on R3's sample (the smoke's defaults: extinction 1024, albedo 1,
+    isotropic, 512 events; super voxels of 8; R8's caps 10 / 64 / 256),
+    every output and the events (R7) or steps (R8) per ray held bit for bit
+    against the first tree's, the mean of 5.
 
     python3 tools/kernel_ab.py TREE [TREE ...] [--turns N]
-        [--kernels b2,b5,b4,b6,b1,b3,accum,r1,r2,r3,r4,r5]
+        [--kernels b2,b5,b4,b6,b1,b3,accum,r1,r2,r3,r4,r5,r7,r8]
 
 runs the trees in the order given, then reversed, N times (default 2),
 printing one JSON line per turn and a last line with the card and every
@@ -93,7 +98,8 @@ sources = {"b2": ("raster_capsule_oit",), "b5": ("ao_grid",),
            "b4": ("raster_prism",), "b6": ("bvh_wavefront",), "b1": ("raster_capsule",),
            "b3": ("raster_triangle",), "accum": ("raster_capsule_accum",),
            "r1": ("bvh_closest_hit",), "r2": ("bvh_mlat",), "r3": ("vpt_tracking",),
-           "r4": ("density_march",), "r5": ("spherical_heatmap",)}
+           "r4": ("density_march",), "r5": ("spherical_heatmap",),
+           "r7": ("vpt_decomposition",), "r8": ("vpt_residual_ratio",)}
 info = {}
 for name in [n for k in kernels for n in sources[k]]:
     if sys.argv[1] == "rebuild":  # a tree's first turn: time its build
@@ -107,7 +113,7 @@ from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.tube_raster import camera_tensors, prepare_capsule_frame
 
 dev = "cuda"
-if set(kernels) - {"r3", "r4", "r5"}:  # the volume kernels draw the cloud, not the tornado
+if set(kernels) - {"r3", "r4", "r5", "r7", "r8"}:  # the volume kernels draw the cloud
     traj = tornado_trajectories(dev)
     scene = tornado_scene(dev, traj=traj)
 W, H = 1920, 1080
@@ -405,17 +411,30 @@ def r2():
         scene, *cam, s_rt, K=8, opacity=0.3, bvh=tree), n=5)
 
 
+_CLOUD = {}
+
+
+def _cloud_sample():
+    """R3's sample: the 512^3 cloud, the smoke's camera, its 1080p rays and
+    trace key, the renderer's defaults (made once a process)."""
+    if not _CLOUD:
+        from linevis_tpu_torch import entry
+        from linevis_tpu_torch.ops import threefry
+        from linevis_tpu_torch.render.tube_raster import _ray_basis
+        from linevis_tpu_torch.render.vpt import VptSettings, primary_rays
+        grid = entry.procedural_cloud(dev)
+        cv = camera_tensors(Camera(position=(0.0, 0.15, 0.9), look_at_point=(0.0, 0.0, 0.0),
+                                   width=W, height=H), dev)
+        _, kt, o, d = primary_rays(threefry.prng_key(0, dev), cv[1], _ray_basis(cv[0]), W, H)
+        _CLOUD.update(grid=grid, vs=VptSettings(), kt=kt, o=o, d=d)
+    c = _CLOUD
+    return c["grid"], c["vs"], c["o"], c["d"], c["kt"]
+
+
 def r3():
-    from linevis_tpu_torch import entry
     from linevis_tpu_torch.kernels import vpt_tracking as vt
-    from linevis_tpu_torch.ops import threefry
-    from linevis_tpu_torch.render.tube_raster import _ray_basis
-    from linevis_tpu_torch.render.vpt import VptSettings, primary_rays, sun_constants
-    grid = entry.procedural_cloud(dev)
-    vs = VptSettings()
-    cv = camera_tensors(Camera(position=(0.0, 0.15, 0.9), look_at_point=(0.0, 0.0, 0.0),
-                               width=W, height=H), dev)
-    _, kt, o, d = primary_rays(threefry.prng_key(0, dev), cv[1], _ray_basis(cv[0]), W, H)
+    from linevis_tpu_torch.render.vpt import sun_constants
+    grid, vs, o, d, kt = _cloud_sample()
     p = vt.vpt_params(grid.shape, vs.extinction, vs.scattering_albedo, *sun_constants(vs),
                       vs.phase_g, vs.mode, vs.max_events, vs.interpolation)
     ev = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
@@ -423,6 +442,38 @@ def r3():
     _against_first_tree("r3", [_digest(x.float()) for x in (*out, ev)])
     res["r3_events"] = int(ev.sum())
     res["r3_delta_sample"] = timed(lambda: vt.vpt_tracking(grid, o, d, kt, p), n=10)
+
+
+def r7():
+    from linevis_tpu_torch.kernels import vpt_decomposition as vd
+    from linevis_tpu_torch.render.super_voxel import super_voxel_minmax_of
+    from linevis_tpu_torch.render.vpt import sun_constants
+    grid, vs, o, d, kt = _cloud_sample()
+    dmin, dmax = super_voxel_minmax_of(grid, vs.super_voxel_size)
+    p = vd.decomposition_params(grid.shape, dmin.shape, vs.extinction, vs.scattering_albedo,
+                                *sun_constants(vs), vs.phase_g, vs.max_events)
+    ev = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
+    out = vd.vpt_decomposition(grid, dmin, dmax, o, d, kt, p, events=ev)
+    _against_first_tree("r7", [_digest(x.float()) for x in (*out, ev)])
+    res["r7_events"] = int(ev.double().sum())
+    res["r7_decomposition_sample"] = timed(
+        lambda: vd.vpt_decomposition(grid, dmin, dmax, o, d, kt, p), n=5)
+
+
+def r8():
+    from linevis_tpu_torch.kernels import vpt_residual_ratio as vr
+    from linevis_tpu_torch.render.super_voxel import super_voxel_grid_of
+    from linevis_tpu_torch.render.vpt import sun_constants
+    grid, vs, o, d, kt = _cloud_sample()
+    sv = super_voxel_grid_of(grid, float(vs.extinction[0]), vs.super_voxel_size)
+    p = vr.rr_params(grid.shape, sv.mu_c.shape, vs.extinction, vs.scattering_albedo,
+                     *sun_constants(vs), vs.phase_g)
+    st = torch.empty((o.shape[0], 3), dtype=torch.int32, device=dev)
+    out = vr.vpt_residual_ratio(grid, sv, o, d, kt, p, steps=st)
+    _against_first_tree("r8", [_digest(x.float()) for x in (*out, st)])
+    res["r8_steps"] = [int(v) for v in st.double().sum(0)]
+    res["r8_residual_ratio_sample"] = timed(
+        lambda: vr.vpt_residual_ratio(grid, sv, o, d, kt, p), n=5)
 
 
 def r4():
@@ -481,7 +532,7 @@ def r5():
 
 for k in kernels:
     {"b2": b2, "b5": b5, "b4": b4, "b6": b6, "b1": b1, "b3": b3, "accum": accum, "r1": r1,
-     "r2": r2, "r3": r3, "r4": r4, "r5": r5}[k]()
+     "r2": r2, "r3": r3, "r4": r4, "r5": r5, "r7": r7, "r8": r8}[k]()
 print("RESULT " + json.dumps(res), flush=True)
 '''
 

@@ -1,10 +1,10 @@
-"""Where the time of the port's hand-written kernels (B1-B6, R1-R5) goes, on one card.
+"""Where the time of the port's hand-written kernels (B1-B6, R1-R5, R7, R8) goes, on one card.
 
 A one-off measurement script beside `chip_smoke.py` and `tools/kernel_ab.py`,
 not part of the port's package. Run from the root of a source tree:
 
     python3 tools/kernel_split.py [--turns N] [--out FILE]
-        [--kernels b5,b2,b4,b6,b1,b3,accum,r1,r2,r3,r4,r5]
+        [--kernels b5,b2,b4,b6,b1,b3,accum,r1,r2,r3,r4,r5,r7,r8]
 
 B5 (`csrc/ao_grid.cu`), on the first 1080p batch of rays of `chip_smoke.py`'s
 first RTAO frame: the launch as it is; the same launch with every
@@ -107,7 +107,20 @@ on every float (`heatmap_term_mismatches`), and the kernel against
 `R5_VARIANTS` (the scan alone, tiles, unrolls, threads a pixel, the IEEE
 term).
 
-For B4, B6, B1, B3, R1-R4 and the accumulation kernel: registers, local memory,
+R7 (`csrc/vpt_decomposition.cu`, `r7`) and R8 (`csrc/vpt_residual_ratio.cu`,
+`r8`), on R3's sample (the smoke's defaults, super voxels of 8): R7's events
+per ray and by kind (`kinds`: skips, entries, residual candidates without and
+with a density test, absorptions, scatters), R8's bounces, turns, DDA and
+residual steps (their shares of the steps), the lanes a lockstep warp of 32
+neighbouring rays keeps busy, and the tree's kernel against the variants of
+its design (`_matching_variants`: the first, one thread a ray, or the
+persistent one): `clock64()` phase shares (`phase_clock`: draws, the
+super voxel's state or the residual step's other work, the density sample),
+the warps' steps (`warp_steps`, the persistent design's lane use), register
+budgets. A/B timing against a parent tree is `tools/kernel_ab.py --kernels
+r7,r8`.
+
+For B4, B6, B1, B3, R1-R4, R7, R8 and the accumulation kernel: registers, local memory,
 shared memory and resident blocks per SM of every instance of every
 variant, read through the library's `kernel_info`, and each variant's
 ptxas lines (registers, stack frame, spills).
@@ -133,7 +146,7 @@ import torch
 
 __all__ = ["main", "VARIANTS", "B5_VARIANTS", "B4_VARIANTS", "B6_VARIANTS", "B1_VARIANTS",
            "B3_VARIANTS", "ACCUM_VARIANTS", "R1_VARIANTS", "R2_VARIANTS", "R3_VARIANTS",
-           "R4_VARIANTS", "R5_VARIANTS"]
+           "R4_VARIANTS", "R5_VARIANTS", "R7_VARIANTS", "R8_VARIANTS"]
 
 # name -> [(old, new), ...] applied to csrc/raster_capsule_oit.cu (B2: a
 # sorted per-thread list of the nearest hits, the nodes in shared memory):
@@ -1695,6 +1708,366 @@ def _r3(dev, W, H, res, turns):
     res["r3"] = fig
 
 
+# R7 (csrc/vpt_decomposition.cu) and R8 (csrc/vpt_residual_ratio.cu). Each
+# design of a kernel has its own variants; `_matching_variants` takes the set
+# whose texts the tree's source holds, so the script splits the first
+# designs (one thread a ray, `*_ONE_THREAD_A_RAY`) in a tree that
+# has them as well as the persistent designs.
+def _wait_u32(v):
+    """A use of uint32 `v` that the next clock read waits for."""
+    return ('    { unsigned q_use; asm volatile("add.u32 %%0, %%1, %%1;" : "=r"(q_use) : "r"(%s)); }\n'
+            % v)
+
+
+def _clocked(text, phase, label, waits, indent="    "):
+    """`text` (whole statements) timed into ph[phase] (clock `q_<label>`),
+    its results waited for."""
+    return (f"{indent}const long long q_{label} = clock64();\n" + text + "".join(waits)
+            + f"{indent}ph[{phase}] += clock64() - q_{label};\n")
+
+
+def _per_thread_flush(n):
+    """Each thread's n phase clocks added to `g_phase` (lane-cycles)."""
+    return ("#pragma unroll\n  for (int p = 0; p < %d; ++p) atomicAdd(&g_phase[p], "
+            "(unsigned long long)ph[p]);\n" % n)
+
+
+# R7's first design: one thread a ray. `phase_clock`: the draws (every threefry),
+# the super voxel's state (its min and max, mu_c, mu_r, the exit face's six
+# divisions), the density sample (with its three divisions), the whole
+# thread; lane-cycles (a finished thread stops counting).
+_R7A_KJ = "    const uint2 kj = tf_split(key, (uint32_t)j);\n"
+_R7A_U = "        const float u%d = tf_uniform(tf_split(kj, %du));\n"
+_R7A_U1 = "      const float u1 = tf_uniform(tf_split(kj, 1u));\n"
+_R7A_U2 = "          const float u2 = tf_uniform(tf_split(kj, 2u));\n"
+_R7A_SV0 = "    const int ix = (int)fminf(fmaxf(idx[0], 0.0f), svn[0] - 1.0f);\n"
+_R7A_SV1 = "    const float d_seg = fmaxf(fminf(fminf(t_far[0], t_far[1]), t_far[2]), 0.0f);\n"
+_R7A_SAMPLE = ("          const float dens = trilinear_bricked(\n"
+               "              grid, nz, ny, nx, (xh[0] - bmin[0]) / extent[0], (xh[1] - bmin[1]) / extent[1],\n"
+               "              (xh[2] - bmin[2]) / extent[2]);\n")
+_R7A_SCATTER = ("        const uint2 k5 = tf_split(kj, 4u);\n"
+                "        const V3 wn = sample_phase(tf_uniform(tf_split(k5, 0u)), tf_uniform(tf_split(k5, 1u)), pc,\n"
+                "                                   V3{w[0], w[1], w[2]});\n")
+_R7A_TOP = "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n  if (i >= N) return;\n"
+_R7A_END = "  if (events != nullptr) events[i] = ev;\n}\n"
+R7_VARIANTS_ONE_THREAD_A_RAY = {
+    "phase_clock": [
+        _R3_COUNTERS,
+        (_R7A_TOP, _R7A_TOP + "  long long ph[4] = {0, 0, 0, 0};\n"
+         "  const long long ph_start = clock64();\n"),
+        (_R7A_KJ, _clocked(_R7A_KJ, 0, "kj", [_wait_u32("kj.x")])),
+        *[(_R7A_U % (k, k), _clocked(_R7A_U % (k, k), 0, f"u{k}", [_r3_wait(f"u{k}")],
+                                     "        ")) for k in (0, 3)],
+        (_R7A_U1, _clocked(_R7A_U1, 0, "u1", [_r3_wait("u1")], "      ")),
+        (_R7A_U2, _clocked(_R7A_U2, 0, "u2", [_r3_wait("u2")], "          ")),
+        (_R7A_SCATTER, _clocked(
+            "        const uint2 k5 = tf_split(kj, 4u);\n"
+            "        const float ua5 = tf_uniform(tf_split(k5, 0u)), ub5 = tf_uniform(tf_split(k5, 1u));\n",
+            0, "k5", [_r3_wait("ua5"), _r3_wait("ub5")], "        ")
+         + "        const V3 wn = sample_phase(ua5, ub5, pc, V3{w[0], w[1], w[2]});\n"),
+        (_R7A_SV0, "    const long long q_sv = clock64();\n" + _R7A_SV0),
+        (_R7A_SV1, _R7A_SV1 + _r3_wait("d_seg") + _r3_wait("mu_r")
+         + "    ph[1] += clock64() - q_sv;\n"),
+        (_R7A_SAMPLE, _clocked(_R7A_SAMPLE, 2, "dens", [_r3_wait("dens")], "          ")),
+        (_R7A_END, _R7A_END[:-2] + "  ph[3] = clock64() - ph_start;\n" + _per_thread_flush(4)
+         + "}\n")],
+    # Register budgets: at least 4 or 8 resident blocks of 128 an SM.
+    **{f"min_blocks_{b}": [("__global__ void __launch_bounds__(VD_THREADS)\nvd_kernel(",
+                            f"__global__ void __launch_bounds__(VD_THREADS, {b})\nvd_kernel(")]
+       for b in (4, 8)},
+}
+R7_PHASES_ONE_THREAD_A_RAY = ("draws", "super_voxel", "sample", "total")
+
+# R8's first design: one thread a ray, three nested loops. `phase_clock`: a
+# residual step's draws (its five threefry), its density sample (with the
+# three divisions by the extents), the rest of the residual step (the free
+# flight's division, the ratio's, the reservoir's, expf), the whole thread
+# (the rest: bounces, their draws, the DDA); lane-cycles.
+_R8A_DRAWS = ("    const uint2 k1 = tf_split(key, 1u), k2 = tf_split(key, 2u);\n"
+              "    key = tf_split(key, 0u);\n"
+              "    const float u0 = tf_uniform(k1), u1 = tf_uniform(k2);\n")
+_R8A_TNEW = "    const float t_new = t - logf(fmaxf(1.0f - u0, 1e-10f)) / mu_r;\n"
+_R8A_SAMPLE = ("    const float density = trilinear_bricked(G.grid, G.nz, G.ny, G.nx, (x - bmin[0]) / extent[0],\n"
+               "                                            (y - bmin[1]) / extent[1], (z - bmin[2]) / extent[2]);\n")
+_R8A_STEP_END = "    t = t_new;\n  }\n  return T_c * T_r;\n"
+_R8A_SEG_SIG = "                                            Reservoir& res, int& n_res) {\n"
+_R8A_TRACE_SIG = "                                          float* x_entry, int& n_dda, int& n_res) {\n"
+_R8A_SEG_CALL = "                                     __ldg(G.mu_r + sv), T, t_cur, res, n_res);\n"
+_R8A_TOP = "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n  if (i >= N) return;\n"
+_R8A_END = "    steps[3 * i + 2] = n_res;\n  }\n}\n"
+R8_VARIANTS_ONE_THREAD_A_RAY = {
+    "phase_clock": [
+        _R3_COUNTERS,
+        (_R8A_SEG_SIG, _R8A_SEG_SIG[:-4] + ", long long* ph) {\n"),
+        (_R8A_TRACE_SIG, _R8A_TRACE_SIG[:-4] + ", long long* ph) {\n"),
+        (_R8A_SEG_CALL, _R8A_SEG_CALL[:-3] + ", ph);\n"),
+        ("    radiance[i] = rr_trace(G, P, key, x, w, res, x_entry, n_dda, n_res);\n",
+         "    radiance[i] = rr_trace(G, P, key, x, w, res, x_entry, n_dda, n_res, ph);\n"),
+        ("      const float T_seg = rr_trace(G, P, k_dda, x, w, res, x_entry, n_dda, n_res);\n",
+         "      const float T_seg = rr_trace(G, P, k_dda, x, w, res, x_entry, n_dda, n_res, ph);\n"),
+        (_R8A_TOP, _R8A_TOP + "  long long ph[4] = {0, 0, 0, 0};\n"
+         "  const long long ph_start = clock64();\n"),
+        (_R8A_DRAWS, _clocked(_R8A_DRAWS, 0, "draws",
+                              [_r3_wait("u0"), _r3_wait("u1"), _wait_u32("key.x")])),
+        (_R8A_TNEW, "    const long long q_r = clock64();\n" + _R8A_TNEW),
+        (_R8A_SAMPLE, _r3_wait("z") + "    ph[2] += clock64() - q_r;\n"
+         + _clocked(_R8A_SAMPLE, 1, "dens", [_r3_wait("density")])
+         + "    const long long q_r2 = clock64();\n"),
+        (_R8A_STEP_END, _r3_wait("res.dist") + _r3_wait("T_r") + "    ph[2] += clock64() - q_r2;\n"
+         + _R8A_STEP_END),
+        (_R8A_END, _R8A_END[:-2] + "  ph[3] = clock64() - ph_start;\n" + _per_thread_flush(4)
+         + "}\n")],
+    **{f"min_blocks_{b}": [
+        ("template <bool TRANSMITTANCE>\n__global__ void __launch_bounds__(RR_THREADS)\n",
+         f"template <bool TRANSMITTANCE>\n__global__ void __launch_bounds__(RR_THREADS, {b})\n")]
+       for b in (4, 8)},
+}
+R8_PHASES_ONE_THREAD_A_RAY = ("draws", "sample", "step_rest", "total")
+
+
+# The persistent designs. `phase_clock`: per lane, the step's draws (every
+# lane), then by the step it took: R7's event (of which the density
+# sample), its absorption tests and turns, the super voxels entered and
+# skipped, the refill (the warp's claim, the new rays' set-up), a dead ray's
+# outputs; R8's residual step (of which the density sample), its other
+# steps (key, bounce, turn), the DDA (a bounce's set-up, the steps between
+# segments), the bounce's end with the outputs; the refill; the whole
+# kernel; all over 32 (warp-cycles). `warp_steps`: the warps' steps.
+def _persistent_clock(loop_top, body_start, step_var, sample, seams, end):
+    """R3's `phase_clock` scheme for a persistent design: `seams` are
+    [(text, waits, charge)], each closing an interval begun at the last
+    one (or at the draws' end) and charging it to `charge` (a C expression
+    of the phase)."""
+    subs = [_R3_COUNTERS,
+            (loop_top, loop_top.replace("  for (;;) {\n",
+                                        "  long long ph[8] = {0, 0, 0, 0, 0, 0, 0, 0};\n"
+                                        "  const long long ph_start = clock64();\n  for (;;) {\n"
+                                        "    const long long r0 = clock64();\n")),
+            ("    if (!__any_sync(0xffffffffu, active)) break;\n",
+             "    ph[4] += clock64() - r0;\n    if (!__any_sync(0xffffffffu, active)) break;\n"
+             "    const long long c0 = clock64();\n"),
+            (body_start, _r3_wait("ua") + _r3_wait("ub") + "    long long c1 = clock64();\n"
+             "    ph[0] += c1 - c0;\n" + body_start + f"    const int st0 = {step_var};\n")]
+    # The density sample, timed inside its step's interval.
+    indent = sample[0][:len(sample[0]) - len(sample[0].lstrip())]
+    subs.append((sample[0], f"{indent}const long long c2 = clock64();\n" + sample[0]
+                 + _r3_wait(sample[1]) + f"{indent}ph[2] += clock64() - c2;\n"))
+    for text, waits, charge in seams:
+        subs.append((text, "".join(waits) + "    { const long long c = clock64();\n"
+                     f"      ph[{charge}] += c - c1;\n      c1 = c; }}\n" + text))
+    subs.append((end, end[:-len("  }\n}\n")] + "  }\n  ph[7] = clock64() - ph_start;\n"
+                 "  __syncwarp();\n#pragma unroll\n  for (int p = 0; p < 8; ++p) {\n"
+                 "    long long v = ph[p];\n"
+                 "    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);\n"
+                 "    if ((threadIdx.x & 31) == 0) atomicAdd(&g_phase[p], "
+                 "(unsigned long long)(v / 32));\n  }\n}\n"))
+    return subs
+
+
+def _persistent_steps(loop_top, end):
+    return [_R3_COUNTERS,
+            (loop_top, loop_top.replace("  for (;;) {\n", "  long long warp_n = 0;\n  for (;;) {\n")),
+            ("    if (!active) continue;\n", "    ++warp_n;\n    if (!active) continue;\n"),
+            (end, end[:-len("}\n")]
+             + "  if ((threadIdx.x & 31) == 0) atomicAdd(&g_phase[0], (unsigned long long)warp_n);\n}\n")]
+
+
+_R7_LOOP_TOP = "  int axis = 0;\n  for (;;) {\n"
+_R7_END = "      active = false;\n    }\n  }\n}\n"
+R7_VARIANTS = {
+    "phase_clock": _persistent_clock(
+        _R7_LOOP_TOP, "    if (!active) continue;\n", "step",
+        ("            const float dens = trilinear_bricked(grid, nz, ny, nx, tp[0], tp[1], tp[2]);\n",
+         "dens"),
+        [("    // Across the exit face, and on through empty super voxels: each skip is\n",
+          [_r3_wait("x[0]"), _r3_wait("t_r"), _r3_wait("w[0]")],
+          "st0 == ST_EVENT ? 1 : (st0 == ST_COLLIDE || st0 == ST_SCATTER ? 3 : 6)"),
+         ("    if (done) {  // the ray is dead: its outputs, and the lane is free\n",
+          [_r3_wait("d_seg"), _r3_wait("mu_r"), _r3_wait("x[0]")], "5")],
+        _R7_END),
+    "warp_steps": _persistent_steps(_R7_LOOP_TOP, _R7_END),
+    # Register budgets: 3, 5, 6 or 8 resident blocks of 128 an SM (the
+    # source asks for VD_MIN_BLOCKS).
+    **{f"min_blocks_{b}": [("#define VD_MIN_BLOCKS 4\n", f"#define VD_MIN_BLOCKS {b}\n")]
+       for b in (3, 5, 6, 8)},
+    "threads_256": [("#define VD_THREADS 128\n", "#define VD_THREADS 256\n"),
+                    ("#define VD_MIN_BLOCKS 4\n", "#define VD_MIN_BLOCKS 2\n")],
+}
+R7_PHASES = ("draws", "event", "sample", "collide_scatter", "refill", "super_voxel", "key_or_done",
+             "total")
+
+_R8_LOOP_TOP = "  int s = 0, n = 0;\n  for (;;) {\n"
+_R8_END = "      active = false;\n    }\n  }\n}\n"
+R8_VARIANTS = {
+    "phase_clock": _persistent_clock(
+        _R8_LOOP_TOP, "    if (!active) continue;\n", "step",
+        ("      const float density = trilinear_bricked(G.grid, G.nz, G.ny, G.nx, tp[0], tp[1], tp[2]);\n",
+         "density"),
+        [("    if (start) {  // the bounce's DDA: the box, the entry, the first super voxel\n",
+          [_r3_wait("T_r"), _r3_wait("w[0]"), _r3_wait("Tb")],
+          "st0 == ST_RES ? 1 : 3"),
+         ("    if (end) {  // the bounce's end\n",
+          [_r3_wait("t_cur"), _r3_wait("mu_r"), _r3_wait("Tb")], "5"),
+         ("    if (done) {  // the ray's outputs, and the lane is free\n",
+          [_r3_wait("Tp"), _r3_wait("x[0]")], "6")],
+        _R8_END),
+    "warp_steps": _persistent_steps(_R8_LOOP_TOP, _R8_END),
+    **{f"min_blocks_{b}": [("#define RR_MIN_BLOCKS 4\n", f"#define RR_MIN_BLOCKS {b}\n")]
+       for b in (3, 5, 6)},
+    "threads_256": [("#define RR_THREADS 128\n", "#define RR_THREADS 256\n"),
+                    ("#define RR_MIN_BLOCKS 4\n", "#define RR_MIN_BLOCKS 2\n")],
+}
+R8_PHASES = ("draws", "residual_step", "sample", "key_bounce_turn", "refill", "dda",
+             "bounce_end", "total")
+
+
+def _matching_variants(source, designs):
+    """(name, variants, phases) of the first of `designs` whose every
+    substitution the tree's csrc/<source>.cu holds exactly once."""
+    from linevis_tpu_torch.kernels import _build
+
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    for name, variants, phases in designs:
+        if variants and all(src.count(old) == 1 for subs in variants.values() for old, _ in subs):
+            return name, variants, phases
+    raise SystemExit(f"{source}.cu matches none of the designs' variants")
+
+
+def _lockstep_use(work):
+    """The lanes lockstep warps of 32 neighbouring rays keep busy
+    (`_warp_efficiency`) for per-ray `work`, the last partial warp left out."""
+    n = work.shape[0] - work.shape[0] % 32
+    return _warp_efficiency(work[:n]) if n else None
+
+
+def _phase_shares(fig, phases, mode):
+    pc = fig["variants"]["phase_clock"]["phase_cycles"][mode]
+    total = float(pc[len(phases) - 1])
+    return {ph: pc[i] / total for i, ph in enumerate(phases[:-1])}
+
+
+def _warp_step_use(libs, source, run, useful):
+    """(warps' steps, lane use) of a persistent design: `useful` lane-steps
+    over 32 x the warps' steps, which its `warp_steps` variant counts."""
+    from linevis_tpu_torch.kernels import _build
+
+    if "warp_steps" not in libs:
+        return None, None
+    lib = ctypes.CDLL(str(libs["warp_steps"][0]))
+    _build._loaded[source] = lib
+    buf = (ctypes.c_ulonglong * 8)()
+    lib.read_phase(buf)
+    run()
+    torch.cuda.synchronize()
+    lib.read_phase(buf)
+    _build._loaded.pop(source)
+    return int(buf[0]), useful / (32.0 * buf[0])
+
+
+def _r7(dev, W, H, res, turns):
+    """R7 on R3's sample: events per ray and by kind, the lanes a lockstep
+    warp keeps busy, and the tree's kernel against its design's variants."""
+    from linevis_tpu_torch.kernels import _build
+    from linevis_tpu_torch.kernels import vpt_decomposition as vd
+    from linevis_tpu_torch.render.super_voxel import super_voxel_minmax_of
+    from linevis_tpu_torch.render.vpt import VptSettings, sun_constants
+
+    _, grid, o, d, kt, _ = _r3_inputs(dev, W, H)
+    vs = VptSettings()
+    dmin, dmax = super_voxel_minmax_of(grid, vs.super_voxel_size)
+    p = vd.decomposition_params(grid.shape, dmin.shape, vs.extinction, vs.scattering_albedo,
+                                *sun_constants(vs), vs.phase_g, vs.max_events)
+    ev = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
+    kinds = None  # a tree from before the kinds counts them not
+    if hasattr(vd, "EVENT_KINDS"):
+        kinds = torch.empty((o.shape[0], len(vd.EVENT_KINDS)), dtype=torch.int32, device=dev)
+        vd.vpt_decomposition(grid, dmin, dmax, o, d, kt, p, events=ev, kinds=kinds)
+    else:
+        vd.vpt_decomposition(grid, dmin, dmax, o, d, kt, p, events=ev)
+    evd = ev.double()
+    hit = ev > 0
+    fig = {"rays": o.shape[0], "events": int(evd.sum()), "rays_in_the_box": int(hit.sum()),
+           "events_p50_hit": float(evd[hit].quantile(0.5)),
+           "events_p99_hit": float(evd[hit].quantile(0.99)), "events_max": int(ev.max()),
+           "lockstep_lane_use_32": _lockstep_use(ev),
+           "lockstep_lane_use_sorted_32": _lockstep_use(torch.sort(ev).values)}
+    k = None
+    if kinds is not None:
+        tot = kinds.double().sum(0)
+        k = fig["kinds"] = {name: int(v) for name, v in zip(vd.EVENT_KINDS, tot)}
+        fig["kind_share_of_events"] = {name: float(v) / float(evd.sum())
+                                       for name, v in zip(vd.EVENT_KINDS[:6], tot[:6])}
+    print("r7: " + json.dumps(fig), flush=True)
+    design, variants, phases = _matching_variants("vpt_decomposition", (
+        ("persistent", R7_VARIANTS, R7_PHASES),
+        ("one_thread_a_ray", R7_VARIANTS_ONE_THREAD_A_RAY, R7_PHASES_ONE_THREAD_A_RAY)))
+    fig["design"] = design
+    mode = "decomposition_1080p"
+    modes = {mode: lambda: list(vd.vpt_decomposition(grid, dmin, dmax, o, d, kt, p))}
+    libs = _build_variants(_build.BUILD_DIR / "split", "vpt_decomposition", variants)
+    fig["variants"] = _variant_figures("vpt_decomposition", libs, modes, turns, phases)
+    fig["phase_share"] = _phase_shares(fig, phases, mode)
+    # Lane-steps with work in the persistent design: a ray's key, every
+    # event but a skip, and each scatter's turn (and, where rays can be
+    # absorbed, each collision's absorption draw).
+    if k is not None:
+        collisions = k["absorb"] + k["scatter"]
+        useful = (fig["rays_in_the_box"] + fig["events"] - k["skip"] + k["scatter"]
+                  + (collisions if p.abs_albedo > 0 else 0))
+        fig["warp_steps"], fig["lane_use_persistent"] = _warp_step_use(
+            libs, "vpt_decomposition", modes[mode], useful)
+    for name, v in fig["variants"].items():
+        print(f"r7 {name}: " + json.dumps(v), flush=True)
+    print("r7 phase shares: " + json.dumps(fig["phase_share"]), flush=True)
+    res["r7"] = fig
+
+
+def _r8(dev, W, H, res, turns):
+    """R8 on R3's sample: bounces, DDA and residual steps per ray, the lanes
+    a lockstep warp keeps busy, and the tree's kernel against its design's
+    variants."""
+    from linevis_tpu_torch.kernels import _build
+    from linevis_tpu_torch.kernels import vpt_residual_ratio as vr
+    from linevis_tpu_torch.render.super_voxel import super_voxel_grid_of
+    from linevis_tpu_torch.render.vpt import VptSettings, sun_constants
+
+    _, grid, o, d, kt, _ = _r3_inputs(dev, W, H)
+    vs = VptSettings()
+    sv = super_voxel_grid_of(grid, float(vs.extinction[0]), vs.super_voxel_size)
+    p = vr.rr_params(grid.shape, sv.mu_c.shape, vs.extinction, vs.scattering_albedo,
+                     *sun_constants(vs), vs.phase_g)
+    st = torch.empty((o.shape[0], 3), dtype=torch.int32, device=dev)
+    vr.vpt_residual_ratio(grid, sv, o, d, kt, p, steps=st)
+    tot = [int(v) for v in st.double().sum(0)]
+    n = o.shape[0]
+    steps = {"bounce": tot[0], "turn": tot[0] - n, "dda_step": tot[1], "residual_step": tot[2]}
+    fig = {"rays": n, "steps": steps,
+           "step_share": {name: v / float(sum(steps.values())) for name, v in steps.items()},
+           "max": [int(v) for v in st.max(0).values],
+           "lockstep_lane_use_32_residual": _lockstep_use(st[:, 2]),
+           "lockstep_lane_use_32_bounce_turn_residual": _lockstep_use(
+               2 * st[:, 0] - 1 + st[:, 2])}
+    print("r8: " + json.dumps(fig), flush=True)
+    design, variants, phases = _matching_variants("vpt_residual_ratio", (
+        ("persistent", R8_VARIANTS, R8_PHASES),
+        ("one_thread_a_ray", R8_VARIANTS_ONE_THREAD_A_RAY, R8_PHASES_ONE_THREAD_A_RAY)))
+    fig["design"] = design
+    mode = "residual_ratio_1080p"
+    modes = {mode: lambda: list(vr.vpt_residual_ratio(grid, sv, o, d, kt, p))}
+    libs = _build_variants(_build.BUILD_DIR / "split", "vpt_residual_ratio", variants)
+    fig["variants"] = _variant_figures("vpt_residual_ratio", libs, modes, turns, phases)
+    fig["phase_share"] = _phase_shares(fig, phases, mode)
+    # Lane-steps with work in the persistent design: a ray's key, its
+    # bounces and turns, its residual steps.
+    useful = n + steps["bounce"] + steps["turn"] + steps["residual_step"]
+    fig["warp_steps"], fig["lane_use_persistent"] = _warp_step_use(
+        libs, "vpt_residual_ratio", modes[mode], useful)
+    for name, v in fig["variants"].items():
+        print(f"r8 {name}: " + json.dumps(v), flush=True)
+    print("r8 phase shares: " + json.dumps(fig["phase_share"]), flush=True)
+    res["r8"] = fig
+
+
 # R4 (`csrc/density_march.cu`) on `chip_smoke.py`'s density-map frame: `r4`
 # splits the tree's design with `R4_VARIANTS`. Each variant is
 # (substitutions, layout): the field the wrapper is handed, dense ("dense")
@@ -2006,12 +2379,12 @@ def main(argv=None) -> int:
     W, H = 1920, 1080
     res = {"gpu": gpu}
     which = (args[args.index("--kernels") + 1] if "--kernels" in args else "b5,b2,b4,b6,b1,b3")
-    if set(which.split(",")) - {"r3", "r4", "r5"}:
+    if set(which.split(",")) - {"r3", "r4", "r5", "r7", "r8"}:
         traj = tornado_trajectories(dev)
         scene = tornado_scene(dev, traj=traj)
     for k in which.split(","):
-        if k == "r3":
-            _r3(dev, W, H, res, turns)
+        if k in ("r3", "r7", "r8"):
+            {"r3": _r3, "r7": _r7, "r8": _r8}[k](dev, W, H, res, turns)
         elif k == "r4":
             _r4(dev, W, H, res, turns)
         elif k == "r5":
