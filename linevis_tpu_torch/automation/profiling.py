@@ -1,5 +1,5 @@
-"""Profiling harness: torch.profiler traces, device-time summaries and
-per-pass frame timers.
+"""Profiling harness: torch.profiler traces, device-time summaries,
+per-pass frame timers, and the spans and counters inside the frame.
 
 Counterpart of `linevis_tpu/automation/profiling.py` (jax.profiler there).
 `trace` records host ops and CUDA kernels and can write a Chrome/Perfetto
@@ -7,6 +7,30 @@ trace; `device_summary` turns a recording into the device's busy time, its
 idle share of a host-timed window, and the kernels that take the time;
 `FrameProfiler` times named passes, one CSV row per (frame, pass), on the
 host clock and, for a pass on the card, also between CUDA events.
+
+Spans and counters, placed in the program where the work happens, record
+only while a `torch.profiler` session records (`tracing()`):
+
+    with span("ao.pairs"):          # a stage of the frame
+        ...
+    count("ao.pairs_sorted", n)     # a host int, or a 0-d tensor summed on
+                                    # its device without a sync
+    rec = records()                 # {"spans": [Span, ...], "counts": {...}}
+    reset()
+
+With no profiler recording, `span` costs one check and returns a shared
+no-op, and `count` returns after the same check: no clock read, no
+`record_function`, no allocation. While one records, a span enters
+`torch._C._profiler._RecordFunctionFast(name)`, an ordinary host event of
+the profiler's timeline (not a user annotation, which kineto mirrors as
+device-typed events), and keeps its name, start and end
+(`time.perf_counter_ns`), its parent span and its frame: the id the
+outermost `frame` span (`render/renderer.py:register_renderer` wraps every
+mode's `render` in one) hands to every span inside it, on its thread.
+`records()` gives each span's self time (its duration less the part its
+children cover) and the counters' totals, reading device counters in one
+transfer. The profiler records per thread, and so do spans and counters;
+threads may record at once.
 
     python -m linevis_tpu_torch.automation.profiling [OUT_DIR [PATH]]
 
@@ -57,24 +81,163 @@ path; configs 4 and 4b draw the Femur-like stress lines). It runs 8 frames
 (4 of the ray-traced paths: `rtao`, `wavefront`, `recast`, `mlat`,
 `rtao_registry` and a config whose renderer is RTAO) after 2 warm-up frames, timed once without
 the profiler (the window the idle share is taken against) and once
-recorded, and prints one JSON line; with OUT_DIR (give "" for none) it
-also writes that line to OUT_DIR/summary.json and the Chrome trace to
-OUT_DIR/tube_frames.json.
+recorded, and prints one JSON line, with `spans` (self ms a frame by span
+name) and `counts` (counter totals a frame) from the recorded frames; with
+OUT_DIR (give "" for none) it also writes that line to
+OUT_DIR/summary.json, the Chrome trace to OUT_DIR/tube_frames.json and
+`records()` to OUT_DIR/records.json.
 """
+
+
 
 from __future__ import annotations
 
 import contextlib
 import csv
+import itertools
 import json
 import os
 import sys
+import threading
 import time
 from collections import defaultdict
+from typing import NamedTuple, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
 
-__all__ = ["trace", "device_summary", "FrameProfiler"]
+__all__ = ["trace", "device_summary", "FrameProfiler", "Span", "Recorder", "tracing", "span",
+           "count", "records", "reset"]
+
+
+def tracing() -> bool:
+    """True while a `torch.profiler` session records on this thread."""
+    return _profiler_enabled()
+
+
+class Span(NamedTuple):
+    """One closed span: perf_counter_ns times; `parent` the id of the span
+    that was open around it on its thread, `frame` the id of the outermost
+    `frame` span around it (None outside any)."""
+
+    id: int
+    name: str
+    parent: Optional[int]
+    frame: Optional[int]
+    start_ns: int
+    end_ns: int
+    self_ns: int  # end - start less the part the span's children cover
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _OpenSpan:
+    __slots__ = ("_rec", "_name", "_rf", "_id", "_parent", "_frame", "_t0")
+
+    def __init__(self, rec, name):
+        self._rec, self._name = rec, name
+
+    def __enter__(self):
+        rec = self._rec
+        stack = rec._stack()
+        up = stack[-1] if stack else None
+        self._parent = None if up is None else up._id
+        self._frame = None if up is None else up._frame
+        with rec._lock:
+            self._id = next(rec._ids)
+            if self._frame is None and self._name == "frame":
+                self._frame = next(rec._frames)
+        stack.append(self)
+        self._rf = _RecordFunctionFast(self._name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self._rf.__exit__(None, None, None)
+        rec = self._rec
+        rec._stack().pop()
+        with rec._lock:
+            rec._spans.append((self._id, self._name, self._parent, self._frame, self._t0, t1))
+        return False
+
+
+class Recorder:
+    """Spans and counters of a process's traced frames (module docstring).
+    The module's `span`, `count`, `records` and `reset` are one Recorder's."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count()
+        self._frames = itertools.count()
+        self._spans = []
+        self._counts = {}
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def span(self, name: str):
+        """Context manager timing the block as span `name` while tracing."""
+        if not _profiler_enabled():
+            return _NO_SPAN
+        return _OpenSpan(self, name)
+
+    def count(self, name: str, value) -> None:
+        """Adds `value` (a host int, or a 0-d tensor, added on its device
+        without a sync) to counter `name` while tracing."""
+        if not _profiler_enabled():
+            return
+        with self._lock:
+            prev = self._counts.get(name)
+            self._counts[name] = value if prev is None else prev + value
+
+    def records(self) -> dict:
+        """{"spans": [Span, ...] in the order they closed, "counts": {name:
+        int total}}; the device counters read in one transfer per device."""
+        with self._lock:
+            raw, counts = list(self._spans), dict(self._counts)
+        covered = defaultdict(int)
+        for _, _, parent, _, t0, t1 in raw:
+            if parent is not None:
+                covered[parent] += t1 - t0
+        spans = [Span(i, n, p, f, t0, t1, t1 - t0 - covered[i]) for i, n, p, f, t0, t1 in raw]
+        on_device = defaultdict(list)
+        for k, v in counts.items():
+            if isinstance(v, torch.Tensor):
+                on_device[v.device].append(k)
+        for keys in on_device.values():
+            vals = torch.stack([counts[k].reshape(()).to(torch.int64) for k in keys]).tolist()
+            counts.update(zip(keys, vals))
+        return {"spans": spans, "counts": {k: int(v) for k, v in counts.items()}}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._counts.clear()
+
+
+_RECORDER = Recorder()
+span = _RECORDER.span
+count = _RECORDER.count
+records = _RECORDER.records
+reset = _RECORDER.reset
 
 
 @contextlib.contextmanager
@@ -368,17 +531,29 @@ def main(out_dir: str = None, path: str = "opaque") -> int:
 
     # The profiler slows the host, so the window it is held against is
     # the same frames timed without it.
+    # The program records into the imported module's recorder, not into
+    # this file's when it runs as __main__.
+    from linevis_tpu_torch.automation import profiling
+
     wall_ms = frames()
+    profiling.reset()
     with trace(out_dir and os.path.join(out_dir, "tube_frames.json")) as prof:
         profiled_wall_ms = frames()
+    rec = profiling.records()
+    self_ms = defaultdict(float)
+    for s in rec["spans"]:
+        self_ms[s.name] += s.self_ns / 1e6 / n
     summary = device_summary(prof, wall_ms)
     summary.update(path=path, frames=n, profiled_wall_ms=profiled_wall_ms,
                    per_frame_wall_ms=wall_ms / n,
-                   per_frame_busy_ms=summary["device_busy_ms"] / n, gpu=gpu)
+                   per_frame_busy_ms=summary["device_busy_ms"] / n, gpu=gpu,
+                   spans=dict(self_ms), counts={k: v / n for k, v in rec["counts"].items()})
     line = json.dumps(summary)
     if out_dir:
         with open(os.path.join(out_dir, "summary.json"), "w") as f:
             f.write(line + "\n")
+        with open(os.path.join(out_dir, "records.json"), "w") as f:
+            json.dump({"spans": [s._asdict() for s in rec["spans"]], "counts": rec["counts"]}, f)
     print(line)
     return 0
 

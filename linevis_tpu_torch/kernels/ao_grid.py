@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from linevis_tpu_torch.automation import profiling
 from linevis_tpu_torch.kernels import _build
 
 __all__ = [
@@ -173,7 +174,9 @@ def expand_ray_pairs(
 ) -> PairChunks:
     """Sample `max_ray_cells` cells along every ray, drop repeated and empty
     cells, sort the (cell, ray) pairs by cell (stable) and give every chunk
-    of C pairs the record slots of its first to its last cell."""
+    of C pairs the record slots of its first to its last cell. While a
+    profiler records, counts the pairs sorted (`ao.pairs_sorted`) and those
+    kept, with a cell below G^3 (`ao.pairs_kept`, on the device)."""
     R = origins.shape[1]
     G, C = grid.resolution, grid.chunk
     G3 = G * G * G
@@ -189,6 +192,9 @@ def expand_ray_pairs(
 
     n_pairs = max_ray_cells * R
     skeys, perm = torch.sort(key, stable=True)
+    if profiling.tracing():
+        profiling.count("ao.pairs_sorted", n_pairs)
+        profiling.count("ao.pairs_kept", torch.searchsorted(skeys, G3))
     ray_ids = perm % R
     n_pairs_pad = -(-n_pairs // C) * C
     rays = torch.zeros((8, n_pairs_pad + C), dtype=torch.float32, device=dev)
@@ -396,7 +402,10 @@ def trace_ao_occlusion(
     """Occluded [R] in {0, 1}: 1 where the ray hits a capsule of a sampled
     cell (or of a cell that shares the pair's chunk) within t_max. Never a
     false occlusion; a crossing of a cell that the samples skip is missed."""
-    pairs = expand_ray_pairs(origins, dirs, t_max, valid, grid, max_ray_cells)
-    occ_pairs = trace_pairs(pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid.records,
-                            grid.chunk)
-    return scatter_occlusion(pairs, occ_pairs, origins.shape[1], grid.resolution)
+    with profiling.span("ao.pairs"):
+        pairs = expand_ray_pairs(origins, dirs, t_max, valid, grid, max_ray_cells)
+    with profiling.span("ao.trace"):
+        occ_pairs = trace_pairs(pairs.rays, pairs.seg_begin, pairs.seg_chunks, grid.records,
+                                grid.chunk)
+    with profiling.span("ao.scatter"):
+        return scatter_occlusion(pairs, occ_pairs, origins.shape[1], grid.resolution)

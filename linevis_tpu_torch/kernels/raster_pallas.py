@@ -46,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from linevis_tpu_torch.automation.profiling import span
 from linevis_tpu_torch.kernels import _build
 
 __all__ = [
@@ -117,36 +118,31 @@ def build_sorted_binning(
     num_tiles = tiles_x * tiles_y
     T = xmin.shape[0]
 
-    on_screen = (xmax >= 0) & (ymax >= 0) & (xmin < width) & (ymin < height)
-    covers_x = torch.floor(xmax - 0.5) >= torch.ceil(xmin - 0.5)
-    covers_y = torch.floor(ymax - 0.5) >= torch.ceil(ymin - 0.5)
-    valid = valid & on_screen & covers_x & covers_y
+    with span("bin.window"):
+        on_screen = (xmax >= 0) & (ymax >= 0) & (xmin < width) & (ymin < height)
+        covers_x = torch.floor(xmax - 0.5) >= torch.ceil(xmin - 0.5)
+        covers_y = torch.floor(ymax - 0.5) >= torch.ceil(ymin - 0.5)
+        valid = valid & on_screen & covers_x & covers_y
 
-    tx0 = _tile_index(xmin, tile_w, tiles_x)
-    tx1 = _tile_index(xmax, tile_w, tiles_x)
-    ty0 = _tile_index(ymin, tile_h, tiles_y)
-    ty1 = _tile_index(ymax, tile_h, tiles_y)
+        tx0 = _tile_index(xmin, tile_w, tiles_x)
+        tx1 = _tile_index(xmax, tile_w, tiles_x)
+        ty0 = _tile_index(ymin, tile_h, tiles_y)
+        ty1 = _tile_index(ymax, tile_h, tiles_y)
 
-    # Candidate tiles [span_y, span_x, T]: the bbox window from (tx0, ty0).
-    dx = torch.arange(span_x, dtype=torch.int32, device=dev)
-    dy = torch.arange(span_y, dtype=torch.int32, device=dev)
-    cand_tx = tx0[None, None, :] + dx[None, :, None]
-    cand_ty = ty0[None, None, :] + dy[:, None, None]
-    in_range = (
-        (cand_tx <= tx1[None, None, :])
-        & (cand_ty <= ty1[None, None, :])
-        & valid[None, None, :]
-    )
+        # Candidate tiles [span_y, span_x, T]: the bbox window from (tx0, ty0).
+        dx = torch.arange(span_x, dtype=torch.int32, device=dev)
+        dy = torch.arange(span_y, dtype=torch.int32, device=dev)
+        cand_tx = tx0[None, None, :] + dx[None, :, None]
+        cand_ty = ty0[None, None, :] + dy[:, None, None]
+        in_range = (
+            (cand_tx <= tx1[None, None, :])
+            & (cand_ty <= ty1[None, None, :])
+            & valid[None, None, :]
+        )
     if seg2d is not None:
         # Exact 2D test: does the screen-space capsule (segment dilated by
         # sr) overlap the tile's rect? Liang-Barsky clip of the segment
-        # against the sr-expanded rect.
-        sxa, sya, sxb, syb, sr = (v[None, None, :] for v in seg2d)
-        rx0 = cand_tx.float() * tile_w - sr
-        rx1 = (cand_tx + 1).float() * tile_w + sr
-        ry0 = cand_ty.float() * tile_h - sr
-        ry1 = (cand_ty + 1).float() * tile_h + sr
-
+        # against the sr-expanded rect, one axis in each span.
         def axis_range(a0, r0, r1, d):
             small = torch.abs(d) < 1e-6
             inv = 1.0 / torch.where(small, torch.ones_like(d), d)
@@ -160,36 +156,44 @@ def build_sorted_binning(
             hi = torch.where(small, torch.where(inside, big, -big), hi)
             return lo, hi
 
-        lox, hix = axis_range(sxa, rx0, rx1, sxb - sxa)
-        loy, hiy = axis_range(sya, ry0, ry1, syb - sya)
-        t_lo = torch.clamp(torch.maximum(lox, loy), min=0.0)
-        t_hi = torch.clamp(torch.minimum(hix, hiy), max=1.0)
-        in_range = in_range & (t_hi >= t_lo)
-    tile_id = torch.where(
-        in_range, cand_ty * tiles_x + cand_tx,
-        torch.full_like(cand_tx, num_tiles),
-    )
+        with span("bin.cull"):
+            sxa, sya, sxb, syb, sr = (v[None, None, :] for v in seg2d)
+            rx0 = cand_tx.float() * tile_w - sr
+            rx1 = (cand_tx + 1).float() * tile_w + sr
+            lox, hix = axis_range(sxa, rx0, rx1, sxb - sxa)
+        with span("bin.cull"):
+            ry0 = cand_ty.float() * tile_h - sr
+            ry1 = (cand_ty + 1).float() * tile_h + sr
+            loy, hiy = axis_range(sya, ry0, ry1, syb - sya)
+            t_lo = torch.clamp(torch.maximum(lox, loy), min=0.0)
+            t_hi = torch.clamp(torch.minimum(hix, hiy), max=1.0)
+            in_range = in_range & (t_hi >= t_lo)
+    with span("bin.sort"):
+        tile_id = torch.where(
+            in_range, cand_ty * tiles_x + cand_tx,
+            torch.full_like(cand_tx, num_tiles),
+        )
 
-    zq = torch.clamp(payload_rows[15] * 1023.0, 0.0, 1023.0).to(torch.int32)
-    key = (tile_id * 1024 + zq[None, None, :]).reshape(-1)
+        zq = torch.clamp(payload_rows[15] * 1023.0, 0.0, 1023.0).to(torch.int32)
+        key = (tile_id * 1024 + zq[None, None, :]).reshape(-1)
 
-    sorted_keys, perm = torch.sort(key, stable=True)
-    # Pair column j = s * T + t of the [span, T] candidate grid carries
-    # primitive t's payload.
-    payload = payload_rows[:, perm % T]
-    payload = torch.nn.functional.pad(payload, (0, chunk))
+        sorted_keys, perm = torch.sort(key, stable=True)
+        # Pair column j = s * T + t of the [span, T] candidate grid carries
+        # primitive t's payload.
+        payload = payload_rows[:, perm % T]
+        payload = torch.nn.functional.pad(payload, (0, chunk))
 
-    bounds = torch.arange(num_tiles + 1, dtype=torch.int32, device=dev) * 1024
-    edges = torch.searchsorted(sorted_keys, bounds, side="left").to(torch.int32)
-    starts = edges[:-1]
-    return SortedBinning(
-        payload=payload,
-        tile_start=starts,
-        tile_count=edges[1:] - starts,
-        tiles_x=tiles_x,
-        tiles_y=tiles_y,
-        chunk=chunk,
-    )
+        bounds = torch.arange(num_tiles + 1, dtype=torch.int32, device=dev) * 1024
+        edges = torch.searchsorted(sorted_keys, bounds, side="left").to(torch.int32)
+        starts = edges[:-1]
+        return SortedBinning(
+            payload=payload,
+            tile_start=starts,
+            tile_count=edges[1:] - starts,
+            tiles_x=tiles_x,
+            tiles_y=tiles_y,
+            chunk=chunk,
+        )
 
 
 @dataclasses.dataclass

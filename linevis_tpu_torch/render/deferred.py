@@ -26,7 +26,8 @@ from linevis_tpu_torch.kernels.raster_capsule import rasterize_capsules
 from linevis_tpu_torch.kernels.tiles import unpack_tiles
 from linevis_tpu_torch.render.camera import Camera
 from linevis_tpu_torch.render.pipeline import RasterSettings
-from linevis_tpu_torch.render.renderer import LineRenderer, _image
+from linevis_tpu_torch.render.handback import hand_back
+from linevis_tpu_torch.render.renderer import LineRenderer
 from linevis_tpu_torch.render.tube_raster import (
     camera_tensors,
     prepare_capsule_frame,
@@ -216,4 +217,4 @@ class DeferredOpaqueRenderer(LineRenderer):
             if self.upscaler is None:
                 self.upscaler = TemporalUpscaler(scale=f)
             img = self.upscaler.step(img, mv)
-        return _image(img)
+        return hand_back(img)

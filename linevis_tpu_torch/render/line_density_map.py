@@ -18,6 +18,7 @@ import torch
 
 from linevis_tpu_torch.kernels.density_march import density_march, march_params
 from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.handback import hand_back
 from linevis_tpu_torch.render.transfer_function import TransferFunction
 
 __all__ = ["render_line_density_map", "LineDensityMapRenderer"]
@@ -87,4 +88,4 @@ class LineDensityMapRenderer:
             torch.as_tensor(np.asarray(camera.position, np.float32), device=dev),
             basis, camera.width, camera.height, attenuation=self.attenuation,
             tf_color=c_pts, tf_opacity=o_pts)
-        return img.cpu().numpy()
+        return hand_back(img, channels_first=False)

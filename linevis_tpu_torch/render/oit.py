@@ -40,6 +40,7 @@ from linevis_tpu_torch.kernels.raster_capsule_oit import (
 from linevis_tpu_torch.kernels.tiles import unpack_tiles
 from linevis_tpu_torch.kernels.trig_moment_math import TRIG_BIAS, wrapping_zone_parameters
 from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.handback import hand_back
 from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.transfer_function import TransferFunction
 from linevis_tpu_torch.render.tube_raster import (
@@ -183,7 +184,7 @@ def render_tubes_mlab_image(
     img = render_tubes_mlab(
         scene, *camera_tensors(camera, scene.a.device), settings, K, opacity
     )
-    return np.moveaxis(img.cpu().numpy(), 0, -1)
+    return hand_back(img)
 
 
 def render_tubes_atomic_loop(

@@ -36,6 +36,7 @@ import torch
 
 from linevis_tpu_torch.kernels.raster_capsule_oit import rasterize_capsules_mlab
 from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.handback import hand_back
 from linevis_tpu_torch.render.oit import render_tubes_mlab
 from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.tube_raster import (
@@ -302,4 +303,4 @@ def render_opacity_optimization(
     img = None
     for _ in range(warmup_frames):
         img = r.render(camera)
-    return np.moveaxis(img.cpu().numpy(), 0, -1)
+    return hand_back(img)

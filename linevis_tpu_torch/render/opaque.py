@@ -16,11 +16,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from linevis_tpu_torch.automation.profiling import span
 from linevis_tpu_torch.geometry.tubes import TubeMesh
 from linevis_tpu_torch.kernels import raster_pallas
 from linevis_tpu_torch.kernels.raster_pallas import build_csr_binning
 from linevis_tpu_torch.kernels.tiles import unpack_tiles
 from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.handback import hand_back
 from linevis_tpu_torch.render.pipeline import (
     GBUFFER_PLANES,
     RasterSettings,
@@ -54,17 +56,22 @@ def untile_gbuffer(csr, raster, settings: RasterSettings):
 
 def rasterize_gbuffer(mesh: TubeMesh, view_proj, settings: RasterSettings):
     """Mesh -> (gbuf dict of [H, W] images, depth, batch, overflow)."""
-    batch = tube_vertex_stage(mesh, view_proj, settings.width, settings.height)
-    payload = build_payload(batch)  # [40, T]
-    csr = build_csr_binning(
-        batch.tri_x, batch.tri_y, payload, batch.tri_valid,
-        settings.width, settings.height, settings.tile_w, settings.tile_h,
-        settings.chunk, settings.span_x, settings.span_y, settings.pairs_capacity,
-    )
-    raster = raster_pallas.rasterize_gbuffer(
-        csr, GBUFFER_PLANES, settings.tile_w, settings.tile_h
-    )
-    gbuf, depth = untile_gbuffer(csr, raster, settings)
+    with span("opaque.vertex"):
+        batch = tube_vertex_stage(mesh, view_proj, settings.width, settings.height)
+    with span("opaque.payload"):
+        payload = build_payload(batch)  # [40, T]
+    with span("opaque.bin"):
+        csr = build_csr_binning(
+            batch.tri_x, batch.tri_y, payload, batch.tri_valid,
+            settings.width, settings.height, settings.tile_w, settings.tile_h,
+            settings.chunk, settings.span_x, settings.span_y, settings.pairs_capacity,
+        )
+    with span("opaque.raster"):
+        raster = raster_pallas.rasterize_gbuffer(
+            csr, GBUFFER_PLANES, settings.tile_w, settings.tile_h
+        )
+    with span("opaque.untile"):
+        gbuf, depth = untile_gbuffer(csr, raster, settings)
     return gbuf, depth, batch, csr.overflow
 
 
@@ -78,12 +85,13 @@ def render_opaque(
 ) -> torch.Tensor:
     """Render the tube mesh -> [4, H, W] linear RGBA on the mesh's device."""
     gbuf, _depth, batch, _overflow = rasterize_gbuffer(mesh, view_proj, settings)
-    if ray_basis is None:
-        ray_basis = _ray_basis_from_view_proj(view_proj)
-    return shade_gbuffer(
-        gbuf, tf_table, camera_position, ray_basis,
-        batch.view_z_min, batch.view_z_max, settings,
-    )
+    with span("opaque.shade"):
+        if ray_basis is None:
+            ray_basis = _ray_basis_from_view_proj(view_proj)
+        return shade_gbuffer(
+            gbuf, tf_table, camera_position, ray_basis,
+            batch.view_z_min, batch.view_z_max, settings,
+        )
 
 
 def _ray_basis_from_view_proj(view_proj: torch.Tensor) -> torch.Tensor:
@@ -132,9 +140,4 @@ def render_opaque_image(
         torch.as_tensor(np.asarray(tf.table, np.float32), device=dev),
         s,
     )
-    img = np.moveaxis(img.cpu().numpy(), 0, -1)  # -> [H, W, 4]
-    if supersample > 1:
-        k = supersample
-        H, W = settings.height, settings.width
-        img = img.reshape(H, k, W, k, 4).mean(axis=(1, 3))
-    return img
+    return hand_back(img, supersample)

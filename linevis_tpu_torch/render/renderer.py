@@ -25,14 +25,17 @@ use, as in the JAX registry. "Opaque (Triangle Mesh)" draws a
 from __future__ import annotations
 
 import dataclasses
+import functools
 import warnings
 from typing import Dict, Optional, Type
 
 import numpy as np
 import torch
 
+from linevis_tpu_torch.automation.profiling import span
 from linevis_tpu_torch.core.settings import SettingsMap
 from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.handback import hand_back
 from linevis_tpu_torch.render.line_density_map import LineDensityMapRenderer
 from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.spherical_heatmap import SphericalHeatMapRenderer
@@ -50,11 +53,6 @@ __all__ = [
     "create_renderer",
     "register_renderer",
 ]
-
-
-def _image(img: torch.Tensor) -> np.ndarray:
-    """[4, H, W] tensor -> numpy [H, W, 4]."""
-    return np.moveaxis(img.cpu().numpy(), 0, -1)
 
 
 class LineRenderer:
@@ -189,7 +187,7 @@ class MLABRenderer(_OitBase):
     def render(self, camera: Camera) -> np.ndarray:
         from linevis_tpu_torch.render.oit import render_tubes_mlab
 
-        return _image(self._frame(camera, render_tubes_mlab, K=self.K, opacity=self.opacity))
+        return hand_back(self._frame(camera, render_tubes_mlab, K=self.K, opacity=self.opacity))
 
 
 class PerPixelLinkedListRenderer(MLABRenderer):
@@ -209,7 +207,7 @@ class WBOITRenderer(_OitBase):
     def render(self, camera: Camera) -> np.ndarray:
         from linevis_tpu_torch.render.oit import render_tubes_wboit
 
-        return _image(self._frame(camera, render_tubes_wboit, opacity=self.opacity))
+        return hand_back(self._frame(camera, render_tubes_wboit, opacity=self.opacity))
 
 
 class AtomicLoop64Renderer(_OitBase):
@@ -222,8 +220,8 @@ class AtomicLoop64Renderer(_OitBase):
     def render(self, camera: Camera) -> np.ndarray:
         from linevis_tpu_torch.render.oit import render_tubes_atomic_loop
 
-        return _image(self._frame(camera, render_tubes_atomic_loop, K=self.K,
-                                  opacity=self.opacity))
+        return hand_back(self._frame(camera, render_tubes_atomic_loop, K=self.K,
+                                     opacity=self.opacity))
 
 
 class DepthPeelingRenderer(_OitBase):
@@ -235,7 +233,7 @@ class DepthPeelingRenderer(_OitBase):
     def render(self, camera: Camera) -> np.ndarray:
         from linevis_tpu_torch.render.oit import render_tubes_depth_peeling
 
-        return _image(self._frame(camera, render_tubes_depth_peeling, opacity=self.opacity))
+        return hand_back(self._frame(camera, render_tubes_depth_peeling, opacity=self.opacity))
 
 
 class MLABBucketRenderer(_OitBase):
@@ -247,7 +245,7 @@ class MLABBucketRenderer(_OitBase):
     def render(self, camera: Camera) -> np.ndarray:
         from linevis_tpu_torch.render.oit import render_tubes_mlab_buckets
 
-        return _image(self._frame(camera, render_tubes_mlab_buckets, opacity=self.opacity))
+        return hand_back(self._frame(camera, render_tubes_mlab_buckets, opacity=self.opacity))
 
 
 class MBOITRenderer(_OitBase):
@@ -275,7 +273,7 @@ class MBOITRenderer(_OitBase):
     def render(self, camera: Camera) -> np.ndarray:
         from linevis_tpu_torch.render.oit import render_tubes_mboit
 
-        return _image(self._frame(
+        return hand_back(self._frame(
             camera, render_tubes_mboit, n_mom=self.n_mom, opacity=self.opacity,
             trigonometric=not self.use_power_moments, pixel_format=self.pixel_format))
 
@@ -297,7 +295,7 @@ class DepthComplexityRenderer(_OitBase):
         bg = torch.tensor(self._raster_settings(camera).background_color,
                           dtype=torch.float32, device=img.device)
         img = torch.where((counts == 0)[..., None], bg, img)
-        return img.cpu().numpy()
+        return hand_back(img, channels_first=False)
 
 
 def _halton(index: int, base: int) -> float:
@@ -377,7 +375,7 @@ class VulkanRayTracerRenderer(LineRenderer):
             n = min(self._frame, self.MAX_ACCUM_FRAMES - 1)
             self._accum = (self._accum * n + img) / (n + 1)
         self._frame += 1
-        return _image(self._accum)
+        return hand_back(self._accum)
 
 
 class RtaoRenderer(LineRenderer):
@@ -449,7 +447,7 @@ class RtaoRenderer(LineRenderer):
                                                           self._svgf_state, normal=normal)
             self._prev_vp = cam[0]
             self._frame += 1
-            return _image(torch.cat([out, img[3:4]]))
+            return hand_back(torch.cat([out, img[3:4]]))
         img = render_tubes_rtao(scene, *cam, self._raster_settings(camera), rtao,
                                 frame=self._frame, grid=self._grid)
         if self._accum is None:
@@ -458,7 +456,7 @@ class RtaoRenderer(LineRenderer):
             n = min(self._frame, self.MAX_ACCUM_FRAMES - 1)
             self._accum = (self._accum * n + img) / (n + 1)
         self._frame += 1
-        return _image(self._accum)
+        return hand_back(self._accum)
 
 
 class OpacityOptimizationRendererMode(LineRenderer):
@@ -484,13 +482,30 @@ class OpacityOptimizationRendererMode(LineRenderer):
             traj = self.line_data.trajectories
             self._impl = Impl(self._capsules(), traj.num_lines, traj.max_points,
                               self._raster_settings(camera))
-        return _image(self._impl.render(camera))
+        return hand_back(self._impl.render(camera))
 
 
 _REGISTRY: Dict[str, Type[LineRenderer]] = {}
 
 
+def _framed(render):
+    """`render` inside the `frame` span (`automation/profiling.py`), which
+    numbers the frame for every span inside it."""
+
+    @functools.wraps(render)
+    def framed(*args, **kwargs):
+        with span("frame"):
+            return render(*args, **kwargs)
+
+    framed.frame_span = True
+    return framed
+
+
 def register_renderer(mode_name: str, cls: Type[LineRenderer]) -> None:
+    """Registers `cls` as `mode_name`; its `render` then records each frame
+    as a `frame` span while a profiler records."""
+    if not getattr(cls.render, "frame_span", False):
+        cls.render = _framed(cls.render)
     _REGISTRY[mode_name] = cls
 
 
@@ -541,7 +556,7 @@ def create_renderer(mode_name: str, settings: Optional[SettingsMap] = None,
 
         module, attr = _LAZY_REGISTRY[mode_name]
         cls = getattr(importlib.import_module(module), attr)
-        _REGISTRY[mode_name] = cls
+        register_renderer(mode_name, cls)
     if cls is None:
         warnings.warn(
             f"Rendering mode {mode_name!r} is not supported yet; "

@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from linevis_tpu_torch.automation.profiling import span
 from linevis_tpu_torch.kernels.ao_grid import (
     SegmentGrid,
     build_segment_grid,
@@ -44,6 +45,7 @@ from linevis_tpu_torch.kernels.tiles import unpack_tiles
 from linevis_tpu_torch.ops import threefry
 from linevis_tpu_torch.render.camera import Camera
 from linevis_tpu_torch.render.denoiser import eaw_denoise, spatial_hash_denoise
+from linevis_tpu_torch.render.handback import hand_back
 from linevis_tpu_torch.render.lighting import normalize3
 from linevis_tpu_torch.render.pipeline import RasterSettings
 from linevis_tpu_torch.render.transfer_function import TransferFunction, tf_eval_points
@@ -123,33 +125,37 @@ def rtao_gbuffer(scene, view_proj, camera_position, proj_ab, settings) -> RtaoGb
     csr, params, basis = prepare_capsule_frame(
         scene, view_proj, camera_position, proj_ab, settings
     )
-    depth_t, id_t, gbuf_t = rasterize_capsules(
-        csr, params, W, H, settings.tile_w, settings.tile_h, use_aa=False
-    )
+    with span("capsule.raster"):
+        depth_t, id_t, gbuf_t = rasterize_capsules(
+            csr, params, W, H, settings.tile_w, settings.tile_h, use_aa=False
+        )
 
     def unp(x):
         return unpack_tiles(
             x, csr.tiles_x, csr.tiles_y, settings.tile_w, settings.tile_h, W, H
         )
 
-    zndc = unp(depth_t)
-    attr, nx, ny, nz, tx, ty, tz = (unp(g) for g in gbuf_t[:7])
-    dev = zndc.device
-    # Surface positions from the depth buffer.
-    u = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :] * (2.0 / W) - 1.0
-    v = 1.0 - (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[:, None] * (2.0 / H)
-    d = (
-        basis[:, 0][:, None, None] * u.expand(H, W)[None]
-        + basis[:, 1][:, None, None] * v.expand(H, W)[None]
-        + basis[:, 2][:, None, None]
-    )
-    view_z = proj_ab[1] / torch.clamp(proj_ab[0] - zndc, min=1e-9)
-    return RtaoGbuffer(
-        fg=unp(id_t) >= 0, attr=attr,
-        normal=normalize3(torch.stack([nx, ny, nz])),
-        tangent=normalize3(torch.stack([tx, ty, tz])),
-        ray=d, pos=camera_position[:, None, None] + d * view_z[None],
-    )
+    with span("rtao.unpack"):
+        zndc = unp(depth_t)
+        attr, nx, ny, nz, tx, ty, tz = (unp(g) for g in gbuf_t[:7])
+        fg = unp(id_t) >= 0
+    with span("rtao.surface"):
+        dev = zndc.device
+        # Surface positions from the depth buffer.
+        u = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5)[None, :] * (2.0 / W) - 1.0
+        v = 1.0 - (torch.arange(H, dtype=torch.float32, device=dev) + 0.5)[:, None] * (2.0 / H)
+        d = (
+            basis[:, 0][:, None, None] * u.expand(H, W)[None]
+            + basis[:, 1][:, None, None] * v.expand(H, W)[None]
+            + basis[:, 2][:, None, None]
+        )
+        view_z = proj_ab[1] / torch.clamp(proj_ab[0] - zndc, min=1e-9)
+        return RtaoGbuffer(
+            fg=fg, attr=attr,
+            normal=normalize3(torch.stack([nx, ny, nz])),
+            tangent=normalize3(torch.stack([tx, ty, tz])),
+            ray=d, pos=camera_position[:, None, None] + d * view_z[None],
+        )
 
 
 def rtao_rays(gbuf: RtaoGbuffer, radius: float, rtao: RtaoSettings, u1, u2):
@@ -207,26 +213,28 @@ def denoise_ao(ao: torch.Tensor, gbuf: RtaoGbuffer, camera_position, rtao: RtaoS
 def rtao_shade(gbuf: RtaoGbuffer, ao: torch.Tensor, settings: RasterSettings):
     """Headlight Blinn-Phong of the visible surface with AO modulation
     (Lighting.glsl's AO variant) -> [4, H, W] linear RGBA."""
-    d = gbuf.ray
-    dn = d * (1.0 / torch.sqrt(torch.sum(d * d, dim=0, keepdim=True)))
-    light = -dn
-    ndl = torch.sum(gbuf.normal * light, dim=0)
-    tdl = torch.sum(gbuf.tangent * light, dim=0)
-    ndt = torch.sum(gbuf.normal * gbuf.tangent, dim=0)
-    denom = 1.0 / torch.sqrt(torch.clamp(1.0 - tdl * tdl, min=1e-6))
-    cos1 = torch.clamp(torch.abs(ndl), 0.0, 1.0)
-    cos2 = torch.clamp(torch.abs(ndl - tdl * ndt) * denom, 0.0, 1.0)
-    cosc = 0.3 * cos1 ** 1.7 + 0.7 * cos2 ** 1.7
-    spec = 0.3 * cos1 ** 30.0
+    with span("rtao.light"):
+        d = gbuf.ray
+        dn = d * (1.0 / torch.sqrt(torch.sum(d * d, dim=0, keepdim=True)))
+        light = -dn
+        ndl = torch.sum(gbuf.normal * light, dim=0)
+        tdl = torch.sum(gbuf.tangent * light, dim=0)
+        ndt = torch.sum(gbuf.normal * gbuf.tangent, dim=0)
+        denom = 1.0 / torch.sqrt(torch.clamp(1.0 - tdl * tdl, min=1e-6))
+        cos1 = torch.clamp(torch.abs(ndl), 0.0, 1.0)
+        cos2 = torch.clamp(torch.abs(ndl - tdl * ndt) * denom, 0.0, 1.0)
+        cosc = 0.3 * cos1 ** 1.7 + 0.7 * cos2 ** 1.7
+        spec = 0.3 * cos1 ** 30.0
     rgb, alpha = tf_eval_points(settings.tf_color, settings.tf_opacity, gbuf.attr)
-    k_a = 0.2 + (1.0 - ao) * 0.5
-    k_d = 0.9 * ao
-    color = rgb * k_a[None] + rgb * (k_d * cosc)[None] + (spec * ao)[None]
-    color = color * ao[None]
-    bg = torch.tensor(settings.background_color, dtype=torch.float32, device=ao.device)
-    out_rgb = torch.where(gbuf.fg[None], color, bg[:3, None, None])
-    out_a = torch.where(gbuf.fg, alpha, bg[3])
-    return torch.cat([out_rgb, out_a[None]])
+    with span("rtao.composite"):
+        k_a = 0.2 + (1.0 - ao) * 0.5
+        k_d = 0.9 * ao
+        color = rgb * k_a[None] + rgb * (k_d * cosc)[None] + (spec * ao)[None]
+        color = color * ao[None]
+        bg = torch.tensor(settings.background_color, dtype=torch.float32, device=ao.device)
+        out_rgb = torch.where(gbuf.fg[None], color, bg[:3, None, None])
+        out_a = torch.where(gbuf.fg, alpha, bg[3])
+        return torch.cat([out_rgb, out_a[None]])
 
 
 def rtao_occlusion(scene: CapsuleScene, view_proj, camera_position, proj_ab,
@@ -238,7 +246,8 @@ def rtao_occlusion(scene: CapsuleScene, view_proj, camera_position, proj_ab,
     one is given (`threefry.fold_in`), on the scene's device."""
     W, H, S = settings.width, settings.height, rtao.num_samples
     dev = scene.a.device
-    gbuf = rtao_gbuffer(scene, view_proj, camera_position, proj_ab, settings)
+    with span("rtao.gbuffer"):
+        gbuf = rtao_gbuffer(scene, view_proj, camera_position, proj_ab, settings)
     if grid is None:
         grid = build_segment_grid(scene.a, scene.ba, scene.radius, scene.mask,
                                   resolution=rtao.grid_resolution)
@@ -246,10 +255,12 @@ def rtao_occlusion(scene: CapsuleScene, view_proj, camera_position, proj_ab,
         key = threefry.prng_key(rtao.seed + frame, dev)
         if rank is not None:
             key = threefry.fold_in(key, rank)
-        u1, u2 = hemisphere_uniforms(key, (S, H, W))
+        with span("rtao.samples"):
+            u1, u2 = hemisphere_uniforms(key, (S, H, W))
     else:
         u1, u2 = uniforms
-    rays = rtao_rays(gbuf, scene.radius, rtao, u1, u2)
+    with span("rtao.rays"):
+        rays = rtao_rays(gbuf, scene.radius, rtao, u1, u2)
     occluded = trace_ao_batched(*rays, grid, rtao)
     return gbuf, occluded.reshape(S, H, W).mean(dim=0)
 
@@ -294,7 +305,8 @@ def render_tubes_rtao(
                                      frame, grid, uniforms, rank)
     if psum_axis is not None:
         occlusion = pmean(occlusion, pg)
-    img = rtao_image(gbuf, occlusion, camera_position, settings, rtao)
+    with span("rtao.shade"):
+        img = rtao_image(gbuf, occlusion, camera_position, settings, rtao)
     if return_features:
         return img, (gbuf.pos, gbuf.normal, gbuf.fg)
     return img
@@ -321,4 +333,4 @@ def render_tubes_rtao_image(
     for f in range(accumulate_frames):
         img = render_tubes_rtao(scene, *cam, settings, rtao, frame=f, grid=grid)
         acc = img if acc is None else acc + img
-    return np.moveaxis((acc / accumulate_frames).cpu().numpy(), 0, -1)
+    return hand_back(acc / accumulate_frames)

@@ -18,6 +18,7 @@ import torch
 
 from linevis_tpu_torch.kernels.spherical_heatmap import heatmap_density
 from linevis_tpu_torch.kernels.volume_common import vdiv
+from linevis_tpu_torch.render.handback import hand_back
 
 __all__ = ["render_spherical_heatmap", "mollweide_points", "SphericalHeatMapRenderer"]
 
@@ -96,4 +97,4 @@ class SphericalHeatMapRenderer:
             return np.zeros((camera.height, camera.height * 2, 4), np.float32)
         img = render_spherical_heatmap(torch.as_tensor(dirs, device=self.device),
                                        height=camera.height)
-        return img.cpu().numpy()
+        return hand_back(img, channels_first=False)

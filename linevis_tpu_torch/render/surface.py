@@ -27,6 +27,7 @@ from linevis_tpu_torch.kernels import raster_pallas
 from linevis_tpu_torch.kernels.raster_pallas import build_csr_binning
 from linevis_tpu_torch.kernels.tiles import unpack_tiles
 from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.handback import hand_back
 from linevis_tpu_torch.render.lighting import (
     apply_depth_cue,
     blinn_phong_shade_surface,
@@ -243,4 +244,4 @@ def render_surface_image(
         torch.as_tensor(np.asarray(camera.position, np.float32), device=dev),
         settings,
     )
-    return np.moveaxis(img.cpu().numpy(), 0, -1)
+    return hand_back(img)

@@ -14,6 +14,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from linevis_tpu_torch.automation.profiling import span
+
 __all__ = [
     "TransferFunction", "srgb_to_linear", "linear_to_srgb", "tf_eval_points",
     "tf_channels_static", "tf_static_table",
@@ -70,15 +72,16 @@ def tf_channels_static(pts, nch, x: torch.Tensor):
     xc = torch.clamp(x, 0.0, 1.0)
     outs = [torch.full_like(x, float(v)) for v in init]
     for seg in segs:
-        p0, p1, span = (float(v) for v in seg[:3])
-        v0, dv = seg[3:3 + nch], seg[3 + nch:]
-        inside = (xc >= p0) & (xc <= p1)
-        # A tensor divisor: on the card PyTorch turns division by a Python
-        # scalar into multiplication by its reciprocal, which rounds
-        # otherwise than the kernels' IEEE division.
-        w = (xc - p0) / torch.full((), span, dtype=x.dtype, device=x.device)
-        for c in range(nch):
-            outs[c] = torch.where(inside, float(v0[c]) + w * float(dv[c]), outs[c])
+        with span("tf.segment"):
+            p0, p1, width = (float(v) for v in seg[:3])
+            v0, dv = seg[3:3 + nch], seg[3 + nch:]
+            inside = (xc >= p0) & (xc <= p1)
+            # A tensor divisor: on the card PyTorch turns division by a Python
+            # scalar into multiplication by its reciprocal, which rounds
+            # otherwise than the kernels' IEEE division.
+            w = (xc - p0) / torch.full((), width, dtype=x.dtype, device=x.device)
+            for c in range(nch):
+                outs[c] = torch.where(inside, float(v0[c]) + w * float(dv[c]), outs[c])
     return outs
 
 

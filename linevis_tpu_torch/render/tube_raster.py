@@ -18,12 +18,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from linevis_tpu_torch.automation.profiling import span
 from linevis_tpu_torch.kernels.raster_capsule import rasterize_capsules
 from linevis_tpu_torch.kernels.raster_pallas import build_sorted_binning
 from linevis_tpu_torch.kernels.raster_prism import ROW_FRAME0, rasterize_prisms
 from linevis_tpu_torch.kernels.tiles import unpack_tiles
 from linevis_tpu_torch.kernels.volume_common import vdiv
 from linevis_tpu_torch.render.camera import Camera
+from linevis_tpu_torch.render.handback import hand_back
 from linevis_tpu_torch.render.lighting import (
     apply_depth_cue,
     blinn_phong_shade_tube,
@@ -156,58 +158,61 @@ def prepare_capsule_frame(
             sy = sy - float(y_offset)
         return sx, sy, w
 
-    sxa, sya, wa = project(a)
-    sxb, syb, wb = project(b)
-    wmin = torch.minimum(wa, wb)
-    valid = scene.mask & (wmin > z_near)
+    with span("capsule.project"):
+        sxa, sya, wa = project(a)
+    with span("capsule.project"):
+        sxb, syb, wb = project(b)
+    with span("capsule.payload"):
+        wmin = torch.minimum(wa, wb)
+        valid = scene.mask & (wmin > z_near)
 
-    # Conservative screen-space radius: r scaled by pixels-per-world-unit
-    # at the segment's nearest depth; aa_margin adds the half pixel the
-    # coverage AA accepts outside the geometric radius.
-    px_per_unit = torch.maximum(
-        0.5 * width * torch.linalg.norm(view_proj[0, :3]),
-        0.5 * height * torch.linalg.norm(view_proj[1, :3]),
-    )
-    sr = r * px_per_unit / torch.clamp(wmin - r, min=z_near) + aa_margin
-    xmin = torch.minimum(sxa, sxb) - sr
-    xmax = torch.maximum(sxa, sxb) + sr
-    ymin = torch.minimum(sya, syb) - sr
-    ymax = torch.maximum(sya, syb) + sr
+        # Conservative screen-space radius: r scaled by pixels-per-world-unit
+        # at the segment's nearest depth; aa_margin adds the half pixel the
+        # coverage AA accepts outside the geometric radius.
+        px_per_unit = torch.maximum(
+            0.5 * width * torch.linalg.norm(view_proj[0, :3]),
+            0.5 * height * torch.linalg.norm(view_proj[1, :3]),
+        )
+        sr = r * px_per_unit / torch.clamp(wmin - r, min=z_near) + aa_margin
+        xmin = torch.minimum(sxa, sxb) - sr
+        xmax = torch.maximum(sxa, sxb) + sr
+        ymin = torch.minimum(sya, syb) - sr
+        ymax = torch.maximum(sya, syb) + sr
 
-    # Payload rows 0-15.
-    oa = o[:, None] - a
-    ba = scene.ba
-    baba = torch.sum(ba * ba, dim=0)
-    ob = oa - ba
-    obob = torch.sum(ob * ob, dim=0)
-    rr = r * r
-    Cb = obob - rr
-    S = scene.num_segments
-    vz_min = torch.clamp(wmin - r, min=z_near)
-    zndc_min = proj_ab[0] - proj_ab[1] / vz_min
-    zq = torch.floor(torch.clamp(zndc_min, 0.0, 1.0) * 1023.0) / 1023.0
-    ones = torch.ones(S, dtype=torch.float32, device=dev)
-    if seg_alpha is None:
-        alpha0, dalpha = ones, torch.zeros_like(ones)
-    else:
-        alpha0, dalpha = seg_alpha[0], seg_alpha[1]
-    payload = torch.stack(
-        [
-            oa[0], oa[1], oa[2],
-            ba[0], ba[1], ba[2],
-            ones * r,
-            scene.attr0,
-            scene.dattr,
-            torch.arange(S, dtype=torch.float32, device=dev),  # row 9: id
-            baba,
-            alpha0,  # row 11: per-segment alpha (opacity optimization)
-            dalpha,  # row 12
-            scene.cap_a,  # row 13: render the start cap (chain starts only)
-            Cb,
-            zq,
-        ],
-        dim=0,
-    ).float()
+        # Payload rows 0-15.
+        oa = o[:, None] - a
+        ba = scene.ba
+        baba = torch.sum(ba * ba, dim=0)
+        ob = oa - ba
+        obob = torch.sum(ob * ob, dim=0)
+        rr = r * r
+        Cb = obob - rr
+        S = scene.num_segments
+        vz_min = torch.clamp(wmin - r, min=z_near)
+        zndc_min = proj_ab[0] - proj_ab[1] / vz_min
+        zq = torch.floor(torch.clamp(zndc_min, 0.0, 1.0) * 1023.0) / 1023.0
+        ones = torch.ones(S, dtype=torch.float32, device=dev)
+        if seg_alpha is None:
+            alpha0, dalpha = ones, torch.zeros_like(ones)
+        else:
+            alpha0, dalpha = seg_alpha[0], seg_alpha[1]
+        payload = torch.stack(
+            [
+                oa[0], oa[1], oa[2],
+                ba[0], ba[1], ba[2],
+                ones * r,
+                scene.attr0,
+                scene.dattr,
+                torch.arange(S, dtype=torch.float32, device=dev),  # row 9: id
+                baba,
+                alpha0,  # row 11: per-segment alpha (opacity optimization)
+                dalpha,  # row 12
+                scene.cap_a,  # row 13: render the start cap (chain starts only)
+                Cb,
+                zq,
+            ],
+            dim=0,
+        ).float()
 
     csr = build_sorted_binning(
         xmin, xmax, ymin, ymax, payload, valid,
@@ -216,47 +221,48 @@ def prepare_capsule_frame(
         seg2d=(sxa, sya, sxb, syb, sr),
     )
 
-    # Derived per-candidate rows 16-23, appended after the sort (pure
-    # functions of the sorted geometry rows; the OIT kernels read them).
-    p = csr.payload
-    poa = p[0:3]
-    pba = p[3:6]
-    pr = p[6]
-    pbaba = p[10]
-    baoa0 = pba[0] * poa[0] + pba[1] * poa[1] + pba[2] * poa[2]
-    oaoa0 = poa[0] * poa[0] + poa[1] * poa[1] + poa[2] * poa[2]
-    inv_baba = 1.0 / torch.clamp(pbaba, min=1e-20)
-    prr = pr * pr
-    tnorm = torch.rsqrt(torch.clamp(pbaba, min=1e-20))
-    inv_r = 1.0 / torch.clamp(pr, min=1e-12)
-    derived = torch.stack(
-        [baoa0, oaoa0, inv_baba, prr * pbaba, tnorm, inv_r, prr,
-         torch.zeros_like(pr)],
-        dim=0,
-    )
-    csr = dataclasses.replace(csr, payload=torch.cat([p, derived], dim=0))
+    with span("capsule.derive"):
+        # Derived per-candidate rows 16-23, appended after the sort (pure
+        # functions of the sorted geometry rows; the OIT kernels read them).
+        p = csr.payload
+        poa = p[0:3]
+        pba = p[3:6]
+        pr = p[6]
+        pbaba = p[10]
+        baoa0 = pba[0] * poa[0] + pba[1] * poa[1] + pba[2] * poa[2]
+        oaoa0 = poa[0] * poa[0] + poa[1] * poa[1] + poa[2] * poa[2]
+        inv_baba = 1.0 / torch.clamp(pbaba, min=1e-20)
+        prr = pr * pr
+        tnorm = torch.rsqrt(torch.clamp(pbaba, min=1e-20))
+        inv_r = 1.0 / torch.clamp(pr, min=1e-12)
+        derived = torch.stack(
+            [baoa0, oaoa0, inv_baba, prr * pbaba, tnorm, inv_r, prr,
+             torch.zeros_like(pr)],
+            dim=0,
+        )
+        csr = dataclasses.replace(csr, payload=torch.cat([p, derived], dim=0))
 
-    basis = _ray_basis(view_proj)  # columns right, up, fwd
-    if y_offset is not None:
-        # Band window: the kernel computes v_band = 1 - y_local (2 / band_h);
-        # the full-frame v = a v_band + c with a = band_h / full_h and
-        # c = 1 - a - 2 y_offset / full_h, folded into the basis columns. Both
-        # in float32, the division an IEEE one on every device.
-        f32 = np.float32
-        a_win = float(f32(height / proj_h))
-        c_win = float(f32(1.0 - height / proj_h)) - vdiv(
-            torch.full((), 2.0 * float(f32(y_offset)), dtype=torch.float32, device=dev), proj_h)
-        basis = torch.stack([basis[:, 0], basis[:, 1] * a_win, basis[:, 2] + basis[:, 1] * c_win],
-                            dim=1)
-    # params rows 0-8: B row-major where dir_i = B[i,0]*u + B[i,1]*v + B[i,2].
-    # 9 zA, 10 zB, 11 dmin, 12 dmax, 13 depth-cue, 14 opacity scale,
-    # 15-18 MBOIT uniforms, 19 px scale: world units per pixel at view
-    # depth 1 (coverage AA), 20-22 MBOIT wrapping zone, 23 spare,
-    # 24-27 background RGBA (OIT composite mode), 28-31 spare.
-    params = torch.zeros(32, dtype=torch.float32, device=dev)
-    params[:9] = basis.reshape(-1)
-    params[9:11] = proj_ab
-    params[19] = (2.0 / height) * torch.linalg.norm(basis[:, 1])
+        basis = _ray_basis(view_proj)  # columns right, up, fwd
+        if y_offset is not None:
+            # Band window: the kernel computes v_band = 1 - y_local (2 / band_h);
+            # the full-frame v = a v_band + c with a = band_h / full_h and
+            # c = 1 - a - 2 y_offset / full_h, folded into the basis columns. Both
+            # in float32, the division an IEEE one on every device.
+            f32 = np.float32
+            a_win = float(f32(height / proj_h))
+            c_win = float(f32(1.0 - height / proj_h)) - vdiv(
+                torch.full((), 2.0 * float(f32(y_offset)), dtype=torch.float32, device=dev), proj_h)
+            basis = torch.stack(
+                [basis[:, 0], basis[:, 1] * a_win, basis[:, 2] + basis[:, 1] * c_win], dim=1)
+        # params rows 0-8: B row-major where dir_i = B[i,0]*u + B[i,1]*v + B[i,2].
+        # 9 zA, 10 zB, 11 dmin, 12 dmax, 13 depth-cue, 14 opacity scale,
+        # 15-18 MBOIT uniforms, 19 px scale: world units per pixel at view
+        # depth 1 (coverage AA), 20-22 MBOIT wrapping zone, 23 spare,
+        # 24-27 background RGBA (OIT composite mode), 28-31 spare.
+        params = torch.zeros(32, dtype=torch.float32, device=dev)
+        params[:9] = basis.reshape(-1)
+        params[9:11] = proj_ab
+        params[19] = (2.0 / height) * torch.linalg.norm(basis[:, 1])
     return csr, params, basis
 
 
@@ -391,13 +397,7 @@ def _render_image(render, scene, device, camera, tf, settings, supersample):
     if tf is not None:
         c_pts, o_pts = tf.as_static_points()
         s = dataclasses.replace(s, tf_color=c_pts, tf_opacity=o_pts)
-    img = render(scene, *camera_tensors(cam, device), s)
-    img = np.moveaxis(img.cpu().numpy(), 0, -1)
-    if supersample > 1:
-        k = supersample
-        H, W = settings.height, settings.width
-        img = img.reshape(H, k, W, k, 4).mean(axis=(1, 3))
-    return img
+    return hand_back(render(scene, *camera_tensors(cam, device), s), supersample)
 
 
 def render_tubes_image(

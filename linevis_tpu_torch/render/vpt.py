@@ -34,6 +34,7 @@ from linevis_tpu_torch.kernels.vpt_decomposition import decomposition_params, vp
 from linevis_tpu_torch.kernels.vpt_residual_ratio import rr_params, vpt_residual_ratio
 from linevis_tpu_torch.kernels.vpt_tracking import SCAN_MODES, vpt_params, vpt_tracking
 from linevis_tpu_torch.ops import threefry
+from linevis_tpu_torch.render.handback import hand_back
 from linevis_tpu_torch.render.super_voxel import super_voxel_grid_of, super_voxel_minmax_of
 from linevis_tpu_torch.scene.sparse_grid import SparseGrid
 
@@ -315,7 +316,8 @@ class VolumetricPathTracerRenderer:
             self._prev_vp = vp
             self.frame += 1
             out = out_c.permute(1, 2, 0)
-            return torch.cat([out, torch.ones_like(out[..., :1])], dim=-1).cpu().numpy()
+            return hand_back(torch.cat([out, torch.ones_like(out[..., :1])], dim=-1),
+                             channels_first=False)
 
         if self._accum is None:
             self._accum = img
@@ -328,7 +330,8 @@ class VolumetricPathTracerRenderer:
         out = self._accum
         if self.denoiser != "None":
             out = self._denoise(self._accum)
-        return torch.cat([out, torch.ones_like(out[..., :1])], dim=-1).cpu().numpy()
+        return hand_back(torch.cat([out, torch.ones_like(out[..., :1])], dim=-1),
+                         channels_first=False)
 
     def _denoise(self, img_hw3):
         """Feature-guided denoise of the accumulator: the first-scatter

@@ -18,6 +18,7 @@ import torch
 
 from linevis_tpu_torch.core.settings import SettingsMap
 from linevis_tpu_torch.loaders.mesh_loader import SurfaceMesh, load_surface_mesh
+from linevis_tpu_torch.render.handback import hand_back
 
 __all__ = ["TriangleMeshData", "TriangleMeshRenderer"]
 
@@ -133,4 +134,4 @@ class TriangleMeshRenderer:
             torch.as_tensor(np.asarray(camera.position, np.float32), device=self.device),
             self.raster_settings(camera),
         )
-        return np.moveaxis(img.cpu().numpy(), 0, -1)
+        return hand_back(img)
